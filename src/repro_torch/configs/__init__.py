@@ -1,0 +1,26 @@
+"""Architecture registry (port of ``repro.configs``): the attention-only
+configs ported so far. ``get_config(name)`` is the full ModelConfig,
+``get_reduced(name)`` a CPU-sized config of the same family."""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = {
+    "granite-8b": "granite_8b",
+}
+
+
+def _module(name: str):
+    if name not in ARCHS:
+        raise KeyError(f"unknown or unported arch {name!r}; ported: "
+                       f"{sorted(ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
+
+
+def get_config(name: str):
+    return _module(name).config()
+
+
+def get_reduced(name: str):
+    return _module(name).reduced()
+

@@ -1,0 +1,321 @@
+"""Ragged MX page-walk attention with the in-kernel K/V page write.
+
+Port of ``repro.kernels.mx_attention.mx_attention_ragged_fused``, the one
+kernel of the reference's default engine step.
+:func:`mx_attention_ragged_fused` takes the reference's layouts and
+returns its outputs; on CUDA tensors it launches the hand-written kernel
+in ``csrc/mx_attention_ragged.cu`` and on CPU tensors it runs
+:func:`mx_attention_ragged_fused_plain`, a page-by-page PyTorch version
+of the same algorithm. The pools are updated
+in place (the reference aliases them through the ``pallas_call``).
+
+Layouts::
+
+  q          (R, KVH, W, G, D)  bf16 step queries (RoPE'd)
+  k_new      (R, W, KVH, D)     bf16 new keys (RoPE'd)
+  v_new      (R, W, KVH, D)     bf16 new values
+  ke / ve    (NP, PS, KVH, D)   fp8 element pools
+  ks / vs    (NP, PS, KVH, D//k) uint8 E8M0 scale pools
+  page_table (R, P) int         entries < 0 map to the trash page NP - 1
+  row_start  (R,) int           first position this step writes
+  seq_lens   (R,) int           row_start + n_new, n_new in [1, W]
+  out        (R, KVH, W, G, D)  f32
+  visits     (R, KVH, 1) int32  pages each cell walked
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import formats as F
+
+from . import build
+
+NEG_INF = -2.0e38
+
+#: fp8 format ids of the CUDA kernel (csrc/mx_codec.cuh)
+_FMT_IDS = {"fp8_e4m3": 0, "fp8_e5m2": 1}
+#: shared memory an H100 block may use (bytes)
+_MAX_SMEM = 232448
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = build.load("mx_attention_ragged")
+        fn = lib.mx_attention_ragged_launch
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.mx_attention_ragged_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.mx_attention_ragged_smem_bytes.restype = ctypes.c_size_t
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# shared math of the plain version (the kernel's device functions mirror it)
+# ---------------------------------------------------------------------------
+
+
+def _quantize_rows(x: torch.Tensor, fmt: F.ElementFormat, block_size: int):
+    """(..., D) f32 -> (fp8 bytes (..., D) uint8, scales (..., D//k) uint8).
+
+    The reference's in-kernel quantizer: exponent-field floor-log2 of the
+    block amax (not frexp), E8M0 clipped to [0, 254], ratio clipped to the
+    format's range and snapped RNE, with the reference's flushed
+    subnormals (see ``formats.flush_subnormals``).
+    """
+    x = F.flush_subnormals(x)
+    d = x.shape[-1]
+    blocked = x.reshape(*x.shape[:-1], d // block_size, block_size)
+    amax = blocked.abs().amax(dim=-1)
+    e_unb = F.floor_log2(amax) - fmt.emax + F.E8M0_BIAS
+    e = torch.where(amax > 0, e_unb, torch.zeros_like(e_unb))
+    e = e.clamp(0, 254).to(torch.uint8)
+    scale = F.e8m0_to_scale(e)[..., None]
+    ratio = torch.where(e[..., None] > 0, blocked / scale,
+                        torch.zeros_like(blocked))
+    ratio = ratio.clamp(-fmt.max, fmt.max).reshape(x.shape)
+    codes = F.snap_to_fp8_grid(ratio, fmt).to(fmt.storage_dtype)
+    return codes.view(torch.uint8), e
+
+
+def _dequant_rows(elems: torch.Tensor, scales: torch.Tensor,
+                  fmt: F.ElementFormat, block_size: int) -> torch.Tensor:
+    """fp8 bytes (..., D) + E8M0 (..., D//k) -> f32 (..., D)."""
+    vals = elems.view(fmt.storage_dtype).to(torch.float32)
+    d = vals.shape[-1]
+    blocked = vals.reshape(*vals.shape[:-1], d // block_size, block_size)
+    wide = blocked * F.e8m0_to_scale(scales)[..., None]
+    return F.flush_subnormals(wide).reshape(vals.shape)
+
+
+def _first_window_page(qpos_min: int, window, page_size: int) -> int:
+    """First page any query of the row can see under a sliding window."""
+    if window is None:
+        return 0
+    return max((qpos_min - window + 1) // page_size, 0)
+
+
+def _flash_update(state, q, k, v, mask, softcap, scale: float):
+    """One online-softmax step over a page tile, as the reference's
+    ``_flash_update``: q (KVH, rows, D), k/v (KVH, PS, D), mask (rows, PS)."""
+    m, l, acc = state
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    probs = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
+    l = l * alpha + probs.sum(dim=-1, keepdim=True)
+    acc = acc * alpha + torch.matmul(probs, v)
+    return m_new, l, acc
+
+
+# ---------------------------------------------------------------------------
+# plain version and CUDA launch
+# ---------------------------------------------------------------------------
+
+
+def mx_attention_ragged_fused_plain(q, k_new, v_new, ke, ks, ve, vs, table,
+                                    row_start, seq_lens, *,
+                                    fmt_name: str, block_size: int,
+                                    softcap=None, window=None):
+    """Page-by-page PyTorch version of the kernel, same layouts.
+
+    Expects the rows normalised by :func:`normalize_rows`. Rows run in
+    order and, within a row, each page of the write window is merged
+    before it is attended, as the reference's sequential grid does. The
+    pools are updated in place. Returns ``(out, visits)``.
+    """
+    fmt = F.get_format(fmt_name)
+    r, kvh, w, g, d = q.shape
+    rows = w * g
+    ps = ke.shape[1]
+    pmax = table.shape[1]
+    dev = q.device
+    scale = d ** -0.5
+    pools = [p.view(torch.uint8) for p in (ke, ks, ve, vs)]
+    out = torch.empty((r, kvh, rows, d), dtype=torch.float32, device=dev)
+    visits = torch.zeros((r, kvh, 1), dtype=torch.int32, device=dev)
+    tbl = table.tolist()
+    starts = row_start.tolist()
+    lens = seq_lens.tolist()
+    q_idx = torch.arange(rows, device=dev) // g
+    page_rows = torch.arange(ps, device=dev)
+    for i in range(r):
+        start, seq_len = starts[i], lens[i]
+        w0 = start // ps
+        valid = min(-(-seq_len // ps), pmax)
+        first = _first_window_page(start, window, ps)
+        qpos = start + torch.clamp(q_idx, max=seq_len - start - 1)
+        qf = q[i].reshape(kvh, rows, d).to(torch.float32)
+        state = (torch.full((kvh, rows, 1), NEG_INF, device=dev),
+                 torch.zeros((kvh, rows, 1), device=dev),
+                 torch.zeros((kvh, rows, d), device=dev))
+        for p in range(first, valid):
+            page = tbl[i][p]
+            kpos = p * ps + page_rows
+            if p >= w0:
+                # write window: new row t lands on page row j where
+                # start + t == p * PS + j; other rows keep their bytes
+                sel = ((kpos >= start) & (kpos < seq_len)).nonzero()[:, 0]
+                t = kpos[sel] - start
+                for new, elems, scales in ((k_new, pools[0], pools[1]),
+                                           (v_new, pools[2], pools[3])):
+                    # -0.0 (and flushed subnormals) -> +0.0, as the
+                    # reference's one-hot f32 gather of the new rows does
+                    x = F.flush_subnormals(new[i, t].to(torch.float32))
+                    x = torch.where(x == 0, torch.zeros_like(x), x)
+                    codes, e = _quantize_rows(x, fmt, block_size)
+                    elems[page, sel] = codes
+                    scales[page, sel] = e
+            kt = _dequant_rows(pools[0][page], pools[1][page], fmt,
+                               block_size).transpose(0, 1)
+            vt = _dequant_rows(pools[2][page], pools[3][page], fmt,
+                               block_size).transpose(0, 1)
+            mask = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                mask &= kpos[None, :] > (qpos[:, None] - window)
+            state = _flash_update(state, qf, kt, vt, mask, softcap, scale)
+        _, l, acc = state
+        out[i] = acc / l
+        visits[i] = max(0, valid - first)
+    return out.reshape(r, kvh, w, g, d), visits
+
+
+def normalize_rows(page_table, row_start, seq_lens, num_pages: int,
+                   width: int):
+    """The reference wrapper's row metadata normalisation: negative table
+    entries -> the trash page ``num_pages - 1``, live entries clamped into
+    the pool, ``seq_lens`` clamped to ``[row_start + 1, row_start + W]``.
+    Returns contiguous int32 ``(table, row_start, seq_lens)``."""
+    table = page_table.to(torch.int32)
+    table = torch.where(table < 0, torch.full_like(table, num_pages - 1),
+                        table.clamp(0, num_pages - 1)).contiguous()
+    start = row_start.to(torch.int32).contiguous()
+    lens = torch.minimum(torch.maximum(seq_lens.to(torch.int32), start + 1),
+                         start + width).contiguous()
+    return table, start, lens
+
+
+def _launch(q, k_new, v_new, ke, ks, ve, vs, table, start, lens, *,
+            fmt_name, block_size, softcap, window):
+    r, kvh, w, g, d = q.shape
+    npages, ps = ke.shape[:2]
+    if q.dtype != torch.bfloat16 or k_new.dtype != torch.bfloat16 \
+            or v_new.dtype != torch.bfloat16:
+        raise TypeError("the CUDA ragged kernel takes bf16 q/k_new/v_new")
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new),
+                    ("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ps > 32:
+        raise NotImplementedError("the CUDA ragged kernel takes page_size "
+                                  "<= 32")
+    lanes = 1 << max(ps - 1, 0).bit_length()
+    if d % lanes:
+        raise NotImplementedError(
+            f"head_dim {d} must be a multiple of {lanes} (page_size rounded "
+            "up to a power of two)")
+    lib = _library()
+    smem = lib.mx_attention_ragged_smem_bytes(w, g, d, ps)
+    if smem > _MAX_SMEM:
+        raise NotImplementedError(
+            f"W*G={w * g} query rows x head_dim {d} need {smem} bytes of "
+            f"shared memory per CTA; an H100 block has {_MAX_SMEM}")
+    out = torch.empty((r, kvh, w, g, d), dtype=torch.float32,
+                      device=q.device)
+    visits = torch.empty((r, kvh, 1), dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.mx_attention_ragged_launch(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), ke.data_ptr(),
+        ks.data_ptr(), ve.data_ptr(), vs.data_ptr(), table.data_ptr(),
+        start.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        visits.data_ptr(), r, kvh, w, g, d, ps, table.shape[1], block_size,
+        _FMT_IDS[fmt_name], -1 if window is None else int(window),
+        float(softcap or 0.0), float(d ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"mx_attention_ragged_launch failed: cudaError "
+                           f"{err}")
+    mx_attention_ragged_fused.launches += 1
+    return out, visits
+
+
+def mx_attention_ragged_fused(q, k_new, v_new, ke, ks, ve, vs, page_table,
+                              row_start, seq_lens, *,
+                              fmt_name: str = "fp8_e4m3",
+                              block_size: int = 32, softcap=None,
+                              window=None, page_fmts=None, mixed_fmts=None,
+                              debug_visits: bool = False):
+    """One ragged engine step over the MX page pool (layouts above).
+
+    Returns ``(out, (ke, ks, ve, vs))``, plus ``visits`` with
+    ``debug_visits=True``; the pools are the inputs, updated in place.
+    fp4/fp6 and mixed-format (tiered) pools raise ``NotImplementedError``.
+    CUDA tensors launch the CUDA kernel (and count it in
+    ``mx_attention_ragged_fused.launches``); CPU tensors run the plain
+    version. Negative table entries map to the trash page NP - 1, live
+    entries clamp into the pool, and ``seq_lens`` clamps to
+    ``[row_start + 1, row_start + W]``, as in the reference's wrapper.
+    """
+    fmt = F.get_format(fmt_name)  # fp4/fp6 pools: NotImplementedError
+    if page_fmts is not None or mixed_fmts is not None \
+            or ke.dtype == torch.uint8:
+        raise NotImplementedError(
+            "mixed-format (tiered) pools of raw uint8 bytes are not ported "
+            "yet (ROADMAP B2/B3)")
+    for name, pool in (("ke", ke), ("ve", ve)):
+        if pool.dtype != fmt.storage_dtype:
+            raise ValueError(f"{name} is {pool.dtype}; {fmt_name} pools "
+                             f"store {fmt.storage_dtype}")
+    for name, pool in (("ks", ks), ("vs", vs)):
+        if pool.dtype != torch.uint8:
+            raise ValueError(f"{name} must be uint8 E8M0 bytes")
+    r, kvh, w, g, d = q.shape
+    npages, ps = ke.shape[:2]
+    if k_new.shape != (r, w, kvh, d) or v_new.shape != (r, w, kvh, d):
+        raise ValueError(f"k_new/v_new must be {(r, w, kvh, d)}")
+    if ke.shape != (npages, ps, kvh, d) or ve.shape != ke.shape:
+        raise ValueError(f"element pools must be (NP, PS, {kvh}, {d})")
+    if ks.shape != (npages, ps, kvh, d // block_size) or vs.shape != ks.shape:
+        raise ValueError(f"scale pools must be (NP, PS, {kvh}, "
+                         f"{d // block_size})")
+    if d % block_size:
+        raise ValueError(f"block_size {block_size} must divide {d}")
+    if page_table.ndim != 2 or page_table.shape[0] != r \
+            or row_start.shape != (r,) or seq_lens.shape != (r,):
+        raise ValueError(f"page_table must be ({r}, P) and row_start / "
+                         f"seq_lens ({r},)")
+    if any(t.is_floating_point() for t in (page_table, row_start, seq_lens)):
+        raise ValueError("page_table, row_start and seq_lens are integers")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    dev = q.device
+    tensors = (k_new, v_new, ke, ks, ve, vs, page_table, row_start,
+               seq_lens)
+    if any(t.device != dev for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    table, start, lens = normalize_rows(page_table, row_start, seq_lens,
+                                        npages, w)
+    kw = dict(fmt_name=fmt.name, block_size=block_size, softcap=softcap,
+              window=window)
+    if dev.type == "cuda":
+        out, visits = _launch(q, k_new, v_new, ke, ks, ve, vs, table, start,
+                              lens, **kw)
+    elif dev.type == "cpu":
+        out, visits = mx_attention_ragged_fused_plain(
+            q, k_new, v_new, ke, ks, ve, vs, table, start, lens, **kw)
+    else:
+        raise NotImplementedError(f"no ragged kernel for device {dev}")
+    pools = (ke, ks, ve, vs)
+    return (out, pools, visits) if debug_visits else (out, pools)
+
+
+#: CUDA launches of the kernel (the plain CPU version is not counted)
+mx_attention_ragged_fused.launches = 0

@@ -1,0 +1,105 @@
+"""Grouped-query attention over the paged MX KV cache (port of
+``repro.nn.attention``): the ragged engine step only.
+
+Pools are plain dicts of tensors, ``{"k_elems", "k_scales", "v_elems",
+"v_scales"}``, laid out ``(NP, PS, KVH, D)`` fp8 and ``(NP, PS, KVH,
+D // k)`` uint8 as in the reference. :func:`apply_ragged` updates them
+in place; the reference's jitted step donates the cache instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import QuantConfig
+from repro_torch.core import formats as F
+from repro_torch.kernels import mx_attention_ragged_fused
+
+from . import linear
+from .rotary import apply_rope
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    window: Optional[int] = None  # sliding window (None = full causal)
+    softcap: Optional[float] = None
+
+
+def init(gen: torch.Generator, cfg: AttnConfig, quant: QuantConfig,
+         device) -> dict:
+    h, kvh, d, dm = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    return {"wq": linear.init(gen, dm, h * d, quant, device),
+            "wk": linear.init(gen, dm, kvh * d, quant, device),
+            "wv": linear.init(gen, dm, kvh * d, quant, device),
+            "wo": linear.init(gen, h * d, dm, quant, device)}
+
+
+def _project_decode_qkv(params, x: torch.Tensor, posv: torch.Tensor,
+                        cfg: AttnConfig, compute_dtype):
+    """QKV projection + RoPE at per-token positions ``posv (B, S)`` for
+    ``x (B, S, d_model)``; every op is token-row independent."""
+    b, s = x.shape[:2]
+    d = cfg.head_dim
+    q = linear.apply(params["wq"], x, compute_dtype).reshape(b, s, -1, d)
+    k = linear.apply(params["wk"], x, compute_dtype).reshape(b, s, -1, d)
+    v = linear.apply(params["wv"], x, compute_dtype).reshape(b, s, -1, d)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    return q, k, v
+
+
+def init_paged_pool(num_pages: int, page_size: int, cfg: AttnConfig,
+                    quant: QuantConfig, device) -> dict:
+    """One layer's global KV page pool (no per-sequence dimension)."""
+    if not (quant.enabled and quant.quantize_kv_cache):
+        raise NotImplementedError(
+            "wide bf16 page pools are served by the reference's split step, "
+            "which is not ported (ROADMAP A8); the ragged step needs an MX "
+            "pool")
+    fmt = F.get_format(quant.fmt)
+    kvh, d = cfg.num_kv_heads, cfg.head_dim
+    bs = min(quant.block_size, d)
+    shape = (num_pages, page_size, kvh, d)
+    sshape = (num_pages, page_size, kvh, d // bs)
+    return {"k_elems": torch.zeros(shape, dtype=fmt.storage_dtype,
+                                   device=device),
+            "k_scales": torch.zeros(sshape, dtype=torch.uint8, device=device),
+            "v_elems": torch.zeros(shape, dtype=fmt.storage_dtype,
+                                   device=device),
+            "v_scales": torch.zeros(sshape, dtype=torch.uint8, device=device)}
+
+
+def apply_ragged(params, x: torch.Tensor, pool: dict, page_rows: torch.Tensor,
+                 row_start: torch.Tensor, seq_lens: torch.Tensor,
+                 cfg: AttnConfig, quant: QuantConfig,
+                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """One ragged engine step: x (R, W, d_model), row_start/seq_lens (R,).
+
+    Every row feeds W token columns at positions ``row_start ..
+    row_start + W - 1``, of which ``seq_lens - row_start`` are real. The
+    new rows' K/V go into the kernel wide and are quantized into the
+    row's pages inside it; padding columns are excluded from the write
+    and their outputs ignored. ``pool`` is updated in place.
+    """
+    r, w, _ = x.shape
+    d = cfg.head_dim
+    posv = row_start[:, None] + torch.arange(w, dtype=row_start.dtype,
+                                             device=x.device)[None]
+    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype)
+    kvh = k.shape[2]
+    g = q.shape[2] // kvh
+    qk = q.reshape(r, w, kvh, g, d).permute(0, 2, 1, 3, 4).contiguous()
+    out, _ = mx_attention_ragged_fused(
+        qk, k.contiguous(), v.contiguous(), pool["k_elems"], pool["k_scales"],
+        pool["v_elems"], pool["v_scales"], page_rows, row_start, seq_lens,
+        fmt_name=quant.fmt, block_size=min(quant.block_size, d),
+        softcap=cfg.softcap, window=cfg.window)
+    out = out.permute(0, 2, 1, 3, 4).reshape(r, w, -1).to(compute_dtype)
+    return linear.apply(params["wo"], out, compute_dtype)

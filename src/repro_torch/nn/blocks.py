@@ -1,0 +1,77 @@
+"""Decoder block wiring (port of ``repro.nn.blocks``), attention only.
+
+Pre-norm residual blocks: attention then a dense gated FFN. MoE, MLA and
+recurrent mixers (ROADMAP A12) and gemma2's post-norms (A3) raise here.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import attention, ffn
+from .config import BlockDef, ModelConfig
+from .norms import rmsnorm_apply, rmsnorm_init
+
+
+def _attn_cfg(cfg: ModelConfig, bd: BlockDef) -> attention.AttnConfig:
+    return attention.AttnConfig(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        rope_theta=cfg.rope_theta, window=bd.window,
+        softcap=cfg.attn_softcap)
+
+
+def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
+    if bd.mixer != "attn":
+        raise NotImplementedError(
+            f"mixer {bd.mixer!r} is not ported to repro_torch (ROADMAP A12)")
+    if bd.ffn != "dense" or cfg.ffn_kind != "swiglu":
+        raise NotImplementedError(
+            f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A3, "
+            "A12)")
+
+
+def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
+         device) -> dict:
+    _require_ported(bd, cfg)
+    return {"norm_mixer": rmsnorm_init(cfg.d_model, device),
+            "mixer": attention.init(gen, _attn_cfg(cfg, bd), cfg.quant,
+                                    device),
+            "norm_ffn": rmsnorm_init(cfg.d_model, device),
+            "ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.quant, device)}
+
+
+def _decode_tail(params, x: torch.Tensor, h: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Residual add + channel mixer.
+
+    The reference's jitted step fuses the residual add into the RMSNorm
+    that follows it, and XLA's excess-precision rule then hands the norm
+    the unrounded f32 sum, while the residual stream itself is stored
+    rounded to bf16. The port computes the same two values.
+    """
+    dt = cfg.compute_dtype
+    x_sum = x.to(torch.float32) + h.to(torch.float32)
+    h = rmsnorm_apply(params["norm_ffn"], x_sum, cfg.norm_eps, dtype=dt)
+    h = ffn.apply(params["ffn"], h, dt)
+    return x_sum.to(dt) + h
+
+
+def init_paged_cache(num_pages: int, page_size: int, bd: BlockDef,
+                     cfg: ModelConfig, device) -> dict:
+    _require_ported(bd, cfg)
+    return attention.init_paged_pool(num_pages, page_size,
+                                     _attn_cfg(cfg, bd), cfg.quant, device)
+
+
+def apply_ragged_step(params, x: torch.Tensor, cache: dict,
+                      page_rows: torch.Tensor, row_start: torch.Tensor,
+                      seq_lens: torch.Tensor, bd: BlockDef,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """One ragged engine step of one block: x (R, W, d_model); the
+    block's page pool ``cache`` is updated in place."""
+    _require_ported(bd, cfg)
+    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    h = attention.apply_ragged(params["mixer"], h, cache, page_rows,
+                               row_start, seq_lens, _attn_cfg(cfg, bd),
+                               cfg.quant, cfg.compute_dtype)
+    return _decode_tail(params, x, h, cfg)

@@ -1,0 +1,60 @@
+"""Model configuration schema (port of ``repro.nn.config``).
+
+Only the fields the attention-only serving path reads are carried over;
+gemma2's embedding scale, logit softcap and post-norms wait for its
+config (ROADMAP A3), MoE, MLA, recurrent and training fields for their
+modules (A12, A13).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import QuantConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDef:
+    """One decoder block: a sequence mixer + a channel mixer."""
+
+    mixer: str  # only "attn" is ported
+    window: Optional[int] = None  # sliding window for attn mixers
+    ffn: str = "dense"  # only "dense" is ported
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    d_model: int
+    vocab_size: int
+    pattern: Tuple[BlockDef, ...]
+    num_groups: int
+    prologue: Tuple[BlockDef, ...] = ()
+    epilogue: Tuple[BlockDef, ...] = ()
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    rope_theta: float = 10000.0
+    attn_softcap: Optional[float] = None
+    d_ff: int = 0
+    ffn_kind: str = "swiglu"
+    tied_embeddings: bool = True
+    norm_eps: float = 1e-6
+    quant: QuantConfig = QuantConfig()
+    compute_dtype: torch.dtype = torch.bfloat16
+    source: str = ""
+
+    @property
+    def num_layers(self) -> int:
+        return (len(self.prologue) + self.num_groups * len(self.pattern)
+                + len(self.epilogue))
+
+    def all_blocks(self) -> Tuple[BlockDef, ...]:
+        return (*self.prologue, *(self.pattern * self.num_groups),
+                *self.epilogue)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,118 @@
+"""LM assembly for serving (port of ``repro.nn.model``): embedding ->
+attention blocks -> final norm -> LM head, one ragged step at a time.
+
+Parameters are a plain dict::
+
+  {"embedding": {"embed": (V, D) bf16[, "head": (D, V) bf16]},
+   "layers": [block params, in iter_layer_blocks order],
+   "final_norm": {"scale": (D,) f32}}
+
+Linear weights are stored prepared (fake-quantized once, bf16; see
+``nn.linear``). The reference scans stacked groups; PyTorch runs eagerly,
+so layers are a list and the cache is a list of per-layer page pools.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import blocks, embedding, linear
+from .config import ModelConfig
+from .norms import rmsnorm_apply, rmsnorm_init
+
+
+def iter_layer_blocks(cfg: ModelConfig):
+    """Yield ``(param_key, group_index, bd)`` for every decoder block in
+    execution order, as the reference does: prologue, ``num_groups``
+    repetitions of the pattern, epilogue (``group_index`` None for
+    unscanned blocks). Index ``l`` of ``params["layers"]`` is the l-th."""
+    for j, bd in enumerate(cfg.prologue):
+        yield f"prologue{j}", None, bd
+    for g in range(cfg.num_groups):
+        for i, bd in enumerate(cfg.pattern):
+            yield f"block{i}", g, bd
+    for j, bd in enumerate(cfg.epilogue):
+        yield f"epilogue{j}", None, bd
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    """Random weights from ``gen`` (a generator on ``device``), prepared
+    layer by layer so no f32 copy of the whole model is ever held."""
+    return {
+        "embedding": embedding.init(gen, cfg.vocab_size, cfg.d_model,
+                                    cfg.tied_embeddings, device,
+                                    cfg.compute_dtype),
+        "layers": [blocks.init(gen, bd, cfg, device)
+                   for _, _, bd in iter_layer_blocks(cfg)],
+        "final_norm": rmsnorm_init(cfg.d_model, device),
+    }
+
+
+def params_from_jax(params_np, cfg: ModelConfig, device) -> dict:
+    """The reference's param tree (numpy leaves) -> this package's params.
+
+    Stacked ``params["groups"]["block{i}"]`` leaves carry a leading layer
+    axis; each layer's slice is taken in :func:`iter_layer_blocks` order.
+    Linear weights are fake-quantized here exactly as the reference does
+    at every use, so both packages compute with the same weights.
+    """
+    def tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    def convert(tree):
+        if "w" in tree and not isinstance(tree["w"], dict):
+            return {"w": linear.prepare_weight(tensor(tree["w"]), cfg.quant,
+                                               cfg.compute_dtype)}
+        if "scale" in tree and not isinstance(tree["scale"], dict):
+            return {"scale": tensor(tree["scale"])}
+        return {k: convert(v) for k, v in tree.items()}
+
+    layers = []
+    for key, g, _ in iter_layer_blocks(cfg):
+        sub = params_np[key] if g is None else params_np["groups"][key]
+        if g is not None:
+            sub = _slice_tree(sub, g)
+        layers.append(convert(sub))
+    emb = {k: tensor(v).to(cfg.compute_dtype)
+           for k, v in params_np["embedding"].items()}
+    return {"embedding": emb, "layers": layers,
+            "final_norm": convert(params_np["final_norm"])}
+
+
+def _slice_tree(tree, g: int):
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, g) for k, v in tree.items()}
+    return np.asarray(tree)[g]
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     device) -> list:
+    """One MX page pool per layer (shared page table, like the reference)."""
+    return [blocks.init_paged_cache(num_pages, page_size, bd, cfg, device)
+            for _, _, bd in iter_layer_blocks(cfg)]
+
+
+def ragged_step_paged(params, cfg: ModelConfig, cache: list,
+                      tokens: torch.Tensor, page_rows: torch.Tensor,
+                      row_start: torch.Tensor, seq_lens: torch.Tensor,
+                      logit_idx: torch.Tensor) -> torch.Tensor:
+    """One ragged engine step: tokens (R, W), page_rows (R, P), row_start
+    (R,), seq_lens (R,) = row_start + n_new, logit_idx (R,).
+
+    Every layer's new K/V is quantize-written into its pages inside the
+    ragged kernel; ``cache`` is updated in place. Returns logits (R, V)
+    f32 of row ``logit_idx`` (clamped onto the row's last real token),
+    gathered before the final norm and head as the reference does. The
+    reference's ``num_logits > 1`` (speculative verify windows) is not
+    ported yet.
+    """
+    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    for bp, pool, (_, _, bd) in zip(params["layers"], cache,
+                                    iter_layer_blocks(cfg)):
+        x = blocks.apply_ragged_step(bp, x, pool, page_rows, row_start,
+                                     seq_lens, bd, cfg)
+    last = torch.clamp(seq_lens - row_start - 1, min=0)
+    idx = torch.minimum(torch.clamp(logit_idx, min=0), last).long()
+    x = x[torch.arange(x.shape[0], device=x.device), idx]
+    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return embedding.logits(params["embedding"], x, cfg.compute_dtype)

@@ -1,0 +1,364 @@
+"""Continuous-batching scheduler: admission, prefix sharing, chunked
+prefill, preemption (port of ``repro.serve.scheduler``, ragged step only).
+
+Host-side control plane: the device sees fixed-shape (max_slots, W) row
+batches and a (max_slots, pages_per_slot) page table while requests enter
+and leave mid-stream.
+
+  * **admission** — FCFS with a bounded skip-ahead window; with a prefix
+    cache, the longest page-aligned hit is retained into the request's
+    page table first. Admission binds the slot and all of the prompt's
+    pages; the prompt then streams through chunks (``prefill_pos``).
+  * **deferral** — a request sharing an unregistered page-aligned head
+    with a still-prefilling sequence waits (at most ``max_deferrals``
+    attempts) until those pages register, so a shared-prefix burst
+    shares pages instead of prefilling private copies.
+  * **decode paging / preemption** — a sequence crossing a page boundary
+    pulls a fresh page; a dry pool evicts LRU prefix leaves, then the
+    engine swaps out the youngest other sequence (exact byte snapshot of
+    the pages it owns alone; shared pages keep its reference).
+  * **recycling** — EOS or max_new_tokens frees the slot and drops the
+    sequence's page references the same step.
+
+The scheduler never touches device memory.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import List, Optional
+
+import numpy as np
+
+from .kv_cache import PagePool, pages_for, pages_spanned
+from .prefix_cache import PrefixCache
+
+
+def _common_pages(a: np.ndarray, b: np.ndarray, page_size: int) -> int:
+    """Whole pages of identical leading tokens between two prompts."""
+    n = min(len(a), len(b))
+    diff = np.flatnonzero(a[:n] != b[:n])
+    common = int(diff[0]) if len(diff) else n
+    return common // page_size
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request; ``generated`` and ``swap`` survive
+    preemption."""
+
+    id: int
+    prompt: np.ndarray  # (S,) int32
+    max_new_tokens: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    # preemption snapshot: (cache_snapshot, owned_idx, pages, resident
+    # tokens, cached_tokens, prefill_pos); owned_idx are the page-table
+    # positions that were exclusively owned (extracted + freed), the rest
+    # of ``pages`` stayed retained across the swap
+    swap: Optional[tuple] = None
+    deferred: bool = False  # deferral hit this request at least once
+    defer_count: int = 0  # admission attempts deferral has cost it
+
+    @property
+    def remaining(self) -> int:
+        return self.max_new_tokens - len(self.generated)
+
+    @property
+    def done(self) -> bool:
+        return self.remaining <= 0
+
+
+@dataclasses.dataclass
+class ActiveSeq:
+    """A request bound to a decode slot."""
+
+    req: Request
+    slot: int
+    pos: int  # next cache write position == tokens currently resident
+    pages: List[int]
+    order: int  # admission sequence number (preemption picks the youngest)
+    cached_tokens: int = 0  # page-aligned prefix-cache hit at admission
+    # next prompt chunk's start row; None once the prompt is resident
+    prefill_pos: Optional[int] = None
+
+
+class Scheduler:
+    def __init__(self, *, max_slots: int, num_pages: int, page_size: int,
+                 max_seq: int, prefill_chunk: int, prefix_cache: bool = False,
+                 admit_window: int = 4, max_deferrals: int = 8):
+        self.max_slots = max_slots
+        self.page_size = page_size
+        self.max_seq = max_seq
+        if prefill_chunk <= 0 or prefill_chunk % page_size != 0:
+            raise ValueError(
+                f"prefill_chunk={prefill_chunk} must be a positive multiple "
+                f"of page_size={page_size}: chunk starts must stay "
+                "page-aligned so no page blends two chunks")
+        self.prefill_chunk = prefill_chunk
+        self.pages_per_slot = pages_for(max_seq, page_size)
+        if num_pages < self.pages_per_slot:
+            raise ValueError(
+                f"num_pages={num_pages} cannot hold one max_seq={max_seq} "
+                f"sequence (needs {self.pages_per_slot})")
+        if admit_window < 1:
+            raise ValueError("admit_window must be >= 1")
+        self.admit_window = admit_window
+        if max_deferrals < 0:
+            raise ValueError("max_deferrals must be >= 0")
+        self.max_deferrals = max_deferrals
+        self.pool = PagePool(num_pages)
+        self.prefix = (PrefixCache(self.pool, page_size)
+                       if prefix_cache else None)
+        self.queue: deque[Request] = deque()
+        self.slots: List[Optional[ActiveSeq]] = [None] * max_slots
+        self.finished: List[Request] = []
+        self._order = 0
+        self._next_id = 0
+        self.peak_pages = 0
+        self.resident_at_peak = 0
+        self.preemptions = 0
+        self.skipped_admissions = 0
+        self.cow_copies = 0
+        self.deferred_admissions = 0
+        self.deferral_fallbacks = 0
+
+    # -- submission ---------------------------------------------------------
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int) -> int:
+        """Queue one request; invalid inputs fail here with a ValueError."""
+        prompt = np.asarray(prompt)
+        if not np.issubdtype(prompt.dtype, np.integer):
+            raise ValueError(
+                f"prompt must be integer token ids, got dtype {prompt.dtype}")
+        prompt = prompt.astype(np.int32).reshape(-1)
+        if len(prompt) == 0:
+            raise ValueError("empty prompt")
+        if not isinstance(max_new_tokens, (int, np.integer)):
+            raise ValueError("max_new_tokens must be an int, got "
+                             f"{type(max_new_tokens).__name__}")
+        if max_new_tokens <= 0:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if len(prompt) + max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new ({max_new_tokens}) "
+                f"exceeds max_seq={self.max_seq}")
+        req = Request(self._next_id, prompt, int(max_new_tokens))
+        self._next_id += 1
+        self.queue.append(req)
+        return req.id
+
+    # -- admission / eviction ----------------------------------------------
+
+    def active(self) -> List[ActiveSeq]:
+        return [s for s in self.slots if s is not None]
+
+    def prefilling(self) -> List[ActiveSeq]:
+        """Active sequences still streaming prompt chunks, oldest first."""
+        return sorted((s for s in self.active()
+                       if s.prefill_pos is not None),
+                      key=lambda s: s.order)
+
+    def decode_ready(self) -> List[ActiveSeq]:
+        """Active sequences with a pending token (prefill complete)."""
+        return [s for s in self.active() if s.prefill_pos is None]
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(s is not None for s in self.slots)
+
+    def alloc_with_evict(self, n: int) -> Optional[List[int]]:
+        """Allocate ``n`` pages, evicting prefix-tree leaves only when
+        that can cover the shortfall (a doomed allocation must not
+        destroy cached prefixes for nothing)."""
+        if not self.pool.can_alloc(n) and self.prefix is not None:
+            shortfall = n - self.pool.free_pages
+            if self.prefix.evictable_count() >= shortfall:
+                self.prefix.evict(shortfall)
+        return self.pool.alloc(n)
+
+    def _try_admit(self, req: Request, slot: int) -> Optional[ActiveSeq]:
+        """Bind ``req`` to ``slot`` if its pages fit; None leaves no trace."""
+        if req.swap is not None:
+            _snapshot, owned_idx, pages, pos0, cached, prefill_pos = req.swap
+            ids = self.alloc_with_evict(len(owned_idx))
+            if ids is None:
+                return None
+            pages = list(pages)
+            for i, pid in zip(owned_idx, ids):
+                pages[i] = pid
+        else:
+            if req.generated:
+                raise RuntimeError("mid-stream request without snapshot")
+            hit, cached = [], 0
+            if self.prefix is not None:
+                hit, cached = self.prefix.acquire(req.prompt)
+            if (self.prefix is not None
+                    and req.defer_count < self.max_deferrals):
+                # a prompt sharing an unregistered page-aligned head with a
+                # sequence still streaming chunks waits until those pages
+                # register, then shares them instead of prefilling a
+                # private copy; bounded, so a stalled leader cannot
+                # starve it
+                cap = (len(req.prompt) - 1) // self.page_size
+                for s in self.prefilling():
+                    shared = min(_common_pages(req.prompt, s.req.prompt,
+                                               self.page_size), cap)
+                    if shared * self.page_size > cached:
+                        if hit:
+                            self.pool.free(hit)
+                        if not req.deferred:
+                            req.deferred = True
+                            self.deferred_admissions += 1
+                        req.defer_count += 1
+                        if req.defer_count == self.max_deferrals:
+                            self.deferral_fallbacks += 1
+                        return None
+            ids = self.alloc_with_evict(
+                pages_for(len(req.prompt), self.page_size) - len(hit))
+            if ids is None:
+                if hit:
+                    self.pool.free(hit)  # drop the lookup's references
+                return None
+            pages = hit + ids
+            if self.prefix is not None:
+                self.prefix.record_lookup(cached)
+            # only the prefix hit is resident so far; the tail streams
+            # through chunks
+            pos0, prefill_pos = cached, cached
+        seq = ActiveSeq(req=req, slot=slot, pos=pos0, pages=pages,
+                        order=self._order, cached_tokens=cached,
+                        prefill_pos=prefill_pos)
+        self._order += 1
+        self.slots[slot] = seq
+        return seq
+
+    def admit_next(self) -> Optional[ActiveSeq]:
+        """Admit the queue head, or the first of up to ``admit_window - 1``
+        younger requests that fits when the head does not."""
+        free_slots = [i for i, s in enumerate(self.slots) if s is None]
+        if not free_slots or not self.queue:
+            return None
+        for qi in range(min(self.admit_window, len(self.queue))):
+            seq = self._try_admit(self.queue[qi], free_slots[0])
+            if seq is not None:
+                del self.queue[qi]
+                if qi:
+                    self.skipped_admissions += 1
+                return seq
+        return None
+
+    def register_prefix(self, seq: ActiveSeq) -> None:
+        """Insert ``seq``'s full prompt pages into the radix tree once
+        their bytes are resident."""
+        if self.prefix is not None:
+            self.prefix.insert(seq.req.prompt, seq.pages)
+
+    def try_grow(self, seq: ActiveSeq, num_tokens: int = 1) -> bool:
+        """Grow ``seq``'s page table to cover ``num_tokens`` rows written
+        at ``seq.pos``; all-or-nothing."""
+        need = pages_spanned(seq.pos, num_tokens, self.page_size) \
+            - len(seq.pages)
+        if need <= 0:
+            return True
+        ids = self.alloc_with_evict(need)
+        if ids is None:
+            return False
+        seq.pages.extend(ids)
+        return True
+
+    def pick_victim(self, exclude: ActiveSeq) -> Optional[ActiveSeq]:
+        """Youngest other active sequence (FCFS: elders keep their slots)."""
+        victims = [s for s in self.active() if s is not exclude]
+        return max(victims, key=lambda s: s.order) if victims else None
+
+    def exclusive_pages(self, seq: ActiveSeq):
+        """(table indices, page ids) of the pages only ``seq`` references."""
+        idx = [i for i, p in enumerate(seq.pages) if self.pool.ref(p) == 1]
+        return idx, [seq.pages[i] for i in idx]
+
+    def preempt(self, victim: ActiveSeq, snapshot,
+                owned_idx: List[int]) -> None:
+        """Swap out ``victim``: free its exclusive pages, requeue at front."""
+        self.pool.free([victim.pages[i] for i in owned_idx])
+        self.slots[victim.slot] = None
+        victim.req.swap = (snapshot, owned_idx, list(victim.pages),
+                           victim.pos, victim.cached_tokens,
+                           victim.prefill_pos)
+        self.queue.appendleft(victim.req)
+        self.preemptions += 1
+
+    def advance(self, seq: ActiveSeq) -> None:
+        """The step wrote ``seq``'s pending token at ``seq.pos``."""
+        seq.pos += 1
+
+    def record_token(self, seq: ActiveSeq, token: int, eos_id=None) -> bool:
+        """Append a sampled token; finish + recycle on EOS/max_new.
+        Returns True if the sequence is still active."""
+        seq.req.generated.append(int(token))
+        finished = seq.req.done or (eos_id is not None
+                                    and int(token) == eos_id)
+        if finished:
+            self.pool.free(seq.pages)
+            self.slots[seq.slot] = None
+            self.finished.append(seq.req)
+        return not finished
+
+    # -- per-step batch assembly -------------------------------------------
+
+    def planned_prefill_real(self, seq: ActiveSeq, width: int) -> int:
+        """Valid prompt tokens ``seq``'s next ragged chunk will carry:
+        one chunk per step."""
+        chunk = min(self.prefill_chunk, width)
+        return min(chunk, len(seq.req.prompt) - seq.prefill_pos)
+
+    def assemble_ragged(self, width: int):
+        """One packed (max_slots, width) row batch for the ragged step.
+
+        Returns (tokens, row_start, seq_lens, logit_idx, page_rows, modes,
+        decode, prefill): ``row_start``/``seq_lens`` bound each row's new
+        positions (inactive rows: 0 / 1 with an all -1 table, so their
+        write lands on the trash page); ``logit_idx`` is the row whose
+        logits the host reads; ``modes`` is 0 inactive, 1 decode, 2
+        prefill chunk; ``prefill`` lists ``(seq, start, real, final)``.
+        """
+        ns, pps = self.max_slots, self.pages_per_slot
+        tokens = np.zeros((ns, width), np.int32)
+        row_start = np.zeros((ns,), np.int32)
+        seq_lens = np.ones((ns,), np.int32)
+        logit_idx = np.zeros((ns,), np.int32)
+        modes = np.zeros((ns,), np.int32)
+        page_rows = np.full((ns, pps), -1, np.int32)
+        decode = self.decode_ready()
+        for seq in decode:
+            if not seq.req.generated:
+                raise RuntimeError("active sequence with no pending token")
+            tokens[seq.slot, 0] = seq.req.generated[-1]
+            row_start[seq.slot] = seq.pos
+            seq_lens[seq.slot] = seq.pos + 1
+            modes[seq.slot] = 1
+            page_rows[seq.slot, : len(seq.pages)] = seq.pages
+        prefill = []
+        for seq in self.prefilling():
+            st = seq.prefill_pos
+            real = self.planned_prefill_real(seq, width)
+            if real <= 0:
+                continue
+            tokens[seq.slot, :real] = seq.req.prompt[st:st + real]
+            row_start[seq.slot] = st
+            seq_lens[seq.slot] = st + real
+            final = st + real == len(seq.req.prompt)
+            logit_idx[seq.slot] = real - 1 if final else 0
+            modes[seq.slot] = 2
+            page_rows[seq.slot, : len(seq.pages)] = seq.pages
+            prefill.append((seq, st, real, final))
+        resident = int(sum(s.pos + (1 if s.prefill_pos is None else 0)
+                           for s in self.active()))
+        if self.pool.pages_in_use > self.peak_pages:
+            self.peak_pages = self.pool.pages_in_use
+            self.resident_at_peak = resident
+        elif self.pool.pages_in_use == self.peak_pages:
+            self.resident_at_peak = (resident if self.resident_at_peak == 0
+                                     else min(self.resident_at_peak, resident))
+        return (tokens, row_start, seq_lens, logit_idx, page_rows, modes,
+                decode, prefill)
