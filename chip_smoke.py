@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit. It imports ``repro_torch`` from ``src/`` (never JAX, never
-the JAX package) and runs five phases; any failure raises, so the exit
+the JAX package) and runs six phases; any failure raises, so the exit
 code is not 0 and no result line is printed:
 
   1. build every CUDA kernel of the path from ``src/repro_torch/kernels/
@@ -18,7 +18,15 @@ code is not 0 and no result line is printed:
      through ``repro_torch.launch.serve`` with the ``ServeConfig`` defaults,
      with every kernel count reset just before and read just after; then
      split one full-width decode step's time into the kernel and the rest;
-  5. print the kernels line, then the device line last.
+  5. the MX dot products at granite-8b widths: hold the quantize kernel
+     bit-exact and the weight-only, MX x MX and dgrad matmul kernels
+     within tolerance against their plain versions at one layer's seven
+     projection shapes, time each kernel beside its bound, its plain
+     version and cuBLAS, time the paper's three tiers (``mx_dot`` modes),
+     and drive the entry points (``nn.linear.apply``, ``quantize_pallas``
+     with ``mx_dot``, ``mx_matmul_trainable``) with the counts reset just
+     before and read just after;
+  6. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -40,6 +48,7 @@ import torch  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, dense) used for the bound
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP8_FLOPS = 1979e12
 F32_FLOPS = 67e12
 OUT_TOL = 1e-5  # kernel vs plain version: f32 sums in another order
 GAP_TOL_ULPS = 1  # reduced run: every greedy pick must lead by more
@@ -73,10 +82,13 @@ def gpu_name_and_power() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timed runs."""
+def cuda_ms(fn, reps: int, before=None) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timed runs;
+    ``before`` runs ahead of each, outside the timed events."""
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -376,6 +388,441 @@ def decode_step_breakdown(engine, cfg, pos: int = 300, steps: int = 3):
         f"{100 * (1 - total / wall_ms):.0f}%); {parts}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the MX dot products at granite-8b widths
+# ---------------------------------------------------------------------------
+
+# granite-8b (src/repro_torch/configs/granite_8b.py): d_model 4096, 32/8
+# heads of 128, d_ff 14336. One layer's projections as (K, N): the weight
+# is (K, N) wide, stored (N, K) blocked along K.
+DM, DFF, KV_DIM = 4096, 14336, 1024
+PROJ = {"wq": (DM, DM), "wk": (DM, KV_DIM), "wv": (DM, KV_DIM),
+        "wo": (DM, DM), "gate": (DM, DFF), "up": (DM, DFF),
+        "down": (DFF, DM)}
+MX_ROWS = 512  # one ragged step's rows: 8 slots x 64
+DECODE_ROWS = 8  # a decode step's rows
+MX_FMTS = ("fp8_e4m3", "fp8_e5m2", "fp6_e3m2", "fp6_e2m3", "fp4_e2m1")
+# f32 accumulation: kernel and plain version sum the same exact f32
+# products in another order, so |kernel - plain| <= MM_RTOL * (|A|.|B|^T)
+# elementwise. bf16 accumulation rounds each K tile's f32 partial, and the
+# running sum, to bf16 at the reference's points: the two differ only where
+# a partial that differs in its last f32 bits rounds one bf16 ulp apart.
+# So more than BF16_SAME of the outputs must be bit-identical (a skipped
+# tile or a misplaced rounding point leaves far fewer so), and every output
+# must lie within two bf16 ulps of the largest |partial| or |running sum|
+# it meets in the plain version's tile loop.
+MM_RTOL = 1e-5
+BF16_SAME = 0.99
+L2_FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2: timed runs start cold
+
+
+def _gauss(shape, gen, scale=1.0):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def quantize_input(m: int, k: int, gen) -> torch.Tensor:
+    """f32 rows at many scales with zero, all-subnormal, mixed
+    (normal amax, subnormal elements), signed-zero and saturating
+    blocks written in (block 32)."""
+    x = _gauss((m, k), gen) * torch.exp2(torch.randint(
+        -20, 20, (m, 1), generator=gen, device="cuda").float())
+    x[0] = 0.0
+    x[1] = _gauss((k,), gen, 1e-39)  # every element subnormal
+    x[2, ::2] = 1e-40  # subnormal elements beside normal ones
+    x[3] = -0.0
+    x[3, 1::32] = 5.0
+    x[4] = _gauss((k,), gen, 2.0 ** 120)  # near the top of f32
+    x[5, ::32] = 3.0e38  # saturating ratios below these outliers
+    return x
+
+
+def check_mx_quantize(gen) -> None:
+    from repro_torch.kernels import mx_quantize as mq
+
+    for m, k in ((MX_ROWS, DM), (MX_ROWS, DFF)):
+        x32 = quantize_input(m, k, gen)
+        for x in (x32, x32.bfloat16()):
+            for fmt in MX_FMTS:
+                got = mq.mx_quantize(x, fmt_name=fmt, block_size=BLOCK)
+                want = mq.mx_quantize_plain(x, fmt_name=fmt,
+                                            block_size=BLOCK)
+                for name, g, w in zip(("elements", "scales"), got, want):
+                    if not torch.equal(g.view(torch.uint8),
+                                       w.view(torch.uint8)):
+                        raise AssertionError(f"mx_quantize {fmt} {x.dtype} "
+                                             f"({m}, {k}): {name} differ")
+    torch.cuda.synchronize()
+    log(f"mx_quantize: elements and scales bit-exact against the plain "
+        f"version at ({MX_ROWS}, {DM}) and ({MX_ROWS}, {DFF}), all five "
+        "formats, f32 and bf16 inputs, with zero, subnormal, mixed and "
+        "saturating blocks")
+
+
+def _bf16_ulp(mag: torch.Tensor) -> torch.Tensor:
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+    return torch.where(mag > 0, ulp, torch.zeros_like(ulp))
+
+
+def _bf16_acc_bound(a: torch.Tensor, b: torch.Tensor,
+                    bk: int) -> torch.Tensor:
+    """Two bf16 ulps of the largest |partial| or |running sum| that each
+    output meets in the bf16 tile loop; ``a`` (M, K) and ``b`` (K, N) are
+    the wide f32 operands with the block scales folded in."""
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.bfloat16,
+                      device=a.device)
+    big = torch.zeros(out.shape, device=a.device)
+    for k0 in range(0, a.shape[1], bk):
+        p = a[:, k0:k0 + bk].float() @ b[k0:k0 + bk].float()
+        out = (out.float() + p.bfloat16().float()).bfloat16()
+        big = torch.maximum(big, torch.maximum(p.abs(), out.float().abs()))
+    return 2 * _bf16_ulp(big)
+
+
+def _mm_error(got, want, bound, min_same: float = 0.0) -> tuple:
+    """(max |got - want|, share of identical outputs, max error / bound);
+    raises when an error is above its bound or too few outputs are
+    identical."""
+    err = (got.float() - want.float()).abs()
+    same = float((err == 0).float().mean())
+    ratio = float((err / bound.clamp(min=1e-30)).max())
+    if not ((err <= bound) | (err == 0)).all():
+        raise AssertionError(f"error {float(err.max())} above the bound "
+                             f"(max ratio {ratio:.3g})")
+    if same <= min_same:
+        raise AssertionError(f"only {same:.6f} of the outputs identical, "
+                             f"want more than {min_same}")
+    return float(err.max()), same, ratio
+
+
+def _mx_weight(k: int, n: int, fmt: str, block: int, gen):
+    from repro_torch.core import quantize
+
+    return quantize(_gauss((k, n), gen, 1 / 64), fmt, block, axis=0)
+
+
+def check_mx_matmuls(gen) -> dict:
+    """wo and vv at the seven projection shapes, plus formats, block sizes
+    and bf16 accumulation at one shape; returns the worst |kernel - plain|
+    of each kernel."""
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels.ops import _tile, quantize_pallas
+
+    worst = {"mx_matmul_wo": 0.0, "mx_matmul_vv": 0.0}
+    cases = [(name, fmt, BLOCK, torch.float32) for name in PROJ
+             for fmt in ("fp8_e4m3", "fp4_e2m1")]
+    cases += [("wq", "fp8_e5m2", BLOCK, torch.float32),
+              ("wq", "fp8_e4m3", 16, torch.float32),
+              ("wq", "fp8_e4m3", 64, torch.float32),
+              ("wq", "fp8_e4m3", BLOCK, torch.bfloat16),
+              ("wq", "fp4_e2m1", BLOCK, torch.bfloat16)]
+    for name, fmt, block, acc in cases:
+        k, n = PROJ[name]
+        w = _mx_weight(k, n, fmt, block, gen)
+        x = _gauss((MX_ROWS, k), gen).bfloat16()
+        xq = quantize_pallas(x, fmt, block)
+        bk = max(_tile(k, 512), block)
+        kw = dict(fmt_name=fmt, block_size=block, acc_dtype=acc, bk=bk)
+        w_wide = w.dequantize()
+        runs = {
+            "mx_matmul_wo": (
+                lambda: mm.mx_matmul_wo(x, w.elements, w.scales, **kw),
+                lambda: mm.mx_matmul_wo_plain(x, w.elements, w.scales, **kw),
+                x.float()),
+            "mx_matmul_vv": (
+                lambda: mm.mx_matmul_vv(xq.elements, xq.scales, w.elements,
+                                        w.scales, **kw),
+                lambda: mm.mx_matmul_vv_plain(xq.elements, xq.scales,
+                                              w.elements, w.scales, **kw),
+                xq.dequantize())}
+        for kernel, (run, plain, a_wide) in runs.items():
+            got = run()
+            if got.shape != (MX_ROWS, n) or got.dtype != acc \
+                    or not torch.isfinite(got).all():
+                raise AssertionError(f"{kernel} {name} {fmt}: bad output")
+            if acc == torch.float32:
+                bound, min_same = MM_RTOL * (a_wide.abs() @ w_wide.abs()), 0.0
+            else:
+                bound = _bf16_acc_bound(a_wide, w_wide, bk)
+                min_same = BF16_SAME
+            try:
+                err, same, ratio = _mm_error(got, plain(), bound, min_same)
+            except AssertionError as exc:
+                raise AssertionError(f"{kernel} {name} ({k}, {n}) {fmt} "
+                                     f"block {block} {acc}: {exc}") from None
+            worst[kernel] = max(worst[kernel], err)
+            if acc == torch.bfloat16:
+                log(f"{kernel} {name} {fmt} bf16 accumulation: "
+                    f"{same:.7f} of the outputs identical to the plain "
+                    f"version, max |diff| {err:.4g} = {2 * ratio:.3g} bf16 "
+                    "ulps of the largest |partial| or |running sum|")
+    torch.cuda.synchronize()
+    log(f"mx_matmul_wo / mx_matmul_vv at M={MX_ROWS} over the seven "
+        f"projections (fp8 e4m3, fp4 e2m1, block {BLOCK}, f32) and at wq "
+        "with e5m2, blocks 16 and 64, bf16 accumulation: within "
+        f"{MM_RTOL:g} x |A|.|B|^T (f32); bf16: more than {BF16_SAME} of the "
+        "outputs identical and all within two bf16 ulps of the largest "
+        "|partial| or |running sum|; max |diff| wo "
+        f"{worst['mx_matmul_wo']:.3g}, vv {worst['mx_matmul_vv']:.3g}")
+    return worst
+
+
+def check_mx_dgrad(gen) -> float:
+    """dx of mx_matmul_trainable(x, W_gate).backward(dy) at granite's gate
+    projection against the plain dgrad."""
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels.ops import _tile, mx_matmul_trainable
+
+    k, n = PROJ["gate"]
+    w = _mx_weight(k, n, "fp8_e4m3", BLOCK, gen)
+    x = _gauss((MX_ROWS, k), gen).requires_grad_()
+    dy = _gauss((MX_ROWS, n), gen)
+    mx_matmul_trainable(x, w, "fp8_e4m3", BLOCK).backward(dy)
+    want = mm.mx_matmul_dgrad_plain(dy, w.elements, w.scales,
+                                    fmt_name="fp8_e4m3", block_size=BLOCK,
+                                    bn=_tile(n, 128))
+    mag = dy.abs() @ w.dequantize().abs().T
+    err, _, _ = _mm_error(x.grad, want, MM_RTOL * mag)
+    log(f"mx_matmul_dgrad through mx_matmul_trainable.backward at (M, N, K) "
+        f"= ({MX_ROWS}, {n}, {k}): within {MM_RTOL:g} x |dy|.|W| of the "
+        f"plain version, max |diff| {err:.3g}")
+    return err
+
+
+def _bound(nbytes: float, ops: float, peak: float) -> tuple:
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / peak
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_mx_kernels(gen) -> dict:
+    """Kernel, plain version, bound and cuBLAS times of the four kernels at
+    granite's gate/up projection (K 4096, N 14336, fp8 e4m3, block 32),
+    at M = 512 (a ragged step) and M = 8 (a decode step); weight-only in
+    fp4 too. Every timed run starts with the L2 cache flushed."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels import mx_quantize as mq
+    from repro_torch.kernels.ops import _tile, quantize_pallas
+
+    k, n = PROJ["gate"]
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    out = {}
+    for m in (MX_ROWS, DECODE_ROWS):
+        x = _gauss((m, k), gen)
+        xb = x.bfloat16()
+        dy = _gauss((m, n), gen)
+        dyb = dy.bfloat16()
+        for fmt in ("fp8_e4m3", "fp4_e2m1"):
+            f = F.get_format(fmt)
+            w = _mx_weight(k, n, fmt, BLOCK, gen)
+            wb = w.dequantize(torch.bfloat16)  # (K, N): cuBLAS's operand
+            w_bytes = n * f.storage_len(k) + n * k // BLOCK
+            xq = quantize_pallas(x, fmt, BLOCK)
+            a_bytes = m * f.storage_len(k) + m * k // BLOCK
+            xqb = xq.dequantize(torch.bfloat16)
+            bk = max(_tile(k, 512), BLOCK)
+            kw = dict(fmt_name=fmt, block_size=BLOCK, bk=bk)
+            flops = 2.0 * m * n * k
+            jobs = {
+                "mx_matmul_wo": (
+                    lambda: mm.mx_matmul_wo(xb, w.elements, w.scales, **kw),
+                    lambda: mm.mx_matmul_wo_plain(xb, w.elements, w.scales,
+                                                  **kw),
+                    lambda: torch.matmul(xb, wb),
+                    _bound(2 * m * k + w_bytes + 4 * m * n, flops,
+                           BF16_FLOPS)),
+                "mx_matmul_vv": (
+                    lambda: mm.mx_matmul_vv(xq.elements, xq.scales,
+                                            w.elements, w.scales, **kw),
+                    lambda: mm.mx_matmul_vv_plain(xq.elements, xq.scales,
+                                                  w.elements, w.scales, **kw),
+                    lambda: torch.matmul(xqb, wb),
+                    _bound(a_bytes + w_bytes + 4 * m * n, flops,
+                           FP8_FLOPS)),
+                "mx_matmul_dgrad": (
+                    lambda: mm.mx_matmul_dgrad(dy, w.elements, w.scales,
+                                               fmt_name=fmt, block_size=BLOCK,
+                                               bn=_tile(n, 128)),
+                    lambda: mm.mx_matmul_dgrad_plain(
+                        dy, w.elements, w.scales, fmt_name=fmt,
+                        block_size=BLOCK, bn=_tile(n, 128)),
+                    lambda: torch.matmul(dyb, wb.T),
+                    _bound(4 * m * n + w_bytes + 4 * m * k, flops,
+                           F32_FLOPS)),
+                "mx_quantize": (
+                    lambda: mq.mx_quantize(x, fmt_name=fmt, block_size=BLOCK),
+                    lambda: mq.mx_quantize_plain(x, fmt_name=fmt,
+                                                 block_size=BLOCK),
+                    None,  # no single PyTorch call computes it
+                    # one compare (amax) and one divide per element
+                    _bound(4 * m * k + a_bytes, 2.0 * m * k, F32_FLOPS))}
+            for name, (run, plain, library, (bound_ms, bound_by)) \
+                    in jobs.items():
+                if fmt == "fp4_e2m1" and name != "mx_matmul_wo":
+                    continue
+                for fn in (run, plain) + ((library,) if library else ()):
+                    fn()  # warm: first-use costs stay out of the times
+                ms = cuda_ms(run, 25, flush)
+                plain_ms = cuda_ms(plain, 5, flush)
+                lib_ms = cuda_ms(library, 25, flush) if library else None
+                out[(name, fmt, m)] = dict(ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by=bound_by,
+                                           library_ms=lib_ms)
+                log(f"time {name} {fmt} M={m} K={k} N={n}: kernel {ms:.4f} "
+                    f"ms (median of 25), plain {plain_ms:.3f} ms (median of "
+                    f"5), bound {bound_ms:.4g} ms ({bound_by}), "
+                    + (f"cuBLAS bf16 matmul on pre-dequantized operands "
+                       f"{lib_ms:.4f} ms (dequantization not included)"
+                       if library else "no single PyTorch call computes it"))
+    del scratch
+    return out
+
+
+def time_three_tiers(gen) -> dict:
+    """The paper's tiers at gate/up, M = 512, fp8 e4m3: core.mx_dot with
+    wide bf16 activations in modes emulated, fused and pallas."""
+    from repro_torch.core import mx_dot
+
+    k, n = PROJ["gate"]
+    w = _mx_weight(k, n, "fp8_e4m3", BLOCK, gen)
+    x = _gauss((MX_ROWS, k), gen).bfloat16()
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    outs, times = {}, {}
+    for mode in ("emulated", "fused", "pallas"):
+        run = lambda: mx_dot(x, w, mode=mode)  # noqa: E731
+        outs[mode] = run()
+        times[mode] = cuda_ms(run, 10, scratch.zero_)
+    mag = x.float().abs() @ w.dequantize().abs()
+    for mode in ("emulated", "fused"):
+        _mm_error(outs["pallas"], outs[mode], MM_RTOL * mag)
+    log(f"three tiers, mx_dot at M={MX_ROWS} K={k} N={n} fp8 e4m3 (median of "
+        "10, L2 flushed): " + ", ".join(f"{m} {t:.3f} ms" for m, t in
+                                     times.items())
+        + f"; emulated / pallas = {times['emulated'] / times['pallas']:.2f}, "
+        f"fused / pallas = {times['fused'] / times['pallas']:.2f}; outputs "
+        f"within {MM_RTOL:g} x |A|.|B|^T of each other")
+    return times
+
+
+def mx_entry_points_run(gen) -> dict:
+    """This slice's main path, through the entry points a user calls, with
+    every kernel count reset just before and read just after:
+      1. one granite-8b layer's seven projections through nn.linear.apply
+         with weights from linear.quantize_weights, mode "pallas",
+         weight-only, x (512, 4096) bf16: exactly 7 mx_matmul_wo launches;
+      2. the same seven projections MX x MX: activations quantized by
+         ops.quantize_pallas, products by core.mx_dot(mode="pallas");
+      3. mx_matmul_trainable at the gate projection, forward and backward.
+    """
+    import torch.nn.functional as Fn
+
+    from repro_torch.core import MXFP8, mx_dot
+    from repro_torch.kernels import (mx_matmul_dgrad, mx_matmul_trainable,
+                                     mx_matmul_vv, mx_matmul_wo)
+    from repro_torch.kernels import mx_quantize as mq
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels.ops import _tile, quantize_pallas
+    from repro_torch.nn import linear
+
+    quant = MXFP8.replace(mode="pallas", quantize_acts=False)
+    layer = {name: linear.quantize_weights(
+        {"w": _gauss((k, n), gen, 1 / 64)}, quant)
+        for name, (k, n) in PROJ.items()}
+    x = _gauss((MX_ROWS, DM), gen).bfloat16()
+    counted = (mx_matmul_wo, mx_matmul_vv, mx_matmul_dgrad, mq.mx_quantize)
+    for fn in counted:
+        fn.launches = 0
+
+    def project(name, inp):
+        return linear.apply(layer[name], inp, quant=quant)
+
+    q, k_, v = (project(nm, x) for nm in ("wq", "wk", "wv"))
+    attn = project("wo", q)  # stands in for the attention output
+    h = (Fn.silu(project("gate", x).float())
+         * project("up", x).float()).bfloat16()
+    down = project("down", h)
+    torch.cuda.synchronize()
+    layer_launches = [f.launches for f in counted]
+    if layer_launches != [7, 0, 0, 0]:
+        raise AssertionError("the weight-only layer pass launched "
+                             f"{layer_launches} kernels (wo, vv, dgrad, "
+                             "quantize); want 7 wo only")
+    for name, inp, got in (("wq", x, q), ("wk", x, k_), ("wv", x, v),
+                           ("wo", q, attn), ("down", h, down)):
+        w = layer[name]["w"]
+        want = mm.mx_matmul_wo_plain(
+            inp, w.elements, w.scales, fmt_name=w.fmt_name,
+            block_size=BLOCK, bk=_tile(w.shape[0], 512)).bfloat16()
+        if got.shape != want.shape or not torch.isfinite(got).all() or (
+                (got.float() - want.float()).abs()
+                > _bf16_ulp(want.float().abs()) + 1e-6).any():
+            raise AssertionError(f"layer pass {name}: output off its plain "
+                                 "version by more than a bf16 ulp")
+    log("layer pass: one granite-8b layer's seven projections through "
+        "nn.linear.apply (weights from quantize_weights, mode pallas, "
+        f"weight-only): {layer_launches[0]} mx_matmul_wo launches, "
+        "outputs finite and within one bf16 ulp of the plain version")
+    fmt = quant.fmt  # MX x MX needs one format on both sides
+    for inp, names in ((x, ("wq", "wk", "wv", "gate", "up")),
+                       (q, ("wo",)), (h, ("down",))):
+        a = quantize_pallas(inp, fmt, BLOCK)
+        for name in names:
+            y = mx_dot(a, layer[name]["w"], mode="pallas")
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"MX x MX {name}: non-finite output")
+    xg = x.float().requires_grad_()
+    y = mx_matmul_trainable(xg, layer["gate"]["w"], fmt, BLOCK)
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    if not torch.isfinite(xg.grad).all():
+        raise AssertionError("mx_matmul_trainable: non-finite dx")
+    launches = {f.__name__: f.launches for f in counted}
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    log(f"MX entry points run: launches {launches}")
+    return launches
+
+
+def check_mx_dot_products() -> list:
+    """Phase 5; returns the four kernels' entries of the kernels line."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    check_mx_quantize(gen)
+    worst = check_mx_matmuls(gen)
+    worst["mx_matmul_dgrad"] = check_mx_dgrad(gen)
+    times = time_mx_kernels(gen)
+    time_three_tiers(gen)
+    launches = mx_entry_points_run(gen)
+    log(f"MX dot products phase: {time.perf_counter() - t0:.1f} s")
+    src = "src/repro_torch/kernels/csrc/"
+    rows = [("mx_quantize", "mx_quantize.cu",
+             "src/repro/kernels/mx_quantize.py:137"),
+            ("mx_matmul_wo", "mx_matmul.cu",
+             "src/repro/kernels/mx_matmul.py:246"),
+            ("mx_matmul_vv", "mx_matmul.cu",
+             "src/repro/kernels/mx_matmul.py:205"),
+            ("mx_matmul_dgrad", "mx_matmul.cu",
+             "src/repro/kernels/mx_matmul.py:311")]
+    entries = []
+    for name, source, replaces in rows:
+        entry = {"name": name, "route": "cuda", "source": src + source,
+                 "replaces": replaces, "launches": launches[name]}
+        if name == "mx_quantize":
+            entry["bit_exact"] = True
+            entry["max_abs_err"] = 0.0
+        else:
+            entry["max_abs_err"] = worst[name]
+        entry.update(times[(name, "fp8_e4m3", MX_ROWS)])
+        entry["shape"] = f"gate/up M={MX_ROWS} K={DM} N={DFF} fp8_e4m3"
+        entry["decode_ms"] = times[(name, "fp8_e4m3", DECODE_ROWS)]["ms"]
+        entries.append(entry)
+    return entries
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -403,7 +850,8 @@ def main() -> int:
     kernel = check_ragged_kernel()
     check_reduced_parity()
     kernel.update(serve_full_width())
-    print(json.dumps({"kernels": [kernel]}))
+    kernels = [kernel] + check_mx_dot_products()
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """MX numerics: formats, block quantization, policy."""
-from .dot import fake_quant
+from .dot import fake_quant, mx_dot
 from .mx_tensor import MXTensor
-from .policy import MXFP8, QuantConfig
+from .policy import MXFP4, MXFP6, MXFP8, WIDE, QuantConfig
 from .quantize import quantize, quantize_value
 
-__all__ = ["MXFP8", "MXTensor", "QuantConfig", "fake_quant", "quantize",
-           "quantize_value"]
+__all__ = ["MXFP4", "MXFP6", "MXFP8", "MXTensor", "QuantConfig", "WIDE",
+           "fake_quant", "mx_dot", "quantize", "quantize_value"]

@@ -2,9 +2,11 @@
 
 Split the array into blocks of ``block_size`` along ``axis``, derive one
 E8M0 exponent per block from the block amax, and cast the scaled
-elements with RNE + saturation. The work dtype is always f32: the
-reference keeps bf16 inputs in bf16, but every caller on the serving
-path (weight fake-quant, KV-cache writes) hands it f32.
+elements with RNE + saturation. The work dtype is always f32. The
+reference quantizes bf16 inputs in bf16, which gives the same codes:
+the block amax and the division by a power-of-two scale are exact in
+bf16, and the clip bounds of every format are bf16 values
+(``tests/test_torch_formats.py`` checks this bit for bit).
 """
 from __future__ import annotations
 

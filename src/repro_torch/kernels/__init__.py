@@ -1,9 +1,15 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 Modules import no GPU toolchain at import time: a kernel is built
-(``build.py``) and loaded the first time a CUDA tensor reaches it.
+(``build.py``) and loaded the first time a CUDA tensor reaches it. The
+entry points ``ops.mx_matmul`` and ``mx_quantize.mx_quantize`` are not
+re-exported here, where their names would hide their modules.
 """
 from .mx_attention import (mx_attention_ragged_fused,
                            mx_attention_ragged_fused_plain)
+from .mx_matmul import mx_matmul_dgrad, mx_matmul_vv, mx_matmul_wo
+from .ops import mx_matmul_trainable, quantize_pallas
 
-__all__ = ["mx_attention_ragged_fused", "mx_attention_ragged_fused_plain"]
+__all__ = ["mx_attention_ragged_fused", "mx_attention_ragged_fused_plain",
+           "mx_matmul_dgrad", "mx_matmul_trainable", "mx_matmul_vv",
+           "mx_matmul_wo", "quantize_pallas"]

@@ -26,7 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: library name -> CUDA source in ``csrc/``
-SOURCES = {"mx_attention_ragged": "mx_attention_ragged.cu"}
+SOURCES = {"mx_attention_ragged": "mx_attention_ragged.cu",
+           "mx_quantize": "mx_quantize.cu",
+           "mx_matmul": "mx_matmul.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -90,7 +90,7 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(const Args a) {
   const int first =
       a.window > 0 ? max(floor_div(start - a.window + 1, a.PS), 0) : 0;
   const int* trow = a.table + static_cast<size_t>(r) * a.P;
-  const mx::Fp8Spec f = mx::fp8_spec(a.fmt);
+  const mx::FmtSpec f = mx::fmt_spec(a.fmt);
 
   const __nv_bfloat16* qg = a.q + static_cast<size_t>(cell) * rows * a.D;
   for (int i = threadIdx.x; i < rows * a.D; i += blockDim.x) {

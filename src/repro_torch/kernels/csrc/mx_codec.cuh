@@ -1,16 +1,20 @@
-// MX fp8 encode/decode device functions shared by the port's CUDA kernels.
+// MX encode/decode device functions shared by the port's CUDA kernels.
 //
-// Bit-exact counterparts of repro_torch.core.formats / the reference's
-// in-kernel quantizer (repro/kernels/mx_attention.py::_quantize_rows,
-// repro/kernels/mx_quantize.py::_floor_log2):
-//   * E8M0 shared exponent from the block amax by exponent-field floor-log2,
-//     clipped to [0, 254];
-//   * RNE snap of the scaled value onto the fp8 grid with rintf, then the
-//     fp8 byte assembled from the (exact) grid value's fields;
-//   * the reference runs with denormals flushed, so subnormal inputs and
-//     products read as signed zero and E8M0 byte 0 (2^-127) acts as a zero
-//     scale when quantizing. That flush is written out here: the kernels
-//     are compiled without -ftz.
+// Bit-exact counterparts of repro_torch.core.formats and of the reference's
+// in-kernel codecs:
+//   * repro/kernels/mx_quantize.py: _floor_log2, _encode_fp4_codes,
+//     _pack_fp4, _encode_fp6_codes, _pack_fp6 (and mx_attention.py::
+//     _quantize_rows for the fp8 page writes);
+//   * repro/kernels/mx_matmul.py: _decode_e8m0, _decode_fp4_codes,
+//     _unpack_fp4, _decode_fp6_codes, _unpack_fp6.
+// The E8M0 shared exponent comes from the block amax by exponent-field
+// floor-log2, clipped to [0, 254]; values are snapped RNE onto the format's
+// grid with rintf and the code assembled from the exact grid value.
+//
+// The reference runs with denormals flushed, so subnormal inputs and
+// products read as signed zero and E8M0 byte 0 (2^-127) acts as a zero
+// scale when quantizing. That flush is written out here: the kernels are
+// compiled without -ftz.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,15 +22,22 @@
 
 namespace mx {
 
-// fmt ids: 0 = fp8 e4m3 (float8_e4m3fn, no infinities), 1 = fp8 e5m2
-struct Fp8Spec {
-  int exp_bits, mant_bits, bias, emax;
+// fmt ids (repro_torch.core.formats.FORMAT_IDS): 0 = fp8 e4m3
+// (float8_e4m3fn, no infinities), 1 = fp8 e5m2, 2 = fp6 e3m2, 3 = fp6 e2m3,
+// 4 = fp4 e2m1
+struct FmtSpec {
+  int bits, exp_bits, mant_bits, bias, emax;
   float max;
 };
 
-__device__ __forceinline__ Fp8Spec fp8_spec(int fmt) {
-  return fmt == 0 ? Fp8Spec{4, 3, 7, 8, 448.0f}
-                  : Fp8Spec{5, 2, 15, 15, 57344.0f};
+__device__ __forceinline__ FmtSpec fmt_spec(int fmt) {
+  switch (fmt) {
+    case 0: return FmtSpec{8, 4, 3, 7, 8, 448.0f};
+    case 1: return FmtSpec{8, 5, 2, 15, 15, 57344.0f};
+    case 2: return FmtSpec{6, 3, 2, 3, 4, 28.0f};
+    case 3: return FmtSpec{6, 2, 3, 1, 2, 7.5f};
+    default: return FmtSpec{4, 2, 1, 1, 2, 6.0f};
+  }
 }
 
 constexpr float kMinNormal = 1.17549435e-38f;  // 2^-126
@@ -51,13 +62,13 @@ __device__ __forceinline__ float e8m0_to_scale(uint8_t e) {
 }
 
 __device__ __forceinline__ uint8_t e8m0_from_amax(float amax,
-                                                  const Fp8Spec& f) {
+                                                  const FmtSpec& f) {
   int e = amax > 0.0f ? floor_log2(amax) - f.emax + 127 : 0;
   return static_cast<uint8_t>(min(max(e, 0), 254));
 }
 
-// formats.snap_to_fp8_grid: exact RNE onto the fp8 grid (value space)
-__device__ __forceinline__ float snap_fp8(float x, const Fp8Spec& f) {
+// formats.snap_to_fp8_grid: exact RNE onto the format's grid (value space)
+__device__ __forceinline__ float snap(float x, const FmtSpec& f) {
   const float ax = fabsf(x);
   const int min_norm_exp = 2 - (1 << (f.exp_bits - 1));
   const int e = max(floor_log2(ax), min_norm_exp);
@@ -67,7 +78,7 @@ __device__ __forceinline__ float snap_fp8(float x, const Fp8Spec& f) {
 }
 
 // fp8 byte of a value that lies exactly on the format's grid
-__device__ __forceinline__ uint8_t fp8_bits(float v, const Fp8Spec& f) {
+__device__ __forceinline__ uint8_t fp8_bits(float v, const FmtSpec& f) {
   const uint32_t b = __float_as_uint(v);
   const uint32_t sign = (b >> 31) << 7;
   const float a = fabsf(v);
@@ -82,6 +93,72 @@ __device__ __forceinline__ uint8_t fp8_bits(float v, const Fp8Spec& f) {
     code = static_cast<uint32_t>(a / pow2(min_norm_exp - f.mant_bits));
   }
   return static_cast<uint8_t>(sign | code);
+}
+
+// _encode_fp4_codes: E2M1 nibble of a value clipped to [-6, 6], by the
+// reference's three rounding regimes (each RNE; boundaries are grid points)
+__device__ __forceinline__ uint32_t encode_fp4(float v) {
+  const uint32_t sign = signbit(v) ? 0x8u : 0u;
+  const float mag = fminf(fabsf(v), 6.0f);
+  const float r1 = rintf(mag * 2.0f) * 0.5f;  // grid {0, .5, 1, 1.5, 2}
+  const float r2 = rintf(mag);                // grid {2, 3, 4}
+  const float r3 = rintf(mag * 0.5f) * 2.0f;  // grid {4, 6}
+  const float val = mag <= 1.75f ? r1 : (mag <= 3.5f ? r2 : r3);
+  const float code = val < 2.0f ? val * 2.0f
+                                : (val < 4.0f ? val + 2.0f
+                                              : val * 0.5f + 4.0f);
+  return static_cast<uint32_t>(code) | sign;
+}
+
+// _encode_fp6_codes: 6-bit code of a value clipped to the format's range;
+// grid snap, then exact field recovery
+__device__ __forceinline__ uint32_t encode_fp6(float v, const FmtSpec& f) {
+  const uint32_t sign = signbit(v) ? 0x20u : 0u;
+  const float s = fabsf(snap(fminf(fabsf(v), f.max), f));
+  const bool norm = s >= pow2(1 - f.bias);
+  const int e = norm ? floor_log2(s) : 0;
+  const int e_field = norm ? e + f.bias : 0;
+  const float quantum =
+      norm ? pow2(e - f.mant_bits) : pow2(1 - f.bias - f.mant_bits);
+  const float frac = s - (norm ? pow2(e) : 0.0f);
+  const int m = static_cast<int>(rintf(frac / quantum));
+  return static_cast<uint32_t>((e_field << f.mant_bits) | m) | sign;
+}
+
+// code of a ratio already clipped to [-max, max], in any format: the fp8
+// byte, the fp6 code or the fp4 nibble
+__device__ __forceinline__ uint32_t encode(float r, const FmtSpec& f) {
+  if (f.bits == 8) return fp8_bits(snap(r, f), f);
+  if (f.bits == 6) return encode_fp6(r, f);
+  return encode_fp4(r);
+}
+
+// _pack_fp4: element 2i in the low nibble, 2i+1 in the high one
+__device__ __forceinline__ uint8_t pack_fp4(uint32_t lo, uint32_t hi) {
+  return static_cast<uint8_t>((lo | (hi << 4)) & 0xFFu);
+}
+
+// _pack_fp6: four 6-bit codes into three bytes, low bits first
+__device__ __forceinline__ void pack_fp6(uint32_t c0, uint32_t c1, uint32_t c2,
+                                         uint32_t c3, uint8_t* out) {
+  out[0] = static_cast<uint8_t>((c0 | (c1 << 6)) & 0xFFu);
+  out[1] = static_cast<uint8_t>(((c1 >> 2) | (c2 << 4)) & 0xFFu);
+  out[2] = static_cast<uint8_t>(((c2 >> 4) | (c3 << 2)) & 0xFFu);
+}
+
+// _unpack_fp4 / _unpack_fp6: code of element i of a packed row
+__device__ __forceinline__ uint32_t unpack_fp4(const uint8_t* row, int i) {
+  return (row[i >> 1] >> ((i & 1) * 4)) & 0xFu;
+}
+
+__device__ __forceinline__ uint32_t unpack_fp6(const uint8_t* row, int i) {
+  const uint8_t* b = row + 3 * (i >> 2);
+  switch (i & 3) {
+    case 0: return b[0] & 0x3Fu;
+    case 1: return ((b[0] >> 6) | (b[1] << 2)) & 0x3Fu;
+    case 2: return ((b[1] >> 4) | (b[2] << 4)) & 0x3Fu;
+    default: return (b[2] >> 2) & 0x3Fu;
+  }
 }
 
 // fp8 byte -> f32 value (exact), as torch's float8 -> float32 cast
@@ -110,13 +187,41 @@ __device__ __forceinline__ float fp8_value(uint8_t c, int fmt) {
   return neg ? -mag : mag;
 }
 
+// _decode_fp4_codes: arithmetic E2M1 decode
+__device__ __forceinline__ float decode_fp4(uint32_t c) {
+  const float sign = (c & 0x8u) ? -1.0f : 1.0f;
+  const int e = (c >> 1) & 0x3;
+  const float m = static_cast<float>(c & 0x1u);
+  const float p = static_cast<float>(1 << max(e - 1, 0));
+  return sign * (e == 0 ? 0.5f * m : p * (1.0f + 0.5f * m));
+}
+
+// _decode_fp6_codes: arithmetic FP6 E3M2 / E2M3 decode
+__device__ __forceinline__ float decode_fp6(uint32_t c, const FmtSpec& f) {
+  const float sign = (c & 0x20u) ? -1.0f : 1.0f;
+  const int e = (c >> f.mant_bits) & ((1 << f.exp_bits) - 1);
+  const float m = static_cast<float>(c & ((1u << f.mant_bits) - 1u));
+  const float p = static_cast<float>(1 << max(e - 1, 0)) * pow2(1 - f.bias);
+  const float mag = e == 0 ? pow2(1 - f.bias - f.mant_bits) * m
+                           : p * (1.0f + pow2(-f.mant_bits) * m);
+  return sign * mag;
+}
+
+// value of element i of a stored row, in any format
+__device__ __forceinline__ float element_value(const uint8_t* row, int i,
+                                               const FmtSpec& f, int fmt) {
+  if (f.bits == 8) return fp8_value(row[i], fmt);
+  if (f.bits == 6) return decode_fp6(unpack_fp6(row, i), f);
+  return decode_fp4(unpack_fp4(row, i));
+}
+
 // Quantize one MX block of n bf16 values into n fp8 bytes and one E8M0
 // byte, as _quantize_rows does. -0.0 inputs are read as +0.0: the
 // reference gathers the new rows through an exact one-hot f32 matmul,
 // whose +0-initialised sum turns -0.0 into +0.0.
 __device__ __forceinline__ void quantize_block(const __nv_bfloat16* src,
                                                uint8_t* elems, uint8_t* scale,
-                                               int n, const Fp8Spec& f) {
+                                               int n, const FmtSpec& f) {
   float amax = 0.0f;
   for (int i = 0; i < n; ++i) {
     amax = fmaxf(amax, fabsf(flush(__bfloat162float(src[i]))));
@@ -128,7 +233,7 @@ __device__ __forceinline__ void quantize_block(const __nv_bfloat16* src,
     x = x == 0.0f ? 0.0f : x;
     float r = e > 0 ? x / s : 0.0f;
     r = fminf(fmaxf(r, -f.max), f.max);
-    elems[i] = fp8_bits(snap_fp8(r, f), f);
+    elems[i] = fp8_bits(snap(r, f), f);
   }
   *scale = e;
 }

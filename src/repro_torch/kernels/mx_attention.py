@@ -31,11 +31,10 @@ import torch
 from repro_torch.core import formats as F
 
 from . import build
+from .mx_quantize import quantize_rows
 
 NEG_INF = -2.0e38
 
-#: fp8 format ids of the CUDA kernel (csrc/mx_codec.cuh)
-_FMT_IDS = {"fp8_e4m3": 0, "fp8_e5m2": 1}
 #: shared memory an H100 block may use (bytes)
 _MAX_SMEM = 232448
 
@@ -61,37 +60,11 @@ def _library():
 # ---------------------------------------------------------------------------
 
 
-def _quantize_rows(x: torch.Tensor, fmt: F.ElementFormat, block_size: int):
-    """(..., D) f32 -> (fp8 bytes (..., D) uint8, scales (..., D//k) uint8).
-
-    The reference's in-kernel quantizer: exponent-field floor-log2 of the
-    block amax (not frexp), E8M0 clipped to [0, 254], ratio clipped to the
-    format's range and snapped RNE, with the reference's flushed
-    subnormals (see ``formats.flush_subnormals``).
-    """
-    x = F.flush_subnormals(x)
-    d = x.shape[-1]
-    blocked = x.reshape(*x.shape[:-1], d // block_size, block_size)
-    amax = blocked.abs().amax(dim=-1)
-    e_unb = F.floor_log2(amax) - fmt.emax + F.E8M0_BIAS
-    e = torch.where(amax > 0, e_unb, torch.zeros_like(e_unb))
-    e = e.clamp(0, 254).to(torch.uint8)
-    scale = F.e8m0_to_scale(e)[..., None]
-    ratio = torch.where(e[..., None] > 0, blocked / scale,
-                        torch.zeros_like(blocked))
-    ratio = ratio.clamp(-fmt.max, fmt.max).reshape(x.shape)
-    codes = F.snap_to_fp8_grid(ratio, fmt).to(fmt.storage_dtype)
-    return codes.view(torch.uint8), e
-
-
 def _dequant_rows(elems: torch.Tensor, scales: torch.Tensor,
                   fmt: F.ElementFormat, block_size: int) -> torch.Tensor:
     """fp8 bytes (..., D) + E8M0 (..., D//k) -> f32 (..., D)."""
-    vals = elems.view(fmt.storage_dtype).to(torch.float32)
-    d = vals.shape[-1]
-    blocked = vals.reshape(*vals.shape[:-1], d // block_size, block_size)
-    wide = blocked * F.e8m0_to_scale(scales)[..., None]
-    return F.flush_subnormals(wide).reshape(vals.shape)
+    return F.dequantize_blocks(elems.view(fmt.storage_dtype), scales, fmt,
+                               block_size)
 
 
 def _first_window_page(qpos_min: int, window, page_size: int) -> int:
@@ -172,7 +145,7 @@ def mx_attention_ragged_fused_plain(q, k_new, v_new, ke, ks, ve, vs, table,
                     # reference's one-hot f32 gather of the new rows does
                     x = F.flush_subnormals(new[i, t].to(torch.float32))
                     x = torch.where(x == 0, torch.zeros_like(x), x)
-                    codes, e = _quantize_rows(x, fmt, block_size)
+                    codes, e = quantize_rows(x, fmt, block_size)
                     elems[page, sel] = codes
                     scales[page, sel] = e
             kt = _dequant_rows(pools[0][page], pools[1][page], fmt,
@@ -238,7 +211,7 @@ def _launch(q, k_new, v_new, ke, ks, ve, vs, table, start, lens, *,
         ks.data_ptr(), ve.data_ptr(), vs.data_ptr(), table.data_ptr(),
         start.data_ptr(), lens.data_ptr(), out.data_ptr(),
         visits.data_ptr(), r, kvh, w, g, d, ps, table.shape[1], block_size,
-        _FMT_IDS[fmt_name], -1 if window is None else int(window),
+        F.FORMAT_IDS[fmt_name], -1 if window is None else int(window),
         float(softcap or 0.0), float(d ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"mx_attention_ragged_launch failed: cudaError "
@@ -264,7 +237,11 @@ def mx_attention_ragged_fused(q, k_new, v_new, ke, ks, ve, vs, page_table,
     entries clamp into the pool, and ``seq_lens`` clamps to
     ``[row_start + 1, row_start + W]``, as in the reference's wrapper.
     """
-    fmt = F.get_format(fmt_name)  # fp4/fp6 pools: NotImplementedError
+    fmt = F.get_format(fmt_name)
+    if fmt.sub_byte:
+        raise NotImplementedError(
+            f"{fmt_name} pools are not ported to the ragged kernel yet "
+            "(ROADMAP B2)")
     if page_fmts is not None or mixed_fmts is not None \
             or ke.dtype == torch.uint8:
         raise NotImplementedError(

@@ -1,17 +1,34 @@
-"""MX-aware linear layers (port of ``repro.nn.linear``), weight-only path.
+"""MX-aware linear layers (port of ``repro.nn.linear``).
 
-The reference keeps f32 master weights and fake-quantizes them inside
-every step (``core.dot.fake_quant`` along the input axis), then runs a
-bf16 product that accumulates in f32 and rounds once (``_dot_rounded``).
-The port fake-quantizes each weight ONCE, when it is loaded or
-initialised (:func:`prepare_weight`), into bf16: the same values the
-reference recomputes per step, at half the memory of f32 masters.
+Three kinds of weight reach :func:`apply`:
+
+  * a prepared weight (the serving path): the reference keeps f32 master
+    weights and fake-quantizes them inside every step
+    (``core.dot.fake_quant`` along the input axis), then runs a bf16
+    product that accumulates in f32 and rounds once (``_dot_rounded``).
+    The port fake-quantizes each weight ONCE, when it is loaded or
+    initialised (:func:`prepare_weight`), into bf16: the same values the
+    reference recomputes per step, at half the memory of f32 masters;
+  * a wide weight under ``quant.enabled=False``: the same bf16 product;
+  * a wide f32 master under an enabled weight-only ``quant``:
+    fake-quantized at use, as the reference does, then that product.
+    With ``quant.quantize_acts`` the reference runs ``qat_matmul``, which
+    waits for the training slice: the port raises ``NotImplementedError``;
+  * an ``MXTensor`` from :func:`quantize_weights`: ``core.dot.mx_dot`` in
+    ``quant.mode``, with wide bf16 activations (weight-only) or, under
+    ``quant.quantize_acts``, activations block-quantized to
+    ``quant.activation_format`` (MX x MX). ``mode="pallas"`` launches the
+    CUDA kernels on CUDA tensors and runs their plain versions on CPU
+    tensors; there is no fallback to another mode.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.core import QuantConfig, fake_quant
+from repro_torch.core import (MXTensor, QuantConfig, fake_quant, mx_dot,
+                              quantize)
 
 from . import common as C
 
@@ -33,10 +50,34 @@ def init(gen: torch.Generator, d_in: int, d_out: int, quant: QuantConfig,
     return {"w": prepare_weight(w, quant, compute_dtype)}
 
 
-def apply(params, x: torch.Tensor,
-          compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """``x @ w`` on a prepared weight."""
-    return _dot_rounded(x.to(compute_dtype), params["w"], compute_dtype)
+def apply(params, x: torch.Tensor, compute_dtype=torch.bfloat16,
+          quant: Optional[QuantConfig] = None) -> torch.Tensor:
+    """``x @ w`` under the quantization policy (see the module docstring);
+    prepared weights pass ``quant=None``."""
+    w = params["w"]
+    if isinstance(w, MXTensor):
+        if quant is None:
+            raise ValueError("MXTensor weights need the QuantConfig")
+        y = mx_dot(_activations(x, quant, compute_dtype), w, mode=quant.mode,
+                   acc_dtype=quant.acc_dtype)
+        return y.to(compute_dtype)
+    if quant is not None and quant.enabled:
+        if quant.quantize_acts:
+            raise NotImplementedError(
+                "wide weights with quantized activations take the "
+                "reference's qat_matmul, not ported yet (ROADMAP A1)")
+        w = fake_quant(w.to(torch.float32), quant.fmt, quant.block_size, 0)
+    return _dot_rounded(x.to(compute_dtype), w.to(compute_dtype),
+                        compute_dtype)
+
+
+def _activations(x: torch.Tensor, quant: QuantConfig, compute_dtype):
+    if not quant.enabled:
+        return x.to(compute_dtype)
+    if quant.quantize_acts:
+        return quantize(x.to(torch.float32), quant.activation_format,
+                        quant.block_size)
+    return x.to(torch.bfloat16)
 
 
 def _dot_rounded(x: torch.Tensor, w: torch.Tensor,
@@ -48,3 +89,12 @@ def _dot_rounded(x: torch.Tensor, w: torch.Tensor,
     construction.
     """
     return torch.matmul(x, w).to(compute_dtype)
+
+
+def quantize_weights(params, quant: QuantConfig):
+    """Wide weight leaves -> ``MXTensor`` blocked along d_in (stored
+    (d_out, d_in), the kernels' column-major B)."""
+    if not quant.enabled:
+        return params
+    return {"w": quantize(params["w"].to(torch.float32), quant.fmt,
+                          quant.block_size, axis=0)}

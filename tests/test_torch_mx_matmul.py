@@ -1,0 +1,332 @@
+"""The port's MX matmul family against the reference's kernels.
+
+``repro_torch.kernels.ops.mx_matmul`` (and the dgrad wrapper behind
+``mx_matmul_trainable``) on CPU tensors runs the kernels' plain PyTorch
+versions; ``repro.kernels`` runs the Pallas kernels in interpret mode, as
+the reference's own tests do. Both get the same MX operands: the port
+quantizes seeded numpy data (its codes equal the reference's bit for
+bit, ``tests/test_torch_formats.py``) and the bytes are carried across,
+since the reference's eager quantizer takes seconds per new shape on the
+CPU. Shapes, formats and block sizes are those of
+``tests/test_kernels.py`` and ``tests/test_kernels_extended.py``.
+
+Tolerances. f32 accumulation: rtol 1e-5, atol 1e-4, the reference's own
+bar; the two sum the same exact f32 products in another order. bf16
+accumulation: each K tile's f32 partial is rounded to bf16 and added to
+the bf16 output at the reference's points, so the two sides differ only
+where a partial that differs in its last f32 bits rounds one bf16 ulp
+apart. Two limits: more than 99% of the outputs are bit-identical, and
+every output lies within two bf16 ulps of the largest |partial| or
+|running sum| it meets in the tile loop. A skipped tile or a rounding
+point in the wrong place breaks the first; the second bounds the rest.
+
+The CUDA kernels are held to the plain versions on the card by the
+``cuda``-marked test below and by ``chip_smoke.py``. The reference is
+imported by a fixture, so that the ``cuda`` test also runs where JAX is
+not installed.
+"""
+import math
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import quantize as tquantize  # noqa: E402
+from repro_torch.kernels import mx_matmul as tmm  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+FMTS = ["fp8_e4m3", "fp8_e5m2", "fp4_e2m1"]
+RTOL, ATOL = 1e-5, 1e-4
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The reference (JAX on the CPU) and what the tests call of it."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.core.mx_tensor import MXTensor
+    from repro.kernels import mx_matmul, mx_matmul_trainable
+    from repro.kernels.mx_matmul import mx_matmul_dgrad
+
+    fp8 = {"fp8_e4m3": jnp.float8_e4m3fn, "fp8_e5m2": jnp.float8_e5m2}
+
+    def to_jax(t):
+        """The port's MXTensor as the reference's (same bytes)."""
+        raw = t.elements.contiguous().view(torch.uint8).numpy()
+        elems = raw.view(fp8[t.fmt_name]) if t.fmt_name in fp8 else raw
+        return MXTensor(jnp.asarray(elems), jnp.asarray(t.scales.numpy()),
+                        t.fmt_name, t.block_size, t.axis, t.shape)
+
+    return types.SimpleNamespace(jax=jax, jnp=jnp, mx=to_jax,
+                                 matmul=mx_matmul,
+                                 trainable=mx_matmul_trainable,
+                                 dgrad=mx_matmul_dgrad)
+
+
+def _rand(rng, shape, scale=1.0) -> np.ndarray:
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _operands(fmt, m, k, n, block=32, seed=0, a_scale=2.0, b_scale=0.5):
+    """x (m, k) f32 numpy, its MX quantization and w (k, n)'s, blocked
+    along k, as port tensors."""
+    rng = np.random.default_rng(seed)
+    x, w = _rand(rng, (m, k), a_scale), _rand(rng, (k, n), b_scale)
+    return (x, tquantize(torch.from_numpy(x), fmt, block),
+            tquantize(torch.from_numpy(w), fmt, block, axis=0))
+
+
+def bf16_acc_bound(a: torch.Tensor, b: torch.Tensor, bk: int) -> np.ndarray:
+    """Two bf16 ulps of the largest |partial| or |running sum| that each
+    output meets in the bf16 tile loop (see the module docstring); ``a``
+    (M, K) and ``b`` (K, N) are the wide f32 operands, scales folded in."""
+    a, b = a.float().cpu(), b.float().cpu()
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.bfloat16)
+    big = torch.zeros(out.shape)
+    for k0 in range(0, a.shape[1], bk):
+        p = a[:, k0:k0 + bk] @ b[k0:k0 + bk]
+        out = (out.float() + p.bfloat16().float()).bfloat16()
+        big = torch.maximum(big, torch.maximum(p.abs(), out.float().abs()))
+    big = big.numpy()
+    ulp = np.exp2(np.floor(np.log2(np.maximum(big, 1e-30))) - 7)
+    return 2 * np.where(big > 0, ulp, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# MX x MX
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("m,k,n", [(8, 32, 8), (16, 64, 128), (128, 256, 64),
+                                   (256, 1024, 128), (64, 512, 96)])
+def test_mx_matmul_vv_shapes(J, fmt, m, k, n):
+    _, xq, wq = _operands(fmt, m, k, n, seed=m + k + n)
+    want = np.asarray(J.matmul(J.mx(xq), J.mx(wq)))
+    got = tops.mx_matmul(xq, wq)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    # and the port's own Eq. (2) oracle
+    oracle = tref.mx_matmul_ref(xq.elements, xq.scales, wq.elements,
+                                wq.scales, fmt=fmt)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("block_size", [8, 16, 32, 64, 128])
+def test_mx_matmul_software_defined_block_sizes(J, block_size):
+    _, xq, wq = _operands("fp8_e4m3", 32, 256, 32, block=block_size,
+                          a_scale=1.0, b_scale=1.0)
+    want = np.asarray(J.matmul(J.mx(xq), J.mx(wq)))
+    got = tops.mx_matmul(xq, wq)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    # weight-only at the same block size
+    x = xq.dequantize()
+    want = np.asarray(J.matmul(J.jnp.asarray(x.numpy()), J.mx(wq)))
+    got = tops.mx_matmul(x, wq)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("variant", ["vv", "wo"])
+def test_mx_matmul_bf16_accumulation(J, fmt, variant):
+    # K = 1024 runs two 512-wide K tiles: two bf16 rounding points
+    m, k, n = 32, 1024, 48
+    x, xq, wq = _operands(fmt, m, k, n, seed=11, a_scale=1.0, b_scale=1.0)
+    a = J.mx(xq) if variant == "vv" else J.jnp.asarray(x)
+    ta = xq if variant == "vv" else torch.from_numpy(x)
+    want = np.asarray(J.matmul(a, J.mx(wq), acc_dtype=J.jnp.bfloat16)
+                      .astype(J.jnp.float32))
+    got = tops.mx_matmul(ta, wq, acc_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    a_wide = xq.dequantize() if variant == "vv" else torch.from_numpy(x)
+    err = np.abs(got.float().numpy() - want)
+    assert (err <= bf16_acc_bound(a_wide, wq.dequantize(), 512)).all(), \
+        err.max()
+    # the rounding points are the reference's: almost every output agrees
+    assert (err == 0).mean() > 0.99
+
+
+def test_mx_matmul_batched_lead_dims(J):
+    rng = np.random.default_rng(2)
+    x = _rand(rng, (2, 4, 8, 64))
+    wq = tquantize(torch.from_numpy(_rand(rng, (64, 32))), "fp8_e4m3", 32,
+                   axis=0)
+    xq = tquantize(torch.from_numpy(x), "fp8_e4m3", 32)
+    want = np.asarray(J.matmul(J.mx(xq), J.mx(wq)))
+    got = tops.mx_matmul(xq, wq)
+    assert got.shape == (2, 4, 8, 32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    got_wo = tops.mx_matmul(torch.from_numpy(x), wq)
+    np.testing.assert_allclose(
+        got_wo.numpy(), np.asarray(J.matmul(J.jnp.asarray(x), J.mx(wq))),
+        rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# weight-only
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("m,k,n", [(8, 64, 8), (64, 512, 96), (128, 256, 128)])
+def test_mx_matmul_wo_shapes(J, fmt, m, k, n):
+    x, _, wq = _operands(fmt, m, k, n, seed=3 * m + n, a_scale=1.0,
+                         b_scale=1.0)
+    want = np.asarray(J.matmul(J.jnp.asarray(x), J.mx(wq)))
+    got = tops.mx_matmul(torch.from_numpy(x), wq)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    oracle = tref.mx_matmul_wo_ref(torch.from_numpy(x), wq.elements,
+                                   wq.scales, fmt=fmt)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    # bf16 activations, as the weight-only linear layer feeds them
+    xb = torch.from_numpy(x).bfloat16()
+    want = np.asarray(J.matmul(J.jnp.asarray(xb.float().numpy())
+                               .astype(J.jnp.bfloat16), J.mx(wq)))
+    got = tops.mx_matmul(xb, wq)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# dgrad and the trainable entry point
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("m,k,n,block", [(8, 64, 32, 32), (64, 512, 96, 32),
+                                         (32, 256, 64, 8),
+                                         (32, 256, 64, 64)])
+def test_mx_dgrad_vs_reference_kernel(J, fmt, m, k, n, block):
+    rng = np.random.default_rng(m + k + n + block)
+    w, dy = _rand(rng, (k, n)), _rand(rng, (m, n))
+    tw = tquantize(torch.from_numpy(w), fmt, block, axis=0)
+    wq = J.mx(tw)
+    want = np.asarray(J.dgrad(J.jnp.asarray(dy), wq.elements, wq.scales,
+                             fmt_name=fmt, block_size=block,
+                             bm=tops._tile(m, 128), bn=tops._tile(n, 128),
+                             bk=max(tops._tile(k, 512), block),
+                             interpret=True))
+    got = tmm.mx_matmul_dgrad(torch.from_numpy(dy), tw.elements, tw.scales,
+                              fmt_name=fmt, block_size=block,
+                              bn=tops._tile(n, 128))
+    assert got.shape == (m, k) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_mx_matmul_trainable_dx_matches_jax_grad(J, fmt):
+    rng = np.random.default_rng(21)
+    x = _rand(rng, (2, 8, 64))
+    tw = tquantize(torch.from_numpy(_rand(rng, (64, 48))), fmt, 32, axis=0)
+    wq = J.mx(tw)
+    dy = _rand(rng, (2, 8, 48))
+
+    def loss(v):
+        return J.jnp.sum(J.trainable(v, wq, fmt, 32, J.jnp.float32)
+                       * J.jnp.asarray(dy))
+
+    want = np.asarray(J.jax.grad(loss)(J.jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = tops.mx_matmul_trainable(xt, tw, fmt, 32)
+    want_y = J.trainable(J.jnp.asarray(x), wq, fmt, 32, J.jnp.float32)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               rtol=RTOL, atol=ATOL)
+    y.backward(torch.from_numpy(dy))
+    assert xt.grad.dtype == torch.float32
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# what the kernels refuse
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt", ["fp6_e3m2", "fp6_e2m3"])
+def test_fp6_operands_raise(fmt):
+    w = tquantize(torch.ones(64, 8), fmt, 32, axis=0)
+    with pytest.raises(ValueError):
+        tops.mx_matmul(torch.ones(4, 64), w)
+    with pytest.raises(ValueError):
+        tops.mx_matmul(tquantize(torch.ones(4, 64), fmt, 32), w)
+    with pytest.raises(ValueError):
+        tmm.mx_matmul_dgrad(torch.ones(4, 8), w.elements, w.scales,
+                            fmt_name=fmt, bn=8)
+
+
+def test_mismatched_or_misplaced_operands_raise():
+    w = tquantize(torch.ones(64, 8), "fp8_e4m3", 32, axis=0)
+    with pytest.raises(ValueError, match="configs differ"):  # e5m2 x e4m3
+        tops.mx_matmul(tquantize(torch.ones(4, 64), "fp8_e5m2", 32), w)
+    with pytest.raises(ValueError, match="configs differ"):  # block sizes
+        tops.mx_matmul(tquantize(torch.ones(4, 64), "fp8_e4m3", 16), w)
+    with pytest.raises(ValueError, match="axis 0"):
+        tops.mx_matmul(torch.ones(4, 8),
+                       tquantize(torch.ones(8, 64), "fp8_e4m3", 32))
+    for a in (torch.ones(4, 32), tquantize(torch.ones(4, 32), "fp8_e4m3",
+                                           32)):
+        with pytest.raises(ValueError):  # K of a and b differ
+            tops.mx_matmul(a, w)
+
+
+def test_tile_choice_is_the_reference_one():
+    assert [tops._tile(k, 512) for k in (4096, 14336, 1024, 96, 40, 6)] == \
+        [512, 512, 512, 32, 8, 6]
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(0)
+    bf16_same = bf16_outputs = 0
+    for fmt in FMTS:
+        for (m, k, n, block) in [(8, 64, 8, 32), (70, 1024, 130, 32),
+                                 (64, 512, 96, 16), (33, 256, 64, 64)]:
+            x = torch.from_numpy(_rand(rng, (m, k)))
+            w = tquantize(torch.from_numpy(_rand(rng, (k, n))), fmt, block,
+                          axis=0)
+            xq = tquantize(x, fmt, block)
+            dy = torch.from_numpy(_rand(rng, (m, n)))
+            bk = max(tops._tile(k, 512), block)
+            cuda = [t.cuda() for t in (x, xq.elements, xq.scales, w.elements,
+                                       w.scales, dy)]
+            mag = (x.abs() @ w.dequantize().abs()).numpy()
+            wide = {"wo": x.bfloat16(), "vv": xq.dequantize()}
+            for acc in (torch.float32, torch.bfloat16):
+                kw = dict(fmt_name=fmt, block_size=block, acc_dtype=acc,
+                          bk=bk)
+                for variant, got, want in (
+                        ("wo",
+                         tmm.mx_matmul_wo(cuda[0].bfloat16(), *cuda[3:5],
+                                          **kw),
+                         tmm.mx_matmul_wo_plain(x.bfloat16(), w.elements,
+                                                w.scales, **kw)),
+                        ("vv", tmm.mx_matmul_vv(*cuda[1:5], **kw),
+                         tmm.mx_matmul_vv_plain(xq.elements, xq.scales,
+                                                w.elements, w.scales, **kw))):
+                    err = (got.cpu().float() - want.float()).abs().numpy()
+                    if acc == torch.float32:
+                        bound = 1e-5 * mag
+                    else:
+                        bound = bf16_acc_bound(wide[variant],
+                                               w.dequantize(), bk)
+                        bf16_same += int((err == 0).sum())
+                        bf16_outputs += err.size
+                    assert (err <= bound + 1e-30).all(), (fmt, m, k, n, acc)
+            got = tmm.mx_matmul_dgrad(cuda[5], *cuda[3:5], fmt_name=fmt,
+                                      block_size=block, bn=tops._tile(n, 128))
+            want = tmm.mx_matmul_dgrad_plain(dy, w.elements, w.scales,
+                                             fmt_name=fmt, block_size=block,
+                                             bn=tops._tile(n, 128))
+            mag = (dy.abs() @ w.dequantize().abs().T).numpy()
+            assert ((got.cpu() - want).abs().numpy()
+                    <= 1e-5 * mag + 1e-30).all(), (fmt, m, k, n)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(got.sum()))
+    # bf16 accumulation rounds where the plain version rounds
+    assert bf16_same > 0.99 * bf16_outputs
