@@ -5,19 +5,29 @@
 
 Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit. It imports ``repro_torch`` from ``src/`` (never JAX, never
-the JAX package) and runs six phases; any failure raises, so the exit
+the JAX package) and runs its phases; any failure raises, so the exit
 code is not 0 and no result line is printed:
 
   1. build every CUDA kernel of the path from ``src/repro_torch/kernels/
      csrc`` with nvcc (one process per source, in parallel);
-  2. hold each kernel against its plain PyTorch version on the card at
-     granite-8b's attention shapes, fp8 e4m3 and e5m2, and time both;
+  2. hold the ragged kernel against its plain PyTorch version on the card
+     at granite-8b's attention shapes: fp8 e4m3 and e5m2 pools, packed
+     fp4 pools (blocks 32 and 16) and a mixed-format (tiered) pool whose
+     resident pages the repack wrote as fp8, fp6 and fp4; time each;
+  2b. hold the page repack kernel bit-exact against its plain version on
+     a granite-shaped tiered layer pool, every destination format, mixed
+     sources, padding, zero and subnormal blocks; time one 36-layer
+     dispatch;
   3. serve the same prompts with a reduced granite on the card and on the
-     CPU (where the plain version runs) and require equal greedy streams;
+     CPU (where the plain versions run) and require equal greedy streams,
+     with the default cache and with an aggressively tiered one (equal
+     per-step page formats too);
   4. serve granite-8b at full width (36 layers, random seeded weights)
      through ``repro_torch.launch.serve`` with the ``ServeConfig`` defaults,
      with every kernel count reset just before and read just after; then
      split one full-width decode step's time into the kernel and the rest;
+     then serve the same prompts with ``--tiered`` (the reference's
+     ``TierPolicy`` defaults), counts reset and read the same way;
   5. the MX dot products at granite-8b widths: hold the quantize kernel
      bit-exact and the weight-only, MX x MX and dgrad matmul kernels
      within tolerance against their plain versions at one layer's seven
@@ -32,6 +42,7 @@ It exits 1 without a result when no CUDA card is visible.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -55,6 +66,14 @@ GAP_TOL_ULPS = 1  # reduced run: every greedy pick must lead by more
 #: port-init seed of phase 3's reduced model: every greedy pick of its
 #: workload leads the runner-up by more than GAP_TOL_ULPS (asserted)
 REDUCED_SEED = 11
+#: the same for phase 3's tiered run: the smallest seed from REDUCED_SEED
+#: up whose tiered CPU run leads by more than GAP_TOL_ULPS at every pick
+#: (narrow pages move logits, and seeds 11-38 tie within one ulp there)
+TIERED_SEED = 39
+#: phase 3's tiered policy: demote after one idle step, go cold after
+#: three, up to three pages a step
+AGGRESSIVE_TIERS = dict(hot_steps=1, cold_steps=3, repack_pages_per_step=3)
+MIXED = ("fp8_e4m3", "fp6_e3m2", "fp4_e2m1")  # the tier ladder
 
 # granite-8b attention at the main path's shapes: max_slots 8, one
 # 64-token chunk per row, 16-token pages, MX block 32
@@ -104,37 +123,62 @@ def cuda_ms(fn, reps: int, before=None) -> float:
 # ---------------------------------------------------------------------------
 
 
-def ragged_inputs(fmt: str, gen: torch.Generator):
+def ragged_inputs(fmt: str, gen: torch.Generator, block: int = BLOCK,
+                  mixed: bool = False, dev: str = "cuda"):
+    """One ragged step's inputs at granite shapes. ``mixed``: a tiered pool
+    of uint8 rows; write-window pages hold fp8, resident pages cycle
+    through fp8, fp6 e3m2 and fp4 e2m1, repacked from fp8 by the port's
+    repack (plain version), with ``page_fmts`` their ids."""
+    from repro_torch.core import formats as F
     from repro_torch.core import quantize
+    from repro_torch.kernels.mx_repack import mx_repack_pages_plain
 
     table = torch.full((R, P), -1, dtype=torch.int32)
     perm = torch.randperm(R * P, generator=gen)
     starts, lens, off = [], [], 0
+    writes = set()
     for i, (start, n_new) in enumerate(ROWS):
         if n_new:
             pages = -(-(start + n_new) // PS)
             table[i, :pages] = perm[off:off + pages]
+            writes.update(table[i, start // PS:pages].tolist())
             off += pages
         starts.append(start)
         lens.append(start + max(n_new, 1))
     npages = R * P + 1  # + the trash page
+    writes.add(npages - 1)  # inactive rows write it
 
     def pool():
         x = quantize(torch.randn(npages * PS * KVH, D, generator=gen), fmt,
-                     BLOCK)
-        return (x.elements.reshape(npages, PS, KVH, D),
-                x.scales.reshape(npages, PS, KVH, D // BLOCK))
+                     block)
+        return (x.elements.reshape(npages, PS, KVH, -1),
+                x.scales.reshape(npages, PS, KVH, D // block))
 
     ke, ks = pool()
     ve, vs = pool()
-    dev = "cuda"
+    pools = [t.contiguous().to(dev) for t in (ke, ks, ve, vs)]
+    page_fmts = None
+    if mixed:
+        pools = [t.view(torch.uint8) for t in pools]
+        ids = [F.FORMAT_IDS[fmt] if p in writes else
+               F.FORMAT_IDS[MIXED[p % 3]] for p in range(npages)]
+        for name in MIXED[1:]:
+            pages = [p for p in range(npages) if ids[p] == F.FORMAT_IDS[name]]
+            mx_repack_pages_plain(
+                *pools, torch.tensor(pages, device=dev),
+                torch.full((len(pages),), F.FORMAT_IDS[fmt], device=dev),
+                len(pages), dst_fmt_name=name, mixed_fmts=MIXED,
+                block_size=block)
+        page_fmts = torch.tensor(ids, dtype=torch.int32, device=dev)
     return dict(
         q=torch.randn(R, KVH, W, G, D, generator=gen).bfloat16().to(dev),
         k_new=torch.randn(R, W, KVH, D, generator=gen).bfloat16().to(dev),
         v_new=torch.randn(R, W, KVH, D, generator=gen).bfloat16().to(dev),
-        pools=[t.contiguous().to(dev) for t in (ke, ks, ve, vs)],
-        table=table.to(dev), starts=torch.tensor(starts, device=dev),
-        lens=torch.tensor(lens, device=dev))
+        pools=pools, table=table.to(dev),
+        starts=torch.tensor(starts, device=dev),
+        lens=torch.tensor(lens, device=dev), block=block,
+        page_fmts=page_fmts, fmts=None if page_fmts is None
+        else page_fmts.tolist())
 
 
 def _call_args(inp, pools) -> tuple:
@@ -142,26 +186,44 @@ def _call_args(inp, pools) -> tuple:
             inp["starts"], inp["lens"])
 
 
-def ragged_bound() -> tuple:
+def _kw(inp, fmt: str) -> dict:
+    kw = dict(fmt_name=fmt, block_size=inp["block"])
+    if inp["page_fmts"] is not None:
+        kw.update(page_fmts=inp["page_fmts"], mixed_fmts=MIXED)
+    return kw
+
+
+def ragged_bound(fmt: str = "fp8_e4m3", block: int = BLOCK,
+                 inp=None) -> tuple:
     """(bound_ms, bound_by) of one call: each input read once and each
-    output written once, against the page walk this data needs."""
-    nb = D // BLOCK
-    page_bytes = PS * KVH * (D + nb)  # one K or V page: fp8 + E8M0
-    walked = rows_written = qk = pv = 0
-    for start, n_new in ROWS:
+    output written once, against the page walk this data needs. A mixed
+    pool's resident pages count the row prefix their format fills."""
+    from repro_torch.core import formats as F
+
+    nb = D // block
+    wbytes = F.get_format(fmt).storage_len(D)  # bytes of a written row
+    walked_bytes = 0  # one K or V page tile of every page walked
+    rows_written = qk = pv = 0
+    for i, (start, n_new) in enumerate(ROWS):
         seq_len = start + max(n_new, 1)
         pages = min(-(-seq_len // PS), P)
-        walked += pages
+        for p in range(pages):
+            ed = wbytes
+            if inp is not None and inp["fmts"] is not None:
+                page = int(inp["table"][i, p]) if n_new else R * P
+                ed = F.get_format(F.FORMAT_BY_ID[inp["fmts"][page]]) \
+                    .storage_len(D)
+            walked_bytes += PS * KVH * (ed + nb)
         rows_written += max(n_new, 1)
         keys = pages * PS
-        qk += 2 * KVH * W * G * keys * D  # bf16 q x exact-in-bf16 fp8 keys
+        qk += 2 * KVH * W * G * keys * D  # bf16 q x exact-in-bf16 keys
         pv += 2 * KVH * W * G * keys * D  # f32 probabilities x values
     read = (2 * R * KVH * W * G * D  # q
             + 2 * 2 * R * W * KVH * D  # k_new, v_new
-            + 2 * walked * page_bytes  # K and V pages attended
+            + 2 * walked_bytes  # K and V pages attended
             + 4 * (R * P + 2 * R))  # table, row_start, seq_lens
     written = (4 * R * KVH * W * G * D  # f32 out
-               + 2 * rows_written * KVH * (D + nb)  # merged K/V rows
+               + 2 * rows_written * KVH * (wbytes + nb)  # merged K/V rows
                + 4 * R * KVH)  # visits
     bytes_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
     ops_ms = 1e3 * (qk / BF16_FLOPS + pv / F32_FLOPS)
@@ -169,39 +231,59 @@ def ragged_bound() -> tuple:
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def check_ragged_case(mxa, inp, fmt: str, label: str) -> float:
+    """Kernel against plain version on the same inputs: pool bytes
+    identical but for the trash page, visits exact, out within OUT_TOL.
+    Returns max |out - plain| over the live rows."""
+    live = [i for i, (_, n) in enumerate(ROWS) if n]
+    trash = R * P  # scratch page: inactive rows write it concurrently
+    kernel_pools = [t.clone() for t in inp["pools"]]
+    out, _, visits = mxa.mx_attention_ragged_fused(
+        *_call_args(inp, kernel_pools), **_kw(inp, fmt), debug_visits=True)
+    plain_pools = [t.clone() for t in inp["pools"]]
+    table, starts, lens = mxa.normalize_rows(
+        inp["table"], inp["starts"], inp["lens"], trash + 1, W)
+    want, want_visits = mxa.mx_attention_ragged_fused_plain(
+        inp["q"], inp["k_new"], inp["v_new"], *plain_pools, table, starts,
+        lens, **_kw(inp, fmt))
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    for name, got, exp in zip(("ke", "ks", "ve", "vs"), kernel_pools,
+                              plain_pools):
+        if not torch.equal(got.view(torch.uint8)[:trash],
+                           exp.view(torch.uint8)[:trash]):
+            raise AssertionError(f"{label}: {name} pool bytes differ")
+        if name == "ke" and torch.equal(got.view(torch.uint8),
+                                        inp["pools"][0].view(torch.uint8)):
+            raise AssertionError(f"{label}: the write window was not written")
+    if not torch.equal(visits, want_visits):
+        raise AssertionError(f"{label}: visit counts differ")
+    err = float((out[live] - want[live]).abs().max())
+    if not err <= OUT_TOL:
+        raise AssertionError(f"{label}: out differs by {err} > {OUT_TOL}")
+    log(f"ragged kernel {label}: pool bytes identical (all but the trash "
+        f"page), visits exact, max |out - plain| {err:.3g}")
+    return err
+
+
 def check_ragged_kernel() -> dict:
     from repro_torch.kernels import mx_attention as mxa
 
     gen = torch.Generator().manual_seed(0)
-    live = [i for i, (_, n) in enumerate(ROWS) if n]
-    trash = R * P  # scratch page: inactive rows write it concurrently
+    trash = R * P
     worst = 0.0
     for fmt in ("fp8_e4m3", "fp8_e5m2"):
-        inp = ragged_inputs(fmt, gen)
-        kernel_pools = [t.clone() for t in inp["pools"]]
-        out, _, visits = mxa.mx_attention_ragged_fused(
-            *_call_args(inp, kernel_pools), fmt_name=fmt, block_size=BLOCK,
-            debug_visits=True)
-        plain_pools = [t.clone() for t in inp["pools"]]
-        table, starts, lens = mxa.normalize_rows(
-            inp["table"], inp["starts"], inp["lens"], trash + 1, W)
-        want, want_visits = mxa.mx_attention_ragged_fused_plain(
-            inp["q"], inp["k_new"], inp["v_new"], *plain_pools, table,
-            starts, lens, fmt_name=fmt, block_size=BLOCK)
-        torch.cuda.synchronize()
-        for name, got, exp in zip(("ke", "ks", "ve", "vs"), kernel_pools,
-                                  plain_pools):
-            if not torch.equal(got.view(torch.uint8)[:trash],
-                               exp.view(torch.uint8)[:trash]):
-                raise AssertionError(f"{fmt}: {name} pool bytes differ")
-        if not torch.equal(visits, want_visits):
-            raise AssertionError(f"{fmt}: visit counts differ")
-        err = float((out[live] - want[live]).abs().max())
-        if not err <= OUT_TOL:
-            raise AssertionError(f"{fmt}: out differs by {err} > {OUT_TOL}")
-        worst = max(worst, err)
-        log(f"ragged kernel {fmt}: pool bytes identical (all but the trash "
-            f"page), visits exact, max |out - plain| {err:.3g}")
+        worst = max(worst, check_ragged_case(mxa, ragged_inputs(fmt, gen),
+                                             fmt, fmt))
+    # key in the kernels line -> (log label, pool format, block, mixed)
+    variants = {"fp4": ("fp4 e2m1 block 32", "fp4_e2m1", 32, False),
+                "fp4_block16": ("fp4 e2m1 block 16", "fp4_e2m1", 16, False),
+                "mixed": ("mixed fp8/fp6/fp4", "fp8_e4m3", BLOCK, True)}
+    timed = {}
+    for key, (label, fmt, block, mixed) in variants.items():
+        inp = ragged_inputs(fmt, gen, block, mixed)
+        worst = max(worst, check_ragged_case(mxa, inp, fmt, label))
+        timed[key] = (label, inp, fmt)
     # time the main path's format (e4m3): kernel vs plain, both on the card
     inp = ragged_inputs("fp8_e4m3", gen)
     pools = [t.clone() for t in inp["pools"]]
@@ -221,12 +303,167 @@ def check_ragged_kernel() -> dict:
     log(f"ragged kernel time {ms:.4f} ms (median of 25), plain version "
         f"{plain_ms:.3f} ms (median of 5), bound {bound_ms:.4f} ms "
         f"({bound_by}); no single PyTorch call computes this function")
-    return {"name": "mx_attention_ragged_fused", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/mx_attention_ragged.cu",
-            "replaces": "src/repro/kernels/mx_attention.py:1340",
-            "launches": None,  # set by the main path's run (phase 4)
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    entry = {"name": "mx_attention_ragged_fused", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/mx_attention_ragged.cu",
+             "replaces": "src/repro/kernels/mx_attention.py:1340",
+             "launches": None,  # set by the main path's run (phase 4)
+             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    # the other pool kinds beside it, same rows, in the same call
+    for key, (label, vinp, fmt) in timed.items():
+        vpools = [t.clone() for t in vinp["pools"]]
+        run = lambda: mxa.mx_attention_ragged_fused(  # noqa: E731
+            *_call_args(vinp, vpools), **_kw(vinp, fmt))
+        for _ in range(3):
+            run()
+        vms = cuda_ms(run, 25)
+        vbound, vby = ragged_bound(fmt, vinp["block"], vinp)
+        entry[f"ms_{key}"] = vms
+        entry[f"bound_ms_{key}"] = vbound
+        log(f"ragged kernel time, {label} pool: {vms:.4f} ms (median of "
+            f"25; fp8 e4m3 {ms:.4f} ms), bound {vbound:.4f} ms ({vby})")
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the page repack kernel against its plain version
+# ---------------------------------------------------------------------------
+
+REPACK_PAGES = 200  # a tiered layer pool at granite's KV shapes
+REPACK_LIST = 8  # TierPolicy.repack_list_len
+
+
+def repack_pool(gen, dev: str = "cuda") -> tuple:
+    """(pools, page formats) of one granite-shaped tiered layer pool:
+    pages cycle through fp8, fp6 e3m2 and fp4 e2m1 (repacked from fp8 by
+    the plain version). Pages 0 (fp8) and 1 (fp6) then get an all-zero
+    block, E8M0 byte 0 under nonzero codes, and a scale so small that the
+    decoded values fall to the bottom of the f32 range (below it, they
+    flush to zero)."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import quantize
+    from repro_torch.kernels.mx_repack import mx_repack_pages_plain
+
+    pools = []
+    for _ in range(2):
+        q = quantize(torch.randn(REPACK_PAGES * PS * KVH, D, generator=gen)
+                     * 3.0, "fp8_e4m3", BLOCK)
+        pools += [q.elements.view(torch.uint8).reshape(
+            REPACK_PAGES, PS, KVH, D).contiguous().to(dev),
+            q.scales.reshape(REPACK_PAGES, PS, KVH,
+                             D // BLOCK).contiguous().to(dev)]
+    fmts = [F.FORMAT_IDS[MIXED[p % 3]] for p in range(REPACK_PAGES)]
+    for name in MIXED[1:]:
+        pages = [p for p in range(REPACK_PAGES)
+                 if fmts[p] == F.FORMAT_IDS[name]]
+        mx_repack_pages_plain(
+            *pools, torch.tensor(pages, device=dev),
+            torch.zeros(len(pages), dtype=torch.int32, device=dev),
+            len(pages), dst_fmt_name=name, mixed_fmts=MIXED,
+            block_size=BLOCK)
+    for elems, scales in (pools[:2], pools[2:]):
+        for page in (0, 1):
+            elems[page, 0, :, :BLOCK] = 0  # all-zero block ...
+            scales[page, 0, :, 0] = 0  # ... with E8M0 byte 0
+            scales[page, 1, :, 1] = 0  # byte 0 under nonzero codes
+            scales[page, 2, :, 2] = 3  # decoded values near 2^-124
+    return pools, fmts
+
+
+def repack_cases(fmts) -> list:
+    """(destination, page ids, source ids, count): five live entries of
+    mixed source formats and three padding entries repeating the last
+    live one, for every destination; the widening case lists narrow
+    pages."""
+    cases = []
+    for j, dst in enumerate(("fp6_e3m2", "fp6_e2m3", "fp4_e2m1",
+                             "fp8_e4m3")):
+        if dst.startswith("fp8"):
+            live = [1, 2, 4, 5, 7 + 3 * j]
+        else:
+            live = [0, 1, 3 + 3 * j, 4 + 3 * j, 5 + 3 * j]
+        ids = live + [live[-1]] * (REPACK_LIST - len(live))
+        cases.append((dst, ids, [fmts[p] for p in ids], len(live)))
+    return cases
+
+
+def check_repack_kernel(dev: str = "cuda") -> None:
+    from repro_torch.kernels import mx_repack as mr
+
+    gen = torch.Generator().manual_seed(2)
+    pools, fmts = repack_pool(gen, dev)
+    for dst, ids, src, count in repack_cases(fmts):
+        args = (torch.tensor(ids, dtype=torch.int32, device=dev),
+                torch.tensor(src, dtype=torch.int32, device=dev), count)
+        kernel_pools = [t.clone() for t in pools]
+        mr.mx_repack_pages(*kernel_pools, *args, dst_fmt_name=dst,
+                           mixed_fmts=MIXED, block_size=BLOCK)
+        plain_pools = [t.clone() for t in pools]
+        mr.mx_repack_pages_plain(*plain_pools, *args, dst_fmt_name=dst,
+                                 mixed_fmts=MIXED, block_size=BLOCK)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        for name, got, exp, old in zip(("ke", "ks", "ve", "vs"),
+                                       kernel_pools, plain_pools, pools):
+            if not torch.equal(got, exp):
+                raise AssertionError(f"repack to {dst}: {name} bytes differ")
+            if name == "ke" and torch.equal(got, old):
+                raise AssertionError(f"repack to {dst}: nothing changed")
+    log(f"repack kernel: every pool byte identical to the plain version on "
+        f"a ({REPACK_PAGES}, {PS}, {KVH}, {D}) tiered pool, block {BLOCK}, "
+        "to fp6 e3m2, fp6 e2m3, fp4 e2m1 and fp8 e4m3 (widening), from "
+        "mixed sources, 5 live entries of 8, zero and subnormal blocks")
+
+
+def time_repack_kernel(layers: int = 36) -> dict:
+    """One engine repack dispatch: 8 fp8 pages of each of ``layers``
+    granite-shaped layer pools to fp6 e3m2 (one launch per layer), with
+    the pages' bytes put back before every run (untimed)."""
+    from repro_torch.kernels import mx_repack as mr
+
+    gen = torch.Generator().manual_seed(3)
+    pools, fmts = repack_pool(gen)
+    ids = [p for p in range(REPACK_PAGES) if fmts[p] == 0][:REPACK_LIST]
+    ids_t = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    src_t = torch.zeros(REPACK_LIST, dtype=torch.int32, device="cuda")
+    layer_pools = [[t.clone() for t in pools] for _ in range(layers)]
+    saved = [[t[ids_t.long()].clone() for t in lp] for lp in layer_pools]
+
+    def restore():
+        for lp, sv in zip(layer_pools, saved):
+            for t, s in zip(lp, sv):
+                t[ids_t.long()] = s
+
+    def dispatch(fn):
+        for lp in layer_pools:
+            fn(*lp, ids_t, src_t, REPACK_LIST, dst_fmt_name="fp6_e3m2",
+               mixed_fmts=MIXED, block_size=BLOCK)
+
+    kernel = lambda: dispatch(mr.mx_repack_pages)  # noqa: E731
+    plain = lambda: dispatch(mr.mx_repack_pages_plain)  # noqa: E731
+    for fn in (kernel, plain):
+        restore()
+        fn()
+    ms = cuda_ms(kernel, 25, restore)
+    plain_ms = cuda_ms(plain, 3, restore)
+    nb = D // BLOCK
+    page = PS * KVH * (D + nb)  # one K or V page: codes + E8M0
+    moved = layers * REPACK_LIST * 2 * (page + page)  # read fp8, write rows
+    moved += layers * 2 * 4 * REPACK_LIST  # ids, source formats
+    bound_ms = 1e3 * moved / HBM_BYTES_PER_S
+    log(f"repack dispatch ({layers} layers x {REPACK_LIST} pages, fp8 -> "
+        f"fp6 e3m2): kernel {ms:.4f} ms (median of 25, {layers} launches), "
+        f"plain {plain_ms:.2f} ms (median of 3), bound {bound_ms:.5f} ms "
+        "(bytes); no single PyTorch call computes this function")
+    return {"name": "mx_repack_pages", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mx_repack.cu",
+            "replaces": "src/repro/kernels/mx_repack.py:132",
+            "launches": None,  # set by the tiered main-path run (phase 4)
+            "max_abs_err": 0.0, "bit_exact": True, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"{layers} layers x {REPACK_LIST} pages of ({PS}, "
+                     f"{KVH}, {D}), fp8 -> fp6_e3m2"}
 
 
 # ---------------------------------------------------------------------------
@@ -244,20 +481,29 @@ def reduced_streams(device: str, params, cfg, prompts):
     return [out[i] for i in ids], eng.cache_stats()
 
 
-def check_reduced_parity() -> None:
+def reduced_config():
     from repro_torch.configs import get_reduced
-    from repro_torch.nn import model
 
     cfg = get_reduced("granite-8b")
-    cfg = cfg.replace(quant=cfg.quant.replace(quantize_acts=False,
-                                              quantize_kv_cache=True))
+    return cfg.replace(quant=cfg.quant.replace(quantize_acts=False,
+                                               quantize_kv_cache=True))
+
+
+def reduced_prompts(cfg) -> list:
+    rng = np.random.default_rng(0)
+    head = rng.integers(0, cfg.vocab_size, 32)
+    return [np.concatenate([head, rng.integers(0, cfg.vocab_size, n)])
+            for n in (8, 40, 17, 33, 5, 50, 24)]
+
+
+def check_reduced_parity() -> None:
+    from repro_torch.nn import model
+
+    cfg = reduced_config()
     params = model.init(cfg, torch.Generator().manual_seed(REDUCED_SEED),
                         "cpu")
     on_card = _to_device(params, "cuda")
-    rng = np.random.default_rng(0)
-    head = rng.integers(0, cfg.vocab_size, 32)
-    prompts = [np.concatenate([head, rng.integers(0, cfg.vocab_size, n)])
-               for n in (8, 40, 17, 33, 5, 50, 24)]
+    prompts = reduced_prompts(cfg)
     want, cpu_stats = reduced_streams("cpu", params, cfg, prompts)
     got, stats = reduced_streams("cuda", on_card, cfg, prompts)
     if not cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
@@ -278,6 +524,75 @@ def check_reduced_parity() -> None:
         "bf16 ulps)")
 
 
+def tiered_streams(device: str, params, cfg, prompts) -> tuple:
+    """The reduced workload through an aggressively tiered engine, stepped
+    by hand: (streams, stats, page formats after every step, whether an
+    fp4 page was live at some step)."""
+    from repro_torch.serve import ServeConfig, ServeEngine, TierPolicy
+
+    eng = ServeEngine(params, cfg, ServeConfig(
+        max_seq=96, max_slots=3, tiered=True,
+        tier_policy=TierPolicy(**AGGRESSIVE_TIERS)), device=device)
+    ids = [eng.submit(p, 6) for p in prompts]
+    history, fp4_live = [], False
+    more = True
+    while more:
+        more = eng.step()
+        history.append(eng.page_fmts.copy())
+        pool = eng.scheduler.pool
+        fp4_live |= any(pool.ref(p) > 0 and eng.page_fmts[p] == 4
+                        for p in range(eng.num_pages))
+    out = eng.run()  # drained already: collects the finished requests
+    return [out[i] for i in ids], eng.cache_stats(), history, fp4_live
+
+
+def check_reduced_tiered_parity(card: str = "cuda") -> None:
+    """Phase 3's tiered run: the card against the CPU under the aggressive
+    policy; streams and every step's page formats equal."""
+    from repro_torch.kernels import mx_attention_ragged_fused, \
+        mx_repack_pages
+    from repro_torch.nn import model
+
+    cfg = reduced_config()
+    params = model.init(cfg, torch.Generator().manual_seed(TIERED_SEED),
+                        "cpu")
+    prompts = reduced_prompts(cfg)
+    want, cpu_stats, cpu_hist, _ = tiered_streams("cpu", params, cfg,
+                                                  prompts)
+    if not cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
+        raise AssertionError("tiered reduced run has a near-tie greedy pick: "
+                             f"{cpu_stats['min_top2_gap_ulps']} ulps")
+    ragged0 = mx_attention_ragged_fused.launches
+    repack0 = mx_repack_pages.launches
+    got, stats, hist, fp4_live = tiered_streams(
+        card, _to_device(params, card), cfg, prompts)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            k = int(np.flatnonzero(g != w)[0])
+            raise AssertionError(f"tiered request {i}: card and CPU streams "
+                                 f"part at position {k}")
+    if len(hist) != len(cpu_hist) or any(
+            not np.array_equal(a, b) for a, b in zip(hist, cpu_hist)):
+        raise AssertionError("tiered run: page formats differ between card "
+                             "and CPU")
+    if not stats["repacked_pages"] > 0 or not fp4_live:
+        raise AssertionError(f"tiered run repacked {stats['repacked_pages']} "
+                             f"pages, fp4 live at some step: {fp4_live}")
+    layers = cfg.num_layers
+    if card == "cuda" and (
+            mx_attention_ragged_fused.launches - ragged0
+            != stats["ragged_steps"] * layers
+            or mx_repack_pages.launches - repack0
+            != stats["repack_dispatches"] * layers):
+        raise AssertionError("tiered reduced run: launch counts off")
+    log(f"reduced granite, tiered {AGGRESSIVE_TIERS}: {len(prompts)} "
+        f"requests, {stats['repacked_pages']} pages repacked in "
+        f"{stats['repack_dispatches']} dispatches, an fp4 page live at some "
+        f"step; streams and every step's page formats equal on card and CPU "
+        f"(seed {TIERED_SEED}, smallest top-2 lead "
+        f"{cpu_stats['min_top2_gap_ulps']:.0f} bf16 ulps)")
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -291,13 +606,20 @@ def _to_device(tree, device):
 # ---------------------------------------------------------------------------
 
 
+FULL_ARGV = ["--arch", "granite-8b", "--batch", "8", "--prompt-len", "236",
+             "--shared-prefix", "64", "--ragged"]
+#: the tiered run's length: with 40 new tokens the prompt pages the prefix
+#: tree keeps age past cold_steps (32) while some are still mid-tier at the
+#: end (with 48 every one of them reaches fp4 before the batch drains)
+TIERED_NEW_TOKENS = 40
+
+
 def serve_full_width() -> dict:
-    from repro_torch.kernels import mx_attention_ragged_fused
+    from repro_torch.kernels import mx_attention_ragged_fused, \
+        mx_repack_pages
     from repro_torch.launch import serve
 
-    argv = ["--arch", "granite-8b", "--batch", "8", "--prompt-len", "236",
-            "--shared-prefix", "64", "--ragged", "--new-tokens", "32"]
-    args = serve.parse_args(argv)
+    args = serve.parse_args(FULL_ARGV + ["--new-tokens", "32"])
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     cfg, engine = serve.build_engine(args)
@@ -308,6 +630,7 @@ def serve_full_width() -> dict:
     prompts = serve.make_prompts(cfg, args, sharing=2)
     engine.warmup()  # cold GEMM shapes and allocator growth: not timed
     mx_attention_ragged_fused.launches = 0
+    mx_repack_pages.launches = 0
     report = serve.run_batch(engine, cfg, args, prompts)
     torch.cuda.synchronize()
     launches = mx_attention_ragged_fused.launches
@@ -316,6 +639,8 @@ def serve_full_width() -> dict:
         raise AssertionError(f"{launches} kernel launches over "
                              f"{report['ragged_steps']} ragged steps of "
                              f"{cfg.num_layers} layers")
+    if mx_repack_pages.launches:
+        raise AssertionError("the untiered run launched the repack kernel")
     for i, prompt in zip(report["ids"], report["prompts"]):
         toks = report["results"][i]
         if len(toks) != len(prompt) + 32 or not np.array_equal(
@@ -332,7 +657,75 @@ def serve_full_width() -> dict:
         f"launches = steps x {cfg.num_layers}; prefix hit rate "
         f"{report['prefix_hit_rate']:.2f}; peak memory {peak_gb:.2f} GB")
     decode_step_breakdown(engine, cfg)
-    return {"launches": launches}
+    return {"launches": launches, "report": report}
+
+
+def serve_full_width_tiered(fp8_report: dict) -> dict:
+    """The same prompts through ``--tiered`` with the reference's
+    TierPolicy defaults, every kernel count reset just before the run and
+    read just after."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_attention_ragged_fused, \
+        mx_repack_pages
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import _FMT_BITS
+    from repro_torch.serve.kv_cache import UNITS_BY_BITS
+
+    args = serve.parse_args(FULL_ARGV + ["--new-tokens",
+                                         str(TIERED_NEW_TOKENS), "--tiered"])
+    torch.cuda.reset_peak_memory_stats()
+    cfg, engine = serve.build_engine(args)
+    prompts = serve.make_prompts(cfg, args, sharing=2)
+    engine.warmup()
+    mx_attention_ragged_fused.launches = 0
+    mx_repack_pages.launches = 0
+    report = serve.run_batch(engine, cfg, args, prompts)
+    torch.cuda.synchronize()
+    ragged = mx_attention_ragged_fused.launches
+    repack = mx_repack_pages.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tiers = report["tiered"]
+    layers = cfg.num_layers
+    if ragged == 0 or ragged != report["ragged_steps"] * layers:
+        raise AssertionError(f"tiered: {ragged} ragged launches over "
+                             f"{report['ragged_steps']} steps")
+    if repack == 0 or repack != tiers["repack_dispatches"] * layers:
+        raise AssertionError(f"tiered: {repack} repack launches over "
+                             f"{tiers['repack_dispatches']} dispatches")
+    if tiers["max_repacked_in_step"] > engine.tier.repack_pages_per_step:
+        raise AssertionError("tiered: per-step repack budget exceeded")
+    pool = engine.scheduler.pool
+    census = sum(UNITS_BY_BITS[_FMT_BITS[F.FORMAT_BY_ID[int(
+        engine.page_fmts[p])]]] for p in range(engine.num_pages)
+        if pool.ref(p) > 0)
+    if census != tiers["units_in_use"]:
+        raise AssertionError(f"tiered: unit census {census} != "
+                             f"{tiers['units_in_use']} units in use")
+    if not (tiers["pages_fp6_e3m2"] > 0 and tiers["pages_fp4_e2m1"] > 0):
+        raise AssertionError(f"tiered: no live fp6 and fp4 pages at the "
+                             f"end: {tiers}")
+    for i, prompt in zip(report["ids"], report["prompts"]):
+        toks = report["results"][i]
+        if len(toks) != len(prompt) + TIERED_NEW_TOKENS or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size \
+                or not np.array_equal(toks[:len(prompt)], prompt):
+            raise AssertionError(f"tiered request {i}: malformed stream")
+    log(f"granite-8b tiered (TierPolicy defaults, {TIERED_NEW_TOKENS} new "
+        f"tokens): {report['generated_tokens']} tokens in "
+        f"{report['seconds']:.2f} s = {report['tokens_per_s']:.1f} tok/s "
+        f"(fp8 run: {fp8_report['tokens_per_s']:.1f}); "
+        f"{report['ragged_steps']} ragged steps, median "
+        f"{report['median_step_ms']:.2f} ms (fp8 run: "
+        f"{fp8_report['median_step_ms']:.2f}); {ragged} ragged launches = "
+        f"steps x {layers}; {tiers['repacked_pages']} pages repacked in "
+        f"{tiers['repack_dispatches']} dispatches = {repack} repack "
+        f"launches / {layers}, at most {tiers['max_repacked_in_step']} a "
+        f"step; {tiers['units_in_use']}/{tiers['unit_budget']} units in use "
+        f"at the end (peak {tiers['peak_units']}, census equal); live pages "
+        f"fp8 {tiers['pages_fp8_e4m3']}, fp6 {tiers['pages_fp6_e3m2']}, fp4 "
+        f"{tiers['pages_fp4_e2m1']} (fp8 run: peak {fp8_report['peak_pages']}"
+        f" pages); peak memory {peak_gb:.2f} GB")
+    return {"ragged": ragged, "repack": repack}
 
 
 def decode_step_breakdown(engine, cfg, pos: int = 300, steps: int = 3):
@@ -848,9 +1241,18 @@ def main() -> int:
     log(f"built {sorted(built) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     kernel = check_ragged_kernel()
+    check_repack_kernel()
+    repack = time_repack_kernel()
     check_reduced_parity()
-    kernel.update(serve_full_width())
-    kernels = [kernel] + check_mx_dot_products()
+    check_reduced_tiered_parity()
+    full = serve_full_width()
+    kernel["launches"] = full["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()  # the fp8 engine's weights and pages go
+    tiered = serve_full_width_tiered(full["report"])
+    kernel["launches_tiered"] = tiered["ragged"]
+    repack["launches"] = tiered["repack"]
+    kernels = [kernel, repack] + check_mx_dot_products()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,6 +93,7 @@ FORMATS = {f.name: f for f in (FP8_E4M3, FP8_E5M2, FP6_E3M2, FP6_E2M3,
 #: argument, see ``kernels/csrc/mx_codec.cuh``)
 FORMAT_IDS = {"fp8_e4m3": 0, "fp8_e5m2": 1, "fp6_e3m2": 2, "fp6_e2m3": 3,
               "fp4_e2m1": 4}
+FORMAT_BY_ID = {v: k for k, v in FORMAT_IDS.items()}
 
 
 def get_format(fmt) -> ElementFormat:
@@ -338,6 +339,14 @@ def decode_elements(stored: torch.Tensor, fmt,
     return stored.to(dtype)
 
 
+def e8m0_factor(e_biased: torch.Tensor) -> torch.Tensor:
+    """The factor a decode multiplies a block's elements by: the scale,
+    with byte 0's subnormal 2^-127 read as zero, as the reference's
+    flushed arithmetic reads that operand (a normal code times 2^-127
+    can be a normal value)."""
+    return flush_subnormals(e8m0_to_scale(e_biased))
+
+
 def dequantize_blocks(stored: torch.Tensor, scales: torch.Tensor, fmt,
                       block_size: int) -> torch.Tensor:
     """MX storage ``(..., storage_len(K))`` + E8M0 ``(..., K/k)`` -> f32
@@ -345,5 +354,5 @@ def dequantize_blocks(stored: torch.Tensor, scales: torch.Tensor, fmt,
     flush subnormal results (the reference's ``_fold_scales``)."""
     vals = decode_elements(stored, fmt)
     blocked = vals.reshape(*vals.shape[:-1], scales.shape[-1], block_size)
-    wide = blocked * e8m0_to_scale(scales)[..., None]
+    wide = blocked * e8m0_factor(scales)[..., None]
     return flush_subnormals(wide).reshape(vals.shape)

@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 #: library name -> CUDA source in ``csrc/``
 SOURCES = {"mx_attention_ragged": "mx_attention_ragged.cu",
            "mx_quantize": "mx_quantize.cu",
-           "mx_matmul": "mx_matmul.cu"}
+           "mx_matmul": "mx_matmul.cu",
+           "mx_repack": "mx_repack.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

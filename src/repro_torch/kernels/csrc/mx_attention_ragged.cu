@@ -5,7 +5,7 @@
 // pallas_call over the grid (R, KVH, P)). One engine step's rows -- a decode
 // token, a verify window, or a prefill chunk -- each carry (row_start,
 // seq_len); per (row, kv-head) the kernel
-//   1. quantizes the row's new wide K/V rows to MX fp8 + E8M0 and merges
+//   1. quantizes the row's new wide K/V rows to MX codes + E8M0 and merges
 //      them into the write-window pages [row_start / PS, ceil(seq_len / PS)),
 //      touching only the bytes of rows row_start <= kpos < seq_len;
 //   2. walks pages [first_window_page, ceil(seq_len / PS)) in order,
@@ -13,6 +13,15 @@
 //      into a per-query-row online softmax (the reference's _flash_update);
 //   3. writes acc / l as f32 and the number of pages it visited.
 //
+// Pools. Uniform fp8 pools hold one byte per element (ED = D); uniform fp4
+// pools two nibbles per byte (ED = D/2), encoded and packed by the write
+// and decoded in registers by the walk. A page row is one token's whole
+// row, so the code-domain merge never splits a byte between old and new
+// rows. Mixed-format (tiered) pools hold full-width uint8 rows (ED = D):
+// a page's codes fill the row prefix in the format page_fmts[page] names
+// (the reference's _dequant_rows_mixed), and the write lands fmt's fp8
+// bytes. The engine guarantees that write-window pages are in that base
+// format; the kernel decodes every page under its id and fixes nothing.
 // Design. On the TPU the page axis is a sequential grid dimension carrying
 // the softmax state in VMEM scratch. CTAs on Hopper run in no order, so one
 // CTA owns one (row, kv-head) cell and loops over its pages; the reference
@@ -50,16 +59,18 @@ struct Args {
   const __nv_bfloat16* q;      // (R, KVH, W*G, D)
   const __nv_bfloat16* k_new;  // (R, W, KVH, D)
   const __nv_bfloat16* v_new;  // (R, W, KVH, D)
-  uint8_t* ke;                 // (NP, PS, KVH, D) fp8 bytes
+  uint8_t* ke;                 // (NP, PS, KVH, ED) element bytes
   uint8_t* ks;                 // (NP, PS, KVH, NB) E8M0
   uint8_t* ve;
   uint8_t* vs;
   const int* table;      // (R, P), already mapped into [0, NP)
   const int* row_start;  // (R,)
   const int* seq_lens;   // (R,), clamped to [row_start + 1, row_start + W]
+  const int* page_fmts;  // (NP,) format ids of a mixed pool, else null
   float* out;            // (R, KVH, W*G, D)
   int* visits;           // (R, KVH)
-  int R, KVH, W, G, D, PS, P, BS, NB, fmt, window, lanes_per_row;
+  int R, KVH, W, G, D, ED, PS, P, BS, NB, fmt, window, lanes_per_row;
+  int mixed_mask, mixed_default;  // candidate format ids of a mixed pool
   float softcap, scale;
 };
 
@@ -117,8 +128,9 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(const Args a) {
           (is_v ? a.v_new : a.k_new) +
           ((static_cast<size_t>(r) * a.W + t) * a.KVH + h) * a.D + b * a.BS;
       const size_t prow = (page * a.PS + j) * a.KVH + h;
-      mx::quantize_block(src, (is_v ? a.ve : a.ke) + prow * a.D + b * a.BS,
-                         (is_v ? a.vs : a.ks) + prow * a.NB + b, a.BS, f);
+      mx::quantize_block(
+          src, (is_v ? a.ve : a.ke) + prow * a.ED + b * a.BS * f.bits / 8,
+          (is_v ? a.vs : a.ks) + prow * a.NB + b, a.BS, f);
     }
   }
   __syncthreads();
@@ -134,16 +146,31 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel(const Args a) {
 
   for (int p = first; p < valid; ++p) {
     const size_t page = static_cast<size_t>(trow[p]);
+    // the format this page decodes under: the pool's, or its own id
+    const int pf = a.page_fmts == nullptr
+                       ? a.fmt
+                       : mx::mixed_fmt(a.page_fmts[page], a.mixed_mask,
+                                       a.mixed_default);
+    const mx::FmtSpec pfs = mx::fmt_spec(pf);
     for (int i = threadIdx.x; i < a.PS * a.D; i += blockDim.x) {
       const int jr = i / a.D, d = i % a.D;
       const size_t prow = (page * a.PS + jr) * a.KVH + h;
       const size_t sidx = prow * a.NB + d / a.BS;
-      kt[jr * kstride + d] = mx::flush(
-          mx::fp8_value(a.ke[prow * a.D + d], a.fmt) *
-          mx::e8m0_to_scale(a.ks[sidx]));
-      vt[jr * kstride + d] = mx::flush(
-          mx::fp8_value(a.ve[prow * a.D + d], a.fmt) *
-          mx::e8m0_to_scale(a.vs[sidx]));
+      const uint8_t* krow = a.ke + prow * a.ED;
+      const uint8_t* vrow = a.ve + prow * a.ED;
+      float kv, vv;
+      if (a.page_fmts != nullptr) {
+        kv = mx::mixed_element_value(krow, d, pfs);
+        vv = mx::mixed_element_value(vrow, d, pfs);
+      } else if (pfs.bits == 8) {
+        kv = mx::fp8_value(krow[d], pf);
+        vv = mx::fp8_value(vrow[d], pf);
+      } else {
+        kv = mx::element_value(krow, d, pfs, pf);
+        vv = mx::element_value(vrow, d, pfs, pf);
+      }
+      kt[jr * kstride + d] = mx::flush(kv * mx::e8m0_factor(a.ks[sidx]));
+      vt[jr * kstride + d] = mx::flush(vv * mx::e8m0_factor(a.vs[sidx]));
     }
     __syncthreads();
     const int kpos = p * a.PS + j;
@@ -220,15 +247,24 @@ extern "C" size_t mx_attention_ragged_smem_bytes(int W, int G, int D, int PS) {
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// page_fmts null: a uniform pool of format `fmt`, ED bytes per row (D for
+// fp8, D/2 for fp4); else a mixed pool (ED = D) whose candidate format ids
+// are the bits of mixed_mask, mixed_default the first of them.
 extern "C" int mx_attention_ragged_launch(
     const void* q, const void* k_new, const void* v_new, void* ke, void* ks,
     void* ve, void* vs, const void* table, const void* row_start,
-    const void* seq_lens, void* out, void* visits, int R, int KVH, int W,
-    int G, int D, int PS, int P, int block_size, int fmt, int window,
+    const void* seq_lens, const void* page_fmts, void* out, void* visits,
+    int R, int KVH, int W, int G, int D, int ED, int PS, int P,
+    int block_size, int fmt, int window, int mixed_mask, int mixed_default,
     float softcap, float scale, void* stream) {
   int lpr = 1;
   while (lpr < PS) lpr <<= 1;
-  if (PS > 32 || D % lpr != 0 || D % block_size != 0 || R * KVH == 0) {
+  const int bits = fmt < 2 ? 8 : (fmt < 4 ? 6 : 4);
+  const bool ok_width = page_fmts != nullptr
+                            ? ED == D && bits == 8
+                            : ED * 8 == D * bits && bits != 6;
+  if (PS > 32 || D % lpr != 0 || D % block_size != 0 || R * KVH == 0 ||
+      !ok_width || (block_size * bits) % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -242,6 +278,7 @@ extern "C" int mx_attention_ragged_launch(
   a.table = static_cast<const int*>(table);
   a.row_start = static_cast<const int*>(row_start);
   a.seq_lens = static_cast<const int*>(seq_lens);
+  a.page_fmts = static_cast<const int*>(page_fmts);
   a.out = static_cast<float*>(out);
   a.visits = static_cast<int*>(visits);
   a.R = R;
@@ -249,12 +286,15 @@ extern "C" int mx_attention_ragged_launch(
   a.W = W;
   a.G = G;
   a.D = D;
+  a.ED = ED;
   a.PS = PS;
   a.P = P;
   a.BS = block_size;
   a.NB = D / block_size;
   a.fmt = fmt;
   a.window = window;
+  a.mixed_mask = mixed_mask;
+  a.mixed_default = mixed_default;
   a.lanes_per_row = lpr;
   a.softcap = softcap;
   a.scale = scale;

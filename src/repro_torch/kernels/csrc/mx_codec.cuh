@@ -6,15 +6,17 @@
 //     _pack_fp4, _encode_fp6_codes, _pack_fp6 (and mx_attention.py::
 //     _quantize_rows for the fp8 page writes);
 //   * repro/kernels/mx_matmul.py: _decode_e8m0, _decode_fp4_codes,
-//     _unpack_fp4, _decode_fp6_codes, _unpack_fp6.
+//     _unpack_fp4, _decode_fp6_codes, _unpack_fp6;
+//   * repro/kernels/mx_attention.py: _decode_u8_codes and the per-page
+//     format select of _dequant_rows_mixed (mixed-format pools).
 // The E8M0 shared exponent comes from the block amax by exponent-field
 // floor-log2, clipped to [0, 254]; values are snapped RNE onto the format's
 // grid with rintf and the code assembled from the exact grid value.
 //
 // The reference runs with denormals flushed, so subnormal inputs and
 // products read as signed zero and E8M0 byte 0 (2^-127) acts as a zero
-// scale when quantizing. That flush is written out here: the kernels are
-// compiled without -ftz.
+// scale, both when quantizing and when decoding (e8m0_factor). That flush
+// is written out here: the kernels are compiled without -ftz.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +61,13 @@ __device__ __forceinline__ float pow2(int e) {  // exact 2^e, e in [-126, 127]
 
 __device__ __forceinline__ float e8m0_to_scale(uint8_t e) {
   return __uint_as_float(e > 0 ? static_cast<uint32_t>(e) << 23 : 0x00400000u);
+}
+
+// the factor a decode multiplies a block's elements by: 2^(e-127), with
+// byte 0's subnormal 2^-127 read as zero, as the reference's flushed
+// arithmetic reads that operand (a normal code times 2^-127 can be normal)
+__device__ __forceinline__ float e8m0_factor(uint8_t e) {
+  return e > 0 ? __uint_as_float(static_cast<uint32_t>(e) << 23) : 0.0f;
 }
 
 __device__ __forceinline__ uint8_t e8m0_from_amax(float amax,
@@ -215,27 +224,75 @@ __device__ __forceinline__ float element_value(const uint8_t* row, int i,
   return decode_fp4(unpack_fp4(row, i));
 }
 
-// Quantize one MX block of n bf16 values into n fp8 bytes and one E8M0
-// byte, as _quantize_rows does. -0.0 inputs are read as +0.0: the
-// reference gathers the new rows through an exact one-hot f32 matmul,
-// whose +0-initialised sum turns -0.0 into +0.0.
-__device__ __forceinline__ void quantize_block(const __nv_bfloat16* src,
-                                               uint8_t* elems, uint8_t* scale,
-                                               int n, const FmtSpec& f) {
+// fp8 code stored as a raw byte -> f32, decoded arithmetically from its
+// fields as the reference does on mixed-format pools (_decode_u8_codes):
+// equal to fp8_value except on NaN/inf codes, which no encoder writes
+__device__ __forceinline__ float u8_fp8_value(uint8_t c, const FmtSpec& f) {
+  const int e = (c >> f.mant_bits) & ((1 << f.exp_bits) - 1);
+  const float m = static_cast<float>(c & ((1u << f.mant_bits) - 1u));
+  const float mag = e == 0 ? m * pow2(1 - f.bias - f.mant_bits)
+                           : pow2(e - f.bias) * (1.0f + m * pow2(-f.mant_bits));
+  return (c & 0x80u) ? -mag : mag;
+}
+
+// format id a mixed-pool page decodes under: its own id when it is one of
+// the pool's candidate formats (bit set in `mask`), else the first
+// candidate `dflt`, as the reference's select chain does
+__device__ __forceinline__ int mixed_fmt(int fid, int mask, int dflt) {
+  return fid >= 0 && fid < 5 && ((mask >> fid) & 1) ? fid : dflt;
+}
+
+// value of element i of a full-width mixed-pool row in format f: the
+// codes fill the row prefix
+__device__ __forceinline__ float mixed_element_value(const uint8_t* row,
+                                                     int i, const FmtSpec& f) {
+  if (f.bits == 8) return u8_fp8_value(row[i], f);
+  if (f.bits == 6) return decode_fp6(unpack_fp6(row, i), f);
+  return decode_fp4(unpack_fp4(row, i));
+}
+
+// Quantize one MX block of n values x(0..n-1), already flushed, into
+// packed codes at `out` (n fp8 bytes, 3n/4 fp6 bytes or n/2 fp4 bytes)
+// and one E8M0 byte, as _quantize_rows does: exponent-field floor-log2 of
+// the amax, ratio 0 where the byte is 0, clip, RNE encode.
+template <class Load>
+__device__ __forceinline__ void encode_block(Load x, int n, uint8_t* out,
+                                             uint8_t* scale,
+                                             const FmtSpec& f) {
   float amax = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    amax = fmaxf(amax, fabsf(flush(__bfloat162float(src[i]))));
-  }
+  for (int i = 0; i < n; ++i) amax = fmaxf(amax, fabsf(x(i)));
   const uint8_t e = e8m0_from_amax(amax, f);
   const float s = e8m0_to_scale(e);
-  for (int i = 0; i < n; ++i) {
-    float x = flush(__bfloat162float(src[i]));
-    x = x == 0.0f ? 0.0f : x;
-    float r = e > 0 ? x / s : 0.0f;
-    r = fminf(fmaxf(r, -f.max), f.max);
-    elems[i] = fp8_bits(snap(r, f), f);
+  auto code = [&](int i) {
+    const float r = e > 0 ? x(i) / s : 0.0f;
+    return encode(fminf(fmaxf(r, -f.max), f.max), f);
+  };
+  if (f.bits == 8) {
+    for (int i = 0; i < n; ++i) out[i] = static_cast<uint8_t>(code(i));
+  } else if (f.bits == 4) {
+    for (int i = 0; i < n; i += 2) out[i >> 1] = pack_fp4(code(i), code(i + 1));
+  } else {
+    for (int i = 0; i < n; i += 4) {
+      pack_fp6(code(i), code(i + 1), code(i + 2), code(i + 3),
+               out + 3 * (i >> 2));
+    }
   }
   *scale = e;
+}
+
+// Quantize one MX block of n bf16 values of a new K/V row (the ragged page
+// write). -0.0 inputs are read as +0.0: the reference gathers the new rows
+// through an exact one-hot f32 matmul, whose +0-initialised sum turns -0.0
+// into +0.0.
+__device__ __forceinline__ void quantize_block(const __nv_bfloat16* src,
+                                               uint8_t* out, uint8_t* scale,
+                                               int n, const FmtSpec& f) {
+  encode_block(
+      [&](int i) {
+        const float x = flush(__bfloat162float(src[i]));
+        return x == 0.0f ? 0.0f : x;
+      },
+      n, out, scale, f);
 }
 
 }  // namespace mx

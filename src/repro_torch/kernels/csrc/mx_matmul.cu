@@ -120,7 +120,7 @@ __device__ __forceinline__ void load_mx(
     float v = 0.0f;
     if (r < rows && c < elems) {
       const float x = mx::element_value(q + r * W, c, f, fmt);
-      v = mx::flush(x * mx::e8m0_to_scale(s[r * W + (e0 + c) / block - kb0]));
+      v = mx::flush(x * mx::e8m0_factor(s[r * W + (e0 + c) / block - kb0]));
     }
     dst[kTransposed ? c * kLd + r : r * kLd + c] = v;
   }

@@ -15,11 +15,12 @@ from repro_torch.core import formats as F
 
 def decode_scaled(elems, scales, fmt, block_size: int):
     """Decode (..., K)-stored MX data to blocked f32 ``(..., KB, k)`` plus
-    the f32 block scales ``(..., KB)``."""
+    the f32 block factors ``(..., KB)`` (byte 0 reads as zero, see
+    ``formats.e8m0_factor``)."""
     vals = F.decode_elements(elems, fmt)
     kb = scales.shape[-1]
     blocked = vals.reshape(*vals.shape[:-1], kb, block_size)
-    return blocked, F.e8m0_to_scale(scales)
+    return blocked, F.e8m0_factor(scales)
 
 
 def mx_matmul_ref(a_elems, a_scales, b_elems, b_scales, *, fmt="fp8_e4m3",

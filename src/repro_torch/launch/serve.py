@@ -4,12 +4,20 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --batch 8 --prompt-len 236 --shared-prefix 64 --ragged --new-tokens 32
 
-Weights are random (a seeded ``torch.Generator``), weight-only MXFP8 with
-an MX fp8 KV cache: the reference launcher's ``--quant mxfp8
---quantize-kv`` serving path. Runs on the card unless ``--device cpu``.
-The reference's other flags (the HTTP server, sampling, speculation,
-tiering, the mesh, other engines and step modes) are not ported yet and
-exit with an error naming ROADMAP.md.
+Weights are random (a seeded ``torch.Generator``), weight-only MX with an
+MX KV cache: by default MXFP8 weights and fp8 pages, the reference
+launcher's ``--quant mxfp8 --quantize-kv`` serving path; ``--quant mxfp4
+--quantize-kv`` serves fp4 weights and packed fp4 pages. ``--tiered``
+(with the ``--tier-*`` knobs) runs the tiered mixed-format cache:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+      --batch 8 --prompt-len 236 --shared-prefix 64 --ragged \
+      --new-tokens 48 --tiered
+
+Runs on the card unless ``--device cpu``. The reference's other flags
+(the HTTP server, sampling, speculation, the mesh, other engines and
+step modes, a wide KV cache) are not ported yet and exit with an error
+naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -21,8 +29,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.core import MXFP4, MXFP8
 from repro_torch.nn import model
-from repro_torch.serve import ServeConfig, ServeEngine
+from repro_torch.serve import ServeConfig, ServeEngine, TierPolicy
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -30,23 +39,31 @@ log = logging.getLogger("repro_torch.serve")
 UNPORTED_FLAGS = (
     "--temperature", "--top-p", "--top-k", "--seed", "--slo-ms",
     "--max-queue", "--serve", "--host", "--port", "--prefix-snapshot",
-    "--quant", "--quantize-kv", "--engine", "--max-slots", "--page-size",
+    "--engine", "--max-slots", "--page-size",
     "--no-prefix-cache", "--decode-kernel", "--prefill-mode",
-    "--prefill-chunk", "--prefill-token-budget", "--tiered",
-    "--tier-mid-fmt", "--tier-cold-fmt", "--tier-hot-steps",
-    "--tier-cold-steps", "--tier-repack-pages", "--step-mode",
+    "--prefill-chunk", "--prefill-token-budget", "--step-mode",
     "--prefill-max-chunks", "--mesh", "--spec-decode", "--num-draft-tokens")
+
+TIER_FMTS = ["fp6_e3m2", "fp6_e2m3", "fp4_e2m1"]
 
 
 def build_engine(args) -> tuple:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    cfg = cfg.replace(quant=cfg.quant.replace(quantize_acts=False,
-                                              quantize_kv_cache=True))
+    quant = {"": cfg.quant, "mxfp8": MXFP8, "mxfp4": MXFP4}[args.quant]
+    cfg = cfg.replace(quant=quant.replace(block_size=cfg.quant.block_size,
+                                          quantize_acts=False,
+                                          quantize_kv_cache=True))
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(cfg, gen, device)
     max_seq = args.shared_prefix + args.prompt_len + args.new_tokens
-    serve_cfg = ServeConfig(max_seq=max_seq, max_slots=args.batch)
+    serve_cfg = ServeConfig(
+        max_seq=max_seq, max_slots=args.batch, tiered=args.tiered,
+        tier_policy=TierPolicy(
+            mid_fmt=args.tier_mid_fmt, cold_fmt=args.tier_cold_fmt,
+            hot_steps=args.tier_hot_steps, cold_steps=args.tier_cold_steps,
+            repack_pages_per_step=args.tier_repack_pages)
+        if args.tiered else None)
     return cfg, ServeEngine(params, cfg, serve_cfg, device=device)
 
 
@@ -95,6 +112,21 @@ def run_batch(engine, cfg, args, prompts=None) -> dict:
              report["ragged_steps"], report["median_step_ms"],
              report["kernel_launches"], report["preemptions"],
              report["prefix_hit_rate"])
+    if engine.tiered:
+        tiered = {k: v for k, v in stats.items() if k.startswith("pages_")
+                  or k in ("unit_budget", "units_in_use", "peak_units",
+                           "repacked_pages", "repack_dispatches",
+                           "max_repacked_in_step")}
+        report["tiered"] = tiered
+        log.info("tiered KV: %d/%d quarter-page units in use (peak %d); "
+                 "live pages by format: %s; %d pages repacked over %d "
+                 "dispatches (max %d in one step)", tiered["units_in_use"],
+                 tiered["unit_budget"], tiered["peak_units"],
+                 ", ".join(f"{k[len('pages_'):]}: {v}"
+                           for k, v in tiered.items()
+                           if k.startswith("pages_")),
+                 tiered["repacked_pages"], tiered["repack_dispatches"],
+                 tiered["max_repacked_in_step"])
     return report
 
 
@@ -112,16 +144,41 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="tokens of common prompt head across requests "
                          "(exercises the prefix cache)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quant", default="",
+                    choices=["", "wide", "mxfp8", "mxfp4"],
+                    help="weight and KV format (default: the config's, "
+                         "MXFP8, with an MX KV cache)")
+    ap.add_argument("--quantize-kv", action="store_true",
+                    help="MX KV cache; required with --quant, and implied "
+                         "without it")
+    ap.add_argument("--tiered", action="store_true",
+                    help="tiered mixed-format KV cache: new pages land "
+                         "fp8, idle pages are repacked down the fp8 -> "
+                         "fp6 -> fp4 ladder under a per-step budget, and "
+                         "the pool is metered in quarter-page units")
+    ap.add_argument("--tier-mid-fmt", default="fp6_e3m2", choices=TIER_FMTS)
+    ap.add_argument("--tier-cold-fmt", default="fp4_e2m1",
+                    choices=TIER_FMTS)
+    ap.add_argument("--tier-hot-steps", type=int, default=8)
+    ap.add_argument("--tier-cold-steps", type=int, default=32)
+    ap.add_argument("--tier-repack-pages", type=int, default=4)
     args, rest = ap.parse_known_args(argv)
     for arg in rest:
         flag = arg.split("=", 1)[0]
         if flag in UNPORTED_FLAGS:
             ap.error(f"{flag} is not ported to repro_torch yet: its "
-                     "launcher serves weight-only MXFP8 with an MX fp8 KV "
-                     "cache, greedy, with the ServeConfig defaults (see "
+                     "launcher serves weight-only MX with an MX KV cache, "
+                     "greedy, with the ServeConfig defaults (see "
                      "ROADMAP.md, section A)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.quant == "wide" or (args.quant and not args.quantize_kv):
+        ap.error("a wide KV cache is served by the reference's split step, "
+                 "which is not ported to repro_torch yet (ROADMAP.md, A8): "
+                 "pass --quant mxfp8|mxfp4 --quantize-kv")
+    if args.tiered and args.quant not in ("", "mxfp8"):
+        ap.error("--tiered requires --quant mxfp8 --quantize-kv "
+                 "(new writes land in the 8-bit base format)")
     return args
 
 

@@ -2,9 +2,12 @@
 ``repro.nn.attention``): the ragged engine step only.
 
 Pools are plain dicts of tensors, ``{"k_elems", "k_scales", "v_elems",
-"v_scales"}``, laid out ``(NP, PS, KVH, D)`` fp8 and ``(NP, PS, KVH,
-D // k)`` uint8 as in the reference. :func:`apply_ragged` updates them
-in place; the reference's jitted step donates the cache instead.
+"v_scales"}``, laid out as in the reference: elements ``(NP, PS, KVH,
+D)`` fp8, ``(NP, PS, KVH, D // 2)`` packed fp4 uint8, or, for a tiered
+pool, full-width ``(NP, PS, KVH, D)`` uint8 rows whose formats live in
+the engine's per-page ids; scales ``(NP, PS, KVH, D // k)`` uint8.
+:func:`apply_ragged` updates them in place; the reference's jitted step
+donates the cache instead.
 """
 from __future__ import annotations
 
@@ -56,9 +59,23 @@ def _project_decode_qkv(params, x: torch.Tensor, posv: torch.Tensor,
 
 
 def init_paged_pool(num_pages: int, page_size: int, cfg: AttnConfig,
-                    quant: QuantConfig, device) -> dict:
-    """One layer's global KV page pool (no per-sequence dimension)."""
-    if not (quant.enabled and quant.quantize_kv_cache):
+                    quant: QuantConfig, device, tiered: bool = False) -> dict:
+    """One layer's global KV page pool (no per-sequence dimension).
+
+    Uniform pools store the format's elements (fp4 packs two per byte;
+    fp6 rows are D bytes wide, as the reference's ``_cache_arrays`` lays
+    them out, and the ragged kernel refuses them). ``tiered=True``
+    allocates full-width uint8 rows for any format of the ladder and
+    needs an 8-bit hot format, as in the reference.
+    """
+    if tiered:
+        if not (quant.enabled and quant.quantize_kv_cache):
+            raise ValueError("tiered KV pools require an MX-quantized cache")
+        if F.get_format(quant.fmt).bits != 8:
+            raise ValueError(
+                "tiered KV pools write new pages in the hot format, which "
+                f"must be an fp8; got {quant.fmt!r}")
+    elif not (quant.enabled and quant.quantize_kv_cache):
         raise NotImplementedError(
             "wide bf16 page pools are served by the reference's split step, "
             "which is not ported (ROADMAP A8); the ragged step needs an MX "
@@ -66,27 +83,30 @@ def init_paged_pool(num_pages: int, page_size: int, cfg: AttnConfig,
     fmt = F.get_format(quant.fmt)
     kvh, d = cfg.num_kv_heads, cfg.head_dim
     bs = min(quant.block_size, d)
-    shape = (num_pages, page_size, kvh, d)
+    ed = d // 2 if fmt.packed and not tiered else d
+    dtype = torch.uint8 if tiered else fmt.storage_dtype
+    shape = (num_pages, page_size, kvh, ed)
     sshape = (num_pages, page_size, kvh, d // bs)
-    return {"k_elems": torch.zeros(shape, dtype=fmt.storage_dtype,
-                                   device=device),
+    return {"k_elems": torch.zeros(shape, dtype=dtype, device=device),
             "k_scales": torch.zeros(sshape, dtype=torch.uint8, device=device),
-            "v_elems": torch.zeros(shape, dtype=fmt.storage_dtype,
-                                   device=device),
+            "v_elems": torch.zeros(shape, dtype=dtype, device=device),
             "v_scales": torch.zeros(sshape, dtype=torch.uint8, device=device)}
 
 
 def apply_ragged(params, x: torch.Tensor, pool: dict, page_rows: torch.Tensor,
                  row_start: torch.Tensor, seq_lens: torch.Tensor,
                  cfg: AttnConfig, quant: QuantConfig,
-                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+                 compute_dtype=torch.bfloat16, page_fmts=None,
+                 mixed_fmts=None) -> torch.Tensor:
     """One ragged engine step: x (R, W, d_model), row_start/seq_lens (R,).
 
     Every row feeds W token columns at positions ``row_start ..
     row_start + W - 1``, of which ``seq_lens - row_start`` are real. The
     new rows' K/V go into the kernel wide and are quantized into the
     row's pages inside it; padding columns are excluded from the write
-    and their outputs ignored. ``pool`` is updated in place.
+    and their outputs ignored. ``pool`` is updated in place. A tiered
+    pool passes its per-page format ids ``page_fmts`` (NP,) and the
+    candidate formats ``mixed_fmts``.
     """
     r, w, _ = x.shape
     d = cfg.head_dim
@@ -100,6 +120,7 @@ def apply_ragged(params, x: torch.Tensor, pool: dict, page_rows: torch.Tensor,
         qk, k.contiguous(), v.contiguous(), pool["k_elems"], pool["k_scales"],
         pool["v_elems"], pool["v_scales"], page_rows, row_start, seq_lens,
         fmt_name=quant.fmt, block_size=min(quant.block_size, d),
-        softcap=cfg.softcap, window=cfg.window)
+        softcap=cfg.softcap, window=cfg.window, page_fmts=page_fmts,
+        mixed_fmts=mixed_fmts)
     out = out.permute(0, 2, 1, 3, 4).reshape(r, w, -1).to(compute_dtype)
     return linear.apply(params["wo"], out, compute_dtype)

@@ -57,21 +57,25 @@ def _decode_tail(params, x: torch.Tensor, h: torch.Tensor,
 
 
 def init_paged_cache(num_pages: int, page_size: int, bd: BlockDef,
-                     cfg: ModelConfig, device) -> dict:
+                     cfg: ModelConfig, device, tiered: bool = False) -> dict:
     _require_ported(bd, cfg)
     return attention.init_paged_pool(num_pages, page_size,
-                                     _attn_cfg(cfg, bd), cfg.quant, device)
+                                     _attn_cfg(cfg, bd), cfg.quant, device,
+                                     tiered=tiered)
 
 
 def apply_ragged_step(params, x: torch.Tensor, cache: dict,
                       page_rows: torch.Tensor, row_start: torch.Tensor,
                       seq_lens: torch.Tensor, bd: BlockDef,
-                      cfg: ModelConfig) -> torch.Tensor:
+                      cfg: ModelConfig, page_fmts=None,
+                      mixed_fmts=None) -> torch.Tensor:
     """One ragged engine step of one block: x (R, W, d_model); the
-    block's page pool ``cache`` is updated in place."""
+    block's page pool ``cache`` is updated in place (a tiered pool with
+    its ``page_fmts`` / ``mixed_fmts``)."""
     _require_ported(bd, cfg)
     h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
     h = attention.apply_ragged(params["mixer"], h, cache, page_rows,
                                row_start, seq_lens, _attn_cfg(cfg, bd),
-                               cfg.quant, cfg.compute_dtype)
+                               cfg.quant, cfg.compute_dtype,
+                               page_fmts=page_fmts, mixed_fmts=mixed_fmts)
     return _decode_tail(params, x, h, cfg)

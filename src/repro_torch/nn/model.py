@@ -86,16 +86,19 @@ def _slice_tree(tree, g: int):
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device) -> list:
-    """One MX page pool per layer (shared page table, like the reference)."""
-    return [blocks.init_paged_cache(num_pages, page_size, bd, cfg, device)
+                     device, tiered: bool = False) -> list:
+    """One MX page pool per layer (shared page table, like the reference);
+    ``tiered`` lays them out as mixed-format pools."""
+    return [blocks.init_paged_cache(num_pages, page_size, bd, cfg, device,
+                                    tiered=tiered)
             for _, _, bd in iter_layer_blocks(cfg)]
 
 
 def ragged_step_paged(params, cfg: ModelConfig, cache: list,
                       tokens: torch.Tensor, page_rows: torch.Tensor,
                       row_start: torch.Tensor, seq_lens: torch.Tensor,
-                      logit_idx: torch.Tensor) -> torch.Tensor:
+                      logit_idx: torch.Tensor, page_fmts=None,
+                      mixed_fmts=None) -> torch.Tensor:
     """One ragged engine step: tokens (R, W), page_rows (R, P), row_start
     (R,), seq_lens (R,) = row_start + n_new, logit_idx (R,).
 
@@ -104,13 +107,16 @@ def ragged_step_paged(params, cfg: ModelConfig, cache: list,
     f32 of row ``logit_idx`` (clamped onto the row's last real token),
     gathered before the final norm and head as the reference does. The
     reference's ``num_logits > 1`` (speculative verify windows) is not
-    ported yet.
+    ported yet. A tiered cache passes ``page_fmts``, one (NP,) int32
+    tensor of format ids shared by every layer like the page table, and
+    its candidate formats ``mixed_fmts``.
     """
     x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
     for bp, pool, (_, _, bd) in zip(params["layers"], cache,
                                     iter_layer_blocks(cfg)):
         x = blocks.apply_ragged_step(bp, x, pool, page_rows, row_start,
-                                     seq_lens, bd, cfg)
+                                     seq_lens, bd, cfg, page_fmts=page_fmts,
+                                     mixed_fmts=mixed_fmts)
     last = torch.clamp(seq_lens - row_start - 1, min=0)
     idx = torch.minimum(torch.clamp(logit_idx, min=0), last).long()
     x = x[torch.arange(x.shape[0], device=x.device), idx]

@@ -1,6 +1,8 @@
 """Serving: MX weights + paged MX KV cache, continuous batching with the
-ragged step, radix-tree prefix sharing and swap preemption."""
-from .engine import ContinuousBatchingEngine, ServeConfig, ServeEngine
+ragged step, radix-tree prefix sharing, swap preemption and the tiered
+mixed-format cache."""
+from .engine import (ContinuousBatchingEngine, ServeConfig, ServeEngine,
+                     TierPolicy)
 from .kv_cache import PagePool, pages_for, pages_spanned
 from .prefix_cache import PrefixCache
 from .sampling import SamplingParams
@@ -8,4 +10,4 @@ from .scheduler import Request, Scheduler
 
 __all__ = ["ContinuousBatchingEngine", "PagePool", "PrefixCache", "Request",
            "SamplingParams", "Scheduler", "ServeConfig", "ServeEngine",
-           "pages_for", "pages_spanned"]
+           "TierPolicy", "pages_for", "pages_spanned"]

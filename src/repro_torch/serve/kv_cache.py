@@ -1,18 +1,21 @@
 """Paged MX KV cache: host-side page pool + device-side page surgery
 (port of ``repro.serve.kv_cache``).
 
-``PagePool`` is pure host bookkeeping (free list, refcounts, peak usage);
-the device cache is a list of per-layer page pools (``model.
-init_paged_cache``). The ragged engine allocates ``num_pages + 1``
-physical pages and never hands out the last one: the ragged kernel
-routes inactive rows' writes to it (the trash page).
+``PagePool`` is pure host bookkeeping (free list, refcounts, peak usage,
+and the tiered pool's quarter-page unit budget); the device cache is a
+list of per-layer page pools (``model.init_paged_cache``). The ragged
+engine allocates ``num_pages + 1`` physical pages and never hands out
+the last one: the ragged kernel routes inactive rows' writes to it (the
+trash page). A tiered page's element format lives in the engine's
+per-page format ids, not in its bytes, so the page surgery below copies
+bytes only and the engine carries the ids beside them.
 
 The device functions update the pools in place; the reference returns a
 new cache pytree and its engine donates the old one.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -30,6 +33,16 @@ def pages_spanned(pos0: int, num_tokens: int, page_size: int) -> int:
     return (pos0 + num_tokens - 1) // page_size + 1
 
 
+#: Unit cost of a full-width page, in quarter-page units. Tiered pools
+#: keep every page in full-width uint8 rows (a narrower format fills a row
+#: prefix), but the budget meters what the page's format needs: fp8 4/4,
+#: fp6 3/4, fp4 2/4 of a page, so repacking down the ladder frees budget.
+PAGE_UNITS_FULL = 4
+
+#: Quarter-page unit cost per element format bit width.
+UNITS_BY_BITS = {8: 4, 6: 3, 4: 2}
+
+
 class PagePool:
     """Ref-counted free-list allocator over a fixed set of physical page ids.
 
@@ -39,15 +52,33 @@ class PagePool:
     :meth:`free`, and the page returns to the free list when its last
     reference drops. Writers must hold the only reference (copy-on-write
     is the engine's job; :meth:`ref` tells it).
+
+    With ``unit_budget`` (quarter-page units, :data:`PAGE_UNITS_FULL`)
+    every fresh page costs the full 4 units, the tiering engine credits
+    units back through :meth:`set_cost` when it repacks a page narrower,
+    and :meth:`can_alloc`/:meth:`alloc` admit only while both pages and
+    units remain. ``track_allocs`` logs every allocated id in
+    ``alloc_log`` until the engine drains it (a recycled page must start
+    over in the base format).
     """
 
-    def __init__(self, num_pages: int):
+    def __init__(self, num_pages: int, unit_budget: Optional[int] = None,
+                 track_allocs: bool = False):
         if num_pages <= 0:
             raise ValueError("num_pages must be positive")
+        if unit_budget is not None and unit_budget <= 0:
+            raise ValueError("unit_budget must be positive")
         self.num_pages = num_pages
+        self.unit_budget = unit_budget
+        self.track_allocs = track_allocs
+        self.alloc_log: List[int] = []
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
         self._free_set = set(self._free)  # O(1) double-free detection
         self._ref = [0] * num_pages
+        self._cost = [PAGE_UNITS_FULL] * num_pages
+        self.units_in_use = 0
+        self.peak_in_use = 0
+        self.peak_units = 0
 
     @property
     def free_pages(self) -> int:
@@ -57,17 +88,47 @@ class PagePool:
     def pages_in_use(self) -> int:
         return self.num_pages - len(self._free)
 
+    @property
+    def units_free(self) -> Optional[int]:
+        """Remaining quarter-page units (None when not metering)."""
+        if self.unit_budget is None:
+            return None
+        return self.unit_budget - self.units_in_use
+
+    def _check(self, pid: int, what: str = "unknown page") -> None:
+        if not 0 <= pid < self.num_pages:
+            raise ValueError(f"{what} {pid}")
+
     def ref(self, pid: int) -> int:
         """Current reference count of ``pid`` (0 = on the free list)."""
-        if not 0 <= pid < self.num_pages:
-            raise ValueError(f"unknown page {pid}")
+        self._check(pid)
         return self._ref[pid]
 
-    def can_alloc(self, n: int) -> bool:
-        return n <= len(self._free)
+    def cost(self, pid: int) -> int:
+        """Current unit cost of allocated page ``pid``."""
+        self._check(pid)
+        return self._cost[pid]
 
-    def alloc(self, n: int):
-        """Pop ``n`` page ids (refcount 1), or None (no change)."""
+    def set_cost(self, pid: int, units: int) -> None:
+        """Re-meter an allocated page after a format change (repack);
+        the cost belongs to the physical page, shared by its holders."""
+        self._check(pid)
+        if self._ref[pid] == 0:
+            raise ValueError(f"set_cost of free page {pid}")
+        if not 1 <= units <= PAGE_UNITS_FULL:
+            raise ValueError(f"bad page cost {units}")
+        self.units_in_use += units - self._cost[pid]
+        self._cost[pid] = units
+        self.peak_units = max(self.peak_units, self.units_in_use)
+
+    def can_alloc(self, n: int) -> bool:
+        if n > len(self._free):
+            return False
+        return (self.unit_budget is None or
+                self.units_in_use + n * PAGE_UNITS_FULL <= self.unit_budget)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Pop ``n`` page ids (refcount 1, full cost), or None (no change)."""
         if n < 0:
             raise ValueError("alloc of negative page count")
         if not self.can_alloc(n):
@@ -76,13 +137,18 @@ class PagePool:
         self._free_set.difference_update(ids)
         for pid in ids:
             self._ref[pid] = 1
+            self._cost[pid] = PAGE_UNITS_FULL
+        if self.track_allocs:
+            self.alloc_log.extend(ids)
+        self.units_in_use += n * PAGE_UNITS_FULL
+        self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
+        self.peak_units = max(self.peak_units, self.units_in_use)
         return ids
 
     def retain(self, ids) -> None:
         """Add one reference to each allocated page in ``ids``."""
         for pid in ids:
-            if not 0 <= pid < self.num_pages:
-                raise ValueError(f"retain of unknown page {pid}")
+            self._check(pid, "retain of unknown page")
             if self._ref[pid] == 0:
                 raise ValueError(f"retain of free page {pid}")
             self._ref[pid] += 1
@@ -90,12 +156,12 @@ class PagePool:
     def free(self, ids) -> None:
         """Drop one reference per page; the last reference frees it."""
         for pid in ids:
-            if not 0 <= pid < self.num_pages:
-                raise ValueError(f"free of unknown page {pid}")
+            self._check(pid, "free of unknown page")
             if pid in self._free_set or self._ref[pid] == 0:
                 raise ValueError(f"double free of page {pid}")
             self._ref[pid] -= 1
             if self._ref[pid] == 0:
+                self.units_in_use -= self._cost[pid]
                 self._free.append(pid)
                 self._free_set.add(pid)
 

@@ -85,7 +85,9 @@ class ActiveSeq:
 class Scheduler:
     def __init__(self, *, max_slots: int, num_pages: int, page_size: int,
                  max_seq: int, prefill_chunk: int, prefix_cache: bool = False,
-                 admit_window: int = 4, max_deferrals: int = 8):
+                 admit_window: int = 4, max_deferrals: int = 8,
+                 unit_budget: Optional[int] = None,
+                 track_allocs: bool = False):
         self.max_slots = max_slots
         self.page_size = page_size
         self.max_seq = max_seq
@@ -106,7 +108,8 @@ class Scheduler:
         if max_deferrals < 0:
             raise ValueError("max_deferrals must be >= 0")
         self.max_deferrals = max_deferrals
-        self.pool = PagePool(num_pages)
+        self.pool = PagePool(num_pages, unit_budget=unit_budget,
+                             track_allocs=track_allocs)
         self.prefix = (PrefixCache(self.pool, page_size)
                        if prefix_cache else None)
         self.queue: deque[Request] = deque()

@@ -145,7 +145,7 @@ def test_prefix_preemption_scenario_is_a_near_tie_not_a_paging_fault(
 @pytest.mark.parametrize("override", [
     dict(step_mode="split"), dict(decode_kernel="einsum"),
     dict(prefill_mode="monolithic"), dict(spec_decode=True),
-    dict(tiered=True), dict(mesh_shape=(1, 2)), dict(slo_ms=50.0),
+    dict(mesh_shape=(1, 2)), dict(slo_ms=50.0),
     dict(temperature=0.7), dict(prefill_max_chunks=2)])
 def test_unported_serve_options_raise(override):
     _, tcfg = _configs()
@@ -167,11 +167,32 @@ def test_launcher_batch_workload_on_cpu():
         serve.main(["--arch", "granite-8b", "--spec-decode"])
 
 
-def test_warmup_writes_only_the_trash_page():
+def test_launcher_tiered_on_cpu():
+    """``--tiered`` through the launcher: pages demote after one idle step
+    and the report carries the tiered stats; the reference's flag checks
+    refuse a tiered fp4 base and a wide KV cache."""
+    from repro_torch.launch import serve
+
+    report = serve.main(["--arch", "granite-8b", "--reduced", "--batch", "3",
+                         "--prompt-len", "40", "--shared-prefix", "32",
+                         "--ragged", "--new-tokens", "8", "--tiered",
+                         "--tier-hot-steps", "1", "--device", "cpu"])
+    tiers = report["tiered"]
+    assert report["generated_tokens"] == 24
+    assert tiers["repacked_pages"] > 0 and tiers["pages_fp6_e3m2"] > 0
+    assert tiers["max_repacked_in_step"] <= 4
+    assert 0 < tiers["units_in_use"] <= tiers["unit_budget"]
+    for argv in (["--tiered", "--quant", "mxfp4", "--quantize-kv"],
+                 ["--quant", "mxfp8"], ["--quant", "wide", "--quantize-kv"]):
+        with pytest.raises(SystemExit):
+            serve.parse_args(["--arch", "granite-8b", *argv])
+
+
+def _warmup_touches_only_the_trash_page(tiered: bool):
     _, tcfg = _configs()
     params = tmodel.init(tcfg, torch.Generator().manual_seed(0), "cpu")
-    eng = ContinuousBatchingEngine(params, tcfg, ServeConfig(**TIGHT),
-                                   device="cpu")
+    eng = ContinuousBatchingEngine(params, tcfg, ServeConfig(
+        **TIGHT, tiered=tiered), device="cpu")
     before = [{k: t.clone() for k, t in pool.items()} for pool in eng.cache]
     stats = eng.cache_stats()
     eng.warmup()
@@ -181,6 +202,20 @@ def test_warmup_writes_only_the_trash_page():
             assert torch.equal(t[:trash], old[k][:trash]), k
             assert not torch.equal(t[trash:], old[k][trash:]), k
     assert eng.cache_stats() == stats
+    return eng
+
+
+def test_warmup_writes_only_the_trash_page():
+    _warmup_touches_only_the_trash_page(tiered=False)
+
+
+def test_tiered_warmup_leaves_formats_ages_and_counters():
+    """On a tiered engine warmup passes the page formats to every layer
+    and still writes only the trash page, which stays in the base
+    format; no format, age, tick or tiering counter moves."""
+    eng = _warmup_touches_only_the_trash_page(tiered=True)
+    assert (eng.page_fmts == eng._base_fmt_id).all()
+    assert not eng._last_write.any() and eng._tick == 0
 
 
 def test_launcher_prompts_share_the_head_with_the_first_requests():

@@ -165,3 +165,80 @@ def test_reference_kv_through_port_attention_writes_identical_pages():
                 np.testing.assert_array_equal(got.view(torch.uint8).numpy(),
                                               exp)
         x = block(p, x, pool0)
+
+
+def test_tiered_ragged_step_matches_reference():
+    """A tiered cache (full-width uint8 rows, per-page format ids shared by
+    both layers): the first step prefills fp8 pages; then the pages the
+    second step only reads are repacked to fp6 e3m2 and fp4 e2m1, each
+    package by its own repack, and the second step runs over the mixed
+    pool. Layer 0's pool bytes must be identical (its K/V come from the
+    same embeddings); beyond it, the bars above: logits within one bf16
+    ulp with the same argmax, at most CODE_FRACTION of the pool bytes
+    differing. Measured on the first test's inputs (used here): none.
+    With PRNGKey(2) instead, 7 of 7,072 layer-1 bytes and the logits
+    move by one ulp: the two attention paths sum f32 products in
+    another order, and a flipped bf16 rounding of one layer's output
+    carries into the next layer's K/V codes."""
+    from repro.kernels import mx_repack_pages as jax_repack
+    from repro_torch.kernels import mx_repack_pages
+
+    jcfg, tcfg = serving_configs()
+    jparams, _ = jmodel.init(jax.random.PRNGKey(0), jcfg)
+    tparams = port_params(jparams, tcfg)
+    num_pages, ps = 13, 4
+    mixed = ("fp8_e4m3", "fp6_e3m2", "fp4_e2m1")
+    jcache = jmodel.init_paged_cache(jcfg, 4, num_pages, ps, tiered=True)
+    tcache = tmodel.init_paged_cache(tcfg, num_pages, ps, "cpu", tiered=True)
+    step = jax.jit(lambda p, c, f, *a: jmodel.ragged_step_paged(
+        p, jcfg, c, *a, page_fmts=f, mixed_fmts=mixed))
+    rng = np.random.default_rng(0)
+    table, steps = _steps()
+    fmts = np.zeros((num_pages,), np.int32)
+    # resident in the second step: rows 0 and 1's pages before their
+    # write windows (row 2 writes its only page)
+    narrow = {"fp6_e3m2": [0, 2, 5], "fp4_e2m1": [1, 3, 4]}
+    for n, meta in enumerate(steps):
+        if n == 1:
+            groups = dict(jcache["groups"][0])
+            for dst, ids in narrow.items():
+                ids_j = jnp.asarray(ids, jnp.int32)
+                src = jnp.asarray(fmts[ids])
+                for layer in range(jcfg.num_layers):
+                    out = jax_repack(*(groups[k][layer] for k in POOL_KEYS),
+                                     ids_j, src, len(ids), dst_fmt_name=dst,
+                                     mixed_fmts=mixed, block_size=16)
+                    groups = {k: groups[k].at[layer].set(o)
+                              for k, o in zip(POOL_KEYS, out)}
+                for pool in tcache:
+                    mx_repack_pages(*(pool[k] for k in POOL_KEYS),
+                                    torch.tensor(ids), torch.tensor(fmts[ids]),
+                                    len(ids), dst_fmt_name=dst,
+                                    mixed_fmts=mixed, block_size=16)
+                fmts[ids] = {"fp6_e3m2": 2, "fp4_e2m1": 4}[dst]
+            jcache = dict(jcache, groups=(groups,))
+        tokens = rng.integers(0, tcfg.vocab_size, (4, 16)).astype(np.int32)
+        args = [tokens, table] + [np.asarray(meta[k], np.int32)
+                                  for k in ("starts", "lens", "lidx")]
+        want, jcache = step(jparams, jcache, jnp.asarray(fmts),
+                            *map(jnp.asarray, args))
+        got = tmodel.ragged_step_paged(
+            tparams, tcfg, tcache, *(torch.from_numpy(a) for a in args),
+            page_fmts=torch.from_numpy(fmts), mixed_fmts=mixed)
+        want = np.asarray(want)[:3, 0]  # row 3 is inactive
+        got = got.numpy()[:3]
+        tol = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+        np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+        differing = total = 0
+        for layer, tpool in enumerate(tcache):
+            jpool = {k: v[layer] for k, v in jcache["groups"][0].items()}
+            for g, w in zip(_pool_bytes({k: t.numpy()
+                                         for k, t in tpool.items()}),
+                            _pool_bytes(jpool)):
+                if layer == 0:  # same inputs: the write is exact
+                    np.testing.assert_array_equal(g, w)
+                differing += int((g != w).sum())
+                total += g.size
+        assert differing / total <= CODE_FRACTION, (differing, total)
+    assert tcache[0]["k_elems"].dtype == torch.uint8

@@ -6,29 +6,66 @@ the Pallas kernel in interpret mode, as the reference's own tests do.
 Both get the same numpy inputs: a batch mixing a decode row with a
 mid-page start, a 3-token window across a page boundary, a fresh prefill
 chunk, a continuation chunk with an unaligned start, and an inactive row
-whose table is all -1 (the trash page). Written pool bytes and visit
-counts must be identical; ``out`` must agree within 1e-5 (the two sum
-f32 products in different orders).
+whose table is all -1 (the trash page). The pools are uniform fp8, packed
+fp4, or mixed-format uint8 rows whose resident pages carry fp8, fp6 and
+fp4 codes (and garbage in their dead tail bytes) under per-page format
+ids. Written pool bytes and visit counts must be identical; ``out`` must
+agree within 1e-5 (the two sum f32 products in different orders).
 
-The CUDA kernel itself is held to the plain version on the card by
-``chip_smoke.py`` and by the ``cuda``-marked test below.
+The pools are encoded by the port's ``quantize`` (bit-exact with the
+reference's, ``tests/test_torch_formats.py``), so the CUDA kernel can be
+held to the plain version on the card without JAX: by ``chip_smoke.py``
+and by the ``cuda``-marked test below. The reference is imported by the
+tests that call it.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jnp = pytest.importorskip("jax.numpy")
 
-from repro.core import quantize as jquantize  # noqa: E402
-from repro.kernels import mx_attention_ragged_fused as jax_ragged  # noqa: E402
+from repro_torch.core import formats as F  # noqa: E402
+from repro_torch.core import quantize as tquantize  # noqa: E402
 from repro_torch.kernels import mx_attention as tk  # noqa: E402
 
 OUT_TOL = 1e-5
+MIXED = ("fp8_e4m3", "fp6_e3m2", "fp4_e2m1")
+FP8_VIEWS = {"fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
+
+
+def _reference():
+    """(jax.numpy, the reference's ragged kernel), or skip."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import mx_attention_ragged_fused
+    return jnp, mx_attention_ragged_fused
+
+
+def _encode(x, fmt, block_size):
+    """(codes as uint8 bytes, E8M0 scales) of f32 rows, as numpy."""
+    qx = tquantize(torch.from_numpy(x), fmt, block_size)
+    return (qx.elements.view(torch.uint8).numpy(), qx.scales.numpy())
+
+
+def _mixed_pool(rng, page_ids, npages, ps, kvh, d, block_size):
+    """uint8 rows: page p holds codes of format page_ids[p] in its row
+    prefix and random bytes in the dead tail."""
+    elems = rng.integers(0, 256, (npages, ps, kvh, d), dtype=np.uint8)
+    scales = np.zeros((npages, ps, kvh, d // block_size), np.uint8)
+    for p, fid in enumerate(page_ids):
+        codes, e = _encode(rng.normal(size=(ps * kvh, d)).astype(
+            np.float32), F.FORMAT_BY_ID[int(fid)], block_size)
+        codes = codes.reshape(ps, kvh, -1)
+        elems[p, :, :, :codes.shape[-1]] = codes
+        scales[p] = e.reshape(ps, kvh, -1)
+    return elems, scales
 
 
 def make_case(fmt, block_size, *, d=64, g=2, kvh=2, ps=8, w=8, seed=101,
-              window=None, softcap=None):
-    """Numpy inputs for one ragged step (bf16-representable q/k/v)."""
+              window=None, softcap=None, mixed=False):
+    """Numpy inputs for one ragged step (bf16-representable q/k/v). With
+    ``mixed``, the pools are mixed-format uint8 rows: write-window pages
+    hold fp8 (the engine's hot-write invariant), the other pages cycle
+    through fp8 e4m3, fp6 e3m2, fp4 e2m1 and fp6 e2m3 (an id outside
+    ``MIXED``, which decodes as its first format)."""
     rng = np.random.default_rng(seed)
     starts = [13, 9, 0, 12, 0]
     n_news = [1, 3, w, w, 1]
@@ -45,14 +82,27 @@ def make_case(fmt, block_size, *, d=64, g=2, kvh=2, ps=8, w=8, seed=101,
         off += npg
 
     def pool(x):
-        qx = jquantize(jnp.asarray(x), fmt, block_size)
-        return (np.asarray(qx.elements).view(np.uint8).reshape(
-            npages, ps, kvh, d).copy(),
-            np.asarray(qx.scales).reshape(npages, ps, kvh, -1).copy())
+        codes, e = _encode(x, fmt, block_size)
+        return (codes.reshape(npages, ps, kvh, -1).copy(),
+                e.reshape(npages, ps, kvh, -1).copy())
 
-    # decoy codes everywhere: rows outside each window must keep them
-    ke, ks = pool(rng.normal(size=(npages * ps * kvh, d)).astype(np.float32))
-    ve, vs = pool(rng.normal(size=(npages * ps * kvh, d)).astype(np.float32))
+    page_fmts = None
+    if mixed:
+        cycle = [F.FORMAT_IDS[f] for f in MIXED + ("fp6_e2m3",)]
+        page_fmts = np.asarray([cycle[p % 4] for p in range(npages)],
+                               np.int32)
+        for i, (st, tot) in enumerate(zip(starts, totals)):
+            for p in range(st // ps, -(-tot // ps)):
+                if table[i, p] >= 0:
+                    page_fmts[table[i, p]] = F.FORMAT_IDS[fmt]
+        ke, ks = _mixed_pool(rng, page_fmts, npages, ps, kvh, d, block_size)
+        ve, vs = _mixed_pool(rng, page_fmts, npages, ps, kvh, d, block_size)
+    else:
+        # decoy codes everywhere: rows outside each window must keep them
+        ke, ks = pool(rng.normal(size=(npages * ps * kvh, d)).astype(
+            np.float32))
+        ve, vs = pool(rng.normal(size=(npages * ps * kvh, d)).astype(
+            np.float32))
 
     def bf16(shape, scale=1.0):
         x = (rng.normal(size=shape) * scale).astype(np.float32)
@@ -69,50 +119,60 @@ def make_case(fmt, block_size, *, d=64, g=2, kvh=2, ps=8, w=8, seed=101,
     return dict(q=q, k_new=k_new, v_new=v_new, ke=ke, ks=ks, ve=ve, vs=vs,
                 table=table, starts=np.asarray(starts, np.int32),
                 lens=np.asarray(totals, np.int32), fmt=fmt,
-                block_size=block_size, window=window, softcap=softcap)
+                block_size=block_size, window=window, softcap=softcap,
+                page_fmts=page_fmts)
+
+
+def _mixed_kw(c, page_fmts):
+    if c["page_fmts"] is None:
+        return {}
+    return dict(page_fmts=page_fmts, mixed_fmts=MIXED)
 
 
 def run_reference(c):
+    jnp, jax_ragged = _reference()
     fmt = c["fmt"]
-    view = {"fp8_e4m3": jnp.float8_e4m3fn, "fp8_e5m2": jnp.float8_e5m2}[fmt]
+    ke, ve = jnp.asarray(c["ke"]), jnp.asarray(c["ve"])
+    if c["page_fmts"] is None and fmt in FP8_VIEWS:
+        view = {"fp8_e4m3": jnp.float8_e4m3fn,
+                "fp8_e5m2": jnp.float8_e5m2}[fmt]
+        ke, ve = (a.view(view) for a in (ke, ve))
     out, pools, visits = jax_ragged(
         jnp.asarray(c["q"]), jnp.asarray(c["k_new"]), jnp.asarray(c["v_new"]),
-        jnp.asarray(c["ke"]).view(view), jnp.asarray(c["ks"]),
-        jnp.asarray(c["ve"]).view(view), jnp.asarray(c["vs"]),
+        ke, jnp.asarray(c["ks"]), ve, jnp.asarray(c["vs"]),
         jnp.asarray(c["table"]), jnp.asarray(c["starts"]),
         jnp.asarray(c["lens"]), fmt_name=fmt, block_size=c["block_size"],
-        window=c["window"], softcap=c["softcap"], debug_visits=True)
+        window=c["window"], softcap=c["softcap"], debug_visits=True,
+        **_mixed_kw(c, None if c["page_fmts"] is None
+                    else jnp.asarray(c["page_fmts"])))
     pools = [np.asarray(p).view(np.uint8) for p in pools]
     return np.asarray(out), pools, np.asarray(visits)
 
 
 def run_port(c, device="cpu"):
     fmt = c["fmt"]
-    dt = {"fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}[fmt]
 
     def t(x, dtype=None):
         x = torch.from_numpy(np.array(x)).to(device)  # own copy: pools
         # are updated in place
         return x if dtype is None else x.to(dtype)
 
-    pools = [t(c["ke"]).view(dt), t(c["ks"]), t(c["ve"]).view(dt),
-             t(c["vs"])]
+    pools = [t(c["ke"]), t(c["ks"]), t(c["ve"]), t(c["vs"])]
+    if c["page_fmts"] is None and fmt in FP8_VIEWS:
+        pools[0], pools[2] = (p.view(FP8_VIEWS[fmt])
+                              for p in (pools[0], pools[2]))
     out, pools, visits = tk.mx_attention_ragged_fused(
         t(c["q"], torch.bfloat16), t(c["k_new"], torch.bfloat16),
         t(c["v_new"], torch.bfloat16), *pools, t(c["table"]),
         t(c["starts"]), t(c["lens"]), fmt_name=fmt,
         block_size=c["block_size"], window=c["window"], softcap=c["softcap"],
-        debug_visits=True)
+        debug_visits=True, **_mixed_kw(c, None if c["page_fmts"] is None
+                                        else t(c["page_fmts"])))
     pools = [p.view(torch.uint8).cpu().numpy() for p in pools]
     return out.cpu().numpy(), pools, visits.cpu().numpy()
 
 
-@pytest.mark.parametrize("fmt,block_size,window,softcap", [
-    ("fp8_e4m3", 16, None, None), ("fp8_e4m3", 32, 6, None),
-    ("fp8_e5m2", 16, 6, 5.0), ("fp8_e5m2", 32, None, None)])
-def test_plain_ragged_matches_reference_kernel(fmt, block_size, window,
-                                               softcap):
-    case = make_case(fmt, block_size, window=window, softcap=softcap)
+def _check_against_reference(case):
     want_out, want_pools, want_visits = run_reference(case)
     out, pools, visits = run_port(case)
     for name, got, want in zip(("ke", "ks", "ve", "vs"), pools, want_pools):
@@ -123,26 +183,76 @@ def test_plain_ragged_matches_reference_kernel(fmt, block_size, window,
     np.testing.assert_allclose(out, want_out, rtol=0, atol=OUT_TOL)
 
 
-@pytest.mark.parametrize("unported", [
-    dict(fmt_name="fp4_e2m1"), dict(fmt_name="fp6_e3m2"),
-    dict(page_fmts=np.zeros(4, np.int32))])
-def test_unported_pool_formats_raise(unported):
+@pytest.mark.parametrize("fmt,block_size,window,softcap", [
+    ("fp8_e4m3", 16, None, None), ("fp8_e4m3", 32, 6, None),
+    ("fp8_e5m2", 16, 6, 5.0), ("fp8_e5m2", 32, None, None)])
+def test_plain_ragged_matches_reference_kernel(fmt, block_size, window,
+                                               softcap):
+    _check_against_reference(make_case(fmt, block_size, window=window,
+                                       softcap=softcap))
+
+
+@pytest.mark.parametrize("fmt,block_size,window,softcap,mixed", [
+    ("fp4_e2m1", 16, None, None, False), ("fp4_e2m1", 32, 6, 5.0, False),
+    ("fp8_e4m3", 16, 6, None, True), ("fp8_e4m3", 32, None, 5.0, True),
+    ("fp8_e5m2", 16, None, None, True)])
+def test_plain_ragged_fp4_and_mixed_pools_match_reference_kernel(
+        fmt, block_size, window, softcap, mixed):
+    _check_against_reference(make_case(fmt, block_size, window=window,
+                                       softcap=softcap, mixed=mixed))
+
+
+def test_uniform_fp6_pools_raise_value_error():
+    """The reference has no uniform fp6 pool layout (see the wrapper's
+    docstring); the port refuses one instead of inventing a layout."""
     case = make_case("fp8_e4m3", 16)
     t = {k: torch.from_numpy(np.ascontiguousarray(v))
          for k, v in case.items() if isinstance(v, np.ndarray)}
-    with pytest.raises(NotImplementedError):
+    for fmt in ("fp6_e3m2", "fp6_e2m3"):
+        with pytest.raises(ValueError, match="uniform fp6"):
+            tk.mx_attention_ragged_fused(
+                t["q"], t["k_new"], t["v_new"], t["ke"], t["ks"], t["ve"],
+                t["vs"], t["table"], t["starts"], t["lens"], block_size=16,
+                fmt_name=fmt)
+
+
+def test_reference_uniform_fp6_pool_fails_on_its_own_layout():
+    """What the reference does with a uniform fp6 pool laid out as its
+    ``_cache_arrays`` allocates it (D-byte uint8 rows): tracing the kernel
+    unpacks the D-byte rows as fp6 byte triples, and D = 64 bytes do not
+    reshape into triples (TypeError); the write would merge 3D/4 packed
+    bytes into them besides."""
+    jnp, jax_ragged = _reference()
+    case = make_case("fp8_e4m3", 16)
+    with pytest.raises(TypeError, match="reshape"):
+        jax_ragged(
+            *(jnp.asarray(case[k]) for k in ("q", "k_new", "v_new", "ke",
+                                             "ks", "ve", "vs", "table",
+                                             "starts", "lens")),
+            fmt_name="fp6_e3m2", block_size=16)
+
+
+def test_mixed_pool_write_format_must_be_fp8():
+    case = make_case("fp8_e4m3", 16, mixed=True)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in case.items() if isinstance(v, np.ndarray)}
+    with pytest.raises(ValueError, match="must be an fp8"):
         tk.mx_attention_ragged_fused(
             t["q"], t["k_new"], t["v_new"], t["ke"], t["ks"], t["ve"],
             t["vs"], t["table"], t["starts"], t["lens"], block_size=16,
-            **unported)
+            fmt_name="fp4_e2m1", page_fmts=t["page_fmts"])
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for fmt, softcap in (("fp8_e4m3", None), ("fp8_e5m2", 5.0)):
-        case = make_case(fmt, 16, window=6, softcap=softcap)
+    for fmt, block_size, softcap, mixed in (
+            ("fp8_e4m3", 16, None, False), ("fp8_e5m2", 16, 5.0, False),
+            ("fp4_e2m1", 16, None, False), ("fp4_e2m1", 32, 5.0, False),
+            ("fp8_e4m3", 16, None, True), ("fp8_e5m2", 32, 5.0, True)):
+        case = make_case(fmt, block_size, window=6, softcap=softcap,
+                         mixed=mixed)
         want_out, want_pools, want_visits = run_port(case, "cpu")
         out, pools, visits = run_port(case, "cuda")
         trash = case["ke"].shape[0] - 1  # scratch page: racy by contract
