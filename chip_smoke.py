@@ -18,16 +18,26 @@ code is not 0 and no result line is printed:
      a granite-shaped tiered layer pool, every destination format, mixed
      sources, padding, zero and subnormal blocks; time one 36-layer
      dispatch;
+  2c. hold the split step's kernels, decode/verify (Tq 1 and 4) and
+     chunked prefill (B 1 and 2, no resident prefix and 10 resident
+     pages), against their plain versions on fp8 e4m3/e5m2, packed fp4
+     (blocks 32 and 16) and repacked mixed pools; the ragged kernel's
+     rows bit-equal to the verify kernel's over the host-written pool;
+     time each beside its bound;
   3. serve the same prompts with a reduced granite on the card and on the
      CPU (where the plain versions run) and require equal greedy streams,
      with the default cache and with an aggressively tiered one (equal
-     per-step page formats too);
+     per-step page formats too), in the ragged and the split step, and
+     split streams equal to ragged ones;
   4. serve granite-8b at full width (36 layers, random seeded weights)
      through ``repro_torch.launch.serve`` with the ``ServeConfig`` defaults,
      with every kernel count reset just before and read just after; then
      split one full-width decode step's time into the kernel and the rest;
      then serve the same prompts with ``--tiered`` (the reference's
-     ``TierPolicy`` defaults), counts reset and read the same way;
+     ``TierPolicy`` defaults), counts reset and read the same way; then
+     with ``--step-mode split`` (counts reset and read the same way,
+     streams compared with the ragged run's), and split its decode and
+     prefill dispatches' time into the kernel and the rest;
   5. the MX dot products at granite-8b widths: hold the quantize kernel
      bit-exact and the weight-only, MX x MX and dgrad matmul kernels
      within tolerance against their plain versions at one layer's seven
@@ -193,40 +203,53 @@ def _kw(inp, fmt: str) -> dict:
     return kw
 
 
+def _causal_keys(first: int, n_q: int, last_key: int) -> int:
+    """(query, key) pairs a causal mask keeps: queries at positions
+    ``first``, ``first + 1``, ... (``n_q`` of them) each see keys 0 up to
+    their own position, and none past ``last_key``."""
+    return sum(min(first + i, last_key) + 1 for i in range(n_q))
+
+
+def _rows_below(p: int, end: int) -> int:
+    """Rows of page ``p`` (of PS) at positions below ``end``."""
+    return max(0, min(PS, end - p * PS))
+
+
 def ragged_bound(fmt: str = "fp8_e4m3", block: int = BLOCK,
                  inp=None) -> tuple:
     """(bound_ms, bound_by) of one call: each input read once and each
-    output written once, against the page walk this data needs. A mixed
-    pool's resident pages count the row prefix their format fills."""
+    output written once. Pool rows read are the resident ones below each
+    row's start (a mixed page's rows at the prefix its format fills);
+    q.k and P.V count the (query, key) pairs the causal mask keeps, a
+    padding query clamped to its row's last real one as the kernel
+    clamps it."""
     from repro_torch.core import formats as F
 
     nb = D // block
     wbytes = F.get_format(fmt).storage_len(D)  # bytes of a written row
-    walked_bytes = 0  # one K or V page tile of every page walked
-    rows_written = qk = pv = 0
+    resident_bytes = 0  # one K or V row of every resident position
+    rows_written = pairs = 0
     for i, (start, n_new) in enumerate(ROWS):
         seq_len = start + max(n_new, 1)
-        pages = min(-(-seq_len // PS), P)
-        for p in range(pages):
+        for p in range(min(-(-start // PS), P)):
             ed = wbytes
             if inp is not None and inp["fmts"] is not None:
                 page = int(inp["table"][i, p]) if n_new else R * P
                 ed = F.get_format(F.FORMAT_BY_ID[inp["fmts"][page]]) \
                     .storage_len(D)
-            walked_bytes += PS * KVH * (ed + nb)
+            resident_bytes += _rows_below(p, start) * KVH * (ed + nb)
         rows_written += max(n_new, 1)
-        keys = pages * PS
-        qk += 2 * KVH * W * G * keys * D  # bf16 q x exact-in-bf16 keys
-        pv += 2 * KVH * W * G * keys * D  # f32 probabilities x values
+        pairs += KVH * G * _causal_keys(start, W, seq_len - 1)
     read = (2 * R * KVH * W * G * D  # q
             + 2 * 2 * R * W * KVH * D  # k_new, v_new
-            + 2 * walked_bytes  # K and V pages attended
+            + 2 * resident_bytes  # K and V rows attended from the pool
             + 4 * (R * P + 2 * R))  # table, row_start, seq_lens
     written = (4 * R * KVH * W * G * D  # f32 out
                + 2 * rows_written * KVH * (wbytes + nb)  # merged K/V rows
                + 4 * R * KVH)  # visits
     bytes_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
-    ops_ms = 1e3 * (qk / BF16_FLOPS + pv / F32_FLOPS)
+    # q.k: bf16 q x exact-in-bf16 keys; P.V: f32 probabilities x values
+    ops_ms = 1e3 * (2 * pairs * D / BF16_FLOPS + 2 * pairs * D / F32_FLOPS)
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -467,18 +490,351 @@ def time_repack_kernel(layers: int = 36) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the split step's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: decode slots' lengths at granite shapes (slot 4 inactive: table all -1)
+DECODE_LENS = [150, 48, 64, 195, 0, 250, 17, 300]
+PAGED_NP = R * P  # pool pages of phase 2c (no trash page: split has none)
+CHUNK = 64  # ServeConfig.prefill_chunk
+#: prefill batches: (chunk start, real tokens) per row; the resident prefix
+#: is start / PS pages (0 or 10), the second row a padded final chunk
+PREFILL_ROWS = {"b1_fresh": [(0, CHUNK)], "b1_resident": [(160, CHUNK)],
+                "b2": [(0, CHUNK), (160, 37)]}
+#: pool kinds of phase 2c: label -> (format, block, mixed)
+PAGED_POOLS = {"fp8_e4m3": ("fp8_e4m3", BLOCK, False),
+               "fp8_e5m2": ("fp8_e5m2", BLOCK, False),
+               "fp4": ("fp4_e2m1", 32, False),
+               "fp4_block16": ("fp4_e2m1", 16, False),
+               "mixed": ("fp8_e4m3", BLOCK, True)}
+
+
+def paged_pools(fmt: str, block: int, mixed: bool, gen, dev: str,
+                hot=()) -> tuple:
+    """(pools, page_fmts) of PAGED_NP granite-shaped pages of random codes.
+    ``mixed``: uint8 rows whose pages cycle through fp8, fp6 e3m2 and fp4
+    e2m1, repacked from fp8 by the repack kernel (its plain version off
+    the card); pages in ``hot`` (a chunk's) stay fp8."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import quantize
+    from repro_torch.kernels import mx_repack as mr
+
+    pools = []
+    for _ in range(2):
+        x = quantize(torch.randn(PAGED_NP * PS * KVH, D, generator=gen), fmt,
+                     block)
+        pools += [x.elements.reshape(PAGED_NP, PS, KVH, -1).contiguous()
+                  .to(dev), x.scales.reshape(PAGED_NP, PS, KVH, D // block)
+                  .contiguous().to(dev)]
+    if not mixed:
+        return pools, None
+    pools = [t.view(torch.uint8) for t in pools]
+    ids = [F.FORMAT_IDS[fmt] if p in hot else F.FORMAT_IDS[MIXED[p % 3]]
+           for p in range(PAGED_NP)]
+    repack = mr.mx_repack_pages if dev == "cuda" else mr.mx_repack_pages_plain
+    for name in MIXED[1:]:
+        pages = [p for p in range(PAGED_NP) if ids[p] == F.FORMAT_IDS[name]]
+        repack(*pools, torch.tensor(pages, dtype=torch.int32, device=dev),
+               torch.full((len(pages),), F.FORMAT_IDS[fmt], dtype=torch.int32,
+                          device=dev), len(pages), dst_fmt_name=name,
+               mixed_fmts=MIXED, block_size=block)
+    return pools, torch.tensor(ids, dtype=torch.int32, device=dev)
+
+
+def _tables(lens: list, gen) -> torch.Tensor:
+    """(len(lens), P) tables of distinct pages covering each length; -1
+    tails and an all -1 row for length 0."""
+    table = torch.full((len(lens), P), -1, dtype=torch.int32)
+    perm = torch.randperm(PAGED_NP, generator=gen)
+    off = 0
+    for i, n in enumerate(lens):
+        pages = -(-n // PS)
+        table[i, :pages] = perm[off:off + pages]
+        off += pages
+    return table
+
+
+def verify_inputs(label: str, tq: int, gen, dev: str = "cuda") -> dict:
+    fmt, block, mixed = PAGED_POOLS[label]
+    table = _tables(DECODE_LENS, gen)
+    pools, page_fmts = paged_pools(fmt, block, mixed, gen, dev)
+    return dict(kind="verify", fmt=fmt, block=block, tq=tq, pools=pools,
+                page_fmts=page_fmts, table=table.to(dev),
+                lens=torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev),
+                q=torch.randn(R, KVH, tq, G, D, generator=gen).bfloat16()
+                .to(dev))
+
+
+def prefill_inputs(label: str, rows: list, gen, dev: str = "cuda") -> dict:
+    fmt, block, mixed = PAGED_POOLS[label]
+    table = _tables([st + real for st, real in rows], gen)
+    hot = {int(table[i, p]) for i, (st, real) in enumerate(rows)
+           for p in range(st // PS, -(-(st + real) // PS))}
+    pools, page_fmts = paged_pools(fmt, block, mixed, gen, dev, hot)
+    b = len(rows)
+    return dict(kind="prefill", fmt=fmt, block=block, pools=pools,
+                page_fmts=page_fmts, table=table.to(dev), rows=rows,
+                starts=torch.tensor([st for st, _ in rows], dtype=torch.int32,
+                                    device=dev),
+                lens=torch.tensor([st + real for st, real in rows],
+                                  dtype=torch.int32, device=dev),
+                q=torch.randn(b, KVH, CHUNK, G, D, generator=gen).bfloat16()
+                .to(dev),
+                k=torch.randn(b, CHUNK, KVH, D, generator=gen).bfloat16()
+                .to(dev),
+                v=torch.randn(b, CHUNK, KVH, D, generator=gen).bfloat16()
+                .to(dev))
+
+
+def run_paged(mxa, inp, pools, plain: bool = False):
+    """One call of the verify or prefill kernel (or its plain version, with
+    the wrapper's normalisation) on ``pools``; returns (out, visits)."""
+    kw = dict(fmt_name=inp["fmt"], block_size=inp["block"])
+    if inp["page_fmts"] is not None:
+        kw.update(page_fmts=inp["page_fmts"], mixed_fmts=MIXED)
+    npages = pools[0].shape[0]
+    if inp["kind"] == "verify":
+        if plain:
+            table, lens = mxa.normalize_verify(inp["table"], inp["lens"],
+                                               npages, inp["tq"])
+            return mxa.mx_attention_verify_fused_plain(
+                inp["q"], *pools, table, lens, **kw)
+        return mxa.mx_attention_verify_fused(
+            inp["q"], *pools, inp["table"], inp["lens"], debug_visits=True,
+            **kw)
+    if plain:
+        table, starts, lens = mxa.normalize_prefill(
+            inp["table"], inp["starts"], inp["lens"], npages, CHUNK)
+        return mxa.mx_attention_prefill_fused_plain(
+            inp["q"], inp["k"], inp["v"], *pools, table, starts, lens, **kw)
+    out, _, visits = mxa.mx_attention_prefill_fused(
+        inp["q"], inp["k"], inp["v"], *pools, inp["table"], inp["starts"],
+        inp["lens"], debug_visits=True, **kw)
+    return out, visits
+
+
+def check_paged_case(mxa, inp, label: str) -> float:
+    """Kernel against plain version on the same inputs: every pool byte
+    identical, visits exact, out within OUT_TOL. Returns max |out -
+    plain|."""
+    kernel_pools = [t.clone() for t in inp["pools"]]
+    out, visits = run_paged(mxa, inp, kernel_pools)
+    plain_pools = [t.clone() for t in inp["pools"]]
+    want, want_visits = run_paged(mxa, inp, plain_pools, plain=True)
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    for name, got, exp in zip(("ke", "ks", "ve", "vs"), kernel_pools,
+                              plain_pools):
+        if not torch.equal(got.view(torch.uint8), exp.view(torch.uint8)):
+            raise AssertionError(f"{label}: {name} pool bytes differ")
+    if inp["kind"] == "prefill" and torch.equal(
+            kernel_pools[0].view(torch.uint8),
+            inp["pools"][0].view(torch.uint8)):
+        raise AssertionError(f"{label}: the chunk pages were not written")
+    if not torch.equal(visits, want_visits):
+        raise AssertionError(f"{label}: visit counts differ")
+    err = float((out - want).abs().max())
+    if not err <= OUT_TOL:
+        raise AssertionError(f"{label}: out differs by {err} > {OUT_TOL}")
+    return err
+
+
+def paged_bound(inp) -> tuple:
+    """(bound_ms, bound_by) of one call: each input read once, each output
+    written once; pool rows read are those below the length (verify) or
+    the chunk's start (prefill), a mixed page's at the row prefix its
+    format fills; a prefill writes its chunk pages whole. q.k (bf16
+    tensor cores) and P.V (f32) count the (query, key) pairs the causal
+    mask keeps: a verify query at seq_len - Tq + i, a chunk query at
+    start + i over the pages walked (padding queries included, as the
+    kernel computes them)."""
+    from repro_torch.core import formats as F
+
+    nb = D // inp["block"]
+    fmts = None if inp["page_fmts"] is None else inp["page_fmts"].tolist()
+    table = inp["table"].tolist()
+
+    def row_bytes(page, hot=False):
+        fmt = inp["fmt"]
+        if fmts is not None and not hot:
+            fmt = F.FORMAT_BY_ID[fmts[page]]
+        return KVH * (F.get_format(fmt).storage_len(D) + nb)
+
+    read = written = pairs = 0
+    if inp["kind"] == "verify":
+        tq = inp["tq"]
+        for i, n in enumerate(DECODE_LENS):
+            n = max(n, tq)  # an inactive slot walks page 0
+            read += 2 * sum(_rows_below(p, n) * row_bytes(max(table[i][p], 0))
+                            for p in range(min(-(-n // PS), P)))
+            pairs += KVH * G * _causal_keys(n - tq, tq, n - 1)
+        read += 2 * inp["q"].numel() + 4 * (R * P + R)
+        written += 4 * inp["q"].numel() + 4 * R * KVH
+    else:
+        b = len(inp["rows"])
+        for i, (st, real) in enumerate(inp["rows"]):
+            c0, pages = st // PS, min(-(-(st + real) // PS), P)
+            read += 2 * sum(PS * row_bytes(table[i][p]) for p in range(c0))
+            written += 2 * sum(PS * row_bytes(table[i][p], hot=True)
+                               for p in range(c0, pages))
+            pairs += KVH * G * _causal_keys(st, CHUNK, pages * PS - 1)
+        read += 2 * (inp["q"].numel() + 2 * inp["k"].numel()) \
+            + 4 * (b * P + 2 * b)
+        written += 4 * inp["q"].numel() + 4 * b * KVH
+    bytes_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * (2 * pairs * D / BF16_FLOPS + 2 * pairs * D / F32_FLOPS)
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_paged(mxa, inp, reps: int = 25) -> tuple:
+    """(kernel ms, plain ms) medians; the pools are scratch copies (a
+    prefill rewrites the same chunk pages every run)."""
+    pools = [t.clone() for t in inp["pools"]]
+    call = lambda: run_paged(mxa, inp, pools)  # noqa: E731
+    plain = lambda: run_paged(mxa, inp, pools, plain=True)  # noqa: E731
+    for _ in range(3):
+        call()
+    plain()
+    return cuda_ms(call, reps), cuda_ms(plain, 3)
+
+
+def check_ragged_bit_equals_verify(mxa, gen) -> None:
+    """Decode rows (Tq 1) and 4-token windows of the ragged kernel against
+    the verify kernel over the pool the host write produced: the pools
+    are identical and every live row's real queries give the same bits."""
+    from repro_torch.core import MXFP8
+    from repro_torch.nn.attention import AttnConfig, _write_pages
+
+    quant = MXFP8.replace(quantize_kv_cache=True)
+    cfg = AttnConfig(d_model=KVH * G * D, num_heads=KVH * G,
+                     num_kv_heads=KVH, head_dim=D)
+    live = [i for i, n in enumerate(DECODE_LENS) if n]
+    for tq in (1, 4):
+        inp = verify_inputs("fp8_e4m3", tq, gen)
+        table, lens = inp["table"][live], inp["lens"][live]
+        starts = lens - tq
+        k_new = torch.randn(len(live), tq, KVH, D, generator=gen).bfloat16() \
+            .cuda()
+        v_new = torch.randn(len(live), tq, KVH, D, generator=gen).bfloat16() \
+            .cuda()
+        q = inp["q"][live].contiguous()
+        # the ragged kernel writes its -1 entries to a trash page: add one
+        trash = [torch.cat([t, t[:1]]) for t in inp["pools"]]
+        out, _ = mxa.mx_attention_ragged_fused(
+            q, k_new, v_new, *trash, table, starts, lens, block_size=BLOCK)
+        host = dict(zip(("k_elems", "k_scales", "v_elems", "v_scales"),
+                        [t.clone() for t in inp["pools"]]))
+        posv = starts[:, None] + torch.arange(tq, device="cuda")[None]
+        _write_pages(host, k_new, v_new, table, posv, cfg, quant)
+        ver = mxa.mx_attention_verify_fused(
+            q, *host.values(), table, lens, block_size=BLOCK)
+        torch.cuda.synchronize()
+        for got, exp in zip(trash, host.values()):
+            if not torch.equal(got[:PAGED_NP].view(torch.uint8),
+                               exp.view(torch.uint8)):
+                raise AssertionError(f"Tq {tq}: ragged and host writes "
+                                     "differ")
+        if not torch.equal(out, ver):
+            raise AssertionError(f"Tq {tq}: the ragged kernel's rows are not "
+                                 "bit-equal to the verify kernel's")
+    log(f"ragged kernel vs verify kernel over the host-written pool: "
+        f"{len(live)} slots, Tq 1 and 4, pool bytes identical and outputs "
+        "bit-equal")
+
+
+def check_paged_kernels() -> list:
+    """Phase 2c; returns the verify and prefill entries of the kernels
+    line (launches are set by phase 4's split run)."""
+    from repro_torch.kernels import mx_attention as mxa
+
+    gen = torch.Generator().manual_seed(7)
+    worst = {"verify": 0.0, "prefill": 0.0}
+    timed = {}
+    for label in PAGED_POOLS:
+        for tq in (1, 4):
+            inp = verify_inputs(label, tq, gen)
+            worst["verify"] = max(worst["verify"], check_paged_case(
+                mxa, inp, f"verify {label} Tq {tq}"))
+            timed[("verify", label, tq)] = inp
+        for key, rows in PREFILL_ROWS.items():
+            inp = prefill_inputs(label, rows, gen)
+            worst["prefill"] = max(worst["prefill"], check_paged_case(
+                mxa, inp, f"prefill {label} {key}"))
+            timed[("prefill", label, key)] = inp
+    log(f"verify kernel (Tq 1 and 4) and prefill kernel (B 1 fresh, B 1 over "
+        f"10 resident pages, B 2 with a padded final chunk) on fp8 e4m3, "
+        f"e5m2, fp4 blocks 32 and 16 and a repacked mixed pool: every pool "
+        f"byte identical to the plain versions, visits exact, max |out - "
+        f"plain| verify {worst['verify']:.3g}, prefill {worst['prefill']:.3g}")
+    check_ragged_bit_equals_verify(mxa, gen)
+    src = "src/repro_torch/kernels/csrc/mx_attention_paged.cu"
+    entries = {}
+    for kind, main, replaces, name in (
+            ("verify", ("fp8_e4m3", 1), ":652", "mx_attention_verify_fused"),
+            ("prefill", ("fp8_e4m3", "b1_resident"), ":1000",
+             "mx_attention_prefill_fused")):
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": "src/repro/kernels/mx_attention.py" + replaces,
+                 "launches": None, "max_abs_err": worst[kind],
+                 "library_ms": None}
+        for (k, label, shape), inp in timed.items():
+            if k != kind or (label != "fp8_e4m3" and shape != main[1]):
+                continue
+            ms, plain_ms = time_paged(mxa, inp)
+            bound_ms, bound_by = paged_bound(inp)
+            tag = f"{label}_{'tq' if kind == 'verify' else ''}{shape}"
+            if (label, shape) == main:
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+            else:
+                entry[f"ms_{tag}"] = ms
+                entry[f"bound_ms_{tag}"] = bound_ms
+            log(f"{name} {label} "
+                f"{'Tq' if kind == 'verify' else 'rows'} {shape}: kernel "
+                f"{ms:.4f} ms (median of 25), plain {plain_ms:.2f} ms (median "
+                f"of 3), bound {bound_ms:.5f} ms ({bound_by})")
+        entries[kind] = entry
+    log("no single PyTorch call computes either function (a page-table "
+        "walk over MX pages, with the chunk's quantized page writes)")
+    return [entries["verify"], entries["prefill"]]
+
+
+# ---------------------------------------------------------------------------
 # phase 3: reduced granite, card vs CPU
 # ---------------------------------------------------------------------------
 
 
-def reduced_streams(device: str, params, cfg, prompts):
+def reduced_streams(device: str, params, cfg, prompts,
+                    step_mode: str = "ragged"):
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    eng = ServeEngine(params, cfg, ServeConfig(max_seq=96, max_slots=3),
+    eng = ServeEngine(params, cfg, ServeConfig(max_seq=96, max_slots=3,
+                                               step_mode=step_mode),
                       device=device)
     ids = [eng.submit(p, 6) for p in prompts]
     out = eng.run()
     return [out[i] for i in ids], eng.cache_stats()
+
+
+def _same_streams(got, want, what: str) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            k = int(np.flatnonzero(g != w)[0])
+            raise AssertionError(f"{what}: request {i} parts at position {k}")
+
+
+def _check_split_launches(stats, layers: int, verify: int, prefill: int,
+                          what: str) -> None:
+    """#2 launched once per layer of every decode dispatch, #3 once per
+    layer of every prefill dispatch."""
+    if verify != stats["dispatches_decode"] * layers or \
+            prefill != stats["prefill_dispatches"] * layers or not verify \
+            or not prefill:
+        raise AssertionError(
+            f"{what}: {verify} verify / {prefill} prefill launches over "
+            f"{stats['dispatches_decode']} decode / "
+            f"{stats['prefill_dispatches']} prefill dispatches")
 
 
 def reduced_config():
@@ -496,43 +852,65 @@ def reduced_prompts(cfg) -> list:
             for n in (8, 40, 17, 33, 5, 50, 24)]
 
 
-def check_reduced_parity() -> None:
+def check_reduced_parity(card: str = "cuda") -> None:
     from repro_torch.nn import model
 
     cfg = reduced_config()
     params = model.init(cfg, torch.Generator().manual_seed(REDUCED_SEED),
                         "cpu")
-    on_card = _to_device(params, "cuda")
+    from repro_torch.kernels import (mx_attention_prefill_fused,
+                                     mx_attention_verify_fused)
+
+    on_card = _to_device(params, card)
     prompts = reduced_prompts(cfg)
     want, cpu_stats = reduced_streams("cpu", params, cfg, prompts)
-    got, stats = reduced_streams("cuda", on_card, cfg, prompts)
+    got, stats = reduced_streams(card, on_card, cfg, prompts)
     if not cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
         raise AssertionError("reduced run has a near-tie greedy pick: "
                              f"{cpu_stats['min_top2_gap_ulps']} ulps")
-    for i, (g, w) in enumerate(zip(got, want)):
-        if not np.array_equal(g, w):
-            k = int(np.flatnonzero(g != w)[0])
-            raise AssertionError(f"request {i}: card and CPU streams part "
-                                 f"at position {k}")
-    if stats["kernel_launches"] != stats["ragged_steps"] * cfg.num_layers:
+    _same_streams(got, want, "reduced ragged, card vs CPU")
+    if card == "cuda" and \
+            stats["kernel_launches"] != stats["ragged_steps"] * cfg.num_layers:
         raise AssertionError(f"reduced run launched the kernel "
                              f"{stats['kernel_launches']} times in "
                              f"{stats['ragged_steps']} steps")
+    # the split step: card against CPU, and against the ragged streams
+    split_cpu, split_cpu_stats = reduced_streams("cpu", params, cfg, prompts,
+                                                 "split")
+    verify0 = mx_attention_verify_fused.launches
+    prefill0 = mx_attention_prefill_fused.launches
+    split, split_stats = reduced_streams(card, on_card, cfg, prompts,
+                                         "split")
+    if not split_cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
+        raise AssertionError("reduced split run has a near-tie greedy pick: "
+                             f"{split_cpu_stats['min_top2_gap_ulps']} ulps")
+    _same_streams(split, split_cpu, "reduced split, card vs CPU")
+    _same_streams(split, want, "reduced, split vs ragged")
+    if card == "cuda":
+        _check_split_launches(split_stats, cfg.num_layers,
+                              mx_attention_verify_fused.launches - verify0,
+                              mx_attention_prefill_fused.launches - prefill0,
+                              "reduced split run")
     log(f"reduced granite: {len(prompts)} requests through 3 slots, prefix "
         f"hit rate {stats['prefix_hit_rate']:.2f}, streams equal on card and "
         f"CPU (smallest top-2 lead {cpu_stats['min_top2_gap_ulps']:.0f} "
-        "bf16 ulps)")
+        f"bf16 ulps); split step ({split_stats['dispatches_decode']} decode "
+        f"and {split_stats['prefill_dispatches']} prefill dispatches): "
+        "streams equal on card and CPU and equal to the ragged run's "
+        f"(smallest lead {split_cpu_stats['min_top2_gap_ulps']:.0f} ulps)")
 
 
-def tiered_streams(device: str, params, cfg, prompts) -> tuple:
-    """The reduced workload through an aggressively tiered engine, stepped
-    by hand: (streams, stats, page formats after every step, whether an
-    fp4 page was live at some step)."""
+def tiered_streams(device: str, params, cfg, prompts,
+                   step_mode: str = "ragged",
+                   policy: dict = AGGRESSIVE_TIERS) -> tuple:
+    """The reduced workload through a tiered engine (``policy`` the
+    TierPolicy knobs), stepped by hand: (streams, stats, page formats
+    after every step, whether an fp4 page was live at some step)."""
     from repro_torch.serve import ServeConfig, ServeEngine, TierPolicy
 
     eng = ServeEngine(params, cfg, ServeConfig(
-        max_seq=96, max_slots=3, tiered=True,
-        tier_policy=TierPolicy(**AGGRESSIVE_TIERS)), device=device)
+        max_seq=96, max_slots=3, tiered=True, step_mode=step_mode,
+        tier_policy=TierPolicy(**policy)), device=device)
     ids = [eng.submit(p, 6) for p in prompts]
     history, fp4_live = [], False
     more = True
@@ -547,50 +925,78 @@ def tiered_streams(device: str, params, cfg, prompts) -> tuple:
 
 
 def check_reduced_tiered_parity(card: str = "cuda") -> None:
-    """Phase 3's tiered run: the card against the CPU under the aggressive
-    policy; streams and every step's page formats equal."""
-    from repro_torch.kernels import mx_attention_ragged_fused, \
-        mx_repack_pages
+    """Phase 3's tiered runs: the card against the CPU, streams and every
+    step's page formats equal, for the ragged step under the aggressive
+    policy and the split step under the reference's TierPolicy defaults;
+    then the split streams against the ragged step's under those
+    defaults. (Under the aggressive policy the two steps schedule their
+    repacks differently -- split streams one chunk a step -- so pages
+    narrow at other steps and the logits move: no seed from 39 to 99
+    keeps every split pick clear of a one-ulp tie there.)"""
+    from repro_torch.kernels import (mx_attention_prefill_fused,
+                                     mx_attention_ragged_fused,
+                                     mx_attention_verify_fused,
+                                     mx_repack_pages)
     from repro_torch.nn import model
 
     cfg = reduced_config()
     params = model.init(cfg, torch.Generator().manual_seed(TIERED_SEED),
                         "cpu")
+    on_card = _to_device(params, card)
     prompts = reduced_prompts(cfg)
-    want, cpu_stats, cpu_hist, _ = tiered_streams("cpu", params, cfg,
-                                                  prompts)
-    if not cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
-        raise AssertionError("tiered reduced run has a near-tie greedy pick: "
-                             f"{cpu_stats['min_top2_gap_ulps']} ulps")
-    ragged0 = mx_attention_ragged_fused.launches
-    repack0 = mx_repack_pages.launches
-    got, stats, hist, fp4_live = tiered_streams(
-        card, _to_device(params, card), cfg, prompts)
-    for i, (g, w) in enumerate(zip(got, want)):
-        if not np.array_equal(g, w):
-            k = int(np.flatnonzero(g != w)[0])
-            raise AssertionError(f"tiered request {i}: card and CPU streams "
-                                 f"part at position {k}")
-    if len(hist) != len(cpu_hist) or any(
-            not np.array_equal(a, b) for a, b in zip(hist, cpu_hist)):
-        raise AssertionError("tiered run: page formats differ between card "
-                             "and CPU")
-    if not stats["repacked_pages"] > 0 or not fp4_live:
-        raise AssertionError(f"tiered run repacked {stats['repacked_pages']} "
-                             f"pages, fp4 live at some step: {fp4_live}")
     layers = cfg.num_layers
-    if card == "cuda" and (
-            mx_attention_ragged_fused.launches - ragged0
-            != stats["ragged_steps"] * layers
-            or mx_repack_pages.launches - repack0
-            != stats["repack_dispatches"] * layers):
-        raise AssertionError("tiered reduced run: launch counts off")
-    log(f"reduced granite, tiered {AGGRESSIVE_TIERS}: {len(prompts)} "
-        f"requests, {stats['repacked_pages']} pages repacked in "
-        f"{stats['repack_dispatches']} dispatches, an fp4 page live at some "
-        f"step; streams and every step's page formats equal on card and CPU "
-        f"(seed {TIERED_SEED}, smallest top-2 lead "
-        f"{cpu_stats['min_top2_gap_ulps']:.0f} bf16 ulps)")
+    counted = (mx_attention_ragged_fused, mx_repack_pages,
+               mx_attention_verify_fused, mx_attention_prefill_fused)
+    split_streams = None
+    for mode, policy, name in (("ragged", AGGRESSIVE_TIERS, "aggressive"),
+                               ("split", {}, "default")):
+        want, cpu_stats, cpu_hist, _ = tiered_streams(
+            "cpu", params, cfg, prompts, mode, policy)
+        if not cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
+            raise AssertionError(
+                f"tiered reduced {mode} run has a near-tie greedy pick: "
+                f"{cpu_stats['min_top2_gap_ulps']} ulps")
+        counts0 = [k.launches for k in counted]
+        got, stats, hist, fp4_live = tiered_streams(card, on_card, cfg,
+                                                    prompts, mode, policy)
+        ragged, repack, verify, prefill = (
+            k.launches - c0 for k, c0 in zip(counted, counts0))
+        _same_streams(got, want, f"tiered {mode}, card vs CPU")
+        if len(hist) != len(cpu_hist) or any(
+                not np.array_equal(a, b) for a, b in zip(hist, cpu_hist)):
+            raise AssertionError(f"tiered {mode} run: page formats differ "
+                                 "between card and CPU")
+        if not stats["repacked_pages"] > 0 or (
+                policy and not fp4_live):
+            raise AssertionError(
+                f"tiered {mode} run repacked {stats['repacked_pages']} "
+                f"pages, fp4 live at some step: {fp4_live}")
+        if card == "cuda":
+            if repack != stats["repack_dispatches"] * layers:
+                raise AssertionError(f"tiered {mode}: repack launches off")
+            if mode == "ragged" and ragged != stats["ragged_steps"] * layers:
+                raise AssertionError("tiered ragged: launch counts off")
+            if mode == "split":
+                _check_split_launches(stats, layers, verify, prefill,
+                                      "tiered split run")
+        split_streams = got
+        log(f"reduced granite, tiered ({name} policy), {mode} step: "
+            f"{len(prompts)} requests, {stats['repacked_pages']} pages "
+            f"repacked in {stats['repack_dispatches']} dispatches"
+            + (", an fp4 page live at some step" if fp4_live else "")
+            + "; streams and every step's page formats equal on card and "
+            f"CPU (seed {TIERED_SEED}, smallest top-2 lead "
+            f"{cpu_stats['min_top2_gap_ulps']:.0f} bf16 ulps)")
+    ragged_default, ragged_stats, _, _ = tiered_streams(
+        "cpu", params, cfg, prompts, "ragged", {})
+    if not ragged_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
+        raise AssertionError("tiered ragged run (default policy) has a "
+                             "near-tie greedy pick")
+    _same_streams(split_streams, ragged_default,
+                  "tiered (default policy), split vs ragged")
+    log("reduced granite, tiered (default policy): split streams equal the "
+        f"ragged step's ({ragged_stats['repacked_pages']} pages repacked "
+        "there)")
 
 
 def _to_device(tree, device):
@@ -614,6 +1020,27 @@ FULL_ARGV = ["--arch", "granite-8b", "--batch", "8", "--prompt-len", "236",
 TIERED_NEW_TOKENS = 40
 
 
+def record_leads(engine) -> dict:
+    """Have ``engine`` also keep each greedy pick's top-2 lead in bf16 ulps
+    (0: an exact tie), by request id, in the returned dict. One more small
+    reduction and sync a step beside the engine's own smallest-lead one."""
+    from repro_torch.serve import sampling
+
+    leads = {}
+    record = engine._record_step_tokens
+
+    def traced(logits, picks):
+        record(logits, picks)
+        if picks:
+            gaps = sampling.top2_gap_ulps(
+                logits[[row for _, row in picks]]).tolist()
+            for (seq, _), gap in zip(picks, gaps):
+                leads.setdefault(seq.req.id, []).append(gap)
+
+    engine._record_step_tokens = traced
+    return leads
+
+
 def serve_full_width() -> dict:
     from repro_torch.kernels import mx_attention_ragged_fused, \
         mx_repack_pages
@@ -629,6 +1056,7 @@ def serve_full_width() -> dict:
         "params")
     prompts = serve.make_prompts(cfg, args, sharing=2)
     engine.warmup()  # cold GEMM shapes and allocator growth: not timed
+    leads = record_leads(engine)
     mx_attention_ragged_fused.launches = 0
     mx_repack_pages.launches = 0
     report = serve.run_batch(engine, cfg, args, prompts)
@@ -657,7 +1085,7 @@ def serve_full_width() -> dict:
         f"launches = steps x {cfg.num_layers}; prefix hit rate "
         f"{report['prefix_hit_rate']:.2f}; peak memory {peak_gb:.2f} GB")
     decode_step_breakdown(engine, cfg)
-    return {"launches": launches, "report": report}
+    return {"launches": launches, "report": report, "leads": leads}
 
 
 def serve_full_width_tiered(fp8_report: dict) -> dict:
@@ -728,57 +1156,169 @@ def serve_full_width_tiered(fp8_report: dict) -> dict:
     return {"ragged": ragged, "repack": repack}
 
 
-def decode_step_breakdown(engine, cfg, pos: int = 300, steps: int = 3):
-    """Where a full-width decode step's time goes: ``steps`` ragged steps
-    with every slot decoding at ``pos``, traced by torch.profiler; device
-    time by kernel class against the host clock of the same window. Runs
-    after the main path (it writes scratch rows into the pages)."""
+def serve_full_width_split(ragged_report: dict, ragged_leads: dict) -> dict:
+    """The same prompts through ``--step-mode split``, every kernel count
+    reset just before the run and read just after: #2 once per layer of
+    every decode dispatch, #3 once per layer of every prefill dispatch,
+    and no ragged launch. Counts the streams equal to the ragged run's
+    (``ragged_leads``: its picks' leads, from :func:`record_leads`)."""
+    from repro_torch.kernels import (mx_attention_prefill_fused,
+                                     mx_attention_ragged_fused,
+                                     mx_attention_verify_fused,
+                                     mx_repack_pages)
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(FULL_ARGV + ["--new-tokens", "32",
+                                         "--step-mode", "split"])
+    torch.cuda.reset_peak_memory_stats()
+    cfg, engine = serve.build_engine(args)
+    prompts = serve.make_prompts(cfg, args, sharing=2)
+    engine.warmup()
+    leads = record_leads(engine)
+    counted = (mx_attention_ragged_fused, mx_attention_verify_fused,
+               mx_attention_prefill_fused, mx_repack_pages)
+    for k in counted:
+        k.launches = 0
+    report = serve.run_batch(engine, cfg, args, prompts)
+    torch.cuda.synchronize()
+    ragged, verify, prefill, repack = (k.launches for k in counted)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = engine.cache_stats()
+    if report["step_mode"] != "split" or ragged or repack:
+        raise AssertionError(f"split run: step mode {report['step_mode']}, "
+                             f"{ragged} ragged / {repack} repack launches")
+    _check_split_launches(stats, cfg.num_layers, verify, prefill,
+                          "full-width split run")
+    for i, prompt in zip(report["ids"], report["prompts"]):
+        toks = report["results"][i]
+        if len(toks) != len(prompt) + 32 or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size \
+                or not np.array_equal(toks[:len(prompt)], prompt):
+            raise AssertionError(f"split request {i}: malformed stream")
+    # where a stream leaves the ragged one: (generated token, the pick's
+    # top-2 lead in bf16 ulps there in the split run, in the ragged run)
+    parts = []
+    for i, prompt in zip(report["ids"], report["prompts"]):
+        diff = np.flatnonzero(report["results"][i]
+                              != ragged_report["results"][i])
+        if len(diff):
+            k = int(diff[0]) - len(prompt)
+            parts.append((k, leads[i][k], ragged_leads[i][k]))
+    equal = len(report["ids"]) - len(parts)
+    d = report["dispatches"]
+    log(f"granite-8b split step: {report['generated_tokens']} tokens in "
+        f"{report['seconds']:.2f} s = {report['tokens_per_s']:.1f} tok/s "
+        f"(ragged run: {ragged_report['tokens_per_s']:.1f}); {report['steps']}"
+        f" steps, median {report['median_step_ms']:.2f} ms (ragged run: "
+        f"{ragged_report['median_step_ms']:.2f}); {d['decode']} decode and "
+        f"{stats['prefill_dispatches']} prefill dispatches "
+        f"({stats['prefill_chunks']} chunks; {d['prefill']} prefill-kind "
+        f"dispatches with the first-token picks); launches: verify "
+        f"{verify} = {d['decode']} x {cfg.num_layers}, prefill {prefill} = "
+        f"{stats['prefill_dispatches']} x {cfg.num_layers}; {equal} of "
+        f"{len(report['ids'])} streams equal the ragged run's (the others "
+        "part at (generated token, top-2 lead of the pick there in bf16 "
+        f"ulps: split, ragged) {parts}; smallest lead of any pick: split "
+        f"{report['min_top2_gap_ulps']:.0f}, ragged "
+        f"{ragged_report['min_top2_gap_ulps']:.0f}); peak memory "
+        f"{peak_gb:.2f} GB")
+    split_step_breakdown(engine, cfg)
+    return {"verify": verify, "prefill": prefill, "equal": equal,
+            "report": report}
+
+
+def profile_breakdown(runs: dict, walk: tuple, steps: int = 3) -> None:
+    """Where full-width time goes: for each ``runs`` entry (title ->
+    (call, what it runs)), one untimed call, then ``steps`` calls traced
+    by torch.profiler; logs device time by kernel class (the page walk:
+    names containing a ``walk`` entry; GEMMs; the rest) against the host
+    clock of the same window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.nn import model
+    for title, (run, what) in runs.items():
+        with torch.inference_mode():
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        busy = {"page-walk kernel": 0.0, "GEMMs": 0.0, "other kernels": 0.0}
+        for evt in prof.events():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            name = evt.name
+            kind = ("page-walk kernel" if any(k in name for k in walk)
+                    else "GEMMs" if name.startswith(("nvjet", "sm90",
+                                                      "cutlass"))
+                    or "gemm" in name.lower() else "other kernels")
+            busy[kind] += evt.time_range.elapsed_us() / 1e3 / steps
+        total = sum(busy.values())
+        if total == 0:
+            log(f"{title} breakdown: not measured (the profiler recorded no "
+                "device time)")
+            continue
+        parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.0f}%)"
+                          for k, v in busy.items())
+        log(f"{title} at full width ({what}, torch.profiler over {steps} "
+            f"calls): device busy {total:.2f} ms of {wall_ms:.2f} ms host "
+            f"wall clock per call (idle {100 * (1 - total / wall_ms):.0f}%); "
+            f"{parts}")
 
+
+def _breakdown_inputs(engine, cfg, pos: int, width: int):
+    """(table, start, tokens) of every slot decoding at ``pos``: slot i
+    owns pages i * pages_per_slot on; ``width`` tokens a slot."""
     dev = engine.device
-    slots, width = engine.serve_cfg.max_slots, engine._width
+    slots = engine.serve_cfg.max_slots
     pps = engine.scheduler.pages_per_slot
     table = torch.arange(slots * pps, dtype=torch.int32,
                          device=dev).reshape(slots, pps)
     start = torch.full((slots,), pos, dtype=torch.int32, device=dev)
     tokens = torch.randint(0, cfg.vocab_size, (slots, width), device=dev,
                            generator=torch.Generator(dev).manual_seed(1))
+    return table, start, tokens
+
+
+def decode_step_breakdown(engine, cfg, pos: int = 300) -> None:
+    """Ragged steps with every slot decoding at ``pos``. Runs after the
+    main path (it writes scratch rows into the pages)."""
+    from repro_torch.nn import model
+
+    table, start, tokens = _breakdown_inputs(engine, cfg, pos,
+                                             engine._width)
     step = lambda: model.ragged_step_paged(  # noqa: E731
         engine.params, cfg, engine.cache, tokens, table, start, start + 1,
         torch.zeros_like(start))
-    with torch.inference_mode():
-        step()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    busy = {"ragged kernel": 0.0, "GEMMs": 0.0, "other kernels": 0.0}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        name = evt.name
-        kind = ("ragged kernel" if "ragged_kernel" in name else "GEMMs"
-                if name.startswith(("nvjet", "sm90", "cutlass"))
-                or "gemm" in name.lower() else "other kernels")
-        busy[kind] += evt.time_range.elapsed_us() / 1e3 / steps
-    total = sum(busy.values())
-    if total == 0:
-        log("decode step breakdown: not measured (the profiler recorded no "
-            "device time)")
-        return
-    parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.0f}%)"
-                      for k, v in busy.items())
-    log(f"decode step at full width ({slots} rows at position {pos}, "
-        f"torch.profiler over {steps} steps): device busy {total:.2f} ms of "
-        f"{wall_ms:.2f} ms host wall clock per step (idle "
-        f"{100 * (1 - total / wall_ms):.0f}%); {parts}")
+    profile_breakdown(
+        {"ragged decode step": (step, f"{len(start)} rows at position "
+                                      f"{pos}")}, ("ragged_kernel",))
+
+
+def split_step_breakdown(engine, cfg, pos: int = 300) -> None:
+    """Split decode dispatches with every slot at ``pos``, then prefill
+    dispatches of one chunk over 10 resident pages. Writes scratch rows
+    into the pages."""
+    from repro_torch.nn import model
+
+    table, start, tokens = _breakdown_inputs(engine, cfg, pos, 1 + CHUNK)
+    tok, chunk = tokens[:, :1].contiguous(), tokens[:1, 1:].contiguous()
+    dev = engine.device
+    at = torch.tensor([160], dtype=torch.int32, device=dev)
+    full = torch.tensor([CHUNK], dtype=torch.int32, device=dev)
+    profile_breakdown({
+        "split decode dispatch": (lambda: model.decode_step_paged(
+            engine.params, engine.cfg_decode, engine.cache, tok, table,
+            start), f"{len(start)} slots at position {pos}"),
+        "split prefill dispatch": (lambda: model.prefill_chunk_paged(
+            engine.params, engine.cfg_decode, engine.cache, chunk,
+            table[:1], at, full, full - 1),
+            f"one {CHUNK}-token chunk over 10 resident pages")},
+        ("verify_kernel", "prefill_kernel"))
 
 
 # ---------------------------------------------------------------------------
@@ -1243,6 +1783,7 @@ def main() -> int:
     kernel = check_ragged_kernel()
     check_repack_kernel()
     repack = time_repack_kernel()
+    verify, prefill = check_paged_kernels()
     check_reduced_parity()
     check_reduced_tiered_parity()
     full = serve_full_width()
@@ -1252,7 +1793,16 @@ def main() -> int:
     tiered = serve_full_width_tiered(full["report"])
     kernel["launches_tiered"] = tiered["ragged"]
     repack["launches"] = tiered["repack"]
-    kernels = [kernel, repack] + check_mx_dot_products()
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = serve_full_width_split(full["report"], full["leads"])
+    verify["launches"] = split["verify"]
+    prefill["launches"] = split["prefill"]
+    verify["streams_equal_ragged"] = prefill["streams_equal_ragged"] = \
+        split["equal"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = [kernel, verify, prefill, repack] + check_mx_dot_products()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

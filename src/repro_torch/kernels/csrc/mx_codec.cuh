@@ -280,17 +280,20 @@ __device__ __forceinline__ void encode_block(Load x, int n, uint8_t* out,
   *scale = e;
 }
 
-// Quantize one MX block of n bf16 values of a new K/V row (the ragged page
-// write). -0.0 inputs are read as +0.0: the reference gathers the new rows
-// through an exact one-hot f32 matmul, whose +0-initialised sum turns -0.0
-// into +0.0.
+// Quantize one MX block of n bf16 values of a new K/V row (a page write).
+// With plus_zero, -0.0 inputs (and flushed negative subnormals) are read as
+// +0.0, as the ragged write must: the reference gathers the new rows through
+// an exact one-hot f32 matmul, whose +0-initialised sum turns -0.0 into
+// +0.0. The chunked-prefill write quantizes its rows directly and keeps the
+// sign (plus_zero false).
 __device__ __forceinline__ void quantize_block(const __nv_bfloat16* src,
                                                uint8_t* out, uint8_t* scale,
-                                               int n, const FmtSpec& f) {
+                                               int n, const FmtSpec& f,
+                                               bool plus_zero) {
   encode_block(
       [&](int i) {
         const float x = flush(__bfloat162float(src[i]));
-        return x == 0.0f ? 0.0f : x;
+        return plus_zero && x == 0.0f ? 0.0f : x;
       },
       n, out, scale, f);
 }

@@ -1,27 +1,33 @@
-"""Ragged MX page-walk attention with the in-kernel K/V page write.
+"""MX page-walk attention: the ragged engine step's kernel and the split
+step's decode/verify and chunked-prefill kernels.
 
-Port of ``repro.kernels.mx_attention.mx_attention_ragged_fused``, the one
-kernel of the reference's default engine step.
-:func:`mx_attention_ragged_fused` takes the reference's layouts and
-returns its outputs; on CUDA tensors it launches the hand-written kernel
-in ``csrc/mx_attention_ragged.cu`` and on CPU tensors it runs
-:func:`mx_attention_ragged_fused_plain`, a page-by-page PyTorch version
-of the same algorithm. The pools are updated
-in place (the reference aliases them through the ``pallas_call``).
+Ports of ``repro.kernels.mx_attention``'s ``mx_attention_ragged_fused``
+(the default engine step), ``mx_attention_verify_fused`` with its
+``Tq == 1`` wrapper ``mx_attention_decode_fused`` (the split step's decode
+and verify), and ``mx_attention_prefill_fused`` (its chunked prefill).
+Each takes the reference's layouts and returns its outputs; on CUDA
+tensors it launches a hand-written kernel (``csrc/mx_attention_ragged.cu``,
+``csrc/mx_attention_paged.cu``, both over the page walk of
+``csrc/mx_attention_walk.cuh``) and on CPU tensors it runs its ``_plain``
+version, a page-by-page PyTorch version of the same algorithm. Pools are
+updated in place (the reference aliases them through the ``pallas_call``).
 
 Layouts::
 
-  q          (R, KVH, W, G, D)  bf16 step queries (RoPE'd)
-  k_new      (R, W, KVH, D)     bf16 new keys (RoPE'd)
+  q          (R, KVH, W, G, D)  bf16 queries (RoPE'd); W is the ragged
+                                width, Tq the verify window, C the chunk
+  k_new      (R, W, KVH, D)     bf16 new keys (RoPE'd); k_chunk the same
   v_new      (R, W, KVH, D)     bf16 new values
   ke / ve    (NP, PS, KVH, ED)  element pools: fp8 (ED = D), packed fp4
                                 uint8 (ED = D/2), or mixed-format uint8
                                 rows (ED = D, a page's codes in the row
                                 prefix, its format in ``page_fmts``)
   ks / vs    (NP, PS, KVH, D//k) uint8 E8M0 scale pools
-  page_table (R, P) int         entries < 0 map to the trash page NP - 1
+  page_table (R, P) int         ragged: entries < 0 map to the trash page
+                                NP - 1; verify/prefill: they clip to page 0
   row_start  (R,) int           first position this step writes
-  seq_lens   (R,) int           row_start + n_new, n_new in [1, W]
+                                (chunk_start: the chunk's, page-aligned)
+  seq_lens   (R,) int           resident rows including the new ones
   page_fmts  (NP,) int32        mixed pools: each page's format id
   out        (R, KVH, W, G, D)  f32
   visits     (R, KVH, 1) int32  pages each cell walked
@@ -42,21 +48,33 @@ NEG_INF = -2.0e38
 #: shared memory an H100 block may use (bytes)
 _MAX_SMEM = 232448
 
-_lib = None
+_libs = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = build.load("mx_attention_ragged")
-        fn = lib.mx_attention_ragged_launch
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 13
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.mx_attention_ragged_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.mx_attention_ragged_smem_bytes.restype = ctypes.c_size_t
-        _lib = lib
-    return _lib
+def _library(name: str):
+    """The loaded ``mx_attention_ragged`` or ``mx_attention_paged``
+    library with its C signatures set."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = build.load(name)
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "mx_attention_ragged":
+            lib.mx_attention_ragged_launch.argtypes = (
+                [ptr] * 13 + [i32] * 13 + [f32, f32, ptr])
+            lib.mx_attention_ragged_launch.restype = i32
+            lib.mx_attention_ragged_smem_bytes.argtypes = [i32] * 4
+            lib.mx_attention_ragged_smem_bytes.restype = ctypes.c_size_t
+        else:
+            lib.mx_attention_verify_launch.argtypes = (
+                [ptr] * 10 + [i32] * 13 + [f32, f32, ptr])
+            lib.mx_attention_verify_launch.restype = i32
+            lib.mx_attention_prefill_launch.argtypes = (
+                [ptr] * 13 + [i32] * 13 + [f32, f32, ptr])
+            lib.mx_attention_prefill_launch.restype = i32
+            lib.mx_attention_paged_smem_bytes.argtypes = [i32] * 3
+            lib.mx_attention_paged_smem_bytes.restype = ctypes.c_size_t
+        _libs[name] = lib
+    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +187,65 @@ def _flash_update(state, q, k, v, mask, softcap, scale: float):
 
 
 # ---------------------------------------------------------------------------
-# plain version and CUDA launch
+# plain versions: the page walk of one row, as the kernels' shared walk
 # ---------------------------------------------------------------------------
+
+
+def _tile_reader(pools, fmt_name: str, block_size: int, page_fmts,
+                 mixed_fmts):
+    """``read(page, as_fmt=None) -> (K, V)`` (KVH, PS, D) f32 tiles of a
+    pool page: under the pool's format, a mixed page's own id, or (a
+    chunk page of a mixed pool) the hot format ``as_fmt``."""
+    ke, ks, ve, vs = pools
+    fmt = F.get_format(fmt_name)
+    fmt_ids = None if page_fmts is None else page_fmts.tolist()
+
+    def one(elems, scales, page, as_fmt):
+        if fmt_ids is None:
+            tile = _dequant_rows(elems[page], scales[page], fmt, block_size)
+        elif as_fmt is not None:
+            tile = _dequant_rows_mixed(elems[page], scales[page],
+                                       F.FORMAT_IDS[as_fmt], (as_fmt,),
+                                       block_size)
+        else:
+            tile = _dequant_rows_mixed(elems[page], scales[page],
+                                       fmt_ids[page], mixed_fmts, block_size)
+        return tile.transpose(0, 1)
+
+    def read(page, as_fmt=None):
+        return one(ke, ks, page, as_fmt), one(ve, vs, page, as_fmt)
+    return read
+
+
+def _walk_row(qf, qpos, pages, tile, page_size: int, window, softcap,
+              scale: float):
+    """One row's online softmax over ``pages`` (walk order): ``qf`` (KVH,
+    rows, D) f32, ``qpos`` (rows,) each query row's position, ``tile(p)``
+    the page's (K, V) tiles. Returns (KVH, rows, D) f32 acc / l."""
+    kvh, rows, d = qf.shape
+    dev = qf.device
+    page_rows = torch.arange(page_size, device=dev)
+    state = (torch.full((kvh, rows, 1), NEG_INF, device=dev),
+             torch.zeros((kvh, rows, 1), device=dev),
+             torch.zeros((kvh, rows, d), device=dev))
+    for p in pages:
+        kt, vt = tile(p)
+        kpos = p * page_size + page_rows
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > (qpos[:, None] - window)
+        state = _flash_update(state, qf, kt, vt, mask, softcap, scale)
+    _, l, acc = state
+    return acc / l
+
+
+def _plain_setup(q, ke):
+    r, kvh, n, g, d = q.shape
+    out = torch.empty((r, kvh, n * g, d), dtype=torch.float32,
+                      device=q.device)
+    visits = torch.zeros((r, kvh, 1), dtype=torch.int32, device=q.device)
+    q_idx = torch.arange(n * g, device=q.device) // g
+    return out, visits, q_idx, ke.shape[1], d ** -0.5
 
 
 def mx_attention_ragged_fused_plain(q, k_new, v_new, ke, ks, ve, vs, table,
@@ -178,7 +253,7 @@ def mx_attention_ragged_fused_plain(q, k_new, v_new, ke, ks, ve, vs, table,
                                     fmt_name: str, block_size: int,
                                     softcap=None, window=None,
                                     page_fmts=None, mixed_fmts=None):
-    """Page-by-page PyTorch version of the kernel, same layouts.
+    """Page-by-page PyTorch version of the ragged kernel, same layouts.
 
     Expects the rows normalised by :func:`normalize_rows`. Rows run in
     order and, within a row, each page of the write window is merged
@@ -189,46 +264,26 @@ def mx_attention_ragged_fused_plain(q, k_new, v_new, ke, ks, ve, vs, table,
     """
     fmt = F.get_format(fmt_name)
     r, kvh, w, g, d = q.shape
-    rows = w * g
-    ps = ke.shape[1]
+    out, visits, q_idx, ps, scale = _plain_setup(q, ke)
     pmax = table.shape[1]
-    dev = q.device
-    scale = d ** -0.5
     pools = [p.view(torch.uint8) for p in (ke, ks, ve, vs)]
-    if page_fmts is None:
-        def dequant(page, elems, scales):
-            return _dequant_rows(elems[page], scales[page], fmt, block_size)
-    else:
-        fmt_ids = page_fmts.tolist()
-
-        def dequant(page, elems, scales):
-            return _dequant_rows_mixed(elems[page], scales[page],
-                                       fmt_ids[page], mixed_fmts, block_size)
-    out = torch.empty((r, kvh, rows, d), dtype=torch.float32, device=dev)
-    visits = torch.zeros((r, kvh, 1), dtype=torch.int32, device=dev)
+    read = _tile_reader(pools, fmt_name, block_size, page_fmts, mixed_fmts)
     tbl = table.tolist()
-    starts = row_start.tolist()
-    lens = seq_lens.tolist()
-    q_idx = torch.arange(rows, device=dev) // g
-    page_rows = torch.arange(ps, device=dev)
-    for i in range(r):
-        start, seq_len = starts[i], lens[i]
+    page_rows = torch.arange(ps, device=q.device)
+    for i, (start, seq_len) in enumerate(zip(row_start.tolist(),
+                                             seq_lens.tolist())):
         w0 = start // ps
         valid = min(-(-seq_len // ps), pmax)
         first = _first_window_page(start, window, ps)
-        qpos = start + torch.clamp(q_idx, max=seq_len - start - 1)
-        qf = q[i].reshape(kvh, rows, d).to(torch.float32)
-        state = (torch.full((kvh, rows, 1), NEG_INF, device=dev),
-                 torch.zeros((kvh, rows, 1), device=dev),
-                 torch.zeros((kvh, rows, d), device=dev))
-        for p in range(first, valid):
+
+        def tile(p):
             page = tbl[i][p]
-            kpos = p * ps + page_rows
             if p >= w0:
                 # write window: new row t lands on page row j where
-                # start + t == p * PS + j; other rows keep their bytes
-                # (a page row is one token's whole row, so the merge never
+                # start + t == p * PS + j; other rows keep their bytes (a
+                # page row is one token's whole row, so the merge never
                 # splits a packed byte)
+                kpos = p * ps + page_rows
                 sel = ((kpos >= start) & (kpos < seq_len)).nonzero()[:, 0]
                 t = kpos[sel] - start
                 for new, elems, scales in ((k_new, pools[0], pools[1]),
@@ -240,21 +295,99 @@ def mx_attention_ragged_fused_plain(q, k_new, v_new, ke, ks, ve, vs, table,
                     codes, e = quantize_rows(x, fmt, block_size)
                     elems[page, sel] = codes
                     scales[page, sel] = e
-            kt = dequant(page, pools[0], pools[1]).transpose(0, 1)
-            vt = dequant(page, pools[2], pools[3]).transpose(0, 1)
-            mask = kpos[None, :] <= qpos[:, None]
-            if window is not None:
-                mask &= kpos[None, :] > (qpos[:, None] - window)
-            state = _flash_update(state, qf, kt, vt, mask, softcap, scale)
-        _, l, acc = state
-        out[i] = acc / l
+            return read(page)
+
+        # padding queries (t >= n_new) clamp onto the last real position
+        qpos = start + torch.clamp(q_idx, max=seq_len - start - 1)
+        qf = q[i].reshape(kvh, w * g, d).to(torch.float32)
+        out[i] = _walk_row(qf, qpos, range(first, valid), tile, ps, window,
+                           softcap, scale)
         visits[i] = max(0, valid - first)
     return out.reshape(r, kvh, w, g, d), visits
 
 
+def mx_attention_verify_fused_plain(q, ke, ks, ve, vs, table, seq_lens, *,
+                                    fmt_name: str, block_size: int,
+                                    softcap=None, window=None,
+                                    page_fmts=None, mixed_fmts=None):
+    """PyTorch version of the decode/verify kernel, same layouts.
+
+    Expects the table and lengths normalised by
+    :func:`normalize_verify`. Query ``t`` of a row sits at ``seq_len -
+    Tq + t`` and sees keys up to its own position; nothing is written.
+    Returns ``(out, visits)``.
+    """
+    r, kvh, tq, g, d = q.shape
+    out, visits, q_idx, ps, scale = _plain_setup(q, ke)
+    pmax = table.shape[1]
+    read = _tile_reader([p.view(torch.uint8) for p in (ke, ks, ve, vs)],
+                        fmt_name, block_size, page_fmts, mixed_fmts)
+    tbl = table.tolist()
+    for i, seq_len in enumerate(seq_lens.tolist()):
+        valid = min(-(-seq_len // ps), pmax)
+        first = _first_window_page(seq_len - tq, window, ps)
+        qf = q[i].reshape(kvh, tq * g, d).to(torch.float32)
+        out[i] = _walk_row(qf, seq_len - tq + q_idx, range(first, valid),
+                           lambda p: read(tbl[i][p]), ps, window, softcap,
+                           scale)
+        visits[i] = max(0, valid - first)
+    return out.reshape(r, kvh, tq, g, d), visits
+
+
+def mx_attention_prefill_fused_plain(q, k_chunk, v_chunk, ke, ks, ve, vs,
+                                     table, chunk_start, seq_lens, *,
+                                     fmt_name: str, block_size: int,
+                                     softcap=None, window=None,
+                                     page_fmts=None, mixed_fmts=None):
+    """PyTorch version of the chunked-prefill kernel, same layouts.
+
+    Expects the rows normalised by :func:`normalize_prefill`. Rows run in
+    order. A row first quantizes the whole (PS, D) tile of each of its
+    chunk pages ``[start / PS, ceil(seq_len / PS))`` from the wide chunk,
+    padding rows included, with the signs of zeros kept (no one-hot
+    gather here), and writes codes and scales into the pools in place;
+    then it walks its resident pages under their formats and its chunk
+    pages under ``fmt_name``. Query ``t`` sits at ``start + t``. Returns
+    ``(out, visits)``.
+    """
+    fmt = F.get_format(fmt_name)
+    r, kvh, c, g, d = q.shape
+    out, visits, q_idx, ps, scale = _plain_setup(q, ke)
+    pmax = table.shape[1]
+    pools = [p.view(torch.uint8) for p in (ke, ks, ve, vs)]
+    read = _tile_reader(pools, fmt_name, block_size, page_fmts, mixed_fmts)
+    hot = fmt_name if page_fmts is not None else None
+    tbl = table.tolist()
+    for i, (start, seq_len) in enumerate(zip(chunk_start.tolist(),
+                                             seq_lens.tolist())):
+        c0 = start // ps
+        valid = min(-(-seq_len // ps), pmax)
+        first = _first_window_page(start, window, ps)
+        for p in range(c0, valid):
+            rows = slice((p - c0) * ps, (p - c0 + 1) * ps)
+            for wide, elems, scales in ((k_chunk, pools[0], pools[1]),
+                                        (v_chunk, pools[2], pools[3])):
+                codes, e = quantize_rows(wide[i, rows].to(torch.float32),
+                                         fmt, block_size)
+                elems[tbl[i][p]] = codes
+                scales[tbl[i][p]] = e
+        qf = q[i].reshape(kvh, c * g, d).to(torch.float32)
+        out[i] = _walk_row(
+            qf, start + q_idx, range(first, valid),
+            lambda p: read(tbl[i][p], None if p < c0 else hot), ps, window,
+            softcap, scale)
+        visits[i] = max(0, min(c0, valid) - first) + max(0, valid - c0)
+    return out.reshape(r, kvh, c, g, d), visits
+
+
+# ---------------------------------------------------------------------------
+# the reference wrappers' argument normalisation
+# ---------------------------------------------------------------------------
+
+
 def normalize_rows(page_table, row_start, seq_lens, num_pages: int,
                    width: int):
-    """The reference wrapper's row metadata normalisation: negative table
+    """The ragged wrapper's row metadata normalisation: negative table
     entries -> the trash page ``num_pages - 1``, live entries clamped into
     the pool, ``seq_lens`` clamped to ``[row_start + 1, row_start + W]``.
     Returns contiguous int32 ``(table, row_start, seq_lens)``."""
@@ -267,23 +400,107 @@ def normalize_rows(page_table, row_start, seq_lens, num_pages: int,
     return table, start, lens
 
 
-def _launch(q, k_new, v_new, ke, ks, ve, vs, table, start, lens, *,
-            fmt_name, block_size, softcap, window, page_fmts, mixed_fmts):
-    r, kvh, w, g, d = q.shape
-    if q.dtype != torch.bfloat16 or k_new.dtype != torch.bfloat16 \
-            or v_new.dtype != torch.bfloat16:
-        raise TypeError("the CUDA ragged kernel takes bf16 q/k_new/v_new")
-    tensors = [("q", q), ("k_new", k_new), ("v_new", v_new), ("ke", ke),
-               ("ks", ks), ("ve", ve), ("vs", vs)]
-    if page_fmts is not None:
-        tensors.append(("page_fmts", page_fmts))
-    for name, t in tensors:
-        if not t.is_contiguous():
+def normalize_verify(page_table, seq_lens, num_pages: int, tq: int):
+    """The verify wrapper's: table entries clipped into ``[0, NP)`` (so
+    unallocated entries read page 0, not a trash page), ``seq_lens``
+    raised to at least ``Tq`` (an inactive slot walks page 0). Returns
+    contiguous int32 ``(table, seq_lens)``."""
+    table = page_table.to(torch.int32).clamp(0, num_pages - 1).contiguous()
+    lens = torch.clamp(seq_lens.to(torch.int32), min=tq).contiguous()
+    return table, lens
+
+
+def normalize_prefill(page_table, chunk_start, seq_lens, num_pages: int,
+                      chunk: int):
+    """The prefill wrapper's: table entries clipped into ``[0, NP)``,
+    ``seq_lens`` clamped to ``[start + 1, start + C]`` (at least one real
+    token per chunk, at most the whole chunk). Returns contiguous int32
+    ``(table, chunk_start, seq_lens)``."""
+    table = page_table.to(torch.int32).clamp(0, num_pages - 1).contiguous()
+    start = chunk_start.to(torch.int32).contiguous()
+    lens = torch.minimum(torch.maximum(seq_lens.to(torch.int32), start + 1),
+                         start + chunk).contiguous()
+    return table, start, lens
+
+
+def _check_pools(q, ke, ks, ve, vs, fmt_name: str, block_size: int,
+                 page_fmts, mixed_fmts, what: str):
+    """The wrappers' shared checks of q (R, KVH, n, G, D) against the
+    pools; returns ``(fmt, mixed_fmts)`` with the mixed default filled."""
+    fmt = F.get_format(fmt_name)
+    mixed = page_fmts is not None
+    _check_fmt(ke, fmt_name, mixed=mixed)
+    _check_fmt(ve, fmt_name, mixed=mixed)
+    d = q.shape[-1]
+    kvh = q.shape[1]
+    npages, ps = ke.shape[:2]
+    if mixed:
+        mixed_fmts = tuple(mixed_fmts or MIXED_FMTS_DEFAULT)
+        if fmt.bits != 8:
+            raise ValueError(
+                f"tiered {what} write pages in the hot format, which must "
+                f"be an fp8; got {fmt_name!r}")
+        if page_fmts.shape != (npages,) or page_fmts.dtype != torch.int32:
+            raise ValueError(f"page_fmts must be ({npages},) int32")
+        ed = d
+    else:
+        mixed_fmts = None
+        if fmt.bits == 6:
+            raise ValueError(
+                "uniform fp6 pools have no layout: the reference allocates "
+                "D-byte rows for them but writes 3D/4 packed bytes (fp6 "
+                "reaches a pool only as a tier of a mixed pool)")
+        ed = fmt.storage_len(d)
+    for name, pool in (("ks", ks), ("vs", vs)):
+        if pool.dtype != torch.uint8:
+            raise ValueError(f"{name} must be uint8 E8M0 bytes")
+    if ke.shape != (npages, ps, kvh, ed) or ve.shape != ke.shape:
+        raise ValueError(f"element pools must be (NP, PS, {kvh}, {ed})")
+    if ks.shape != (npages, ps, kvh, d // block_size) or vs.shape != ks.shape:
+        raise ValueError(f"scale pools must be (NP, PS, {kvh}, "
+                         f"{d // block_size})")
+    if d % block_size:
+        raise ValueError(f"block_size {block_size} must divide {d}")
+    return fmt, mixed_fmts
+
+
+def _check_meta(r: int, page_table, *vectors, window=None):
+    if page_table.ndim != 2 or page_table.shape[0] != r \
+            or any(v.shape != (r,) for v in vectors):
+        raise ValueError(f"page_table must be ({r}, P) and the row "
+                         f"vectors ({r},)")
+    if any(t.is_floating_point() for t in (page_table, *vectors)):
+        raise ValueError("page tables and row vectors are integers")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def _on_one_device(dev, *tensors):
+    if any(t is not None and t.device != dev for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    if dev.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"no attention kernel for device {dev}")
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+
+def _launch_common(wide, pools, ps: int, d: int, smem: int, rows: int):
+    """Checks every launch shares; raises on what the kernels do not take.
+    ``wide`` and ``pools`` are (name, tensor) pairs: the bf16 operands and
+    the rest."""
+    for name, t in wide:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA attention kernels take bf16 {name}, "
+                            f"got {t.dtype}")
+    for name, t in wide + pools:
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    ps, ed = ke.shape[1], ke.shape[-1]
     if ps > 32:
-        raise NotImplementedError("the CUDA ragged kernel takes page_size "
-                                  "<= 32")
+        raise NotImplementedError("the CUDA attention kernels take "
+                                  "page_size <= 32")
     # one lane per key of a page tile; the P.V loop gives each lane
     # D / lanes of the logical head dim, however narrow the stored row
     lanes = 1 << max(ps - 1, 0).bit_length()
@@ -291,35 +508,117 @@ def _launch(q, k_new, v_new, ke, ks, ve, vs, table, start, lens, *,
         raise NotImplementedError(
             f"head_dim {d} must be a multiple of {lanes} (page_size rounded "
             "up to a power of two)")
-    lib = _library()
-    smem = lib.mx_attention_ragged_smem_bytes(w, g, d, ps)
     if smem > _MAX_SMEM:
         raise NotImplementedError(
-            f"W*G={w * g} query rows x head_dim {d} need {smem} bytes of "
-            f"shared memory per CTA; an H100 block has {_MAX_SMEM}")
-    mask = default = 0
-    if page_fmts is not None:
-        for name in mixed_fmts:
-            mask |= 1 << F.FORMAT_IDS[name]
-        default = F.FORMAT_IDS[mixed_fmts[0]]
+            f"{rows} query rows x head_dim {d} need {smem} bytes of shared "
+            f"memory per CTA; an H100 block has {_MAX_SMEM}")
+
+
+def _mixed_ids(page_fmts, mixed_fmts):
+    """(candidate id mask, default id) of a mixed pool; (0, 0) uniform."""
+    if page_fmts is None:
+        return 0, 0
+    mask = 0
+    for name in mixed_fmts:
+        mask |= 1 << F.FORMAT_IDS[name]
+    return mask, F.FORMAT_IDS[mixed_fmts[0]]
+
+
+def _tail_args(fmt_name, block_size, window, page_fmts, mixed_fmts,
+               softcap, d, device):
+    mask, default = _mixed_ids(page_fmts, mixed_fmts)
+    return (block_size, F.FORMAT_IDS[fmt_name],
+            -1 if window is None else int(window), mask, default,
+            float(softcap or 0.0), float(d ** -0.5),
+            torch.cuda.current_stream(device).cuda_stream)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k_new, v_new, ke, ks, ve, vs, table, start, lens, *,
+            fmt_name, block_size, softcap, window, page_fmts, mixed_fmts):
+    r, kvh, w, g, d = q.shape
+    ps, ed = ke.shape[1], ke.shape[-1]
+    lib = _library("mx_attention_ragged")
+    _launch_common([("q", q), ("k_new", k_new), ("v_new", v_new)],
+                   [("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs),
+                    ("page_fmts", page_fmts)], ps, d,
+                   lib.mx_attention_ragged_smem_bytes(w, g, d, ps), w * g)
     out = torch.empty((r, kvh, w, g, d), dtype=torch.float32,
                       device=q.device)
     visits = torch.empty((r, kvh, 1), dtype=torch.int32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.mx_attention_ragged_launch(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), ke.data_ptr(),
         ks.data_ptr(), ve.data_ptr(), vs.data_ptr(), table.data_ptr(),
-        start.data_ptr(), lens.data_ptr(),
-        None if page_fmts is None else page_fmts.data_ptr(),
-        out.data_ptr(), visits.data_ptr(), r, kvh, w, g, d, ed, ps,
-        table.shape[1], block_size, F.FORMAT_IDS[fmt_name],
-        -1 if window is None else int(window), mask, default,
-        float(softcap or 0.0), float(d ** -0.5), stream)
+        start.data_ptr(), lens.data_ptr(), _ptr(page_fmts), out.data_ptr(),
+        visits.data_ptr(), r, kvh, w, g, d, ed, ps, table.shape[1],
+        *_tail_args(fmt_name, block_size, window, page_fmts, mixed_fmts,
+                    softcap, d, q.device))
     if err != 0:
         raise RuntimeError(f"mx_attention_ragged_launch failed: cudaError "
                            f"{err}")
     mx_attention_ragged_fused.launches += 1
     return out, visits
+
+
+def _launch_verify(q, ke, ks, ve, vs, table, lens, *, fmt_name, block_size,
+                   softcap, window, page_fmts, mixed_fmts):
+    b, kvh, tq, g, d = q.shape
+    ps, ed = ke.shape[1], ke.shape[-1]
+    lib = _library("mx_attention_paged")
+    _launch_common([("q", q)],
+                   [("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs),
+                    ("page_fmts", page_fmts)], ps, d,
+                   lib.mx_attention_paged_smem_bytes(tq * g, d, ps), tq * g)
+    out = torch.empty((b, kvh, tq, g, d), dtype=torch.float32,
+                      device=q.device)
+    visits = torch.empty((b, kvh, 1), dtype=torch.int32, device=q.device)
+    err = lib.mx_attention_verify_launch(
+        q.data_ptr(), ke.data_ptr(), ks.data_ptr(), ve.data_ptr(),
+        vs.data_ptr(), table.data_ptr(), lens.data_ptr(), _ptr(page_fmts),
+        out.data_ptr(), visits.data_ptr(), b, kvh, tq, g, d, ed, ps,
+        table.shape[1],
+        *_tail_args(fmt_name, block_size, window, page_fmts, mixed_fmts,
+                    softcap, d, q.device))
+    if err != 0:
+        raise RuntimeError(f"mx_attention_verify_launch failed: cudaError "
+                           f"{err}")
+    mx_attention_verify_fused.launches += 1
+    return out, visits
+
+
+def _launch_prefill(q, k_chunk, v_chunk, ke, ks, ve, vs, table, start, lens,
+                    *, fmt_name, block_size, softcap, window, page_fmts,
+                    mixed_fmts):
+    b, kvh, c, g, d = q.shape
+    ps, ed = ke.shape[1], ke.shape[-1]
+    lib = _library("mx_attention_paged")
+    _launch_common([("q", q), ("k_chunk", k_chunk), ("v_chunk", v_chunk)],
+                   [("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs),
+                    ("page_fmts", page_fmts)], ps, d,
+                   lib.mx_attention_paged_smem_bytes(c * g, d, ps), c * g)
+    out = torch.empty((b, kvh, c, g, d), dtype=torch.float32,
+                      device=q.device)
+    visits = torch.empty((b, kvh, 1), dtype=torch.int32, device=q.device)
+    err = lib.mx_attention_prefill_launch(
+        q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(), ke.data_ptr(),
+        ks.data_ptr(), ve.data_ptr(), vs.data_ptr(), table.data_ptr(),
+        start.data_ptr(), lens.data_ptr(), _ptr(page_fmts), out.data_ptr(),
+        visits.data_ptr(), b, kvh, c, g, d, ed, ps, table.shape[1],
+        *_tail_args(fmt_name, block_size, window, page_fmts, mixed_fmts,
+                    softcap, d, q.device))
+    if err != 0:
+        raise RuntimeError(f"mx_attention_prefill_launch failed: cudaError "
+                           f"{err}")
+    mx_attention_prefill_fused.launches += 1
+    return out, visits
+
+
+# ---------------------------------------------------------------------------
+# the entry points
+# ---------------------------------------------------------------------------
 
 
 def mx_attention_ragged_fused(q, k_new, v_new, ke, ks, ve, vs, page_table,
@@ -345,69 +644,134 @@ def mx_attention_ragged_fused(q, k_new, v_new, ke, ks, ve, vs, page_table,
     NP - 1, live entries clamp into the pool, and ``seq_lens`` clamps to
     ``[row_start + 1, row_start + W]``, as in the reference's wrapper.
     """
-    fmt = F.get_format(fmt_name)
-    mixed = page_fmts is not None
-    _check_fmt(ke, fmt_name, mixed=mixed)
-    _check_fmt(ve, fmt_name, mixed=mixed)
+    fmt, mixed_fmts = _check_pools(q, ke, ks, ve, vs, fmt_name, block_size,
+                                   page_fmts, mixed_fmts, "ragged steps")
     r, kvh, w, g, d = q.shape
-    npages, ps = ke.shape[:2]
-    if mixed:
-        mixed_fmts = tuple(mixed_fmts or MIXED_FMTS_DEFAULT)
-        if fmt.bits != 8:
-            raise ValueError(
-                "tiered ragged steps write the window in the hot format, "
-                f"which must be an fp8; got {fmt_name!r}")
-        if page_fmts.shape != (npages,) or page_fmts.dtype != torch.int32:
-            raise ValueError(f"page_fmts must be ({npages},) int32")
-        ed = d
-    else:
-        mixed_fmts = None
-        if fmt.bits == 6:
-            raise ValueError(
-                "uniform fp6 pools have no layout: the reference allocates "
-                "D-byte rows for them but writes 3D/4 packed bytes (fp6 "
-                "reaches a pool only as a tier of a mixed pool)")
-        ed = fmt.storage_len(d)
-    for name, pool in (("ks", ks), ("vs", vs)):
-        if pool.dtype != torch.uint8:
-            raise ValueError(f"{name} must be uint8 E8M0 bytes")
     if k_new.shape != (r, w, kvh, d) or v_new.shape != (r, w, kvh, d):
         raise ValueError(f"k_new/v_new must be {(r, w, kvh, d)}")
-    if ke.shape != (npages, ps, kvh, ed) or ve.shape != ke.shape:
-        raise ValueError(f"element pools must be (NP, PS, {kvh}, {ed})")
-    if ks.shape != (npages, ps, kvh, d // block_size) or vs.shape != ks.shape:
-        raise ValueError(f"scale pools must be (NP, PS, {kvh}, "
-                         f"{d // block_size})")
-    if d % block_size:
-        raise ValueError(f"block_size {block_size} must divide {d}")
-    if page_table.ndim != 2 or page_table.shape[0] != r \
-            or row_start.shape != (r,) or seq_lens.shape != (r,):
-        raise ValueError(f"page_table must be ({r}, P) and row_start / "
-                         f"seq_lens ({r},)")
-    if any(t.is_floating_point() for t in (page_table, row_start, seq_lens)):
-        raise ValueError("page_table, row_start and seq_lens are integers")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1 or None, got {window}")
+    _check_meta(r, page_table, row_start, seq_lens, window=window)
     dev = q.device
-    tensors = (k_new, v_new, ke, ks, ve, vs, page_table, row_start,
-               seq_lens) + ((page_fmts,) if mixed else ())
-    if any(t.device != dev for t in tensors):
-        raise ValueError("all inputs must be on one device")
+    _on_one_device(dev, k_new, v_new, ke, ks, ve, vs, page_table, row_start,
+                   seq_lens, page_fmts)
     table, start, lens = normalize_rows(page_table, row_start, seq_lens,
-                                        npages, w)
+                                        ke.shape[0], w)
     kw = dict(fmt_name=fmt.name, block_size=block_size, softcap=softcap,
               window=window, page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    if dev.type == "cuda":
-        out, visits = _launch(q, k_new, v_new, ke, ks, ve, vs, table, start,
-                              lens, **kw)
-    elif dev.type == "cpu":
-        out, visits = mx_attention_ragged_fused_plain(
-            q, k_new, v_new, ke, ks, ve, vs, table, start, lens, **kw)
-    else:
-        raise NotImplementedError(f"no ragged kernel for device {dev}")
+    run = _launch if dev.type == "cuda" else mx_attention_ragged_fused_plain
+    out, visits = run(q, k_new, v_new, ke, ks, ve, vs, table, start, lens,
+                      **kw)
     pools = (ke, ks, ve, vs)
     return (out, pools, visits) if debug_visits else (out, pools)
 
 
-#: CUDA launches of the kernel (the plain CPU version is not counted)
+def mx_attention_verify_fused(q, ke, ks, ve, vs, page_table, seq_lens, *,
+                              fmt_name: str = "fp8_e4m3",
+                              block_size: int = 32, softcap=None,
+                              window=None, page_fmts=None, mixed_fmts=None,
+                              debug_visits: bool = False):
+    """Read-only page walk for ``Tq >= 1`` queries per slot (layouts
+    above, ``q`` (B, KVH, Tq, G, D)): the split step's decode and
+    speculative verify, after the host wrote the step's K/V.
+
+    Query ``t`` sits at ``seq_len - Tq + t`` and sees keys up to its own
+    position (and inside ``window``). Table entries clip into ``[0, NP)``
+    (unallocated ones read page 0) and ``seq_lens`` is raised to at
+    least ``Tq``, as in the reference's wrapper, so an inactive slot
+    walks page 0: its output is garbage the caller ignores, and it
+    counts one visit. Returns ``out`` (B, KVH, Tq, G, D) f32, plus
+    ``visits`` (B, KVH, 1) with ``debug_visits=True``. Pools as in
+    :func:`mx_attention_ragged_fused`. CUDA tensors launch the CUDA
+    kernel (counted in ``mx_attention_verify_fused.launches``); CPU
+    tensors run :func:`mx_attention_verify_fused_plain`.
+    """
+    fmt, mixed_fmts = _check_pools(q, ke, ks, ve, vs, fmt_name, block_size,
+                                   page_fmts, mixed_fmts, "verify walks")
+    b, _, tq = q.shape[:3]
+    _check_meta(b, page_table, seq_lens, window=window)
+    dev = q.device
+    _on_one_device(dev, ke, ks, ve, vs, page_table, seq_lens, page_fmts)
+    table, lens = normalize_verify(page_table, seq_lens, ke.shape[0], tq)
+    kw = dict(fmt_name=fmt.name, block_size=block_size, softcap=softcap,
+              window=window, page_fmts=page_fmts, mixed_fmts=mixed_fmts)
+    run = (_launch_verify if dev.type == "cuda"
+           else mx_attention_verify_fused_plain)
+    out, visits = run(q, ke, ks, ve, vs, table, lens, **kw)
+    return (out, visits) if debug_visits else out
+
+
+def mx_attention_decode_fused(q, ke, ks, ve, vs, page_table, seq_lens, *,
+                              fmt_name: str = "fp8_e4m3",
+                              block_size: int = 32, softcap=None,
+                              window=None, page_fmts=None, mixed_fmts=None,
+                              debug_visits: bool = False):
+    """The ``Tq == 1`` case of :func:`mx_attention_verify_fused` (the same
+    kernel and launch count): ``q`` (B, KVH, G, D), the query at
+    ``seq_len - 1``. Returns ``out`` (B, KVH, G, D) f32 (and visits)."""
+    res = mx_attention_verify_fused(
+        q[:, :, None], ke, ks, ve, vs, page_table, seq_lens,
+        fmt_name=fmt_name, block_size=block_size, softcap=softcap,
+        window=window, page_fmts=page_fmts, mixed_fmts=mixed_fmts,
+        debug_visits=debug_visits)
+    if debug_visits:
+        out, visits = res
+        return out[:, :, 0], visits
+    return res[:, :, 0]
+
+
+def mx_attention_prefill_fused(q, k_chunk, v_chunk, ke, ks, ve, vs,
+                               page_table, chunk_start, seq_lens, *,
+                               fmt_name: str = "fp8_e4m3",
+                               block_size: int = 32, softcap=None,
+                               window=None, page_fmts=None, mixed_fmts=None,
+                               debug_visits: bool = False):
+    """One page-aligned prompt chunk of ``C`` tokens per row (layouts
+    above, ``q`` (B, KVH, C, G, D), ``k_chunk``/``v_chunk`` (B, C, KVH,
+    D)): attend the resident pages below ``chunk_start``, quantize the
+    chunk's K/V into its own pages ``[start / PS, ceil(seq_len / PS))``
+    and attend them.
+
+    ``C`` is a multiple of the page size and ``chunk_start`` page-aligned,
+    so a page is wholly resident or wholly the chunk's. A chunk page is
+    quantized whole, padding rows of a final chunk included, as in the
+    reference; pages past ``seq_len`` are neither read nor written. With
+    B > 1 rows, chunk pages must be the row's own (resident pages may be
+    shared read-only). Table entries clip into ``[0, NP)`` and
+    ``seq_lens`` clamps to ``[start + 1, start + C]``. A mixed pool's
+    chunk pages are written in the hot format ``fmt_name`` (an fp8).
+    Returns ``(out (B, KVH, C, G, D) f32, (ke, ks, ve, vs))``, plus
+    ``visits`` with ``debug_visits=True``; the pools update in place.
+    CUDA tensors launch the CUDA kernel (counted in
+    ``mx_attention_prefill_fused.launches``); CPU tensors run
+    :func:`mx_attention_prefill_fused_plain`.
+    """
+    fmt, mixed_fmts = _check_pools(q, ke, ks, ve, vs, fmt_name, block_size,
+                                   page_fmts, mixed_fmts, "prefills")
+    b, kvh, c, g, d = q.shape
+    ps = ke.shape[1]
+    if c % ps:
+        raise ValueError(
+            f"chunk length {c} must be a whole number of pages "
+            f"(page_size={ps}): a partial chunk page would blend resident "
+            "and chunk rows inside one tile")
+    if k_chunk.shape != (b, c, kvh, d) or v_chunk.shape != (b, c, kvh, d):
+        raise ValueError(f"k_chunk/v_chunk must be {(b, c, kvh, d)}")
+    _check_meta(b, page_table, chunk_start, seq_lens, window=window)
+    dev = q.device
+    _on_one_device(dev, k_chunk, v_chunk, ke, ks, ve, vs, page_table,
+                   chunk_start, seq_lens, page_fmts)
+    table, start, lens = normalize_prefill(page_table, chunk_start, seq_lens,
+                                           ke.shape[0], c)
+    kw = dict(fmt_name=fmt.name, block_size=block_size, softcap=softcap,
+              window=window, page_fmts=page_fmts, mixed_fmts=mixed_fmts)
+    run = (_launch_prefill if dev.type == "cuda"
+           else mx_attention_prefill_fused_plain)
+    out, visits = run(q, k_chunk, v_chunk, ke, ks, ve, vs, table, start,
+                      lens, **kw)
+    pools = (ke, ks, ve, vs)
+    return (out, pools, visits) if debug_visits else (out, pools)
+
+
+#: CUDA launches of each kernel (the plain CPU versions are not counted)
 mx_attention_ragged_fused.launches = 0
+mx_attention_verify_fused.launches = 0
+mx_attention_prefill_fused.launches = 0

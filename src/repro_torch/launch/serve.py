@@ -4,20 +4,25 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --batch 8 --prompt-len 236 --shared-prefix 64 --ragged --new-tokens 32
 
-Weights are random (a seeded ``torch.Generator``), weight-only MX with an
-MX KV cache: by default MXFP8 weights and fp8 pages, the reference
-launcher's ``--quant mxfp8 --quantize-kv`` serving path; ``--quant mxfp4
---quantize-kv`` serves fp4 weights and packed fp4 pages. ``--tiered``
-(with the ``--tier-*`` knobs) runs the tiered mixed-format cache:
+Weights are random (a seeded ``torch.Generator``) and weight-only MX. By
+default they are MXFP8 with an MX fp8 KV cache, the reference launcher's
+``--quant mxfp8 --quantize-kv`` serving path; ``--quant mxfp4
+--quantize-kv`` serves fp4 weights and packed fp4 pages, and ``--quant``
+without ``--quantize-kv`` (or ``--quant wide``) a wide bf16 KV cache,
+which the engine serves through the split step. ``--tiered`` (with the
+``--tier-*`` knobs) runs the tiered mixed-format cache:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --batch 8 --prompt-len 236 --shared-prefix 64 --ragged \
       --new-tokens 48 --tiered
 
-Runs on the card unless ``--device cpu``. The reference's other flags
-(the HTTP server, sampling, speculation, the mesh, other engines and
-step modes, a wide KV cache) are not ported yet and exit with an error
-naming ROADMAP.md.
+``--step-mode split`` runs the reference's split step (prefill-chunk
+dispatches under ``--prefill-token-budget``, then one decode dispatch a
+step), and ``--decode-kernel einsum`` its gather oracle, which also
+falls back to split. Runs on the card unless ``--device cpu``. The
+reference's other flags (the HTTP server, sampling, speculation, the
+mesh, the fixed-slot engine, the megakernel step, monolithic prefill)
+are not ported yet and exit with an error naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.core import MXFP4, MXFP8
+from repro_torch.core import MXFP4, MXFP8, WIDE
 from repro_torch.nn import model
 from repro_torch.serve import ServeConfig, ServeEngine, TierPolicy
 
@@ -40,8 +45,7 @@ UNPORTED_FLAGS = (
     "--temperature", "--top-p", "--top-k", "--seed", "--slo-ms",
     "--max-queue", "--serve", "--host", "--port", "--prefix-snapshot",
     "--engine", "--max-slots", "--page-size",
-    "--no-prefix-cache", "--decode-kernel", "--prefill-mode",
-    "--prefill-chunk", "--prefill-token-budget", "--step-mode",
+    "--no-prefix-cache", "--prefill-mode", "--prefill-chunk",
     "--prefill-max-chunks", "--mesh", "--spec-decode", "--num-draft-tokens")
 
 TIER_FMTS = ["fp6_e3m2", "fp6_e2m3", "fp4_e2m1"]
@@ -49,16 +53,19 @@ TIER_FMTS = ["fp6_e3m2", "fp6_e2m3", "fp4_e2m1"]
 
 def build_engine(args) -> tuple:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    quant = {"": cfg.quant, "mxfp8": MXFP8, "mxfp4": MXFP4}[args.quant]
-    cfg = cfg.replace(quant=quant.replace(block_size=cfg.quant.block_size,
-                                          quantize_acts=False,
-                                          quantize_kv_cache=True))
+    quant = {"": cfg.quant, "wide": WIDE, "mxfp8": MXFP8,
+             "mxfp4": MXFP4}[args.quant]
+    cfg = cfg.replace(quant=quant.replace(
+        block_size=cfg.quant.block_size, quantize_acts=False,
+        quantize_kv_cache=args.quantize_kv or not args.quant))
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(cfg, gen, device)
     max_seq = args.shared_prefix + args.prompt_len + args.new_tokens
     serve_cfg = ServeConfig(
         max_seq=max_seq, max_slots=args.batch, tiered=args.tiered,
+        step_mode=args.step_mode, decode_kernel=args.decode_kernel,
+        prefill_token_budget=args.prefill_token_budget or None,
         tier_policy=TierPolicy(
             mid_fmt=args.tier_mid_fmt, cold_fmt=args.tier_cold_fmt,
             hot_steps=args.tier_hot_steps, cold_steps=args.tier_cold_steps,
@@ -95,21 +102,29 @@ def run_batch(engine, cfg, args, prompts=None) -> dict:
     dt = time.perf_counter() - t0
     generated = sum(len(results[i]) - len(p) for i, p in zip(ids, prompts))
     stats = engine.cache_stats()
+    dispatches = {k[len("dispatches_"):]: v for k, v in stats.items()
+                  if k.startswith("dispatches_")}
     report = {
         "requests": len(ids), "seconds": dt,
         "generated_tokens": generated, "tokens_per_s": generated / dt,
+        "step_mode": stats["step_mode"],
+        "steps": len(engine.step_seconds),
         "median_step_ms": 1e3 * float(np.median(engine.step_seconds)),
         "ragged_steps": stats["ragged_steps"],
+        "dispatches": dispatches,
         "kernel_launches": stats["kernel_launches"],
         "preemptions": stats["preemptions"],
         "prefix_hit_rate": stats["prefix_hit_rate"],
         "peak_pages": stats["peak_pages"],
+        "min_top2_gap_ulps": stats["min_top2_gap_ulps"],
         "prompts": prompts, "ids": ids, "results": results,
     }
-    log.info("served %d requests in %.2fs (%.1f tok/s); %d ragged steps "
-             "(median %.1f ms), %d kernel launches, %d preemptions, prefix "
-             "hit rate %.2f", len(ids), dt, report["tokens_per_s"],
-             report["ragged_steps"], report["median_step_ms"],
+    log.info("served %d requests in %.2fs (%.1f tok/s); %s step, %d steps "
+             "(median %.1f ms); dispatches %s; %d kernel launches, %d "
+             "preemptions, prefix hit rate %.2f", len(ids), dt,
+             report["tokens_per_s"], report["step_mode"], report["steps"],
+             report["median_step_ms"],
+             ", ".join(f"{k} {v}" for k, v in dispatches.items()),
              report["kernel_launches"], report["preemptions"],
              report["prefix_hit_rate"])
     if engine.tiered:
@@ -149,8 +164,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="weight and KV format (default: the config's, "
                          "MXFP8, with an MX KV cache)")
     ap.add_argument("--quantize-kv", action="store_true",
-                    help="MX KV cache; required with --quant, and implied "
-                         "without it")
+                    help="MX KV cache; implied without --quant, and with "
+                         "--quant off means a wide bf16 cache (served "
+                         "through the split step)")
     ap.add_argument("--tiered", action="store_true",
                     help="tiered mixed-format KV cache: new pages land "
                          "fp8, idle pages are repacked down the fp8 -> "
@@ -162,6 +178,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--tier-hot-steps", type=int, default=8)
     ap.add_argument("--tier-cold-steps", type=int, default=32)
     ap.add_argument("--tier-repack-pages", type=int, default=4)
+    ap.add_argument("--decode-kernel", default="fused",
+                    choices=["fused", "einsum"],
+                    help="paged decode attention path: single-pass fused "
+                         "flash-decode (default) or the reference "
+                         "gather-and-dequantize einsum")
+    ap.add_argument("--prefill-token-budget", type=int, default=0,
+                    help="max prefill tokens per engine step, spent "
+                         "round-robin across admitted prompts "
+                         "(default: one chunk)")
+    ap.add_argument("--step-mode", default="ragged",
+                    choices=["ragged", "split", "megakernel"],
+                    help="engine step dispatch shape: 'ragged' (default) "
+                         "packs decode tokens and prefill chunks into ONE "
+                         "fused dispatch per step with the K/V write done "
+                         "in-kernel; 'split' runs the per-mode dispatches "
+                         "(the validated oracle). Ragged needs the fused "
+                         "kernel + a quantized KV cache and falls back to "
+                         "split otherwise. 'megakernel' is not ported yet")
     args, rest = ap.parse_known_args(argv)
     for arg in rest:
         flag = arg.split("=", 1)[0]
@@ -172,11 +206,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                      "ROADMAP.md, section A)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.quant == "wide" or (args.quant and not args.quantize_kv):
-        ap.error("a wide KV cache is served by the reference's split step, "
-                 "which is not ported to repro_torch yet (ROADMAP.md, A8): "
-                 "pass --quant mxfp8|mxfp4 --quantize-kv")
-    if args.tiered and args.quant not in ("", "mxfp8"):
+    if args.step_mode == "megakernel":
+        ap.error("--step-mode megakernel is not ported to repro_torch yet "
+                 "(ROADMAP.md, A10)")
+    if args.tiered and (args.quant not in ("", "mxfp8")
+                        or args.quant and not args.quantize_kv):
         ap.error("--tiered requires --quant mxfp8 --quantize-kv "
                  "(new writes land in the 8-bit base format)")
     return args

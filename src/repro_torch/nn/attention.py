@@ -1,13 +1,21 @@
-"""Grouped-query attention over the paged MX KV cache (port of
-``repro.nn.attention``): the ragged engine step only.
+"""Grouped-query attention over the paged KV cache (port of
+``repro.nn.attention``): the ragged engine step and the split step's
+decode, verify and chunked-prefill paths.
 
-Pools are plain dicts of tensors, ``{"k_elems", "k_scales", "v_elems",
-"v_scales"}``, laid out as in the reference: elements ``(NP, PS, KVH,
-D)`` fp8, ``(NP, PS, KVH, D // 2)`` packed fp4 uint8, or, for a tiered
-pool, full-width ``(NP, PS, KVH, D)`` uint8 rows whose formats live in
-the engine's per-page ids; scales ``(NP, PS, KVH, D // k)`` uint8.
-:func:`apply_ragged` updates them in place; the reference's jitted step
-donates the cache instead.
+Pools are plain dicts of tensors laid out as in the reference: an MX
+pool ``{"k_elems", "k_scales", "v_elems", "v_scales"}`` with elements
+``(NP, PS, KVH, D)`` fp8, ``(NP, PS, KVH, D // 2)`` packed fp4 uint8,
+or, for a tiered pool, full-width ``(NP, PS, KVH, D)`` uint8 rows whose
+formats live in the engine's per-page ids, and scales ``(NP, PS, KVH,
+D // k)`` uint8; a wide pool ``{"k", "v"}`` of bf16 ``(NP, PS, KVH, D)``
+rows. Every path updates the pool in place; the reference's jitted
+steps donate the cache instead.
+
+``AttnConfig.decode_kernel`` selects the split step's attention as in
+the reference: ``"fused"`` runs the MX page-walk kernels
+(``kernels.mx_attention_verify_fused`` / ``mx_attention_prefill_fused``),
+``"einsum"`` the gather-and-dequantize oracle (``_read_cache``,
+``_mask``, ``_attend``), which also serves wide pools.
 """
 from __future__ import annotations
 
@@ -16,12 +24,16 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import QuantConfig
+from repro_torch.core import QuantConfig, quantize
 from repro_torch.core import formats as F
-from repro_torch.kernels import mx_attention_ragged_fused
+from repro_torch.kernels import (mx_attention_prefill_fused,
+                                 mx_attention_ragged_fused,
+                                 mx_attention_verify_fused)
 
 from . import linear
 from .rotary import apply_rope
+
+NEG_INF = -2.0e38
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +45,9 @@ class AttnConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None  # sliding window (None = full causal)
     softcap: Optional[float] = None
+    # the split step's attention: "fused" (MX page-walk kernels) or
+    # "einsum" (the gather oracle; wide pools always take it)
+    decode_kernel: str = "einsum"
 
 
 def init(gen: torch.Generator, cfg: AttnConfig, quant: QuantConfig,
@@ -58,30 +73,35 @@ def _project_decode_qkv(params, x: torch.Tensor, posv: torch.Tensor,
     return q, k, v
 
 
+def _mx_cache(quant: QuantConfig) -> bool:
+    return quant.enabled and quant.quantize_kv_cache
+
+
 def init_paged_pool(num_pages: int, page_size: int, cfg: AttnConfig,
                     quant: QuantConfig, device, tiered: bool = False) -> dict:
     """One layer's global KV page pool (no per-sequence dimension).
 
-    Uniform pools store the format's elements (fp4 packs two per byte;
-    fp6 rows are D bytes wide, as the reference's ``_cache_arrays`` lays
-    them out, and the ragged kernel refuses them). ``tiered=True``
+    Uniform MX pools store the format's elements (fp4 packs two per
+    byte; fp6 rows are D bytes wide, as the reference's ``_cache_arrays``
+    lays them out, and the kernels refuse them); without an MX cache the
+    pool is wide, ``{"k", "v"}`` in bf16 (the reference's
+    ``cache_dtype``). ``tiered=True``
     allocates full-width uint8 rows for any format of the ladder and
     needs an 8-bit hot format, as in the reference.
     """
+    kvh, d = cfg.num_kv_heads, cfg.head_dim
     if tiered:
-        if not (quant.enabled and quant.quantize_kv_cache):
+        if not _mx_cache(quant):
             raise ValueError("tiered KV pools require an MX-quantized cache")
         if F.get_format(quant.fmt).bits != 8:
             raise ValueError(
                 "tiered KV pools write new pages in the hot format, which "
                 f"must be an fp8; got {quant.fmt!r}")
-    elif not (quant.enabled and quant.quantize_kv_cache):
-        raise NotImplementedError(
-            "wide bf16 page pools are served by the reference's split step, "
-            "which is not ported (ROADMAP A8); the ragged step needs an MX "
-            "pool")
+    elif not _mx_cache(quant):
+        z = torch.zeros((num_pages, page_size, kvh, d), dtype=torch.bfloat16,
+                        device=device)
+        return {"k": z, "v": z.clone()}
     fmt = F.get_format(quant.fmt)
-    kvh, d = cfg.num_kv_heads, cfg.head_dim
     bs = min(quant.block_size, d)
     ed = d // 2 if fmt.packed and not tiered else d
     dtype = torch.uint8 if tiered else fmt.storage_dtype
@@ -91,6 +111,214 @@ def init_paged_pool(num_pages: int, page_size: int, cfg: AttnConfig,
             "k_scales": torch.zeros(sshape, dtype=torch.uint8, device=device),
             "v_elems": torch.zeros(shape, dtype=dtype, device=device),
             "v_scales": torch.zeros(sshape, dtype=torch.uint8, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# the split step: host-side page writes, then a page walk or the einsum
+# ---------------------------------------------------------------------------
+
+
+def _quantize_kv_token(k_new: torch.Tensor, v_new: torch.Tensor,
+                       cfg: AttnConfig, quant: QuantConfig):
+    """The MX cache-write quantization, shared by every host write path
+    (``core.quantize`` in f32: -0.0 keeps its sign)."""
+    bs = min(quant.block_size, cfg.head_dim)
+    return (quantize(k_new.to(torch.float32), quant.fmt, bs),
+            quantize(v_new.to(torch.float32), quant.fmt, bs))
+
+
+def _read_cache(cache: dict, quant: QuantConfig, cfg: AttnConfig, dtype):
+    """K/V of a (gathered) cache view in ``dtype``: wide leaves cast, MX
+    leaves dequantized in f32 (scales folded, subnormals flushed as the
+    reference's arithmetic does) and then rounded to ``dtype``."""
+    if "k" in cache:
+        return cache["k"].to(dtype), cache["v"].to(dtype)
+    bs = min(quant.block_size, cfg.head_dim)
+    fmt = F.get_format(quant.fmt)
+
+    def deq(elems, scales):
+        return F.dequantize_blocks(elems.view(fmt.storage_dtype), scales,
+                                   fmt, bs).to(dtype)
+
+    return (deq(cache["k_elems"], cache["k_scales"]),
+            deq(cache["v_elems"], cache["v_scales"]))
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, window) -> torch.Tensor:
+    """Causal + window + validity mask: (..., S_q, S_k) bool."""
+    m = kpos[..., None, :] <= qpos[..., :, None]
+    if window is not None:
+        m &= kpos[..., None, :] > (qpos[..., :, None] - window)
+    m &= kpos[..., None, :] >= 0
+    return m
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            qpos: torch.Tensor, kpos: torch.Tensor,
+            cfg: AttnConfig) -> torch.Tensor:
+    """Grouped attention core, the reference's rounding points: f32
+    logits of bf16 q.k, f32 softmax, probabilities rounded to q's dtype,
+    then P.V summed in f32 and rounded to it. q (B, S, H, D), k/v (B, T,
+    KVH, D), qpos (B, S), kpos (B, T). Returns (B, S, H, D)."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    logits = logits * (d ** -0.5)
+    if cfg.softcap:
+        logits = torch.tanh(logits / cfg.softcap) * cfg.softcap
+    mask = _mask(qpos, kpos, cfg.window)[:, None, None]  # (B, 1, 1, S, T)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v.float())
+    return out.to(q.dtype).reshape(b, s, h, d)
+
+
+def _write_pages(pool: dict, k: torch.Tensor, v: torch.Tensor,
+                 page_rows: torch.Tensor, posv: torch.Tensor,
+                 cfg: AttnConfig, quant: QuantConfig) -> None:
+    """Host write of new K/V rows (B, S, KVH, D) at positions ``posv``
+    (B, S): page ``p // PS``, slot ``p % PS``. Unallocated entries and
+    positions past the table's extent are dropped, as the reference's
+    ``mode="drop"`` scatter does (a padded final chunk can reach past
+    the table); an MX pool gets ``core.quantize``'s codes (a tiered
+    pool their bytes, in the hot fp8 format)."""
+    lead = pool["k" if "k" in pool else "k_elems"]
+    ps = lead.shape[1]
+    pmax = page_rows.shape[1]
+    widx = (posv // ps).long()
+    page = page_rows.long().gather(1, widx.clamp(0, pmax - 1))
+    keep = (page >= 0) & (widx <= pmax - 1)
+    pg, sl = page[keep], (posv % ps).long()[keep]
+    if "k" in pool:
+        pool["k"][pg, sl] = k[keep].to(pool["k"].dtype)
+        pool["v"][pg, sl] = v[keep].to(pool["v"].dtype)
+        return
+    kq, vq = _quantize_kv_token(k[keep], v[keep], cfg, quant)
+    for name, mx in (("k", kq), ("v", vq)):
+        elems = pool[f"{name}_elems"]
+        elems[pg, sl] = mx.elements.view(elems.dtype)
+        pool[f"{name}_scales"][pg, sl] = mx.scales
+
+
+def _heads_split(q: torch.Tensor, kvh: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, KVH, S, G, D), heads split KVH major."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, kvh, h // kvh, d).permute(0, 2, 1, 3,
+                                                     4).contiguous()
+
+
+def _heads_merge(out: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, KVH, S, G, D) -> (B, S, KVH * G * D) in ``dtype``."""
+    b, kvh, s, g, d = out.shape
+    return out.permute(0, 2, 1, 3, 4).reshape(b, s, kvh * g * d).to(dtype)
+
+
+def _check_split(cfg: AttnConfig, pool: dict, page_fmts) -> None:
+    if cfg.decode_kernel not in ("einsum", "fused"):
+        raise ValueError(f"unknown decode_kernel {cfg.decode_kernel!r}")
+    if page_fmts is not None and (cfg.decode_kernel != "fused"
+                                  or "k_elems" not in pool):
+        raise ValueError("tiered (mixed-format) KV pools require the fused "
+                         "MX decode kernel path")
+
+
+def apply_verify_paged(params, x: torch.Tensor, pool: dict,
+                       page_rows: torch.Tensor, pos: torch.Tensor,
+                       cfg: AttnConfig, quant: QuantConfig,
+                       compute_dtype=torch.bfloat16, page_fmts=None,
+                       mixed_fmts=None) -> torch.Tensor:
+    """Multi-token paged verify: x (B, Tq, d_model), pos (B,).
+
+    Each slot feeds Tq tokens at positions ``pos .. pos + Tq - 1``. All
+    their K/V are written into their pages first (host side, dropped for
+    unallocated entries), then every query attends over the slot's pages
+    with a per-row causal mask: through ``mx_attention_verify_fused``
+    (``cfg.decode_kernel == "fused"`` on an MX pool) or the einsum
+    gather oracle (also every wide pool). ``pool`` is updated in place; a
+    tiered pool passes ``page_fmts`` / ``mixed_fmts`` (fused only).
+    """
+    _check_split(cfg, pool, page_fmts)
+    b, tq, _ = x.shape
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    posv = pos[:, None] + torch.arange(tq, dtype=pos.dtype,
+                                       device=x.device)[None]
+    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype)
+    _write_pages(pool, k, v, page_rows, posv, cfg, quant)
+    if cfg.decode_kernel == "fused" and "k_elems" in pool:
+        out = mx_attention_verify_fused(
+            _heads_split(q, kvh), pool["k_elems"], pool["k_scales"],
+            pool["v_elems"], pool["v_scales"], page_rows, pos + tq,
+            fmt_name=quant.fmt, block_size=min(quant.block_size, d),
+            softcap=cfg.softcap, window=cfg.window, page_fmts=page_fmts,
+            mixed_fmts=mixed_fmts)
+        out = _heads_merge(out, compute_dtype)
+    else:
+        npages, ps = pool["k" if "k" in pool else "k_elems"].shape[:2]
+        pmax = page_rows.shape[1]
+        idx = page_rows.long().clamp(0, npages - 1)  # garbage is masked
+        view = {key: leaf[idx].reshape(b, pmax * ps, *leaf.shape[2:])
+                for key, leaf in pool.items()}
+        kc, vc = _read_cache(view, quant, cfg, compute_dtype)
+        kpos = torch.arange(pmax * ps, dtype=posv.dtype,
+                            device=x.device)[None].expand(b, -1)
+        out = _attend(q, kc, vc, posv, kpos, cfg).reshape(b, tq, h * d)
+    return linear.apply(params["wo"], out, compute_dtype)
+
+
+def apply_decode_paged(params, x: torch.Tensor, pool: dict,
+                       page_rows: torch.Tensor, pos: torch.Tensor,
+                       cfg: AttnConfig, quant: QuantConfig,
+                       compute_dtype=torch.bfloat16, page_fmts=None,
+                       mixed_fmts=None) -> torch.Tensor:
+    """Per-slot decode through a page table, x (B, 1, d_model): the
+    ``Tq == 1`` case of :func:`apply_verify_paged`, as in the
+    reference."""
+    return apply_verify_paged(params, x, pool, page_rows, pos, cfg, quant,
+                              compute_dtype, page_fmts=page_fmts,
+                              mixed_fmts=mixed_fmts)
+
+
+def apply_prefill_chunked(params, x: torch.Tensor, pool: dict,
+                          page_rows: torch.Tensor, pos: torch.Tensor,
+                          num_valid: torch.Tensor, cfg: AttnConfig,
+                          quant: QuantConfig, compute_dtype=torch.bfloat16,
+                          page_fmts=None, mixed_fmts=None) -> torch.Tensor:
+    """One chunk of paged prefill: x (B, C, d_model), pos (B,) page-aligned
+    chunk starts, num_valid (B,) real tokens in the chunk.
+
+    On an MX pool with ``decode_kernel == "fused"``,
+    ``mx_attention_prefill_fused`` quantizes the chunk's K/V into its
+    pages inside the kernel and attends resident pages and the chunk;
+    otherwise (the einsum oracle, wide pools) it is
+    :func:`apply_verify_paged` with Tq = C, whose host write also lands
+    the padding rows' K/V where pages exist. ``pool`` is updated in
+    place.
+    """
+    _check_split(cfg, pool, page_fmts)
+    if not (cfg.decode_kernel == "fused" and "k_elems" in pool):
+        return apply_verify_paged(params, x, pool, page_rows, pos, cfg,
+                                  quant, compute_dtype)
+    b, c, _ = x.shape
+    kvh, d = cfg.num_kv_heads, cfg.head_dim
+    posv = pos[:, None] + torch.arange(c, dtype=pos.dtype,
+                                       device=x.device)[None]
+    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype)
+    out, _ = mx_attention_prefill_fused(
+        _heads_split(q, kvh), k.contiguous(), v.contiguous(),
+        pool["k_elems"], pool["k_scales"], pool["v_elems"],
+        pool["v_scales"], page_rows, pos, pos + num_valid,
+        fmt_name=quant.fmt, block_size=min(quant.block_size, d),
+        softcap=cfg.softcap, window=cfg.window, page_fmts=page_fmts,
+        mixed_fmts=mixed_fmts)
+    return linear.apply(params["wo"], _heads_merge(out, compute_dtype),
+                        compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the ragged step
+# ---------------------------------------------------------------------------
 
 
 def apply_ragged(params, x: torch.Tensor, pool: dict, page_rows: torch.Tensor,
@@ -108,19 +336,17 @@ def apply_ragged(params, x: torch.Tensor, pool: dict, page_rows: torch.Tensor,
     pool passes its per-page format ids ``page_fmts`` (NP,) and the
     candidate formats ``mixed_fmts``.
     """
-    r, w, _ = x.shape
+    w = x.shape[1]
     d = cfg.head_dim
     posv = row_start[:, None] + torch.arange(w, dtype=row_start.dtype,
                                              device=x.device)[None]
     q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype)
-    kvh = k.shape[2]
-    g = q.shape[2] // kvh
-    qk = q.reshape(r, w, kvh, g, d).permute(0, 2, 1, 3, 4).contiguous()
     out, _ = mx_attention_ragged_fused(
-        qk, k.contiguous(), v.contiguous(), pool["k_elems"], pool["k_scales"],
-        pool["v_elems"], pool["v_scales"], page_rows, row_start, seq_lens,
+        _heads_split(q, k.shape[2]), k.contiguous(), v.contiguous(),
+        pool["k_elems"], pool["k_scales"], pool["v_elems"],
+        pool["v_scales"], page_rows, row_start, seq_lens,
         fmt_name=quant.fmt, block_size=min(quant.block_size, d),
         softcap=cfg.softcap, window=cfg.window, page_fmts=page_fmts,
         mixed_fmts=mixed_fmts)
-    out = out.permute(0, 2, 1, 3, 4).reshape(r, w, -1).to(compute_dtype)
-    return linear.apply(params["wo"], out, compute_dtype)
+    return linear.apply(params["wo"], _heads_merge(out, compute_dtype),
+                        compute_dtype)

@@ -17,7 +17,7 @@ def _attn_cfg(cfg: ModelConfig, bd: BlockDef) -> attention.AttnConfig:
         d_model=cfg.d_model, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
         rope_theta=cfg.rope_theta, window=bd.window,
-        softcap=cfg.attn_softcap)
+        softcap=cfg.attn_softcap, decode_kernel=cfg.decode_kernel)
 
 
 def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
@@ -78,4 +78,44 @@ def apply_ragged_step(params, x: torch.Tensor, cache: dict,
                                row_start, seq_lens, _attn_cfg(cfg, bd),
                                cfg.quant, cfg.compute_dtype,
                                page_fmts=page_fmts, mixed_fmts=mixed_fmts)
+    return _decode_tail(params, x, h, cfg)
+
+
+def apply_verify_paged(params, x: torch.Tensor, cache: dict,
+                       page_rows: torch.Tensor, pos: torch.Tensor,
+                       bd: BlockDef, cfg: ModelConfig, page_fmts=None,
+                       mixed_fmts=None) -> torch.Tensor:
+    """Multi-token paged verify of one block: x (B, Tq, d_model), pos (B,)
+    each slot's first position; ``cache`` is updated in place."""
+    _require_ported(bd, cfg)
+    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    h = attention.apply_verify_paged(params["mixer"], h, cache, page_rows,
+                                     pos, _attn_cfg(cfg, bd), cfg.quant,
+                                     cfg.compute_dtype, page_fmts=page_fmts,
+                                     mixed_fmts=mixed_fmts)
+    return _decode_tail(params, x, h, cfg)
+
+
+def apply_decode_paged(params, x: torch.Tensor, cache: dict,
+                       page_rows: torch.Tensor, pos: torch.Tensor,
+                       bd: BlockDef, cfg: ModelConfig, page_fmts=None,
+                       mixed_fmts=None) -> torch.Tensor:
+    """Per-slot decode of one block: x (B, 1, d_model), pos (B,)."""
+    return apply_verify_paged(params, x, cache, page_rows, pos, bd, cfg,
+                              page_fmts=page_fmts, mixed_fmts=mixed_fmts)
+
+
+def apply_prefill_chunked(params, x: torch.Tensor, cache: dict,
+                          page_rows: torch.Tensor, pos: torch.Tensor,
+                          num_valid: torch.Tensor, bd: BlockDef,
+                          cfg: ModelConfig, page_fmts=None,
+                          mixed_fmts=None) -> torch.Tensor:
+    """One chunk of paged prefill of one block: x (B, C, d_model), pos
+    (B,) chunk starts, num_valid (B,) real tokens in the chunk."""
+    _require_ported(bd, cfg)
+    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    h = attention.apply_prefill_chunked(
+        params["mixer"], h, cache, page_rows, pos, num_valid,
+        _attn_cfg(cfg, bd), cfg.quant, cfg.compute_dtype,
+        page_fmts=page_fmts, mixed_fmts=mixed_fmts)
     return _decode_tail(params, x, h, cfg)

@@ -45,6 +45,10 @@ class ModelConfig:
     norm_eps: float = 1e-6
     quant: QuantConfig = QuantConfig()
     compute_dtype: torch.dtype = torch.bfloat16
+    # the split step's paged attention: "einsum" (the gather oracle, the
+    # reference's default here) or "fused" (the MX page-walk kernels); the
+    # serve engine sets it from ServeConfig.decode_kernel
+    decode_kernel: str = "einsum"
     source: str = ""
 
     @property

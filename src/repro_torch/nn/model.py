@@ -1,5 +1,6 @@
 """LM assembly for serving (port of ``repro.nn.model``): embedding ->
-attention blocks -> final norm -> LM head, one ragged step at a time.
+attention blocks -> final norm -> LM head, one engine step at a time: the
+ragged step, or the split step's decode / verify and prefill chunk.
 
 Parameters are a plain dict::
 
@@ -87,11 +88,72 @@ def _slice_tree(tree, g: int):
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device, tiered: bool = False) -> list:
-    """One MX page pool per layer (shared page table, like the reference);
-    ``tiered`` lays them out as mixed-format pools."""
+    """One page pool per layer (shared page table, like the reference):
+    MX, wide bf16 without an MX cache, or mixed-format with ``tiered``.
+    ``num_pages`` counts every physical page, a trash page the caller
+    reserves included."""
     return [blocks.init_paged_cache(num_pages, page_size, bd, cfg, device,
                                     tiered=tiered)
             for _, _, bd in iter_layer_blocks(cfg)]
+
+
+def _walk_blocks(apply_fn, params, cfg: ModelConfig, cache: list, x):
+    for bp, pool, (_, _, bd) in zip(params["layers"], cache,
+                                    iter_layer_blocks(cfg)):
+        x = apply_fn(bp, x, pool, bd)
+    return x
+
+
+def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return embedding.logits(params["embedding"], x, cfg.compute_dtype)
+
+
+def decode_step_paged(params, cfg: ModelConfig, cache: list,
+                      tokens: torch.Tensor, page_rows: torch.Tensor,
+                      pos: torch.Tensor, page_fmts=None,
+                      mixed_fmts=None) -> torch.Tensor:
+    """The split step's decode: tokens (B, 1), page_rows (B, P) (-1 =
+    unallocated), pos (B,) each slot's position. Every layer writes its
+    K/V on the host side (inactive slots' writes drop) and attends by
+    ``cfg.decode_kernel``; ``cache`` is updated in place. Returns logits
+    (B, 1, V) f32. A tiered cache passes ``page_fmts`` / ``mixed_fmts``
+    (fused only)."""
+    return verify_step_paged(params, cfg, cache, tokens, page_rows, pos,
+                             page_fmts=page_fmts, mixed_fmts=mixed_fmts)
+
+
+def verify_step_paged(params, cfg: ModelConfig, cache: list,
+                      tokens: torch.Tensor, page_rows: torch.Tensor,
+                      pos: torch.Tensor, page_fmts=None,
+                      mixed_fmts=None) -> torch.Tensor:
+    """Speculative verify: tokens (B, Tq) at positions ``pos .. pos + Tq
+    - 1``, every token's K/V written before the per-row causal page walk
+    (``Tq == 1`` is :func:`decode_step_paged`). Returns logits (B, Tq, V)
+    f32; ``cache`` is updated in place."""
+    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    x = _walk_blocks(lambda bp, x, pool, bd: blocks.apply_verify_paged(
+        bp, x, pool, page_rows, pos, bd, cfg, page_fmts=page_fmts,
+        mixed_fmts=mixed_fmts), params, cfg, cache, x)
+    return _head(params, cfg, x)
+
+
+def prefill_chunk_paged(params, cfg: ModelConfig, cache: list,
+                        tokens: torch.Tensor, page_rows: torch.Tensor,
+                        pos: torch.Tensor, num_valid: torch.Tensor,
+                        logit_idx: torch.Tensor, page_fmts=None,
+                        mixed_fmts=None) -> torch.Tensor:
+    """One fixed-size chunk of paged prefill: tokens (B, C) at positions
+    ``pos .. pos + C - 1`` (``pos`` page-aligned), num_valid (B,) real
+    tokens, logit_idx (B,) the row whose logits to return. Returns logits
+    (B, 1, V) f32, gathered before the final norm as the reference does;
+    ``cache`` is updated in place."""
+    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    x = _walk_blocks(lambda bp, x, pool, bd: blocks.apply_prefill_chunked(
+        bp, x, pool, page_rows, pos, num_valid, bd, cfg,
+        page_fmts=page_fmts, mixed_fmts=mixed_fmts), params, cfg, cache, x)
+    x = x[torch.arange(x.shape[0], device=x.device), logit_idx.long()]
+    return _head(params, cfg, x[:, None])
 
 
 def ragged_step_paged(params, cfg: ModelConfig, cache: list,
@@ -112,13 +174,10 @@ def ragged_step_paged(params, cfg: ModelConfig, cache: list,
     its candidate formats ``mixed_fmts``.
     """
     x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
-    for bp, pool, (_, _, bd) in zip(params["layers"], cache,
-                                    iter_layer_blocks(cfg)):
-        x = blocks.apply_ragged_step(bp, x, pool, page_rows, row_start,
-                                     seq_lens, bd, cfg, page_fmts=page_fmts,
-                                     mixed_fmts=mixed_fmts)
+    x = _walk_blocks(lambda bp, x, pool, bd: blocks.apply_ragged_step(
+        bp, x, pool, page_rows, row_start, seq_lens, bd, cfg,
+        page_fmts=page_fmts, mixed_fmts=mixed_fmts), params, cfg, cache, x)
     last = torch.clamp(seq_lens - row_start - 1, min=0)
     idx = torch.minimum(torch.clamp(logit_idx, min=0), last).long()
     x = x[torch.arange(x.shape[0], device=x.device), idx]
-    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return embedding.logits(params["embedding"], x, cfg.compute_dtype)
+    return _head(params, cfg, x)

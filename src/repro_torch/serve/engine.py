@@ -1,14 +1,24 @@
-"""Continuous-batching serve engine over the paged MX KV cache (port of
-``repro.serve.engine``, the reference's default ragged step).
+"""Continuous-batching serve engine over the paged KV cache (port of
+``repro.serve.engine``: the ragged step and the split step).
 
-Every engine step packs each decode-ready sequence's pending token and
-one prompt chunk per prefilling sequence into a (max_slots, W) row batch
-and runs ONE ``model.ragged_step_paged`` over it: per layer, projections
-and RoPE in PyTorch, then the ragged MX page-walk kernel, which
-quantizes the rows' new K/V into their pages and attends over them.
-Admission, prefix sharing, copy-on-write, swap preemption and EOS
-recycling follow the reference exactly, so greedy token streams match
-its ``ContinuousBatchingEngine`` under the same weights.
+``step_mode="ragged"`` (the default) packs each decode-ready sequence's
+pending token and one prompt chunk per prefilling sequence into a
+(max_slots, W) row batch and runs ONE ``model.ragged_step_paged`` over
+it: per layer, projections and RoPE in PyTorch, then the ragged MX
+page-walk kernel, which quantizes the rows' new K/V into their pages and
+attends over them. ``step_mode="split"``, the reference's own oracle,
+runs the separate dispatches instead: prefill chunks under a per-step
+token budget, round-robin across prefilling sequences, each batch one
+``model.prefill_chunk_paged`` (the chunked-prefill kernel); then one
+``model.decode_step_paged`` over the decode-ready slots (host-side K/V
+writes, then the decode page walk, or the einsum gather oracle with
+``decode_kernel="einsum"``). As in the reference, configurations the
+ragged step cannot serve -- ``decode_kernel="einsum"``, a wide bf16 KV
+cache -- fall back to split at construction, with a log line; the
+choice is ``cache_stats()["step_mode"]``. Admission, prefix sharing,
+copy-on-write, swap preemption and EOS recycling follow the reference
+exactly, so greedy token streams match its ``ContinuousBatchingEngine``
+under the same weights, in either mode.
 
 With ``ServeConfig.tiered`` the pool is the reference's tiered
 mixed-format cache: new pages land hot in the base fp8 format, pages no
@@ -16,21 +26,23 @@ step has written for ``TierPolicy.hot_steps`` / ``cold_steps`` steps are
 repacked in place down the ladder (``kernels.mx_repack_pages``) under a
 per-step page budget, and the pool is metered in quarter-page units, so
 narrower pages buy resident tokens. The per-page format ids live on the
-host (``page_fmts``) with a device mirror that every layer's ragged
-kernel reads, and they travel with a page's bytes through swap-out,
-restore and copy-on-write.
+host (``page_fmts``) with a device mirror that every layer's kernels
+read, and they travel with a page's bytes through swap-out, restore and
+copy-on-write.
 
-The page pools update in place: the reference's jitted step donates the
-cache pytree and returns a new one instead.
+The page pools update in place: the reference's jitted steps donate the
+cache pytree and return a new one instead.
 
 Options of the reference's ``ServeConfig`` that this port does not run
-yet (other step modes, einsum decode, monolithic prefill, speculation,
-the mesh, overload control, temperature > 0) raise
-``NotImplementedError`` at construction; none falls back silently.
+yet (the megakernel step, monolithic prefill, speculation, the mesh,
+overload control, temperature > 0, several prompt chunks per ragged
+row) raise ``NotImplementedError`` at construction; none falls back
+silently.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from collections import deque
 from typing import Dict, Optional
@@ -39,7 +51,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.formats import FORMAT_BY_ID, FORMAT_IDS
-from repro_torch.kernels import mx_attention_ragged_fused, mx_repack_pages
+from repro_torch.kernels import (mx_attention_prefill_fused,
+                                 mx_attention_ragged_fused,
+                                 mx_attention_verify_fused, mx_repack_pages)
 from repro_torch.nn import model
 from repro_torch.nn.config import ModelConfig
 
@@ -47,6 +61,12 @@ from . import kv_cache, sampling
 from .kv_cache import PAGE_UNITS_FULL, UNITS_BY_BITS
 from .sampling import SamplingParams
 from .scheduler import Scheduler
+
+log = logging.getLogger(__name__)
+
+#: the page-walk kernels of the engine steps, whose launches a step counts
+_ATTN_KERNELS = (mx_attention_ragged_fused, mx_attention_verify_fused,
+                 mx_attention_prefill_fused)
 
 #: element bit width per MX format name (drives quarter-page unit costs)
 _FMT_BITS = {"fp8_e4m3": 8, "fp8_e5m2": 8, "fp6_e3m2": 6, "fp6_e2m3": 6,
@@ -79,10 +99,10 @@ class ServeConfig:
     below the line select paths that are not ported yet: anything but
     their defaults raises ``NotImplementedError`` at construction. The
     reference's knobs that only those paths read (top-p/top-k/seed, the
-    drafter, the monolithic path's trace cache and token budget) are
-    left out. ``tiered`` reinterprets ``num_pages`` as the fp8-equivalent
-    byte budget (``num_pages * 4`` quarter-page units) over a physical
-    pool twice that size."""
+    drafter, the monolithic path's trace cache) are left out. ``tiered``
+    reinterprets ``num_pages`` as the fp8-equivalent byte budget
+    (``num_pages * 4`` quarter-page units) over a physical pool twice
+    that size."""
 
     max_seq: int = 1024
     eos_id: Optional[int] = None
@@ -92,14 +112,22 @@ class ServeConfig:
     prefix_cache: bool = True
     admit_window: int = 4
     prefill_chunk: int = 64
+    # the split step's prefill tokens per engine step, spent round-robin
+    # across prefilling sequences in whole chunks (default: one chunk)
+    prefill_token_budget: Optional[int] = None
     max_deferrals: int = 8
     tiered: bool = False
     tier_policy: Optional[TierPolicy] = None
+    # "ragged" (one dispatch a step) or "split" (the reference's oracle:
+    # prefill-chunk dispatches, then one decode dispatch); configurations
+    # the ragged step cannot serve fall back to split
+    step_mode: str = "ragged"
+    # the split step's attention: "fused" (the MX page-walk kernels) or
+    # "einsum" (the gather oracle; a wide bf16 cache always takes it)
+    decode_kernel: str = "fused"
     # ---- not ported yet
     prefill_max_chunks: int = 1  # one prompt chunk per row and step
     temperature: float = 0.0  # 0 => greedy, the only ported sampler
-    step_mode: str = "ragged"
-    decode_kernel: str = "fused"
     prefill_mode: str = "chunked"
     spec_decode: bool = False
     mesh_shape: Optional[tuple] = None
@@ -113,12 +141,29 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
-    if scfg.step_mode != "ragged":
-        raise _unported(f"step_mode={scfg.step_mode!r}",
-                        "A8 split step / A10 megakernel")
-    if scfg.decode_kernel != "fused":
-        raise _unported(f"decode_kernel={scfg.decode_kernel!r}",
-                        "A8 einsum oracle")
+    """The reference's ValueErrors for unknown settings, then a
+    NotImplementedError naming the ROADMAP item of each unported path."""
+    if scfg.decode_kernel not in ("einsum", "fused"):
+        raise ValueError(
+            f"unknown decode_kernel {scfg.decode_kernel!r} "
+            "(expected 'fused' or 'einsum')")
+    if scfg.prefill_mode not in ("chunked", "monolithic"):
+        raise ValueError(
+            f"unknown prefill_mode {scfg.prefill_mode!r} "
+            "(expected 'chunked' or 'monolithic')")
+    if scfg.prefill_chunk <= 0:
+        raise ValueError("prefill_chunk must be >= 1")
+    if scfg.prefill_token_budget is not None \
+            and scfg.prefill_token_budget <= 0:
+        raise ValueError("prefill_token_budget must be >= 1")
+    if scfg.step_mode not in ("ragged", "split", "megakernel"):
+        raise ValueError(
+            f"unknown step_mode {scfg.step_mode!r} "
+            "(expected 'ragged', 'split' or 'megakernel')")
+    if scfg.prefill_max_chunks < 1:
+        raise ValueError("prefill_max_chunks must be >= 1")
+    if scfg.step_mode == "megakernel":
+        raise _unported("step_mode='megakernel'", "A10")
     if scfg.prefill_mode != "chunked":
         raise _unported(f"prefill_mode={scfg.prefill_mode!r}",
                         "A8 monolithic prefill")
@@ -132,14 +177,9 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
         raise NotImplementedError(sampling.UNPORTED)
     if any(bd.mixer != "attn" for bd in cfg.all_blocks()):
         raise _unported("non-attention mixers", "A12")
-    if not (cfg.quant.enabled and cfg.quant.quantize_kv_cache):
-        raise _unported("a wide (non-MX) KV cache, which the reference "
-                        "serves with its split step,", "A8")
     if scfg.prefill_max_chunks != 1:
-        raise _unported("prefill_max_chunks > 1 (prefill token budgeting)",
-                        "A5")
-    if scfg.prefill_chunk <= 0:
-        raise ValueError("prefill_chunk must be >= 1")
+        raise _unported("prefill_max_chunks > 1 (several prompt chunks per "
+                        "ragged row)", "A5")
 
 
 def _validate_tiering(cfg: ModelConfig, scfg: ServeConfig,
@@ -201,7 +241,28 @@ class ContinuousBatchingEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.params = params
         self.cfg = cfg
+        # the split step's attention path, as the reference sets it
+        self.cfg_decode = cfg.replace(decode_kernel=serve_cfg.decode_kernel)
         self.serve_cfg = serve_cfg
+        # the reference's ladder, decided here once from the configuration:
+        # the one-dispatch ragged step needs the fused kernel and an MX
+        # pool (attention-only mixers and chunked prefill are the only
+        # ported ones); anything else runs the split dispatches
+        ragged_ok = (serve_cfg.decode_kernel == "fused"
+                     and cfg.quant.enabled and cfg.quant.quantize_kv_cache)
+        self.ragged = serve_cfg.step_mode == "ragged" and ragged_ok
+        if serve_cfg.step_mode == "ragged" and not self.ragged:
+            log.info("ragged step disabled: needs attention-only mixers, "
+                     "decode_kernel='fused', a quantized KV cache and "
+                     "chunked prefill; using split dispatches")
+        # the ragged kernel maps -1 table entries (inactive rows, table
+        # tails) onto a reserved trash page beyond the scheduler's; the
+        # split step drops such writes on the host and needs none
+        self._trash_pages = 1 if self.ragged else 0
+        # the split step's prefill budget in whole chunks (at least one)
+        self._chunks_per_step = max(
+            1, (serve_cfg.prefill_token_budget or serve_cfg.prefill_chunk)
+            // serve_cfg.prefill_chunk)
         ps = serve_cfg.page_size
         pages_per_slot = kv_cache.pages_for(serve_cfg.max_seq, ps)
         self.num_pages = (serve_cfg.num_pages
@@ -220,17 +281,23 @@ class ContinuousBatchingEngine:
             admit_window=serve_cfg.admit_window,
             max_deferrals=serve_cfg.max_deferrals,
             unit_budget=unit_budget, track_allocs=self.tiered)
-        # one physical page beyond the scheduler's: the ragged kernel maps
-        # -1 table entries (inactive rows, table tails) onto it
-        self.cache = model.init_paged_cache(cfg, self.num_pages + 1, ps,
-                                            self.device, tiered=self.tiered)
+        self.cache = model.init_paged_cache(
+            cfg, self.num_pages + self._trash_pages, ps, self.device,
+            tiered=self.tiered)
         self._width = serve_cfg.prefill_chunk
         self.steps = 0  # steps that decoded at least one token
-        self.ragged_steps = 0  # model dispatches (one per engine step)
-        self.kernel_launches = 0  # CUDA kernel launches over all steps
-        self.kernel_launches_last_step = 0  # L per step on the card
-        # host wall time of each ragged dispatch (sliding window)
+        # attention kernel launches on the card over all steps / last step
+        self.kernel_launches = 0
+        self.kernel_launches_last_step = 0
+        # host wall time of each step's model dispatches, ending in a
+        # device sync (sliding window); a split step's repack is outside
         self.step_seconds: deque = deque(maxlen=4096)
+        # device dispatches by kind, as the reference counts them (its
+        # "verify" kind comes with speculation, ROADMAP A7)
+        self.dispatch_counts = {"decode": 0, "prefill": 0, "ragged": 0,
+                                "write": 0, "repack": 0}
+        self.prefill_dispatches = 0  # prefill-carrying model dispatches
+        self._rr_clock = 0  # the split step's round-robin over prefills
         # smallest lead of a sampled token over its runner-up, in bf16 ulps
         # of its logit: how close the greedy decisions came to a tie
         self.min_top2_gap_ulps = float("inf")
@@ -238,7 +305,7 @@ class ContinuousBatchingEngine:
         self.prefill_tokens = 0
         self.prefill_chunks = 0
         # tiered pool state, on the host: one format id and last-write
-        # tick per physical page (trash page included), shared by every
+        # tick per physical page (a trash page included), shared by every
         # layer like the page table, with a device mirror for the kernels
         self._tick = 0  # advances first in every step(); drives page ages
         self._mixed_fmts = None
@@ -247,12 +314,13 @@ class ContinuousBatchingEngine:
             self._mixed_fmts = tuple(dict.fromkeys(
                 (cfg.quant.fmt, tp.mid_fmt, tp.cold_fmt)))
             self._base_fmt_id = FORMAT_IDS[cfg.quant.fmt]
-            self.page_fmts = np.full((self.num_pages + 1,),
+            self.page_fmts = np.full((self.num_pages + self._trash_pages,),
                                      self._base_fmt_id, np.int32)
             self._page_fmts_dev = torch.as_tensor(self.page_fmts,
                                                   device=self.device)
             self._fmts_dirty = False
-            self._last_write = np.zeros((self.num_pages + 1,), np.int64)
+            self._last_write = np.zeros(
+                (self.num_pages + self._trash_pages,), np.int64)
             # swap snapshots carry raw bytes: the owned pages' format ids
             # travel beside them, keyed by request id
             self._swap_fmts: Dict[int, list] = {}
@@ -265,6 +333,12 @@ class ContinuousBatchingEngine:
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+
+    def _count_dispatch(self, kind: str) -> None:
+        self.dispatch_counts[kind] += 1
+
+    def _launches(self) -> int:
+        return sum(k.launches for k in _ATTN_KERNELS)
 
     # -- tiered mixed-format pool -------------------------------------------
 
@@ -324,6 +398,7 @@ class ContinuousBatchingEngine:
                     dst_fmt_name=dst_fmt, mixed_fmts=self._mixed_fmts,
                     block_size=bs)
             self.repack_dispatches += 1
+            self._count_dispatch("repack")
             for pid in group:
                 self._set_page_fmt(pid, dst_fmt)
             self.repacked_pages += len(group)
@@ -392,6 +467,7 @@ class ContinuousBatchingEngine:
                     kv_cache.restore_seq(
                         self.cache, snapshot,
                         self._ids([seq.pages[i] for i in owned_idx]))
+                    self._count_dispatch("write")
                 if self.tiered:
                     # the restored bytes keep their narrow encodings: put
                     # back the ids they were extracted with (drain first:
@@ -415,6 +491,7 @@ class ContinuousBatchingEngine:
         snapshot = None
         if owned_ids:
             snapshot = kv_cache.extract_seq(self.cache, self._ids(owned_ids))
+            self._count_dispatch("write")
         if self.tiered:
             self._swap_fmts[victim.req.id] = [
                 int(self.page_fmts[p]) for p in owned_ids]
@@ -436,6 +513,7 @@ class ContinuousBatchingEngine:
                 continue
             extra = kv_cache.extract_seq(
                 self.cache, self._ids([pages[i] for i in shared_idx]))
+            self._count_dispatch("write")
             req.swap = (kv_cache.merge_snapshots(snapshot, extra),
                         owned_idx + shared_idx, pages, pos, cached,
                         prefill_pos)
@@ -485,6 +563,7 @@ class ContinuousBatchingEngine:
                     raise RuntimeError(
                         "page pool exhausted for a lone sequence")
                 kv_cache.copy_page(self.cache, pid, new)
+                self._count_dispatch("write")
                 sched.pool.free([pid])
                 seq.pages[wp] = new
                 sched.cow_copies += 1
@@ -509,6 +588,14 @@ class ContinuousBatchingEngine:
         return dict(page_fmts=self._sync_fmts(),
                     mixed_fmts=self._mixed_fmts)
 
+    def _record_step_tokens(self, logits: torch.Tensor, picks) -> None:
+        """Keep the smallest top-2 lead of the ``(seq, logits row)``
+        picks."""
+        if picks:
+            gap = float(sampling.top2_gap_ulps(
+                logits[[row for _, row in picks]]).min())
+            self.min_top2_gap_ulps = min(self.min_top2_gap_ulps, gap)
+
     def _ragged_step(self) -> None:
         sched = self.scheduler
         self._ensure_pages()
@@ -529,7 +616,6 @@ class ContinuousBatchingEngine:
             return
         dev = self.device
         tier_args = self._tier_args()
-        launches0 = mx_attention_ragged_fused.launches
         t0 = time.perf_counter()
         logits = model.ragged_step_paged(
             self.params, self.cfg, self.cache,
@@ -540,20 +626,16 @@ class ContinuousBatchingEngine:
             torch.as_tensor(logit_idx, device=dev), **tier_args)
         toks = sampling.greedy(logits).cpu().numpy()  # syncs
         self.step_seconds.append(time.perf_counter() - t0)
-        sampled = ([seq.slot for seq in decode]
-                   + [seq.slot for seq, _, _, final in prefill if final])
-        if sampled:
-            gap = float(sampling.top2_gap_ulps(logits[sampled]).min())
-            self.min_top2_gap_ulps = min(self.min_top2_gap_ulps, gap)
-        self.kernel_launches_last_step = (mx_attention_ragged_fused.launches
-                                          - launches0)
-        self.kernel_launches += self.kernel_launches_last_step
-        self.ragged_steps += 1
+        self._count_dispatch("ragged")
+        self._record_step_tokens(
+            logits, [(seq, seq.slot) for seq in decode]
+            + [(seq, seq.slot) for seq, _, _, final in prefill if final])
         if decode:
             self.steps += 1
         if prefill:
             self.prefill_chunks += len(prefill)
             self.prefill_tokens += int(sum(t[2] for t in prefill))
+            self.prefill_dispatches += 1
         eos = self.serve_cfg.eos_id
         for seq in decode:
             sched.advance(seq)
@@ -565,13 +647,144 @@ class ContinuousBatchingEngine:
                 sched.register_prefix(seq)
                 sched.record_token(seq, int(toks[seq.slot]), eos_id=eos)
 
+    # -- the split step -----------------------------------------------------
+
+    def _run_prefill_chunks(self) -> Optional[float]:
+        """Advance chunked prefills by up to the per-step budget of whole
+        chunks, round-robin across prefilling sequences with the rotation
+        carried across steps (``_rr_clock``), each round one batched
+        dispatch. Returns the host seconds of the dispatches, ending in a
+        device sync (None: no sequence was prefilling)."""
+        sched = self.scheduler
+        budget = self._chunks_per_step
+        t0 = time.perf_counter()
+        ran = False
+        while budget > 0:
+            pref = sched.prefilling()
+            if not pref:
+                break
+            start = self._rr_clock % len(pref)
+            take = min(budget, len(pref))
+            self._rr_clock += take
+            self._prefill_chunk_batch(
+                [pref[(start + i) % len(pref)] for i in range(take)])
+            budget -= take
+            ran = True
+        if not ran:
+            return None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def _prefill_chunk_batch(self, seqs) -> None:
+        """One fixed-size chunk for each of ``seqs`` in one
+        ``model.prefill_chunk_paged`` dispatch (B rows); a sequence on its
+        final chunk samples its first token from its own logits row."""
+        sched = self.scheduler
+        c = self.serve_cfg.prefill_chunk
+        bsz = len(seqs)
+        tokens = np.zeros((bsz, c), np.int32)
+        rows = np.full((bsz, sched.pages_per_slot), -1, np.int32)
+        starts = np.zeros((bsz,), np.int32)
+        reals = np.zeros((bsz,), np.int32)
+        for i, seq in enumerate(seqs):
+            prompt = seq.req.prompt
+            st = seq.prefill_pos
+            real = min(c, len(prompt) - st)
+            tokens[i, :real] = prompt[st:st + real]
+            rows[i, : len(seq.pages)] = seq.pages
+            starts[i], reals[i] = st, real
+        if self.tiered:
+            self._drain_allocs()
+            ps = self.serve_cfg.page_size
+            for i, seq in enumerate(seqs):
+                self._mark_write(seq.pages[starts[i] // ps:
+                                           (starts[i] + reals[i] - 1)
+                                           // ps + 1])
+        dev = self.device
+        logits = model.prefill_chunk_paged(
+            self.params, self.cfg_decode, self.cache,
+            torch.as_tensor(tokens, device=dev).long(),
+            torch.as_tensor(rows, device=dev),
+            torch.as_tensor(starts, device=dev),
+            torch.as_tensor(reals, device=dev),
+            torch.as_tensor(reals - 1, device=dev), **self._tier_args())
+        self._count_dispatch("prefill")
+        self.prefill_tokens += int(reals.sum())
+        self.prefill_chunks += bsz
+        self.prefill_dispatches += 1
+        final = [int(starts[i]) + int(reals[i]) >= len(seq.req.prompt)
+                 for i, seq in enumerate(seqs)]
+        toks = None
+        if any(final):
+            # the reference samples every row of the batch in one dispatch
+            toks = sampling.greedy(logits[:, -1]).cpu().numpy()
+            self._count_dispatch("prefill")
+            self._record_step_tokens(
+                logits[:, -1], [(seq, i) for i, seq in enumerate(seqs)
+                                if final[i]])
+        for i, seq in enumerate(seqs):
+            seq.pos = int(starts[i]) + int(reals[i])
+            seq.prefill_pos = int(starts[i]) + c
+            if final[i]:
+                seq.prefill_pos = None
+                sched.register_prefix(seq)
+                sched.record_token(seq, int(toks[i]),
+                                   eos_id=self.serve_cfg.eos_id)
+
+    def _decode_step(self) -> float:
+        """One ``model.decode_step_paged`` over the decode-ready slots.
+        Returns its host seconds (the token fetch syncs)."""
+        sched = self.scheduler
+        self._ensure_pages()
+        tokens, pos, page_rows, act = sched.assemble()
+        dev = self.device
+        t0 = time.perf_counter()
+        logits = model.decode_step_paged(
+            self.params, self.cfg_decode, self.cache,
+            torch.as_tensor(tokens, device=dev).long(),
+            torch.as_tensor(page_rows, device=dev),
+            torch.as_tensor(pos, device=dev), **self._tier_args())
+        toks = sampling.greedy(logits[:, -1]).cpu().numpy()  # syncs
+        seconds = time.perf_counter() - t0
+        self._count_dispatch("decode")
+        self._record_step_tokens(logits[:, -1],
+                                 [(seq, seq.slot) for seq in act])
+        self.steps += 1
+        for seq in act:
+            sched.advance(seq)
+            sched.record_token(seq, int(toks[seq.slot]),
+                               eos_id=self.serve_cfg.eos_id)
+        return seconds
+
+    def _split_step(self) -> None:
+        """The reference's split order: prefill chunks under the budget
+        (a prompt's final chunk samples its first token, and the sequence
+        decodes in this same step), the tiering pass, then one decode
+        dispatch if any sequence is ready."""
+        seconds = self._run_prefill_chunks()
+        self._run_repack()
+        if self.scheduler.decode_ready():
+            seconds = (seconds or 0.0) + self._decode_step()
+        if seconds is not None:
+            self.step_seconds.append(seconds)
+
     # -- public API ---------------------------------------------------------
 
     @torch.inference_mode()
     def step(self) -> bool:
-        """Admit what fits, run the tiering pass, then one ragged step over
-        every active sequence (the reference's order: tick, admit, repack,
-        step). Returns True if any work remains afterwards."""
+        """Admit what fits, then one engine step over every active
+        sequence: the tiering pass and one ragged dispatch, or the split
+        step's dispatches (see :meth:`_split_step`), in the reference's
+        order. Returns True if any work remains afterwards."""
+        launches0 = self._launches()
+        try:
+            return self._step_inner()
+        finally:
+            self.kernel_launches_last_step = self._launches() - launches0
+            self.kernel_launches += self.kernel_launches_last_step
+
+    def _step_inner(self) -> bool:
         sched = self.scheduler
         self._tick += 1
         self._admit()
@@ -582,29 +795,41 @@ class ContinuousBatchingEngine:
                 if sched.queue:
                     raise RuntimeError("scheduler stalled with queued work")
                 return sched.has_work
-        self._run_repack()
-        self._ragged_step()
+        if self.ragged:
+            self._run_repack()
+            self._ragged_step()
+        else:
+            self._split_step()
         return sched.has_work
 
     @torch.inference_mode()
     def warmup(self) -> None:
-        """Run one full-width ragged step with every row inactive: all -1
-        tables, so each layer's write lands on the trash page. The dense
-        products' first launches and the allocator's growth then happen
-        here rather than inside a timed run. No live page, no page format
-        or age and no engine counter changes; the kernel wrapper's launch
-        count does."""
+        """Run one full-width step with every row inactive, so that the
+        dense products' first launches and the allocator's growth happen
+        here rather than inside a timed run. Ragged: all -1 tables, each
+        layer's write lands on the trash page. Split: one decode
+        dispatch, whose writes all drop (the prefill kernel writes at
+        least one row, so it is not warmed). No live page, no page format
+        or age and no engine counter changes; the kernel wrappers' launch
+        counts do."""
         rows = self.serve_cfg.max_slots
-        zeros = torch.zeros((rows,), dtype=torch.int32, device=self.device)
-        model.ragged_step_paged(
-            self.params, self.cfg, self.cache,
-            torch.zeros((rows, self._width), dtype=torch.long,
-                        device=self.device),
-            torch.full((rows, self.scheduler.pages_per_slot), -1,
-                       dtype=torch.int32, device=self.device),
-            zeros, zeros + 1, zeros, **self._tier_args())
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        dev = self.device
+        zeros = torch.zeros((rows,), dtype=torch.int32, device=dev)
+        table = torch.full((rows, self.scheduler.pages_per_slot), -1,
+                           dtype=torch.int32, device=dev)
+        if self.ragged:
+            model.ragged_step_paged(
+                self.params, self.cfg, self.cache,
+                torch.zeros((rows, self._width), dtype=torch.long,
+                            device=dev), table, zeros, zeros + 1, zeros,
+                **self._tier_args())
+        else:
+            model.decode_step_paged(
+                self.params, self.cfg_decode, self.cache,
+                torch.zeros((rows, 1), dtype=torch.long, device=dev), table,
+                zeros, **self._tier_args())
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
                sampling_params: Optional[SamplingParams] = None) -> int:
@@ -626,7 +851,8 @@ class ContinuousBatchingEngine:
 
     def cache_stats(self) -> Dict[str, float]:
         """Allocation, preemption, prefix-sharing and dispatch stats."""
-        page_bytes = kv_cache.pool_page_nbytes(self.cache, self.num_pages + 1)
+        page_bytes = kv_cache.pool_page_nbytes(
+            self.cache, self.num_pages + self._trash_pages)
         sched = self.scheduler
         stats = {
             "allocated_bytes": kv_cache.cache_nbytes(self.cache),
@@ -645,11 +871,15 @@ class ContinuousBatchingEngine:
                 1.0 - self.prefill_tokens / self.prompt_tokens
                 if self.prompt_tokens else 0.0),
             "prefill_chunks": self.prefill_chunks,
-            "ragged_steps": self.ragged_steps,
+            "prefill_dispatches": self.prefill_dispatches,
+            "step_mode": "ragged" if self.ragged else "split",
+            "ragged_steps": self.dispatch_counts["ragged"],
             "decode_steps": self.steps,
             "kernel_launches": self.kernel_launches,
             "min_top2_gap_ulps": self.min_top2_gap_ulps,
         }
+        for kind, n in self.dispatch_counts.items():
+            stats[f"dispatches_{kind}"] = n
         if self.tiered:
             pool = sched.pool
             for fmt in self._mixed_fmts:

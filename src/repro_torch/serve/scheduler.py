@@ -1,9 +1,11 @@
 """Continuous-batching scheduler: admission, prefix sharing, chunked
-prefill, preemption (port of ``repro.serve.scheduler``, ragged step only).
+prefill, preemption (port of ``repro.serve.scheduler``: the ragged step's
+and the split step's batch assembly).
 
 Host-side control plane: the device sees fixed-shape (max_slots, W) row
-batches and a (max_slots, pages_per_slot) page table while requests enter
-and leave mid-stream.
+batches (ragged) or (max_slots, 1) decode batches (split) and a
+(max_slots, pages_per_slot) page table while requests enter and leave
+mid-stream.
 
   * **admission** — FCFS with a bounded skip-ahead window; with a prefix
     cache, the longest page-aligned hit is retained into the request's
@@ -355,6 +357,38 @@ class Scheduler:
             modes[seq.slot] = 2
             page_rows[seq.slot, : len(seq.pages)] = seq.pages
             prefill.append((seq, st, real, final))
+        self._sample_peak()
+        return (tokens, row_start, seq_lens, logit_idx, page_rows, modes,
+                decode, prefill)
+
+    def assemble(self):
+        """Fixed-shape numpy batch for the split step's decode dispatch.
+
+        Returns (tokens (NS, 1), pos (NS,), page_rows (NS, P), active):
+        inactive rows, and sequences still streaming their prompt, are
+        token 0 / pos 0 / pages -1 (their writes drop, their logits are
+        ignored).
+        """
+        ns, pps = self.max_slots, self.pages_per_slot
+        tokens = np.zeros((ns, 1), np.int32)
+        pos = np.zeros((ns,), np.int32)
+        page_rows = np.full((ns, pps), -1, np.int32)
+        act = self.decode_ready()
+        for seq in act:
+            if not seq.req.generated:
+                raise RuntimeError("active sequence with no pending token")
+            tokens[seq.slot, 0] = seq.req.generated[-1]
+            pos[seq.slot] = seq.pos
+            page_rows[seq.slot, : len(seq.pages)] = seq.pages
+        self._sample_peak()
+        return tokens, pos, page_rows, act
+
+    def _sample_peak(self) -> None:
+        """Peak pages in use and the tokens resident then, sampled at each
+        step's assembly: decode-ready sequences are about to write their
+        pending token (+1), prefilling ones count the chunks that landed.
+        A strict new peak resets the resident count; a tie keeps the
+        smaller one (the larger bytes per token)."""
         resident = int(sum(s.pos + (1 if s.prefill_pos is None else 0)
                            for s in self.active()))
         if self.pool.pages_in_use > self.peak_pages:
@@ -363,5 +397,3 @@ class Scheduler:
         elif self.pool.pages_in_use == self.peak_pages:
             self.resident_at_peak = (resident if self.resident_at_peak == 0
                                      else min(self.resident_at_peak, resident))
-        return (tokens, row_start, seq_lens, logit_idx, page_rows, modes,
-                decode, prefill)

@@ -143,7 +143,7 @@ def test_prefix_preemption_scenario_is_a_near_tie_not_a_paging_fault(
 
 
 @pytest.mark.parametrize("override", [
-    dict(step_mode="split"), dict(decode_kernel="einsum"),
+    dict(step_mode="megakernel"), dict(max_queue=4),
     dict(prefill_mode="monolithic"), dict(spec_decode=True),
     dict(mesh_shape=(1, 2)), dict(slo_ms=50.0),
     dict(temperature=0.7), dict(prefill_max_chunks=2)])
@@ -170,7 +170,7 @@ def test_launcher_batch_workload_on_cpu():
 def test_launcher_tiered_on_cpu():
     """``--tiered`` through the launcher: pages demote after one idle step
     and the report carries the tiered stats; the reference's flag checks
-    refuse a tiered fp4 base and a wide KV cache."""
+    refuse a tiered fp4 base and a tiered wide KV cache."""
     from repro_torch.launch import serve
 
     report = serve.main(["--arch", "granite-8b", "--reduced", "--batch", "3",
@@ -183,7 +183,8 @@ def test_launcher_tiered_on_cpu():
     assert tiers["max_repacked_in_step"] <= 4
     assert 0 < tiers["units_in_use"] <= tiers["unit_budget"]
     for argv in (["--tiered", "--quant", "mxfp4", "--quantize-kv"],
-                 ["--quant", "mxfp8"], ["--quant", "wide", "--quantize-kv"]):
+                 ["--tiered", "--quant", "mxfp8"],
+                 ["--tiered", "--quant", "wide", "--quantize-kv"]):
         with pytest.raises(SystemExit):
             serve.parse_args(["--arch", "granite-8b", *argv])
 
