@@ -10,6 +10,8 @@ code is not 0 and no result line is printed:
 
   1. build every CUDA kernel of the path from ``src/repro_torch/kernels/
      csrc`` with nvcc (one process per source, in parallel);
+  1b. rotated q/k at granite-8b's head_dim and theta, and SiLU-and-round
+     on every finite bf16 gate, bit-equal on the card and the CPU;
   2. hold the ragged kernel against its plain PyTorch version on the card
      at granite-8b's attention shapes: fp8 e4m3 and e5m2 pools, packed
      fp4 pools (blocks 32 and 16) and a mixed-format (tiered) pool whose
@@ -24,6 +26,14 @@ code is not 0 and no result line is printed:
      (blocks 32 and 16) and repacked mixed pools; the ragged kernel's
      rows bit-equal to the verify kernel's over the host-written pool;
      time each beside its bound;
+  2d. drive the two-pass paged decode ``mx_attention_decode_paged`` at
+     granite-8b shapes (21 and 64 pages a slot) with the gather and
+     decode counts reset just before and read just after; hold the gather
+     byte for byte and the decode within tolerance against their plain
+     versions and the decode oracle, the paged output bit-equal to the
+     decode kernel on the contiguous cache and close to the single-pass
+     walk; time each beside its bound, its plain version and a library
+     call;
   3. serve the same prompts with a reduced granite on the card and on the
      CPU (where the plain versions run) and require equal greedy streams,
      with the default cache and with an aggressively tiered one (equal
@@ -52,6 +62,7 @@ It exits 1 without a result when no CUDA card is visible.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import statistics
@@ -111,21 +122,99 @@ def gpu_name_and_power() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+#: how long the card spins before each timed run, so that the host's
+#: enqueue of the timed call falls behind the spin and outside the events
+SPIN_MS = 1.0
+
+
+def _event_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+@functools.cache
+def spin_cycles() -> int:
+    """Cycles of ``torch.cuda._sleep`` that last SPIN_MS on this card,
+    read off a timed spin of a million cycles (median of 3)."""
+    probe = 1_000_000
+    torch.cuda._sleep(probe)
+    torch.cuda.synchronize()
+    ms = statistics.median(_event_ms(lambda: torch.cuda._sleep(probe))
+                           for _ in range(3))
+    cycles = int(probe * SPIN_MS / ms)
+    log(f"timing: the card spins {cycles} cycles ({SPIN_MS} ms; a million "
+        f"cycles took {ms:.4f} ms) before each timed run")
+    return cycles
+
+
 def cuda_ms(fn, reps: int, before=None) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timed runs;
-    ``before`` runs ahead of each, outside the timed events."""
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timed runs.
+    Ahead of each, outside the events, ``before`` runs and then the card
+    spins for SPIN_MS, so the events hold the device's time of ``fn``
+    and not the host's enqueue of it."""
+    cycles = spin_cycles()
     times = []
     for _ in range(reps):
         if before is not None:
             before()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
+        torch.cuda._sleep(cycles)
+        times.append(_event_ms(fn))
     return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phase 1b: RoPE and SiLU, card against CPU
+# ---------------------------------------------------------------------------
+
+ROPE_POSITIONS = 1024
+
+
+def check_rope_and_silu(card: str = "cuda") -> None:
+    """Rotated q and k at granite-8b's head_dim 128 and theta 1e7 over
+    positions [0, 1024), and SiLU-and-round of every finite bf16 gate,
+    bit-equal on the card and the CPU. Also counts, for the record, the
+    bf16 cos/sin values the card's own f32 cos/sin would have moved at
+    positions below 4,096 (the port rotates with a host-made table)."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import ffn, rotary
+
+    cfg = get_config("granite-8b")
+    gen = torch.Generator().manual_seed(3)
+    pos = torch.arange(ROPE_POSITIONS, dtype=torch.int32)
+    for name, heads in (("q", cfg.num_heads), ("k", cfg.num_kv_heads)):
+        x = torch.randn(ROPE_POSITIONS, heads, cfg.head_dim,
+                        generator=gen).bfloat16()
+        want = rotary.apply_rope(x, pos, cfg.rope_theta, ROPE_POSITIONS)
+        got = rotary.apply_rope(x.to(card), pos.to(card), cfg.rope_theta,
+                                ROPE_POSITIONS).cpu()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"rotated {name} differs between the card "
+                                 "and the CPU")
+    moved = {}
+    for theta in (1e4, 1e5, 1e6, 1e7):
+        angles = torch.arange(4096, dtype=torch.float32)[:, None] \
+            * rotary.rope_freqs(cfg.head_dim, theta)
+        moved[f"{theta:g}"] = sum(
+            int((fn(angles).bfloat16() != fn(angles.to(card)).bfloat16()
+                 .cpu()).sum()) for fn in (torch.cos, torch.sin))
+    codes = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    gates = codes.view(torch.bfloat16).float()
+    gates = gates[torch.isfinite(gates)]
+    want = ffn.silu(gates).bfloat16()
+    got = ffn.silu(gates.to(card)).bfloat16().cpu()
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("SiLU-and-round differs between the card and "
+                             "the CPU")
+    log(f"RoPE (head_dim {cfg.head_dim}, theta {cfg.rope_theta:g}, positions "
+        f"0-{ROPE_POSITIONS - 1}, q and k of granite-8b) bit-equal on the "
+        f"card and the CPU; the card's own f32 cos/sin would move "
+        f"{moved} bf16 cos+sin values below position 4096 (by theta); "
+        f"SiLU-and-round bit-equal on all {gates.numel()} finite bf16 gates")
 
 
 # ---------------------------------------------------------------------------
@@ -510,8 +599,8 @@ PAGED_POOLS = {"fp8_e4m3": ("fp8_e4m3", BLOCK, False),
 
 
 def paged_pools(fmt: str, block: int, mixed: bool, gen, dev: str,
-                hot=()) -> tuple:
-    """(pools, page_fmts) of PAGED_NP granite-shaped pages of random codes.
+                hot=(), npages: int = PAGED_NP) -> tuple:
+    """(pools, page_fmts) of ``npages`` granite-shaped pages of random codes.
     ``mixed``: uint8 rows whose pages cycle through fp8, fp6 e3m2 and fp4
     e2m1, repacked from fp8 by the repack kernel (its plain version off
     the card); pages in ``hot`` (a chunk's) stay fp8."""
@@ -521,19 +610,19 @@ def paged_pools(fmt: str, block: int, mixed: bool, gen, dev: str,
 
     pools = []
     for _ in range(2):
-        x = quantize(torch.randn(PAGED_NP * PS * KVH, D, generator=gen), fmt,
+        x = quantize(torch.randn(npages * PS * KVH, D, generator=gen), fmt,
                      block)
-        pools += [x.elements.reshape(PAGED_NP, PS, KVH, -1).contiguous()
-                  .to(dev), x.scales.reshape(PAGED_NP, PS, KVH, D // block)
+        pools += [x.elements.reshape(npages, PS, KVH, -1).contiguous()
+                  .to(dev), x.scales.reshape(npages, PS, KVH, D // block)
                   .contiguous().to(dev)]
     if not mixed:
         return pools, None
     pools = [t.view(torch.uint8) for t in pools]
     ids = [F.FORMAT_IDS[fmt] if p in hot else F.FORMAT_IDS[MIXED[p % 3]]
-           for p in range(PAGED_NP)]
+           for p in range(npages)]
     repack = mr.mx_repack_pages if dev == "cuda" else mr.mx_repack_pages_plain
     for name in MIXED[1:]:
-        pages = [p for p in range(PAGED_NP) if ids[p] == F.FORMAT_IDS[name]]
+        pages = [p for p in range(npages) if ids[p] == F.FORMAT_IDS[name]]
         repack(*pools, torch.tensor(pages, dtype=torch.int32, device=dev),
                torch.full((len(pages),), F.FORMAT_IDS[fmt], dtype=torch.int32,
                           device=dev), len(pages), dst_fmt_name=name,
@@ -541,11 +630,12 @@ def paged_pools(fmt: str, block: int, mixed: bool, gen, dev: str,
     return pools, torch.tensor(ids, dtype=torch.int32, device=dev)
 
 
-def _tables(lens: list, gen) -> torch.Tensor:
-    """(len(lens), P) tables of distinct pages covering each length; -1
+def _tables(lens: list, gen, pmax: int = P,
+            npages: int = PAGED_NP) -> torch.Tensor:
+    """(len(lens), pmax) tables of distinct pages covering each length; -1
     tails and an all -1 row for length 0."""
-    table = torch.full((len(lens), P), -1, dtype=torch.int32)
-    perm = torch.randperm(PAGED_NP, generator=gen)
+    table = torch.full((len(lens), pmax), -1, dtype=torch.int32)
+    perm = torch.randperm(npages, generator=gen)
     off = 0
     for i, n in enumerate(lens):
         pages = -(-n // PS)
@@ -798,6 +888,232 @@ def check_paged_kernels() -> list:
     log("no single PyTorch call computes either function (a page-table "
         "walk over MX pages, with the chunk's quantized page writes)")
     return [entries["verify"], entries["prefill"]]
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the two-pass paged decode, gather then contiguous decode
+# ---------------------------------------------------------------------------
+
+#: the 1,024-token case: 64 pages a slot, lengths up to the last page row
+LONG_P = 64
+LONG_LENS = [600, 48, 1024, 195, 0, 850, 17, 1000]
+#: (label, pool kind of PAGED_POOLS, pages a slot, lengths)
+PAIR_CASES = [(f"{kind} P {P}", kind, P, DECODE_LENS)
+              for kind in ("fp8_e4m3", "fp8_e5m2", "fp4", "fp4_block16")] \
+    + [(f"{kind} P {LONG_P}", kind, LONG_P, LONG_LENS)
+       for kind in ("fp8_e4m3", "fp4")]
+def pair_inputs(kind: str, pmax: int, lens: list, gen,
+                dev: str = "cuda") -> dict:
+    """Phase 2c's granite-shaped uniform pools and tables, at ``pmax``
+    pages a slot (slot 4 inactive: its table is all -1)."""
+    fmt, block, _ = PAGED_POOLS[kind]
+    npages = R * pmax
+    table = _tables(lens, gen, pmax, npages)
+    pools, _ = paged_pools(fmt, block, False, gen, dev, npages=npages)
+    return dict(fmt=fmt, block=block, pools=pools, pmax=pmax,
+                table=table.to(dev),
+                lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+                q=torch.randn(R, KVH, G, D, generator=gen).bfloat16().to(dev))
+
+
+def _pair_kw(inp) -> dict:
+    return dict(fmt_name=inp["fmt"], block_size=inp["block"])
+
+
+def run_pair(mxa, inp):
+    """The path: ``mx_attention_decode_paged`` (one gather, one decode)."""
+    return mxa.mx_attention_decode_paged(inp["q"], *inp["pools"],
+                                         inp["table"], inp["lens"],
+                                         **_pair_kw(inp))
+
+
+def check_pair_case(mxa, inp, label: str) -> dict:
+    """#5 byte for byte against its plain version (clamped -1 rows
+    included); #4 within OUT_TOL of its plain version and of the oracle
+    on the gathered cache; the paged output bit-equal to #4 on the
+    equivalent contiguous cache (empty slots as kpos -1) and within
+    OUT_TOL of #2 on the live slots. Returns the largest differences."""
+    from repro_torch.kernels import ref
+
+    kw = _pair_kw(inp)
+    q, lens, pools, table = inp["q"], inp["lens"], inp["pools"], inp["table"]
+    t = inp["pmax"] * PS
+    cache = mxa.gather_kv_pages(*pools, table)
+    plain_cache = mxa.gather_kv_pages_plain(*pools, table)
+    for name, got, want in zip(("ke", "ks", "ve", "vs"), cache, plain_cache):
+        if got.dtype != want.dtype or not torch.equal(
+                got.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"gather {label}: {name} bytes differ from "
+                                 "the plain version")
+    arange = torch.arange(t, dtype=torch.int32, device=q.device)
+    kpos = arange[None].expand(R, t).contiguous()
+    out = mxa.mx_attention_decode(q, *cache, kpos, lens - 1, **kw)
+    plain = mxa.mx_attention_decode_plain(q, *plain_cache, kpos, lens - 1,
+                                          **kw)
+    oracle = torch.cat([ref.mx_attention_decode_ref(
+        q[i:i + 1], *(x[i:i + 1] for x in cache), arange, int(n) - 1,
+        fmt=inp["fmt"], block_size=inp["block"])
+        for i, n in enumerate(lens.tolist())])
+    paged = run_pair(mxa, inp)
+    contiguous = mxa.mx_attention_decode(
+        q, *plain_cache, torch.where(arange[None] < lens[:, None],
+                                     arange[None], -1).contiguous(),
+        lens - 1, **kw)
+    fused = mxa.mx_attention_decode_fused(q, *pools, table, lens, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(paged, contiguous):
+        raise AssertionError(f"{label}: the paged output is not bit-equal to "
+                             "the decode kernel on the contiguous cache")
+    live = lens > 0
+    errs = {"plain": float((out - plain).abs().max()),
+            "oracle": float((out - oracle).abs().max()),
+            "fused": float((paged[live] - fused[live]).abs().max())}
+    for what, err in errs.items():
+        if not err <= OUT_TOL:
+            raise AssertionError(f"decode {label}: max |out - {what}| {err} "
+                                 f"> {OUT_TOL}")
+    return errs
+
+
+def pair_bounds(inp) -> dict:
+    """(bound_ms, bound_by) of each kernel on ``inp``, as timed by
+    ``time_pair``: each input read once, each output written once. #5
+    reads each distinct (page, kv-head) tile the clipped table names once
+    (every -1 entry names page 0) and the table, and writes every output
+    row. #4 reads q, kpos, pos and all of V (a masked key's value still
+    meets its zero weight), but K only at the keys the mask keeps (kpos
+    in [0, pos]: the mask replaces a masked key's logit whatever its K
+    holds), and writes f32 out; q.k (bf16 tensor cores: decoded keys
+    are exact in bf16) over the kept keys, P.V (f32) over all T."""
+    from repro_torch.core import formats as F
+
+    t = inp["pmax"] * PS
+    row = F.get_format(inp["fmt"]).storage_len(D) + D // inp["block"]
+    npages = inp["pools"][0].shape[0]
+    table = inp["table"].clamp(0, npages - 1)
+    pages_read = int(torch.unique(table).numel())
+    gather_bytes = (2 * pages_read * PS * KVH * row + 4 * table.numel()
+                    + 2 * R * KVH * t * row)
+    kept = int(inp["lens"].clamp(0, t).sum())  # kpos = arange, pos = len - 1
+    decode_bytes = (KVH * kept * row + R * KVH * t * row
+                    + 2 * inp["q"].numel() + 4 * R * t + 4 * R
+                    + 4 * inp["q"].numel())
+    ops_ms = 1e3 * (2 * KVH * G * kept * D / BF16_FLOPS
+                    + 2 * R * KVH * G * t * D / F32_FLOPS)
+    out = {"gather": (1e3 * gather_bytes / HBM_BYTES_PER_S, "bytes")}
+    bytes_ms = 1e3 * decode_bytes / HBM_BYTES_PER_S
+    out["decode"] = (max(bytes_ms, ops_ms),
+                     "bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
+def time_pair(mxa, inp) -> dict:
+    """Median ms of each kernel (25 launches), its plain version (3) and
+    a library call (25), on the card. Library: #5
+    ``pool[table]`` advanced indexing plus the layout copy, per array;
+    #4 ``scaled_dot_product_attention`` on bf16 K/V dequantized before
+    the timer (exact: decoded MX values fit bf16) with the boolean mask."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.core import formats as F
+
+    kw = _pair_kw(inp)
+    q, lens, pools, table = inp["q"], inp["lens"], inp["pools"], inp["table"]
+    t = inp["pmax"] * PS
+    cache = mxa.gather_kv_pages(*pools, table)
+    kpos = torch.arange(t, dtype=torch.int32, device=q.device)[None] \
+        .expand(R, t).contiguous()
+    pos = lens - 1
+    idx = table.long().clamp(0, pools[0].shape[0] - 1)
+    fmt = F.get_format(inp["fmt"])
+    k, v = (mxa._dequant_rows(e, s_, fmt, inp["block"]).bfloat16()
+            for e, s_ in (cache[:2], cache[2:]))
+    mask = ((kpos <= pos[:, None]) & (kpos >= 0))[:, None, None, :]
+    calls = {
+        "gather": (lambda: mxa.gather_kv_pages(*pools, table),
+                   lambda: mxa.gather_kv_pages_plain(*pools, table),
+                   lambda: [p.view(torch.uint8)[idx].permute(0, 3, 1, 2, 4)
+                            .contiguous() for p in pools]),
+        "decode": (lambda: mxa.mx_attention_decode(q, *cache, kpos, pos,
+                                                   **kw),
+                   lambda: mxa.mx_attention_decode_plain(q, *cache, kpos, pos,
+                                                         **kw),
+                   lambda: Fn.scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=mask))}
+    times = {}
+    for name, (kernel, plain, library) in calls.items():
+        for fn in (kernel, plain, library):
+            fn()
+        torch.cuda.synchronize()
+        times[name] = (cuda_ms(kernel, 25), cuda_ms(plain, 3),
+                       cuda_ms(library, 25))
+    return times
+
+
+def check_decode_pair() -> list:
+    """Phase 2d; returns the gather and decode entries of the kernels
+    line. Their launches are this phase's path run: no engine path runs
+    the pair, in the reference or in the port."""
+    from repro_torch.kernels import mx_attention as mxa
+
+    gen = torch.Generator().manual_seed(17)
+    cases = {label: pair_inputs(kind, pmax, lens, gen)
+             for label, kind, pmax, lens in PAIR_CASES}
+    mxa.gather_kv_pages.launches = 0
+    mxa.mx_attention_decode.launches = 0
+    for inp in cases.values():
+        run_pair(mxa, inp)
+    torch.cuda.synchronize()
+    launches = {"gather": mxa.gather_kv_pages.launches,
+                "decode": mxa.mx_attention_decode.launches}
+    if launches != {"gather": len(cases), "decode": len(cases)}:
+        raise AssertionError(f"the paged decode path launched {launches} over "
+                             f"{len(cases)} calls")
+    worst = {"plain": 0.0, "oracle": 0.0, "fused": 0.0}
+    for label, inp in cases.items():
+        for what, err in check_pair_case(mxa, inp, label).items():
+            worst[what] = max(worst[what], err)
+    log(f"gather_kv_pages and mx_attention_decode at granite-8b shapes (B "
+        f"{R}, KVH {KVH}, G {G}, D {D}, PS {PS}, lengths 17-300 over {P} "
+        f"pages and 17-1024 over {LONG_P}, one inactive slot) on "
+        f"{', '.join(cases)}: the gather byte for byte equal to its plain "
+        f"version (clamped -1 rows included); the decode within "
+        f"{worst['plain']:.3g} of its plain version and {worst['oracle']:.3g} "
+        f"of mx_attention_decode_ref; mx_attention_decode_paged bit-equal to "
+        f"the decode kernel on the contiguous cache and within "
+        f"{worst['fused']:.3g} of mx_attention_decode_fused on the live "
+        f"slots; path launches {launches}")
+    src = "src/repro_torch/kernels/csrc/mx_attention_decode.cu"
+    entries = {
+        "gather": {"name": "gather_kv_pages", "route": "cuda", "source": src,
+                   "replaces": "src/repro/kernels/mx_attention.py:312",
+                   "launches": launches["gather"], "max_abs_err": 0.0},
+        "decode": {"name": "mx_attention_decode", "route": "cuda",
+                   "source": src,
+                   "replaces": "src/repro/kernels/mx_attention.py:241",
+                   "launches": launches["decode"],
+                   "max_abs_err": max(worst["plain"], worst["oracle"])}}
+    for label, inp in cases.items():
+        if not label.startswith("fp8_e4m3"):
+            continue
+        times, bounds = time_pair(mxa, inp), pair_bounds(inp)
+        main = inp["pmax"] == P
+        for name, (ms, plain_ms, lib_ms) in times.items():
+            bound_ms, bound_by = bounds[name]
+            if main:
+                entries[name].update(ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=lib_ms)
+            else:
+                entries[name].update({f"ms_p{inp['pmax']}": ms,
+                                      f"bound_ms_p{inp['pmax']}": bound_ms,
+                                      f"library_ms_p{inp['pmax']}": lib_ms})
+            log(f"{entries[name]['name']} {label}: kernel {ms:.4f} ms "
+                f"(median of 25), plain {plain_ms:.3f} ms (median of 3), "
+                f"bound {bound_ms:.5f} ms ({bound_by}), library {lib_ms:.4f} "
+                f"ms ({'pool[table] and the layout copy, per array' if name == 'gather' else 'scaled_dot_product_attention on bf16 K/V dequantized before the timer'}; "
+                "median of 25)")
+    return [entries["gather"], entries["decode"]]
 
 
 # ---------------------------------------------------------------------------
@@ -1780,10 +2096,12 @@ def main() -> int:
     built = build.build_all(verbose=True)
     log(f"built {sorted(built) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
+    check_rope_and_silu()
     kernel = check_ragged_kernel()
     check_repack_kernel()
     repack = time_repack_kernel()
     verify, prefill = check_paged_kernels()
+    pair = check_decode_pair()
     check_reduced_parity()
     check_reduced_tiered_parity()
     full = serve_full_width()
@@ -1802,7 +2120,8 @@ def main() -> int:
         split["equal"]
     gc.collect()
     torch.cuda.empty_cache()
-    kernels = [kernel, verify, prefill, repack] + check_mx_dot_products()
+    kernels = [kernel, verify, prefill] + pair + [repack] \
+        + check_mx_dot_products()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

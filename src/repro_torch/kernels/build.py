@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 #: library name -> CUDA source in ``csrc/``
 SOURCES = {"mx_attention_ragged": "mx_attention_ragged.cu",
            "mx_attention_paged": "mx_attention_paged.cu",
+           "mx_attention_decode": "mx_attention_decode.cu",
            "mx_quantize": "mx_quantize.cu",
            "mx_matmul": "mx_matmul.cu",
            "mx_repack": "mx_repack.cu"}

@@ -1,5 +1,6 @@
-"""MX page-walk attention: the ragged engine step's kernel and the split
-step's decode/verify and chunked-prefill kernels.
+"""MX page-walk attention: the ragged engine step's kernel, the split
+step's decode/verify and chunked-prefill kernels, and the two-pass paged
+decode.
 
 Ports of ``repro.kernels.mx_attention``'s ``mx_attention_ragged_fused``
 (the default engine step), ``mx_attention_verify_fused`` with its
@@ -11,6 +12,10 @@ tensors it launches a hand-written kernel (``csrc/mx_attention_ragged.cu``,
 ``csrc/mx_attention_walk.cuh``) and on CPU tensors it runs its ``_plain``
 version, a page-by-page PyTorch version of the same algorithm. Pools are
 updated in place (the reference aliases them through the ``pallas_call``).
+Also the reference's exactness oracle for the decode walk,
+``mx_attention_decode_paged``: ``gather_kv_pages`` copies page-table rows
+into contiguous compact caches and ``mx_attention_decode`` attends over
+them (both in ``csrc/mx_attention_decode.cu``); no engine path runs them.
 
 Layouts::
 
@@ -52,8 +57,8 @@ _libs = {}
 
 
 def _library(name: str):
-    """The loaded ``mx_attention_ragged`` or ``mx_attention_paged``
-    library with its C signatures set."""
+    """The loaded ``mx_attention_ragged``, ``mx_attention_paged`` or
+    ``mx_attention_decode`` library with its C signatures set."""
     lib = _libs.get(name)
     if lib is None:
         lib = build.load(name)
@@ -64,6 +69,14 @@ def _library(name: str):
             lib.mx_attention_ragged_launch.restype = i32
             lib.mx_attention_ragged_smem_bytes.argtypes = [i32] * 4
             lib.mx_attention_ragged_smem_bytes.restype = ctypes.c_size_t
+        elif name == "mx_attention_decode":
+            lib.gather_kv_pages_launch.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+            lib.gather_kv_pages_launch.restype = i32
+            lib.mx_attention_decode_launch.argtypes = (
+                [ptr, i32] + [ptr] * 7 + [i32] * 8 + [f32, f32, ptr])
+            lib.mx_attention_decode_launch.restype = i32
+            lib.mx_attention_decode_smem_bytes.argtypes = [i32] * 3
+            lib.mx_attention_decode_smem_bytes.restype = ctypes.c_size_t
         else:
             lib.mx_attention_verify_launch.argtypes = (
                 [ptr] * 10 + [i32] * 13 + [f32, f32, ptr])
@@ -771,7 +784,211 @@ def mx_attention_prefill_fused(q, k_chunk, v_chunk, ke, ks, ve, vs,
     return (out, pools, visits) if debug_visits else (out, pools)
 
 
+# ---------------------------------------------------------------------------
+# the two-pass paged decode: page-table gather, then contiguous decode
+# ---------------------------------------------------------------------------
+
+
+def gather_kv_pages_plain(ke, ks, ve, vs, table):
+    """PyTorch version of the gather kernel: ``(k_elems, k_scales,
+    v_elems, v_scales)`` (B, KVH, P * PS, .) from the pools' pages
+    ``clip(table, 0, NP - 1)``, bytes copied as they are."""
+    npages, ps, kvh = ke.shape[:3]
+    b, pmax = table.shape
+    idx = table.long().clamp(0, npages - 1)
+
+    def one(pool):
+        rows = pool.view(torch.uint8)[idx]  # (B, P, PS, KVH, width)
+        return rows.permute(0, 3, 1, 2, 4).contiguous().reshape(
+            b, kvh, pmax * ps, -1).view(pool.dtype)
+    return one(ke), one(ks), one(ve), one(vs)
+
+
+def mx_attention_decode_plain(q, k_elems, k_scales, v_elems, v_scales, kpos,
+                              pos, *, fmt_name: str, block_size: int,
+                              softcap=None):
+    """PyTorch version of the decode kernel, the reference's order: f32
+    logits over all T keys times ``d ** -0.5`` (softcapped), masked keys
+    at the finite NEG_INF, one max, ``exp(l - m)``, the sum, ``(p @ V) /
+    sum``. ``kpos`` (B, T) and ``pos`` (B,) int32. One sequence at a
+    time, as the kernel's cells are independent: a row's bits do not
+    depend on the batch it came in (a batched CPU matmul may sum in
+    another order), which the paged wrapper's bit-equality needs."""
+    fmt = F.get_format(fmt_name)
+    d = q.shape[-1]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for i in range(q.shape[0]):
+        k = _dequant_rows(k_elems[i], k_scales[i], fmt, block_size)
+        v = _dequant_rows(v_elems[i], v_scales[i], fmt, block_size)
+        logits = torch.matmul(q[i].to(torch.float32), k.transpose(-1, -2)) \
+            * d ** -0.5
+        if softcap:
+            logits = torch.tanh(logits / softcap) * softcap
+        mask = (kpos[i] <= pos[i]) & (kpos[i] >= 0)
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        out[i] = torch.matmul(p, v) / p.sum(dim=-1, keepdim=True)
+    return out
+
+
+def _launch_gather(ke, ks, ve, vs, table):
+    npages, ps, kvh, ed = ke.shape
+    nb = ks.shape[-1]
+    b, pmax = table.shape
+    lib = _library("mx_attention_decode")
+    for name, t in (("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    outs = [torch.empty((b, kvh, pmax * ps, pool.shape[-1]), dtype=pool.dtype,
+                        device=ke.device) for pool in (ke, ks, ve, vs)]
+    err = lib.gather_kv_pages_launch(
+        ke.data_ptr(), ks.data_ptr(), ve.data_ptr(), vs.data_ptr(),
+        table.data_ptr(), *(o.data_ptr() for o in outs), b, pmax, npages, ps,
+        kvh, ed, nb, torch.cuda.current_stream(ke.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gather_kv_pages_launch failed: cudaError {err}")
+    gather_kv_pages.launches += 1
+    return tuple(outs)
+
+
+def _launch_decode(q, k_elems, k_scales, v_elems, v_scales, kpos, pos, *,
+                   fmt_name, block_size, softcap):
+    b, kvh, g, d = q.shape
+    t, ed = k_elems.shape[2:]
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA decode kernel takes bf16 or f32 q, got "
+                        f"{q.dtype}")
+    for name, x in (("q", q), ("k_elems", k_elems), ("k_scales", k_scales),
+                    ("v_elems", v_elems), ("v_scales", v_scales)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = _library("mx_attention_decode")
+    smem = lib.mx_attention_decode_smem_bytes(g, t, d)
+    if smem > _MAX_SMEM:
+        raise NotImplementedError(
+            f"{g} query rows x {t} keys of logits (and a {d}-wide key tile) "
+            f"need {smem} bytes of shared memory per CTA; an H100 block has "
+            f"{_MAX_SMEM}")
+    out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
+    err = lib.mx_attention_decode_launch(
+        q.data_ptr(), int(q.dtype == torch.float32), k_elems.data_ptr(),
+        k_scales.data_ptr(), v_elems.data_ptr(), v_scales.data_ptr(),
+        kpos.data_ptr(), pos.data_ptr(), out.data_ptr(), b, kvh, g, d, t, ed,
+        block_size, F.FORMAT_IDS[fmt_name], float(softcap or 0.0),
+        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mx_attention_decode_launch failed: cudaError "
+                           f"{err}")
+    mx_attention_decode.launches += 1
+    return out
+
+
+def gather_kv_pages(ke_pool, ks_pool, ve_pool, vs_pool, page_table):
+    """Gather per-sequence K/V pages into contiguous compact caches.
+
+    Pools: (NP, PS, KVH, ED) elements (fp8, or packed fp4/fp6 uint8) and
+    (NP, PS, KVH, NB) uint8 E8M0 scales; ``page_table`` (B, P) integers,
+    entries clipped into ``[0, NP)`` as in the reference (a -1 entry
+    reads page 0; callers mask those rows). Returns ``(k_elems, k_scales,
+    v_elems, v_scales)`` shaped (B, KVH, P * PS, .), in the pools'
+    dtypes. CUDA tensors launch the CUDA kernel (counted in
+    ``gather_kv_pages.launches``); CPU tensors run
+    :func:`gather_kv_pages_plain`.
+    """
+    npages, ps, kvh, ed = ke_pool.shape
+    if ve_pool.shape != ke_pool.shape or ve_pool.dtype != ke_pool.dtype:
+        raise ValueError("k and v element pools must match")
+    for name, pool in (("ks_pool", ks_pool), ("vs_pool", vs_pool)):
+        if pool.dtype != torch.uint8 or pool.shape[:3] != (npages, ps, kvh) \
+                or pool.shape != ks_pool.shape:
+            raise ValueError(f"{name} must be ({npages}, {ps}, {kvh}, NB) "
+                             "uint8 E8M0 bytes")
+    if page_table.ndim != 2 or page_table.is_floating_point():
+        raise ValueError("page_table must be (B, P) integers")
+    dev = ke_pool.device
+    _on_one_device(dev, ks_pool, ve_pool, vs_pool, page_table)
+    table = page_table.to(torch.int32).contiguous()
+    run = _launch_gather if dev.type == "cuda" else gather_kv_pages_plain
+    return run(ke_pool, ks_pool, ve_pool, vs_pool, table)
+
+
+def mx_attention_decode(q, k_elems, k_scales, v_elems, v_scales, kpos, pos,
+                        *, fmt_name: str = "fp8_e4m3", block_size: int = 32,
+                        softcap=None):
+    """Decode attention against a contiguous MX-quantized cache.
+
+    ``q`` (B, KVH, G, D) bf16 or f32; ``k_elems``/``v_elems`` (B, KVH, T,
+    ED) stored elements (fp8, or packed fp4/fp6 uint8) and
+    ``k_scales``/``v_scales`` (B, KVH, T, D // block_size) E8M0 bytes;
+    ``kpos`` (T,) shared or (B, T) per sequence (-1: an empty slot);
+    ``pos`` a scalar or (B,), the last position each query sees. Key t
+    counts when ``kpos[t] <= pos`` and ``kpos[t] >= 0``; a row with no
+    such key gets the mean of V over T, as in the reference. Returns
+    (B, KVH, G, D) f32. CUDA tensors launch the CUDA kernel (counted in
+    ``mx_attention_decode.launches``; it raises when the (G, T) logits
+    do not fit in a block's shared memory); CPU tensors run
+    :func:`mx_attention_decode_plain`.
+    """
+    _check_fmt(k_elems, fmt_name)
+    fmt = F.get_format(fmt_name)
+    b, kvh, g, d = q.shape
+    t = k_elems.shape[2]
+    if d % block_size:
+        raise ValueError(f"block_size {block_size} must divide {d}")
+    ed, nb = fmt.storage_len(d), d // block_size
+    if k_elems.shape != (b, kvh, t, ed) or v_elems.shape != k_elems.shape \
+            or v_elems.dtype != k_elems.dtype:
+        raise ValueError(f"k_elems/v_elems must be ({b}, {kvh}, T, {ed})")
+    for name, x in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if x.shape != (b, kvh, t, nb) or x.dtype != torch.uint8:
+            raise ValueError(f"{name} must be ({b}, {kvh}, {t}, {nb}) uint8")
+    dev = q.device
+    kpos = torch.as_tensor(kpos, device=dev)
+    pos = torch.as_tensor(pos, device=dev)
+    if kpos.is_floating_point() or pos.is_floating_point():
+        raise ValueError("kpos and pos are integers")
+    kpos = kpos.to(torch.int32)
+    if kpos.ndim == 1:
+        kpos = kpos[None].expand(b, t)
+    pos = pos.to(torch.int32)
+    if pos.ndim == 0:
+        pos = pos[None].expand(b)
+    if kpos.shape != (b, t) or pos.shape != (b,):
+        raise ValueError(f"kpos must be ({t},) or ({b}, {t}), pos a scalar "
+                         f"or ({b},)")
+    _on_one_device(dev, k_elems, k_scales, v_elems, v_scales)
+    run = _launch_decode if dev.type == "cuda" else mx_attention_decode_plain
+    return run(q, k_elems, k_scales, v_elems, v_scales, kpos.contiguous(),
+               pos.contiguous(), fmt_name=fmt.name, block_size=block_size,
+               softcap=softcap)
+
+
+def mx_attention_decode_paged(q, ke_pool, ks_pool, ve_pool, vs_pool,
+                              page_table, seq_lens, *,
+                              fmt_name: str = "fp8_e4m3",
+                              block_size: int = 32, softcap=None):
+    """Two-pass decode attention through a page table over an MX page
+    pool: :func:`gather_kv_pages`, then :func:`mx_attention_decode` over
+    the gathered cache with ``kpos = arange(P * PS)`` and ``pos =
+    seq_lens - 1`` (the query sits at ``seq_len - 1``). Returns (B, KVH,
+    G, D) f32, bit-identical to :func:`mx_attention_decode` on the
+    equivalent contiguous cache (the same kernel on the same bytes). The
+    reference keeps it as the exactness oracle of the single-pass walk
+    :func:`mx_attention_decode_fused`; no engine path runs it."""
+    ke, ks, ve, vs = gather_kv_pages(ke_pool, ks_pool, ve_pool, vs_pool,
+                                     page_table)
+    b, t = q.shape[0], ke.shape[2]
+    seq_lens = torch.as_tensor(seq_lens, device=q.device).to(torch.int32)
+    kpos = torch.arange(t, dtype=torch.int32, device=q.device)[None] \
+        .expand(b, t)
+    return mx_attention_decode(q, ke, ks, ve, vs, kpos, seq_lens - 1,
+                               fmt_name=fmt_name, block_size=block_size,
+                               softcap=softcap)
+
+
 #: CUDA launches of each kernel (the plain CPU versions are not counted)
 mx_attention_ragged_fused.launches = 0
 mx_attention_verify_fused.launches = 0
 mx_attention_prefill_fused.launches = 0
+gather_kv_pages.launches = 0
+mx_attention_decode.launches = 0

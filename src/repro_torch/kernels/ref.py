@@ -59,3 +59,33 @@ def mx_quantize_ref(x, *, fmt="fp8_e4m3", block_size: int = 32):
     ratio = torch.where(e[..., None] > 0, blocked / scale,
                         torch.zeros_like(blocked)).reshape(x.shape)
     return F.encode_elements(ratio, fmt_i), e
+
+
+def mx_attention_decode_ref(q, k_elems, k_scales, v_elems, v_scales, kpos,
+                            pos, *, fmt="fp8_e4m3", block_size: int = 32,
+                            softcap=None):
+    """Oracle of the MX-KV-cache decode attention kernel.
+
+    q (B, KVH, G, D); cache (B, KVH, T, storage) elements + (B, KVH, T,
+    D//k) E8M0 scales; ``kpos`` (T,), ``pos`` a scalar. Dequantize, mask
+    ``(kpos <= pos) & (kpos >= 0)`` to -2e38, softmax, einsum. Returns
+    (B, KVH, G, D) f32.
+    """
+    def deq(elems, scales):
+        blocked, factor = decode_scaled(elems, scales, fmt, block_size)
+        return (blocked * factor[..., None]).reshape(
+            *blocked.shape[:-2], -1)
+
+    k = deq(k_elems, k_scales)  # (B, KVH, T, D)
+    v = deq(v_elems, v_scales)
+    d = q.shape[-1]
+    logits = torch.einsum("bhgd,bhtd->bhgt", q.to(torch.float32), k) \
+        * d ** -0.5
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    kpos = torch.as_tensor(kpos, device=q.device)
+    mask = (kpos <= pos) & (kpos >= 0)
+    logits = torch.where(mask[None, None, None, :], logits,
+                         torch.full_like(logits, -2.0e38))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhgt,bhtd->bhgd", p, v)

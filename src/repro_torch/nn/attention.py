@@ -60,16 +60,17 @@ def init(gen: torch.Generator, cfg: AttnConfig, quant: QuantConfig,
 
 
 def _project_decode_qkv(params, x: torch.Tensor, posv: torch.Tensor,
-                        cfg: AttnConfig, compute_dtype):
+                        cfg: AttnConfig, compute_dtype, num_positions: int):
     """QKV projection + RoPE at per-token positions ``posv (B, S)`` for
-    ``x (B, S, d_model)``; every op is token-row independent."""
+    ``x (B, S, d_model)``; every op is token-row independent. Positions
+    lie below ``num_positions``, the RoPE table's length."""
     b, s = x.shape[:2]
     d = cfg.head_dim
     q = linear.apply(params["wq"], x, compute_dtype).reshape(b, s, -1, d)
     k = linear.apply(params["wk"], x, compute_dtype).reshape(b, s, -1, d)
     v = linear.apply(params["wv"], x, compute_dtype).reshape(b, s, -1, d)
-    q = apply_rope(q, posv, cfg.rope_theta)
-    k = apply_rope(k, posv, cfg.rope_theta)
+    q = apply_rope(q, posv, cfg.rope_theta, num_positions)
+    k = apply_rope(k, posv, cfg.rope_theta, num_positions)
     return q, k, v
 
 
@@ -175,6 +176,18 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).reshape(b, s, h, d)
 
 
+def _page_size(pool: dict) -> int:
+    return pool["k" if "k" in pool else "k_elems"].shape[1]
+
+
+def _table_positions(pool: dict, page_rows: torch.Tensor,
+                     posv: torch.Tensor) -> int:
+    """Positions the RoPE table must hold for ``posv (B, S)``: a row's
+    first position lies inside its ``page_rows`` pages, so its positions
+    lie below the table's end plus S (padding columns included)."""
+    return page_rows.shape[1] * _page_size(pool) + posv.shape[1]
+
+
 def _write_pages(pool: dict, k: torch.Tensor, v: torch.Tensor,
                  page_rows: torch.Tensor, posv: torch.Tensor,
                  cfg: AttnConfig, quant: QuantConfig) -> None:
@@ -184,8 +197,7 @@ def _write_pages(pool: dict, k: torch.Tensor, v: torch.Tensor,
     ``mode="drop"`` scatter does (a padded final chunk can reach past
     the table); an MX pool gets ``core.quantize``'s codes (a tiered
     pool their bytes, in the hot fp8 format)."""
-    lead = pool["k" if "k" in pool else "k_elems"]
-    ps = lead.shape[1]
+    ps = _page_size(pool)
     pmax = page_rows.shape[1]
     widx = (posv // ps).long()
     page = page_rows.long().gather(1, widx.clamp(0, pmax - 1))
@@ -244,7 +256,8 @@ def apply_verify_paged(params, x: torch.Tensor, pool: dict,
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     posv = pos[:, None] + torch.arange(tq, dtype=pos.dtype,
                                        device=x.device)[None]
-    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype)
+    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype,
+                                  _table_positions(pool, page_rows, posv))
     _write_pages(pool, k, v, page_rows, posv, cfg, quant)
     if cfg.decode_kernel == "fused" and "k_elems" in pool:
         out = mx_attention_verify_fused(
@@ -304,7 +317,8 @@ def apply_prefill_chunked(params, x: torch.Tensor, pool: dict,
     kvh, d = cfg.num_kv_heads, cfg.head_dim
     posv = pos[:, None] + torch.arange(c, dtype=pos.dtype,
                                        device=x.device)[None]
-    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype)
+    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype,
+                                  _table_positions(pool, page_rows, posv))
     out, _ = mx_attention_prefill_fused(
         _heads_split(q, kvh), k.contiguous(), v.contiguous(),
         pool["k_elems"], pool["k_scales"], pool["v_elems"],
@@ -340,7 +354,8 @@ def apply_ragged(params, x: torch.Tensor, pool: dict, page_rows: torch.Tensor,
     d = cfg.head_dim
     posv = row_start[:, None] + torch.arange(w, dtype=row_start.dtype,
                                              device=x.device)[None]
-    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype)
+    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype,
+                                  _table_positions(pool, page_rows, posv))
     out, _ = mx_attention_ragged_fused(
         _heads_split(q, k.shape[2]), k.contiguous(), v.contiguous(),
         pool["k_elems"], pool["k_scales"], pool["v_elems"],

@@ -35,6 +35,7 @@ from repro.nn.norms import rmsnorm_apply as jrms  # noqa: E402
 from repro_torch.configs import get_reduced as torch_reduced  # noqa: E402
 from repro_torch.kernels import mx_attention_ragged_fused  # noqa: E402
 from repro_torch.nn import model as tmodel  # noqa: E402
+from repro_torch.nn import rotary  # noqa: E402
 
 CODE_FRACTION = 1e-3
 POOL_KEYS = ("k_elems", "k_scales", "v_elems", "v_scales")
@@ -242,3 +243,62 @@ def test_tiered_ragged_step_matches_reference():
                 total += g.size
         assert differing / total <= CODE_FRACTION, (differing, total)
     assert tcache[0]["k_elems"].dtype == torch.uint8
+
+
+def test_ragged_step_at_granite_head_dim_matches_reference(monkeypatch):
+    """RoPE at a real width: one layer at granite-8b's head_dim 128 and
+    theta 1e7, eight rows of 16 new tokens, four across position 64 and
+    four across 180 (where f32 ``pow`` frequencies round a cos and a sin
+    to another bf16 value). The bar above holds and every pool byte
+    equals the reference's; the control: on the port's earlier
+    frequencies the K page bytes differ, which head_dim 16 cannot show."""
+    shape = dict(d_model=256, num_groups=1, num_heads=16, num_kv_heads=8,
+                 head_dim=128, d_ff=256)
+    jcfg, tcfg = serving_configs()
+    jcfg = jcfg.replace(**shape, quant=jcfg.quant.replace(block_size=32))
+    tcfg = tcfg.replace(**shape, quant=tcfg.quant.replace(block_size=32))
+    assert jcfg.rope_theta == tcfg.rope_theta == 1e7
+    jparams, _ = jmodel.init(jax.random.PRNGKey(3), jcfg)
+    tparams = port_params(jparams, tcfg)
+    w = ps = 16
+    starts = np.array([64] * 4 + [165, 170, 176, 180], np.int32)
+    pmax = -(-(int(starts.max()) + w) // ps)
+    table = np.arange(8 * pmax, dtype=np.int32).reshape(8, pmax)
+    num_pages = 8 * pmax + 1  # and the trash page
+    tokens = np.random.default_rng(3).integers(
+        0, tcfg.vocab_size, (8, w)).astype(np.int32)
+    args = [tokens, table, starts, starts + w, np.full(8, w - 1, np.int32)]
+    jcache = jmodel.init_paged_cache(jcfg, 8, num_pages, ps)
+    want, jcache = jax.jit(lambda p, c, *a: jmodel.ragged_step_paged(
+        p, jcfg, c, *a))(jparams, jcache, *map(jnp.asarray, args))
+    want = np.asarray(want)[:, 0]
+    want_pools = _pool_bytes({k: v[0] for k, v in
+                              jcache["groups"][0].items()})
+
+    def port_step():
+        tcache = tmodel.init_paged_cache(tcfg, num_pages, ps, "cpu")
+        got = tmodel.ragged_step_paged(tparams, tcfg, tcache,
+                                       *(torch.from_numpy(a) for a in args))
+        return got.numpy(), _pool_bytes({k: t.view(torch.uint8).numpy()
+                                         for k, t in tcache[0].items()})
+
+    got, pools = port_step()
+    tol = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    for g, w_ in zip(pools, want_pools):
+        np.testing.assert_array_equal(g, w_)
+
+    def old_freqs(head_dim, theta):
+        exponent = 2.0 * torch.arange(head_dim // 2,
+                                      dtype=torch.float32) / head_dim
+        return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32),
+                               exponent)
+
+    rotary.rope_table.cache_clear()
+    monkeypatch.setattr(rotary, "rope_freqs", old_freqs)
+    try:
+        _, old_pools = port_step()
+    finally:
+        rotary.rope_table.cache_clear()
+    assert (old_pools[0] != want_pools[0]).sum() > 0
