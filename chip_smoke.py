@@ -34,11 +34,16 @@ code is not 0 and no result line is printed:
      decode kernel on the contiguous cache and close to the single-pass
      walk; time each beside its bound, its plain version and a library
      call;
+  2e. hold the layer-fused megakernel (one launch for the whole layer
+     stack) against its plain version on the card, on granite-8b's widths
+     cut to two layers: logits within one bf16 ulp of the largest, equal
+     argmax, at most 1e-3 of the pool bytes differing;
   3. serve the same prompts with a reduced granite on the card and on the
      CPU (where the plain versions run) and require equal greedy streams,
      with the default cache and with an aggressively tiered one (equal
-     per-step page formats too), in the ragged and the split step, and
-     split streams equal to ragged ones;
+     per-step page formats too), in the ragged, the split and the
+     megakernel step, and split and megakernel streams equal to ragged
+     ones;
   4. serve granite-8b at full width (36 layers, random seeded weights)
      through ``repro_torch.launch.serve`` with the ``ServeConfig`` defaults,
      with every kernel count reset just before and read just after; then
@@ -47,7 +52,11 @@ code is not 0 and no result line is printed:
      ``TierPolicy`` defaults), counts reset and read the same way; then
      with ``--step-mode split`` (counts reset and read the same way,
      streams compared with the ragged run's), and split its decode and
-     prefill dispatches' time into the kernel and the rest;
+     prefill dispatches' time into the kernel and the rest; then with
+     ``--step-mode megakernel`` (counts reset and read the same way: one
+     launch a step), then time its layer stack beside the plain version
+     and the bound, compare one step with the per-layer CUDA ragged step,
+     and profile one step kernel by kernel;
   5. the MX dot products at granite-8b widths: hold the quantize kernel
      bit-exact and the weight-only, MX x MX and dgrad matmul kernels
      within tolerance against their plain versions at one layer's seven
@@ -222,16 +231,9 @@ def check_rope_and_silu(card: str = "cuda") -> None:
 # ---------------------------------------------------------------------------
 
 
-def ragged_inputs(fmt: str, gen: torch.Generator, block: int = BLOCK,
-                  mixed: bool = False, dev: str = "cuda"):
-    """One ragged step's inputs at granite shapes. ``mixed``: a tiered pool
-    of uint8 rows; write-window pages hold fp8, resident pages cycle
-    through fp8, fp6 e3m2 and fp4 e2m1, repacked from fp8 by the port's
-    repack (plain version), with ``page_fmts`` their ids."""
-    from repro_torch.core import formats as F
-    from repro_torch.core import quantize
-    from repro_torch.kernels.mx_repack import mx_repack_pages_plain
-
+def ragged_rows(gen: torch.Generator) -> tuple:
+    """(table, starts, lens, written pages) of ROWS over R * P pool pages
+    and the trash page R * P: each live row owns pages of a permutation."""
     table = torch.full((R, P), -1, dtype=torch.int32)
     perm = torch.randperm(R * P, generator=gen)
     starts, lens, off = [], [], 0
@@ -244,17 +246,34 @@ def ragged_inputs(fmt: str, gen: torch.Generator, block: int = BLOCK,
             off += pages
         starts.append(start)
         lens.append(start + max(n_new, 1))
+    writes.add(R * P)  # inactive rows write the trash page
+    return table, starts, lens, writes
+
+
+def ragged_pool(gen: torch.Generator, fmt: str, block: int) -> tuple:
+    """(elements, scales) of one K or V pool of R * P + 1 pages holding
+    quantized normal values."""
+    from repro_torch.core import quantize
+
+    npages = R * P + 1
+    x = quantize(torch.randn(npages * PS * KVH, D, generator=gen), fmt, block)
+    return (x.elements.reshape(npages, PS, KVH, -1),
+            x.scales.reshape(npages, PS, KVH, D // block))
+
+
+def ragged_inputs(fmt: str, gen: torch.Generator, block: int = BLOCK,
+                  mixed: bool = False, dev: str = "cuda"):
+    """One ragged step's inputs at granite shapes. ``mixed``: a tiered pool
+    of uint8 rows; write-window pages hold fp8, resident pages cycle
+    through fp8, fp6 e3m2 and fp4 e2m1, repacked from fp8 by the port's
+    repack (plain version), with ``page_fmts`` their ids."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.mx_repack import mx_repack_pages_plain
+
+    table, starts, lens, writes = ragged_rows(gen)
     npages = R * P + 1  # + the trash page
-    writes.add(npages - 1)  # inactive rows write it
-
-    def pool():
-        x = quantize(torch.randn(npages * PS * KVH, D, generator=gen), fmt,
-                     block)
-        return (x.elements.reshape(npages, PS, KVH, -1),
-                x.scales.reshape(npages, PS, KVH, D // block))
-
-    ke, ks = pool()
-    ve, vs = pool()
+    ke, ks = ragged_pool(gen, fmt, block)
+    ve, vs = ragged_pool(gen, fmt, block)
     pools = [t.contiguous().to(dev) for t in (ke, ks, ve, vs)]
     page_fmts = None
     if mixed:
@@ -312,6 +331,24 @@ def ragged_bound(fmt: str = "fp8_e4m3", block: int = BLOCK,
     q.k and P.V count the (query, key) pairs the causal mask keeps, a
     padding query clamped to its row's last real one as the kernel
     clamps it."""
+    pool_bytes, pairs = ragged_pool_traffic(fmt, block, inp)
+    read = (2 * R * KVH * W * G * D  # q
+            + 2 * 2 * R * W * KVH * D  # k_new, v_new
+            + 4 * (R * P + 2 * R))  # table, row_start, seq_lens
+    written = (4 * R * KVH * W * G * D  # f32 out
+               + 4 * R * KVH)  # visits
+    bytes_ms = 1e3 * (read + pool_bytes + written) / HBM_BYTES_PER_S
+    ops_ms = ragged_walk_ops_ms(pairs)
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def ragged_pool_traffic(fmt: str = "fp8_e4m3", block: int = BLOCK,
+                        inp=None) -> tuple:
+    """(pool bytes, kept (query, key) pairs) of one ragged step over ROWS:
+    the K and V rows attended from the pool (the resident ones below each
+    row's start; a mixed page's rows at the prefix its format fills) and
+    the merged new rows written."""
     from repro_torch.core import formats as F
 
     nb = D // block
@@ -329,18 +366,14 @@ def ragged_bound(fmt: str = "fp8_e4m3", block: int = BLOCK,
             resident_bytes += _rows_below(p, start) * KVH * (ed + nb)
         rows_written += max(n_new, 1)
         pairs += KVH * G * _causal_keys(start, W, seq_len - 1)
-    read = (2 * R * KVH * W * G * D  # q
-            + 2 * 2 * R * W * KVH * D  # k_new, v_new
-            + 2 * resident_bytes  # K and V rows attended from the pool
-            + 4 * (R * P + 2 * R))  # table, row_start, seq_lens
-    written = (4 * R * KVH * W * G * D  # f32 out
-               + 2 * rows_written * KVH * (wbytes + nb)  # merged K/V rows
-               + 4 * R * KVH)  # visits
-    bytes_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
-    # q.k: bf16 q x exact-in-bf16 keys; P.V: f32 probabilities x values
-    ops_ms = 1e3 * (2 * pairs * D / BF16_FLOPS + 2 * pairs * D / F32_FLOPS)
-    return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations")
+    return (2 * resident_bytes + 2 * rows_written * KVH * (wbytes + nb),
+            pairs)
+
+
+def ragged_walk_ops_ms(pairs: int) -> float:
+    """q.k (bf16 q x exact-in-bf16 keys) and P.V (f32 probabilities x
+    values) of ``pairs`` kept (query, key) pairs, at the peak rates."""
+    return 1e3 * (2 * pairs * D / BF16_FLOPS + 2 * pairs * D / F32_FLOPS)
 
 
 def check_ragged_case(mxa, inp, fmt: str, label: str) -> float:
@@ -1117,6 +1150,224 @@ def check_decode_pair() -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 2e: the layer-fused megakernel against its plain version
+# ---------------------------------------------------------------------------
+
+#: phase 2e's model: granite-8b at full width (head_dim 128, d_model 4096,
+#: d_ff 14336) cut to two layers
+MEGA_LAYERS = 2
+#: the bar of tests/test_torch_megakernel.py: logits within one bf16 ulp of
+#: the largest, equal argmax, at most this share of pool codes differing
+#: (the kernel's products sum in another order than cuBLAS)
+MEGA_CODE_FRACTION = 1e-3
+#: full width (36 layers): the megakernel may lie at most this factor
+#: further from the plain version than the per-layer CUDA ragged step
+#: does, in the largest logit difference and in the share of pool bytes
+#: that differ (both steps sum their products in another order than
+#: cuBLAS; PERF.md has the readings this is set from)
+MEGA_DRIFT_FACTOR = 1.5
+
+
+def granite_serving_config(layers=None):
+    """granite-8b as the launcher serves it (weight-only MXFP8, an MX fp8
+    KV cache), optionally cut to ``layers`` layers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite-8b")
+    cfg = cfg.replace(quant=cfg.quant.replace(quantize_acts=False,
+                                              quantize_kv_cache=True))
+    return cfg if layers is None else cfg.replace(num_groups=layers)
+
+
+def megakernel_inputs(cfg, gen, dev: str = "cuda") -> dict:
+    """ROWS at granite's widths: a stacked cache of quantized normal values
+    over R * P + 1 pages (the last the trash page), the weights of a
+    seeded init, W random tokens a row, logits of each row's last token."""
+    from repro_torch.nn import model
+
+    table, starts, lens, _ = ragged_rows(gen)
+    cache = model.init_paged_cache(cfg, R * P + 1, PS, dev)
+    for pool in cache:
+        for name in ("k", "v"):
+            elems, scales = ragged_pool(gen, cfg.quant.fmt, BLOCK)
+            pool[f"{name}_elems"].view(torch.uint8).copy_(
+                elems.view(torch.uint8))
+            pool[f"{name}_scales"].copy_(scales)
+    params = model.init(cfg, torch.Generator(dev).manual_seed(3), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (R, W), generator=gen)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return dict(params=params, cache=cache, args=(
+                    tokens.to(dev), table.to(dev), torch.tensor(starts, **i32),
+                    torch.tensor(lens, **i32),
+                    torch.tensor([max(n - 1, 0) for _, n in ROWS], **i32)))
+
+
+def megakernel_layers(params, cfg, cache, tokens, table, starts, lens,
+                      plain: bool = False):
+    """A closure that runs the layer stack alone on the embedded tokens
+    and returns (x, visits): the kernel's wrapper, or with ``plain`` its
+    plain version (on the card, with cuBLAS products)."""
+    from repro_torch.kernels import mx_megakernel as mk
+    from repro_torch.nn import embedding, model
+
+    lay, pools = model.megakernel_stacks(params, cache)
+    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    weights = [lay["mixer"][k]["w"] for k in ("wq", "wk", "wv", "wo")] \
+        + [lay["ffn"][k]["w"] for k in ("gate", "up", "down")]
+    norms = (lay["norm_mixer"]["scale"], lay["norm_ffn"]["scale"])
+    kw = dict(head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+              norm_eps=cfg.norm_eps, fmt_name=cfg.quant.fmt,
+              block_size=min(cfg.quant.block_size, cfg.head_dim),
+              softcap=cfg.attn_softcap, window=None)
+    if not plain:
+        return lambda: mk.mx_megakernel_step(
+            x, norms[0], *weights[:4], norms[1], *weights[4:], *pools, table,
+            starts, lens, quant=cfg.quant, debug_visits=True, **kw)[::2]
+    t, s, n = mk.normalize_rows(table, starts, lens, pools[0].shape[1],
+                                x.shape[1])
+    return lambda: mk.mx_megakernel_step_plain(
+        x, weights, norms, pools, t, s, n, page_fmts=None, mixed_fmts=None,
+        **kw)
+
+
+def megakernel_plain_step(params, cfg, cache, tokens, table, starts, lens,
+                          lidx):
+    """``model.megakernel_step_paged`` with the kernel's plain version in
+    its place."""
+    from repro_torch.nn import model
+
+    x, _ = megakernel_layers(params, cfg, cache, tokens, table, starts, lens,
+                             plain=True)()
+    return model._ragged_head(params, cfg, x, starts, lens, lidx)
+
+
+def compare_steps(want, got, want_pools, got_pools, live) -> dict:
+    """Two steps' logits over the ``live`` rows and their pools (every
+    page but the trash page, the last): the largest |logit difference|,
+    one bf16 ulp of the largest |logit|, the rows whose argmax agrees and
+    the share of pool bytes that differ."""
+    want, got = want[live].float(), got[live].float()
+    top = float(want.abs().max())
+    differing = total = 0
+    for w, g in zip(want_pools, got_pools):
+        w, g = w.view(torch.uint8)[:, :-1], g.view(torch.uint8)[:, :-1]
+        differing += int((w != g).sum())
+        total += w.numel()
+    return dict(
+        max_abs_err=float((got - want).abs().max()),
+        ulp=2.0 ** (np.floor(np.log2(top)) - 7),
+        argmax_equal=int((got.argmax(-1) == want.argmax(-1)).sum()),
+        rows=len(live), codes_differing=differing, codes=total,
+        finite=bool(torch.isfinite(got).all()))
+
+
+def stacked_pools(cache) -> list:
+    """The (L, NP, ...) pool tensors behind the per-layer pools."""
+    from repro_torch.nn import model
+
+    return [cache.stack[k] for k in model.POOL_KEYS]
+
+
+def run_with_pools(fn, params, cfg, cache, args, pools0) -> tuple:
+    """Reset the stacked pools to ``pools0``, run one step, return (logits,
+    the pools after it)."""
+    stacked = stacked_pools(cache)
+    for t, t0 in zip(stacked, pools0):
+        t.copy_(t0)
+    logits = fn(params, cfg, cache, *args)
+    torch.cuda.synchronize()
+    return logits, [t.clone() for t in stacked]
+
+
+def megakernel_bound(cfg) -> tuple:
+    """(bound_ms, bound_by) of the layer stack over ROWS: the products'
+    FLOPs at the bf16 peak plus each layer's walk (q.k and P.V of the kept
+    pairs), against the bytes of the weights, the norm scales, the
+    residual in and out and each layer's pool rows read and written."""
+    m = R * W
+    dm, dff = cfg.d_model, cfg.d_ff
+    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    per_layer = dm * hd + 2 * dm * kvd + hd * dm + 3 * dm * dff
+    layers = cfg.num_layers
+    pool_bytes, pairs = ragged_pool_traffic()
+    ops_ms = (1e3 * 2.0 * m * per_layer * layers / BF16_FLOPS
+              + layers * ragged_walk_ops_ms(pairs))
+    nbytes = (layers * (2 * per_layer + 2 * 4 * dm + pool_bytes)
+              + 2 * 2 * m * dm + 4 * (R * P + 2 * R))
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_megakernel_visits(kernel, plain, label: str) -> None:
+    """The pages each layer's cells walked: the kernel's equal its plain
+    version's, and some were walked."""
+    _, got = kernel()
+    _, want = plain()
+    if not torch.equal(got, want) or not int(want.sum()):
+        raise AssertionError(f"megakernel visits ({label}): {got.sum()} "
+                             f"against the plain version's {want.sum()}")
+
+
+def check_megakernel() -> dict:
+    """Phase 2e: one step of ROWS through ``model.megakernel_step_paged``
+    (the kernel) and through its plain version, both on the card, on a
+    two-layer granite-8b at full width; held to MEGA_CODE_FRACTION and
+    one bf16 ulp; the kernel's time beside the plain version's at this
+    depth. Returns the kernels-line entry (phase 4 adds the full-width
+    numbers)."""
+    from repro_torch.kernels import mx_megakernel as mk
+    from repro_torch.nn import model
+
+    # the plain version's products round once from f32 sums only with
+    # these off (nn.linear._dot_rounded), as the engine sets them
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = granite_serving_config(MEGA_LAYERS)
+    inp = megakernel_inputs(cfg, torch.Generator().manual_seed(4))
+    pools0 = [t.clone() for t in stacked_pools(inp["cache"])]
+    live = [i for i, (_, n) in enumerate(ROWS) if n]
+    step = (inp["params"], cfg, inp["cache"], inp["args"], pools0)
+    want, want_pools = run_with_pools(megakernel_plain_step, *step)
+    launches = mk.mx_megakernel_step.launches
+    got, got_pools = run_with_pools(model.megakernel_step_paged, *step)
+    if mk.mx_megakernel_step.launches - launches != 1:
+        raise AssertionError("the megakernel step did not launch once")
+    c = compare_steps(want, got, want_pools, got_pools, live)
+    if not c["finite"] or c["max_abs_err"] > c["ulp"] \
+            or c["argmax_equal"] != c["rows"] \
+            or c["codes_differing"] > MEGA_CODE_FRACTION * c["codes"]:
+        raise AssertionError(f"megakernel against its plain version: {c}")
+    if all(torch.equal(g, p) for g, p in zip(got_pools, pools0)):
+        raise AssertionError("megakernel: the write window was not written")
+    grid = mk.grid_size(W, G, D, PS)
+    kernel = megakernel_layers(inp["params"], cfg, inp["cache"],
+                               *inp["args"][:4])
+    plain = megakernel_layers(inp["params"], cfg, inp["cache"],
+                              *inp["args"][:4], plain=True)
+    check_megakernel_visits(kernel, plain, "granite-8b widths, "
+                            f"{MEGA_LAYERS} layers")
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, 3)
+    log(f"megakernel, granite-8b widths cut to {MEGA_LAYERS} layers, ROWS "
+        f"(8 rows, W {W}), fp8 e4m3 pools: logits of {c['rows']} live rows "
+        f"within {c['max_abs_err']:.4g} of the plain version (one bf16 ulp "
+        f"of the largest: {c['ulp']:.4g}), argmax equal in {c['argmax_equal']}"
+        f"/{c['rows']}, {c['codes_differing']} of {c['codes']} pool bytes "
+        f"differ (bar {MEGA_CODE_FRACTION:g}), visits equal; {grid} CTAs "
+        "of 512 "
+        f"threads; layer stack {ms:.3f} ms "
+        f"(median of 10), plain version {plain_ms:.2f} ms (median of 3)")
+    return {"name": "mx_megakernel_step", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mx_megakernel.cu",
+            "replaces": "src/repro/kernels/mx_megakernel.py:439",
+            "launches": None,  # set by the main path's run (phase 4)
+            "max_abs_err": c["max_abs_err"], "ms_reduced": ms,
+            "plain_ms_reduced": plain_ms, "library_ms": None,
+            "grid": grid}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: reduced granite, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -1175,7 +1426,9 @@ def check_reduced_parity(card: str = "cuda") -> None:
     params = model.init(cfg, torch.Generator().manual_seed(REDUCED_SEED),
                         "cpu")
     from repro_torch.kernels import (mx_attention_prefill_fused,
-                                     mx_attention_verify_fused)
+                                     mx_attention_ragged_fused,
+                                     mx_attention_verify_fused,
+                                     mx_megakernel_step)
 
     on_card = _to_device(params, card)
     prompts = reduced_prompts(cfg)
@@ -1207,13 +1460,41 @@ def check_reduced_parity(card: str = "cuda") -> None:
                               mx_attention_verify_fused.launches - verify0,
                               mx_attention_prefill_fused.launches - prefill0,
                               "reduced split run")
+    # the megakernel step: card against CPU, and against the ragged streams
+    mega_cpu, mega_cpu_stats = reduced_streams("cpu", params, cfg, prompts,
+                                               "megakernel")
+    counted = (mx_megakernel_step, mx_attention_ragged_fused)
+    counts0 = [k.launches for k in counted]
+    mega, mega_stats = reduced_streams(card, on_card, cfg, prompts,
+                                       "megakernel")
+    mega_launches, ragged_launches = (k.launches - c0 for k, c0
+                                      in zip(counted, counts0))
+    if not mega_cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
+        raise AssertionError("reduced megakernel run has a near-tie greedy "
+                             f"pick: {mega_cpu_stats['min_top2_gap_ulps']}")
+    if mega_stats["step_mode"] != "megakernel":
+        raise AssertionError(f"reduced megakernel run fell back: "
+                             f"{mega_stats['megakernel_fallback_reason']}")
+    _same_streams(mega, mega_cpu, "reduced megakernel, card vs CPU")
+    _same_streams(mega, want, "reduced, megakernel vs ragged")
+    if card == "cuda" and (mega_launches != mega_stats["ragged_steps"]
+                           or ragged_launches
+                           or mega_stats["launches_per_step"] != 1):
+        raise AssertionError(
+            f"reduced megakernel run: {mega_launches} megakernel and "
+            f"{ragged_launches} ragged launches over "
+            f"{mega_stats['ragged_steps']} steps")
     log(f"reduced granite: {len(prompts)} requests through 3 slots, prefix "
         f"hit rate {stats['prefix_hit_rate']:.2f}, streams equal on card and "
         f"CPU (smallest top-2 lead {cpu_stats['min_top2_gap_ulps']:.0f} "
         f"bf16 ulps); split step ({split_stats['dispatches_decode']} decode "
         f"and {split_stats['prefill_dispatches']} prefill dispatches): "
         "streams equal on card and CPU and equal to the ragged run's "
-        f"(smallest lead {split_cpu_stats['min_top2_gap_ulps']:.0f} ulps)")
+        f"(smallest lead {split_cpu_stats['min_top2_gap_ulps']:.0f} ulps); "
+        f"megakernel step ({mega_launches} launches in "
+        f"{mega_stats['ragged_steps']} steps, 1 a step): streams equal on "
+        "card and CPU and equal to the ragged run's (smallest lead "
+        f"{mega_cpu_stats['min_top2_gap_ulps']:.0f} ulps)")
 
 
 def tiered_streams(device: str, params, cfg, prompts,
@@ -1368,7 +1649,7 @@ def serve_full_width() -> dict:
     cfg, engine = serve.build_engine(args)
     log(f"granite-8b built in {time.perf_counter() - t0:.1f} s: "
         f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{sum(t.numel() for t in _leaves(engine.params)) / 1e9:.2f} B "
+        f"{sum(t.numel() for t in _weights(engine.params)) / 1e9:.2f} B "
         "params")
     prompts = serve.make_prompts(cfg, args, sharing=2)
     engine.warmup()  # cold GEMM shapes and allocator growth: not timed
@@ -1401,7 +1682,8 @@ def serve_full_width() -> dict:
         f"launches = steps x {cfg.num_layers}; prefix hit rate "
         f"{report['prefix_hit_rate']:.2f}; peak memory {peak_gb:.2f} GB")
     decode_step_breakdown(engine, cfg)
-    return {"launches": launches, "report": report, "leads": leads}
+    return {"launches": launches, "report": report, "leads": leads,
+            "peak_gb": peak_gb}
 
 
 def serve_full_width_tiered(fp8_report: dict) -> dict:
@@ -1543,12 +1825,174 @@ def serve_full_width_split(ragged_report: dict, ragged_leads: dict) -> dict:
             "report": report}
 
 
-def profile_breakdown(runs: dict, walk: tuple, steps: int = 3) -> None:
+def serve_full_width_megakernel(ragged: dict) -> dict:
+    """The same prompts through ``--step-mode megakernel``, every kernel
+    count reset just before the run and read just after: one megakernel
+    launch a step and no per-layer launch. Then, on the engine's weights
+    and pools (ROWS over the run's pages): the layer stack's time beside
+    its plain version's, its visits against the plain version's, one step
+    held against the plain version within MEGA_DRIFT_FACTOR of the
+    per-layer CUDA ragged step's distance from it, every stream that
+    parts from the ragged run's parting at a near-tie, and a profile of
+    one megakernel step. ``ragged``: the ragged run's result, from
+    :func:`serve_full_width`."""
+    from repro_torch.kernels import (mx_attention_ragged_fused,
+                                     mx_megakernel_step, mx_repack_pages)
+    from repro_torch.launch import serve
+    from repro_torch.nn import model
+
+    args = serve.parse_args(FULL_ARGV + ["--new-tokens", "32",
+                                         "--step-mode", "megakernel"])
+    torch.cuda.reset_peak_memory_stats()
+    cfg, engine = serve.build_engine(args)
+    prompts = serve.make_prompts(cfg, args, sharing=2)
+    engine.warmup()
+    leads = record_leads(engine)
+    counted = (mx_megakernel_step, mx_attention_ragged_fused, mx_repack_pages)
+    for k in counted:
+        k.launches = 0
+    report = serve.run_batch(engine, cfg, args, prompts)
+    torch.cuda.synchronize()
+    mega, per_layer, repack = (k.launches for k in counted)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = engine.cache_stats()
+    on_card = engine.device.type == "cuda"  # else a CPU rehearsal
+    if report["step_mode"] != "megakernel" or per_layer or repack \
+            or on_card and (mega == 0 or mega != report["ragged_steps"]
+                            or stats["launches_per_step"] != 1):
+        raise AssertionError(
+            f"megakernel run: step mode {report['step_mode']}, {mega} "
+            f"megakernel / {per_layer} ragged / {repack} repack launches over "
+            f"{report['ragged_steps']} steps, launches per step "
+            f"{stats['launches_per_step']}")
+    for i, prompt in zip(report["ids"], report["prompts"]):
+        toks = report["results"][i]
+        if len(toks) != len(prompt) + 32 or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size \
+                or not np.array_equal(toks[:len(prompt)], prompt):
+            raise AssertionError(f"megakernel request {i}: malformed stream")
+    parts = []
+    for i, prompt in zip(report["ids"], report["prompts"]):
+        diff = np.flatnonzero(report["results"][i]
+                              != ragged["report"]["results"][i])
+        if len(diff):
+            k = int(diff[0]) - len(prompt)
+            parts.append((k, leads[i][k], ragged["leads"][i][k]))
+    equal = len(report["ids"]) - len(parts)
+    rr = ragged["report"]
+    params = engine.params
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     _leaves(params["layer_stack"])) / 1e9
+    log(f"granite-8b megakernel step: {report['generated_tokens']} tokens in "
+        f"{report['seconds']:.2f} s = {report['tokens_per_s']:.1f} tok/s "
+        f"(ragged run: {rr['tokens_per_s']:.1f}); {report['ragged_steps']} "
+        f"steps, median {report['median_step_ms']:.2f} ms (ragged run: "
+        f"{rr['median_step_ms']:.2f}); {mega} megakernel launches = steps x 1 "
+        f"(launches per step {stats['launches_per_step']}; the ragged run: "
+        f"{cfg.num_layers}), no per-layer launch; {equal} of "
+        f"{len(report['ids'])} streams equal the ragged run's (the others "
+        "part at (generated token, top-2 lead of the pick there in bf16 "
+        f"ulps: megakernel, ragged) {parts}; smallest lead of any pick: "
+        f"megakernel {report['min_top2_gap_ulps']:.0f}, ragged "
+        f"{rr['min_top2_gap_ulps']:.0f}); peak memory {peak_gb:.2f} GB "
+        f"(ragged run: {ragged['peak_gb']:.2f} GB; the layer stack's "
+        f"weights {weights_gb:.2f} GB)")
+    # ROWS over the run's pages (169 = R * P + 1 of them, the last the
+    # trash page): time, visits, against the per-layer step, profile
+    gen = torch.Generator().manual_seed(6)
+    table, starts, lens, _ = ragged_rows(gen)
+    dev = engine.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    step_args = (torch.randint(0, cfg.vocab_size, (R, W), generator=gen)
+                 .to(dev), table.to(dev), torch.tensor(starts, **i32),
+                 torch.tensor(lens, **i32),
+                 torch.tensor([max(n - 1, 0) for _, n in ROWS], **i32))
+    stacked = stacked_pools(engine.cache)
+    pools0 = [t.clone() for t in stacked]
+    kernel = megakernel_layers(params, cfg, engine.cache, *step_args[:4])
+    plain = megakernel_layers(params, cfg, engine.cache, *step_args[:4],
+                              plain=True)
+    check_megakernel_visits(kernel, plain, f"{cfg.num_layers} layers")
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, 1)
+    bound_ms, bound_by = megakernel_bound(cfg)
+    log(f"megakernel layer stack at full width ({cfg.num_layers} layers, "
+        f"ROWS): {ms:.3f} ms (median of 5), plain version {plain_ms:.1f} ms "
+        f"(one run), bound {bound_ms:.4f} ms ({bound_by}); visits equal the "
+        "plain version's; no single PyTorch call computes this function")
+    live = [i for i, (_, n) in enumerate(ROWS) if n]
+    runs = {name: run_with_pools(fn, params, cfg, engine.cache, step_args,
+                                 pools0)
+            for name, fn in (("ragged", model.ragged_step_paged),
+                             ("megakernel", model.megakernel_step_paged),
+                             ("plain", megakernel_plain_step))}
+    for t, t0 in zip(stacked, pools0):
+        t.copy_(t0)
+    # the megakernel and the per-layer CUDA ragged step each against the
+    # plain version (cuBLAS products, the plain walk), and against each
+    # other: the ragged step's distance from the plain version is the
+    # drift that another product and sum order alone gives
+    pairs = {}
+    for a, b in (("ragged", "megakernel"), ("plain", "megakernel"),
+                 ("plain", "ragged")):
+        c = compare_steps(runs[a][0], runs[b][0], runs[a][1], runs[b][1],
+                          live)
+        pairs[f"{b} vs {a}"] = c
+        log(f"full-width step of ROWS over the run's pages, {b} against "
+            f"{a}: largest |logit difference| {c['max_abs_err']:.4g} "
+            f"({c['max_abs_err'] / c['ulp']:.1f} bf16 ulps of the largest "
+            f"logit), argmax equal in {c['argmax_equal']}/{c['rows']} live "
+            f"rows, {c['codes_differing']} of {c['codes']} pool bytes differ "
+            f"({c['codes_differing'] / c['codes']:.3g})")
+    mk_plain, rg_plain = pairs["megakernel vs plain"], pairs["ragged vs plain"]
+    if not all(c["finite"] and c["argmax_equal"] == c["rows"]
+               for c in pairs.values()) \
+            or mk_plain["max_abs_err"] > MEGA_DRIFT_FACTOR \
+            * rg_plain["max_abs_err"] \
+            or mk_plain["codes_differing"] > MEGA_DRIFT_FACTOR \
+            * rg_plain["codes_differing"]:
+        raise AssertionError(
+            f"full-width megakernel step: {pairs} (bar: finite, equal "
+            f"argmax, within {MEGA_DRIFT_FACTOR}x the ragged step's "
+            "distance from the plain version)")
+    # a greedy pick can flip between two steps only where its lead is
+    # below twice their largest logit difference
+    near = 2 * np.ceil(pairs["megakernel vs ragged"]["max_abs_err"]
+                       / pairs["megakernel vs ragged"]["ulp"])
+    if any(min(a, b) > near for _, a, b in parts):
+        raise AssertionError(
+            f"megakernel streams part from the ragged run's at a pick that "
+            f"both lead by more than {near:.0f} bf16 ulps: {parts}")
+    log(f"every stream that parts from the ragged run's parts at a pick "
+        f"one of the two runs leads by at most {near:.0f} bf16 ulps (twice "
+        "the two steps' largest logit difference)")
+    step = lambda: model.megakernel_step_paged(  # noqa: E731
+        params, cfg, engine.cache, *step_args).argmax(-1)
+    busy, names = profile_breakdown({"megakernel step": (
+        step, "ROWS, embedding to argmax")}, ("megakernel",),
+        label="megakernel", names=True)
+    # one launch of the megakernel, one GEMM (the LM head) and no per-layer
+    # attention kernel a step, where the profiler saw the device
+    if on_card and names and (busy["megakernel"][0] != 1
+                              or busy["GEMMs"][0] > 1
+                              or any("ragged" in n for n in names)):
+        raise AssertionError(f"megakernel step profile: {busy}, {names}")
+    return {"launches": mega, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "equal": equal,
+            "full_width": pairs, "report": report, "peak_gb": peak_gb,
+            "busy": busy}
+
+
+def profile_breakdown(runs: dict, walk: tuple, steps: int = 3,
+                      label: str = "page-walk kernel",
+                      names: bool = False) -> dict:
     """Where full-width time goes: for each ``runs`` entry (title ->
     (call, what it runs)), one untimed call, then ``steps`` calls traced
-    by torch.profiler; logs device time by kernel class (the page walk:
-    names containing a ``walk`` entry; GEMMs; the rest) against the host
-    clock of the same window."""
+    by torch.profiler; logs device time by kernel class (``label``: names
+    containing a ``walk`` entry; GEMMs; the rest) against the host clock
+    of the same window, and with ``names`` every kernel by name with its
+    calls and time a call. Returns the last entry's ({class: (launches a
+    call, ms a call)}, {kernel name: launches in the traced calls})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1563,16 +2007,22 @@ def profile_breakdown(runs: dict, walk: tuple, steps: int = 3) -> None:
                     run()
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        busy = {"page-walk kernel": 0.0, "GEMMs": 0.0, "other kernels": 0.0}
+        busy = {label: 0.0, "GEMMs": 0.0, "other kernels": 0.0}
+        launches = dict.fromkeys(busy, 0)
+        by_name = {}
         for evt in prof.events():
             if evt.device_type != DeviceType.CUDA:
                 continue
             name = evt.name
-            kind = ("page-walk kernel" if any(k in name for k in walk)
+            kind = (label if any(k in name for k in walk)
                     else "GEMMs" if name.startswith(("nvjet", "sm90",
                                                       "cutlass"))
                     or "gemm" in name.lower() else "other kernels")
-            busy[kind] += evt.time_range.elapsed_us() / 1e3 / steps
+            ms = evt.time_range.elapsed_us() / 1e3 / steps
+            busy[kind] += ms
+            launches[kind] += 1
+            calls, total_ms = by_name.get(name, (0, 0.0))
+            by_name[name] = (calls + 1, total_ms + ms)
         total = sum(busy.values())
         if total == 0:
             log(f"{title} breakdown: not measured (the profiler recorded no "
@@ -1584,6 +2034,12 @@ def profile_breakdown(runs: dict, walk: tuple, steps: int = 3) -> None:
             f"calls): device busy {total:.2f} ms of {wall_ms:.2f} ms host "
             f"wall clock per call (idle {100 * (1 - total / wall_ms):.0f}%); "
             f"{parts}")
+        if names:
+            log(f"{title}: every kernel, (calls, ms) per call: " + "; ".join(
+                f"{name[:80]} ({n // steps}, {ms:.4f})" for name, (n, ms)
+                in sorted(by_name.items(), key=lambda kv: -kv[1][1])))
+    return ({k: (launches[k] / steps, v) for k, v in busy.items()},
+            {name: n for name, (n, _) in by_name.items()})
 
 
 def _breakdown_inputs(engine, cfg, pos: int, width: int):
@@ -2072,6 +2528,12 @@ def check_mx_dot_products() -> list:
 
 
 
+def _weights(params):
+    """Every weight tensor once: the per-layer entries are slices of the
+    (L, ...) stacks, which are left out."""
+    return _leaves({k: v for k, v in params.items() if k != "layer_stack"})
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2102,6 +2564,9 @@ def main() -> int:
     repack = time_repack_kernel()
     verify, prefill = check_paged_kernels()
     pair = check_decode_pair()
+    mega = check_megakernel()
+    gc.collect()
+    torch.cuda.empty_cache()
     check_reduced_parity()
     check_reduced_tiered_parity()
     full = serve_full_width()
@@ -2120,7 +2585,14 @@ def main() -> int:
         split["equal"]
     gc.collect()
     torch.cuda.empty_cache()
-    kernels = [kernel, verify, prefill] + pair + [repack] \
+    full_mega = serve_full_width_megakernel(full)
+    for key in ("launches", "ms", "plain_ms", "bound_ms", "bound_by"):
+        mega[key] = full_mega[key]
+    mega["streams_equal_ragged"] = full_mega["equal"]
+    mega["full_width"] = full_mega["full_width"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = [kernel, verify, prefill] + pair + [repack, mega] \
         + check_mx_dot_products()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ from .mx_attention import (gather_kv_pages, gather_kv_pages_plain,
                            mx_attention_verify_fused,
                            mx_attention_verify_fused_plain)
 from .mx_matmul import mx_matmul_dgrad, mx_matmul_vv, mx_matmul_wo
+from .mx_megakernel import mx_megakernel_step, mx_megakernel_step_plain
 from .mx_repack import mx_repack_pages, mx_repack_pages_plain
 from .ops import mx_matmul_trainable, quantize_pallas
 from .ref import mx_attention_decode_ref
@@ -28,4 +29,5 @@ __all__ = ["gather_kv_pages", "gather_kv_pages_plain",
            "mx_attention_ragged_fused_plain", "mx_attention_verify_fused",
            "mx_attention_verify_fused_plain", "mx_matmul_dgrad",
            "mx_matmul_trainable", "mx_matmul_vv", "mx_matmul_wo",
+           "mx_megakernel_step", "mx_megakernel_step_plain",
            "mx_repack_pages", "mx_repack_pages_plain", "quantize_pallas"]

@@ -31,7 +31,8 @@ SOURCES = {"mx_attention_ragged": "mx_attention_ragged.cu",
            "mx_attention_decode": "mx_attention_decode.cu",
            "mx_quantize": "mx_quantize.cu",
            "mx_matmul": "mx_matmul.cu",
-           "mx_repack": "mx_repack.cu"}
+           "mx_repack": "mx_repack.cu",
+           "mx_megakernel": "mx_megakernel.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

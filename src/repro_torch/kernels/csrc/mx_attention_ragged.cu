@@ -30,7 +30,8 @@
 // also orders the CTA's global writes before its reads), then the page
 // walk of mx_attention_walk.cuh, the device code the decode/verify and
 // chunked-prefill kernels (mx_attention_paged.cu) run too, so a row gives
-// the same bits in all three.
+// the same bits in all three. The cell body is mx_attention_ragged_cell.cuh,
+// which the layer-fused megakernel (mx_megakernel.cu) runs as its phase B.
 //
 // What bounds it on an H100 SXM (data-sheet peaks). At the main path's
 // shapes (R=8, KVH=8, W=64, G=4, D=128, PS=16, 21-page tables) one call
@@ -48,78 +49,29 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mx_attention_ragged_cell.cuh"
 #include "mx_attention_walk.cuh"
-#include "mx_codec.cuh"
 
 namespace {
 
 struct Args {
-  const __nv_bfloat16* q;      // (R, KVH, W*G, D)
-  const __nv_bfloat16* k_new;  // (R, W, KVH, D)
-  const __nv_bfloat16* v_new;  // (R, W, KVH, D)
-  mxwalk::Pools pools;
-  const int* table;      // (R, P), already mapped into [0, NP)
-  const int* row_start;  // (R,)
-  const int* seq_lens;   // (R,), clamped to [row_start + 1, row_start + W]
-  float* out;            // (R, KVH, W*G, D)
-  int* visits;           // (R, KVH)
-  int R, W, G, P, window;
-  float softcap, scale;
+  const __nv_bfloat16* q;  // (R, KVH, W*G, D)
+  mxcell::Cell cell;
+  float* out;    // (R, KVH, W*G, D)
+  int* visits;   // (R, KVH)
 };
 
 __global__ void __launch_bounds__(mxwalk::kThreads)
     ragged_kernel(const Args a) {
   extern __shared__ float smem[];
-  const mxwalk::Pools& P = a.pools;
   const int cell = blockIdx.x;
-  const int r = cell / P.KVH, h = cell % P.KVH;
-  const int rows = a.W * a.G;
-
-  const int start = a.row_start[r];
-  const int seq_len = a.seq_lens[r];
-  const int n_new = seq_len - start;
-  const int w0 = max(start, 0) / P.PS;
-  const int valid = min((seq_len + P.PS - 1) / P.PS, a.P);
-  const int first = mxwalk::first_window_page(start, a.window, P.PS);
-  const int* trow = a.table + static_cast<size_t>(r) * a.P;
-  const mx::FmtSpec f = mx::fmt_spec(P.fmt);
-
-  const mxwalk::Walk w = mxwalk::walk_begin(
-      smem, a.q + static_cast<size_t>(cell) * rows * P.D, rows, P.D, P.PS);
-
-  // phase 1: quantize-merge this step's new rows into the write window
-  const int jobs_per_page = P.PS * P.NB;
-  for (int p = w0; p < valid; ++p) {
-    const size_t page = static_cast<size_t>(trow[p]);
-    for (int job = threadIdx.x; job < 2 * jobs_per_page; job += blockDim.x) {
-      const bool is_v = job >= jobs_per_page;
-      const int jj = is_v ? job - jobs_per_page : job;
-      const int j = jj / P.NB, b = jj % P.NB;
-      const int kpos = p * P.PS + j;
-      if (kpos < start || kpos >= seq_len) continue;  // bytes stay untouched
-      const int t = kpos - start;
-      const __nv_bfloat16* src =
-          (is_v ? a.v_new : a.k_new) +
-          ((static_cast<size_t>(r) * a.W + t) * P.KVH + h) * P.D + b * P.BS;
-      const size_t prow = (page * P.PS + j) * P.KVH + h;
-      mx::quantize_block(
-          src, (is_v ? P.ve : P.ke) + prow * P.ED + b * P.BS * f.bits / 8,
-          (is_v ? P.vs : P.ks) + prow * P.NB + b, P.BS, f,
-          /*plus_zero=*/true);
-    }
-  }
-  __syncthreads();
-
-  // phase 2: online-softmax page walk; padding queries (t >= n_new) clamp
-  // onto the last real position
-  for (int p = first; p < valid; ++p) {
-    const size_t page = static_cast<size_t>(trow[p]);
-    mxwalk::load_tile(w, P, page, h, mxwalk::page_format(P, page));
-    mxwalk::flash_tile(w, p, a.G, start, n_new - 1, a.window, a.softcap,
-                       a.scale);
-  }
-  mxwalk::walk_finish(w, a.out + static_cast<size_t>(cell) * rows * P.D);
-  if (threadIdx.x == 0) a.visits[cell] = max(0, valid - first);
+  const size_t span = static_cast<size_t>(a.cell.W) * a.cell.G *
+                      a.cell.pools.D;
+  float* og = a.out + cell * span;
+  const int visits = mxcell::ragged_cell(
+      a.cell, smem, a.q + cell * span, cell,
+      [&](int i, float v) { og[i] = v; });
+  if (threadIdx.x == 0) a.visits[cell] = visits;
 }
 
 }  // namespace
@@ -145,22 +97,23 @@ extern "C" int mx_attention_ragged_launch(
   }
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k_new = static_cast<const __nv_bfloat16*>(k_new);
-  a.v_new = static_cast<const __nv_bfloat16*>(v_new);
-  a.pools = mxwalk::make_pools(ke, ks, ve, vs, page_fmts, KVH, D, ED, PS,
+  mxcell::Cell& c = a.cell;
+  c.k_new = static_cast<const __nv_bfloat16*>(k_new);
+  c.v_new = static_cast<const __nv_bfloat16*>(v_new);
+  c.pools = mxwalk::make_pools(ke, ks, ve, vs, page_fmts, KVH, D, ED, PS,
                                block_size, fmt, mixed_mask, mixed_default);
-  a.table = static_cast<const int*>(table);
-  a.row_start = static_cast<const int*>(row_start);
-  a.seq_lens = static_cast<const int*>(seq_lens);
+  c.table = static_cast<const int*>(table);
+  c.row_start = static_cast<const int*>(row_start);
+  c.seq_lens = static_cast<const int*>(seq_lens);
+  c.R = R;
+  c.W = W;
+  c.G = G;
+  c.P = P;
+  c.window = window;
+  c.softcap = softcap;
+  c.scale = scale;
   a.out = static_cast<float*>(out);
   a.visits = static_cast<int*>(visits);
-  a.R = R;
-  a.W = W;
-  a.G = G;
-  a.P = P;
-  a.window = window;
-  a.softcap = softcap;
-  a.scale = scale;
   const size_t smem = mxwalk::smem_bytes(W * G, D, PS);
   cudaError_t err = cudaFuncSetAttribute(
       ragged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

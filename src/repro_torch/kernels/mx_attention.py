@@ -440,12 +440,19 @@ def _check_pools(q, ke, ks, ve, vs, fmt_name: str, block_size: int,
                  page_fmts, mixed_fmts, what: str):
     """The wrappers' shared checks of q (R, KVH, n, G, D) against the
     pools; returns ``(fmt, mixed_fmts)`` with the mixed default filled."""
+    return _check_pool_shapes(q.shape[1], q.shape[-1], ke, ks, ve, vs,
+                              fmt_name, block_size, page_fmts, mixed_fmts,
+                              what)
+
+
+def _check_pool_shapes(kvh: int, d: int, ke, ks, ve, vs, fmt_name: str,
+                       block_size: int, page_fmts, mixed_fmts, what: str):
+    """One layer's pools against ``kvh`` heads of ``d``; returns ``(fmt,
+    mixed_fmts)`` with the mixed default filled."""
     fmt = F.get_format(fmt_name)
     mixed = page_fmts is not None
     _check_fmt(ke, fmt_name, mixed=mixed)
     _check_fmt(ve, fmt_name, mixed=mixed)
-    d = q.shape[-1]
-    kvh = q.shape[1]
     npages, ps = ke.shape[:2]
     if mixed:
         mixed_fmts = tuple(mixed_fmts or MIXED_FMTS_DEFAULT)

@@ -16,13 +16,15 @@ which the engine serves through the split step. ``--tiered`` (with the
       --batch 8 --prompt-len 236 --shared-prefix 64 --ragged \
       --new-tokens 48 --tiered
 
-``--step-mode split`` runs the reference's split step (prefill-chunk
-dispatches under ``--prefill-token-budget``, then one decode dispatch a
-step), and ``--decode-kernel einsum`` its gather oracle, which also
-falls back to split. Runs on the card unless ``--device cpu``. The
-reference's other flags (the HTTP server, sampling, speculation, the
-mesh, the fixed-slot engine, the megakernel step, monolithic prefill)
-are not ported yet and exit with an error naming ROADMAP.md.
+``--step-mode megakernel`` runs each ragged step's whole layer stack as
+one kernel launch (``kernels.mx_megakernel_step``), and logs the launches
+a step takes; ``--step-mode split`` runs the reference's split step
+(prefill-chunk dispatches under ``--prefill-token-budget``, then one
+decode dispatch a step), and ``--decode-kernel einsum`` its gather
+oracle, which also falls back to split. Runs on the card unless
+``--device cpu``. The reference's other flags (the HTTP server,
+sampling, speculation, the mesh, the fixed-slot engine, monolithic
+prefill) are not ported yet and exit with an error naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -113,6 +115,7 @@ def run_batch(engine, cfg, args, prompts=None) -> dict:
         "ragged_steps": stats["ragged_steps"],
         "dispatches": dispatches,
         "kernel_launches": stats["kernel_launches"],
+        "launches_per_step": stats["launches_per_step"],
         "preemptions": stats["preemptions"],
         "prefix_hit_rate": stats["prefix_hit_rate"],
         "peak_pages": stats["peak_pages"],
@@ -127,6 +130,13 @@ def run_batch(engine, cfg, args, prompts=None) -> dict:
              ", ".join(f"{k} {v}" for k, v in dispatches.items()),
              report["kernel_launches"], report["preemptions"],
              report["prefix_hit_rate"])
+    if stats["launches_per_step"] is not None:
+        log.info("step audit: %d kernel launch(es) per engine step (%s "
+                 "step; %.1f prefill tokens retired per prefill-carrying "
+                 "dispatch)", stats["launches_per_step"],
+                 report["step_mode"],
+                 stats["prefill_tokens_computed"]
+                 / max(stats["prefill_dispatches"], 1))
     if engine.tiered:
         tiered = {k: v for k, v in stats.items() if k.startswith("pages_")
                   or k in ("unit_budget", "units_in_use", "peak_units",
@@ -192,10 +202,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="engine step dispatch shape: 'ragged' (default) "
                          "packs decode tokens and prefill chunks into ONE "
                          "fused dispatch per step with the K/V write done "
-                         "in-kernel; 'split' runs the per-mode dispatches "
-                         "(the validated oracle). Ragged needs the fused "
-                         "kernel + a quantized KV cache and falls back to "
-                         "split otherwise. 'megakernel' is not ported yet")
+                         "in-kernel; 'megakernel' runs that dispatch's "
+                         "whole layer stack as ONE kernel launch; 'split' "
+                         "runs the per-mode dispatches (the validated "
+                         "oracle). Ragged needs the fused kernel + a "
+                         "quantized KV cache and falls back to split "
+                         "otherwise; megakernel falls back to ragged for "
+                         "configs it cannot serve")
     args, rest = ap.parse_known_args(argv)
     for arg in rest:
         flag = arg.split("=", 1)[0]
@@ -206,9 +219,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                      "ROADMAP.md, section A)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.step_mode == "megakernel":
-        ap.error("--step-mode megakernel is not ported to repro_torch yet "
-                 "(ROADMAP.md, A10)")
     if args.tiered and (args.quant not in ("", "mxfp8")
                         or args.quant and not args.quantize_kv):
         ap.error("--tiered requires --quant mxfp8 --quantize-kv "

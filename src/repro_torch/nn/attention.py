@@ -339,7 +339,7 @@ def apply_ragged(params, x: torch.Tensor, pool: dict, page_rows: torch.Tensor,
                  row_start: torch.Tensor, seq_lens: torch.Tensor,
                  cfg: AttnConfig, quant: QuantConfig,
                  compute_dtype=torch.bfloat16, page_fmts=None,
-                 mixed_fmts=None) -> torch.Tensor:
+                 mixed_fmts=None, attend=None) -> torch.Tensor:
     """One ragged engine step: x (R, W, d_model), row_start/seq_lens (R,).
 
     Every row feeds W token columns at positions ``row_start ..
@@ -348,7 +348,9 @@ def apply_ragged(params, x: torch.Tensor, pool: dict, page_rows: torch.Tensor,
     row's pages inside it; padding columns are excluded from the write
     and their outputs ignored. ``pool`` is updated in place. A tiered
     pool passes its per-page format ids ``page_fmts`` (NP,) and the
-    candidate formats ``mixed_fmts``.
+    candidate formats ``mixed_fmts``. ``attend`` replaces the ragged
+    kernel's wrapper (same arguments; the megakernel's plain version
+    passes the kernel's plain version, on any device).
     """
     w = x.shape[1]
     d = cfg.head_dim
@@ -356,7 +358,7 @@ def apply_ragged(params, x: torch.Tensor, pool: dict, page_rows: torch.Tensor,
                                              device=x.device)[None]
     q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype,
                                   _table_positions(pool, page_rows, posv))
-    out, _ = mx_attention_ragged_fused(
+    out, _ = (attend or mx_attention_ragged_fused)(
         _heads_split(q, k.shape[2]), k.contiguous(), v.contiguous(),
         pool["k_elems"], pool["k_scales"], pool["v_elems"],
         pool["v_scales"], page_rows, row_start, seq_lens,

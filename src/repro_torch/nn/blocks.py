@@ -1,7 +1,7 @@
 """Decoder block wiring (port of ``repro.nn.blocks``), attention only.
 
 Pre-norm residual blocks: attention then a dense gated FFN. MoE, MLA and
-recurrent mixers (ROADMAP A12) and gemma2's post-norms (A3) raise here.
+recurrent mixers (ROADMAP A8) and gemma2's post-norms (A6) raise here.
 """
 from __future__ import annotations
 
@@ -23,11 +23,11 @@ def _attn_cfg(cfg: ModelConfig, bd: BlockDef) -> attention.AttnConfig:
 def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
     if bd.mixer != "attn":
         raise NotImplementedError(
-            f"mixer {bd.mixer!r} is not ported to repro_torch (ROADMAP A12)")
+            f"mixer {bd.mixer!r} is not ported to repro_torch (ROADMAP A8)")
     if bd.ffn != "dense" or cfg.ffn_kind != "swiglu":
         raise NotImplementedError(
-            f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A3, "
-            "A12)")
+            f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A6, "
+            "A8)")
 
 
 def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
@@ -40,8 +40,8 @@ def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
             "ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.quant, device)}
 
 
-def _decode_tail(params, x: torch.Tensor, h: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+def _decode_tail(params, x: torch.Tensor, h: torch.Tensor, norm_eps: float,
+                 dt: torch.dtype) -> torch.Tensor:
     """Residual add + channel mixer.
 
     The reference's jitted step fuses the residual add into the RMSNorm
@@ -49,9 +49,8 @@ def _decode_tail(params, x: torch.Tensor, h: torch.Tensor,
     the unrounded f32 sum, while the residual stream itself is stored
     rounded to bf16. The port computes the same two values.
     """
-    dt = cfg.compute_dtype
     x_sum = x.to(torch.float32) + h.to(torch.float32)
-    h = rmsnorm_apply(params["norm_ffn"], x_sum, cfg.norm_eps, dtype=dt)
+    h = rmsnorm_apply(params["norm_ffn"], x_sum, norm_eps, dtype=dt)
     h = ffn.apply(params["ffn"], h, dt)
     return x_sum.to(dt) + h
 
@@ -78,7 +77,7 @@ def apply_ragged_step(params, x: torch.Tensor, cache: dict,
                                row_start, seq_lens, _attn_cfg(cfg, bd),
                                cfg.quant, cfg.compute_dtype,
                                page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    return _decode_tail(params, x, h, cfg)
+    return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype)
 
 
 def apply_verify_paged(params, x: torch.Tensor, cache: dict,
@@ -93,7 +92,7 @@ def apply_verify_paged(params, x: torch.Tensor, cache: dict,
                                      pos, _attn_cfg(cfg, bd), cfg.quant,
                                      cfg.compute_dtype, page_fmts=page_fmts,
                                      mixed_fmts=mixed_fmts)
-    return _decode_tail(params, x, h, cfg)
+    return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype)
 
 
 def apply_decode_paged(params, x: torch.Tensor, cache: dict,
@@ -118,4 +117,37 @@ def apply_prefill_chunked(params, x: torch.Tensor, cache: dict,
         params["mixer"], h, cache, page_rows, pos, num_valid,
         _attn_cfg(cfg, bd), cfg.quant, cfg.compute_dtype,
         page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    return _decode_tail(params, x, h, cfg)
+    return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype)
+
+
+def megakernel_reject_reason(cfg: ModelConfig):
+    """Why the layer-fused megakernel cannot serve ``cfg`` (None: it can).
+
+    The reference's static rungs of the serve engine's ladder for
+    ``step_mode="megakernel"``, string for string, for every rung this
+    package's ``ModelConfig`` can express (it has no sandwich post-norms;
+    the engine adds the runtime rungs). Each string names why the engine
+    falls back to the per-layer ragged step.
+    """
+    all_blocks = cfg.all_blocks()
+    if not all_blocks:
+        return "empty layer stack"
+    if any(bd.mixer != "attn" for bd in all_blocks):
+        mixers = sorted({bd.mixer for bd in all_blocks if bd.mixer != "attn"})
+        return f"non-attention mixers {mixers} (MoE/recurrent hybrids)"
+    if any(bd != all_blocks[0] for bd in all_blocks):
+        return ("non-uniform block pattern (per-layer windows or channel "
+                "mixers need per-layer kernel specialization)")
+    if cfg.prologue or cfg.epilogue or len(cfg.pattern) != 1:
+        return ("non-trivial stack layout (prologue/epilogue blocks or a "
+                "multi-block pattern break the stacked-cache coincidence "
+                "with the per-layer scan)")
+    if all_blocks[0].ffn != "dense":
+        return (f"ffn kind {all_blocks[0].ffn!r} (the fused layer tail "
+                "implements the dense gated MLP only)")
+    if cfg.quant.enabled and cfg.quant.quantize_acts:
+        return ("activation quantization (qat_matmul's custom-vjp pallas "
+                "path cannot nest inside the megakernel)")
+    if not (cfg.quant.enabled and cfg.quant.quantize_kv_cache):
+        return "wide bf16 KV pool (no MX page walk to fuse over)"
+    return None

@@ -2,8 +2,8 @@
 
 Only the fields the attention-only serving path reads are carried over;
 gemma2's embedding scale, logit softcap and post-norms wait for its
-config (ROADMAP A3), MoE, MLA, recurrent and training fields for their
-modules (A12, A13).
+config (ROADMAP A6), MoE, MLA, recurrent and training fields for their
+modules (A8, A9).
 """
 from __future__ import annotations
 

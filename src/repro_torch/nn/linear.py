@@ -38,7 +38,7 @@ def prepare_weight(w: torch.Tensor, quant: QuantConfig,
     """f32 master ``(d_in, d_out)`` -> the bf16 weight ``apply`` multiplies."""
     if not quant.enabled or quant.quantize_acts:
         raise NotImplementedError(
-            "only weight-only MX linears are ported (ROADMAP A1/A3); set "
+            "only weight-only MX linears are ported (ROADMAP A6, A9); set "
             "quantize_acts=False")
     wq = fake_quant(w.to(torch.float32), quant.fmt, quant.block_size, 0)
     return wq.to(compute_dtype)
@@ -65,7 +65,7 @@ def apply(params, x: torch.Tensor, compute_dtype=torch.bfloat16,
         if quant.quantize_acts:
             raise NotImplementedError(
                 "wide weights with quantized activations take the "
-                "reference's qat_matmul, not ported yet (ROADMAP A1)")
+                "reference's qat_matmul, not ported yet (ROADMAP A9)")
         w = fake_quant(w.to(torch.float32), quant.fmt, quant.block_size, 0)
     return _dot_rounded(x.to(compute_dtype), w.to(compute_dtype),
                         compute_dtype)

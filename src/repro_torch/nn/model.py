@@ -1,16 +1,22 @@
 """LM assembly for serving (port of ``repro.nn.model``): embedding ->
 attention blocks -> final norm -> LM head, one engine step at a time: the
-ragged step, or the split step's decode / verify and prefill chunk.
+ragged step, its layer-fused megakernel form, or the split step's decode /
+verify and prefill chunk.
 
 Parameters are a plain dict::
 
   {"embedding": {"embed": (V, D) bf16[, "head": (D, V) bf16]},
    "layers": [block params, in iter_layer_blocks order],
+   "layer_stack": block params with a leading (L,) axis (uniform stacks),
    "final_norm": {"scale": (D,) f32}}
 
 Linear weights are stored prepared (fake-quantized once, bf16; see
 ``nn.linear``). The reference scans stacked groups; PyTorch runs eagerly,
 so layers are a list and the cache is a list of per-layer page pools.
+Where every layer is the same block, each leaf lives in one (L, ...)
+tensor (``params["layer_stack"]``, ``PagedCache.stack``) and the
+per-layer entries are its slices: the per-layer steps read the slices,
+the megakernel the stacks, one copy of each.
 """
 from __future__ import annotations
 
@@ -36,6 +42,35 @@ def iter_layer_blocks(cfg: ModelConfig):
         yield f"epilogue{j}", None, bd
 
 
+def _uniform(cfg: ModelConfig) -> bool:
+    """Whether every layer is the same block (one stack per leaf)."""
+    return len({bd for _, _, bd in iter_layer_blocks(cfg)}) == 1
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _layer_params(cfg: ModelConfig, layers) -> dict:
+    """``{"layers": [...]}`` from the per-layer trees that ``layers``
+    yields; for a uniform stack each leaf is copied into its slice of an
+    (L, ...) tensor as the layer is made, so only one layer is held twice,
+    and ``"layer_stack"`` holds the stacks."""
+    if not _uniform(cfg):
+        return {"layers": list(layers)}
+    stack, views = None, []
+    for li, tree in enumerate(layers):
+        if stack is None:
+            stack = _tree_map(lambda t: torch.empty(
+                (cfg.num_layers, *t.shape), dtype=t.dtype, device=t.device),
+                tree)
+        _tree_map(lambda s, t: s[li].copy_(t), stack, tree)
+        views.append(_tree_map(lambda s: s[li], stack))
+    return {"layers": views, "layer_stack": stack}
+
+
 def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Random weights from ``gen`` (a generator on ``device``), prepared
     layer by layer so no f32 copy of the whole model is ever held."""
@@ -43,8 +78,8 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
         "embedding": embedding.init(gen, cfg.vocab_size, cfg.d_model,
                                     cfg.tied_embeddings, device,
                                     cfg.compute_dtype),
-        "layers": [blocks.init(gen, bd, cfg, device)
-                   for _, _, bd in iter_layer_blocks(cfg)],
+        **_layer_params(cfg, (blocks.init(gen, bd, cfg, device)
+                              for _, _, bd in iter_layer_blocks(cfg))),
         "final_norm": rmsnorm_init(cfg.d_model, device),
     }
 
@@ -68,15 +103,14 @@ def params_from_jax(params_np, cfg: ModelConfig, device) -> dict:
             return {"scale": tensor(tree["scale"])}
         return {k: convert(v) for k, v in tree.items()}
 
-    layers = []
-    for key, g, _ in iter_layer_blocks(cfg):
-        sub = params_np[key] if g is None else params_np["groups"][key]
-        if g is not None:
-            sub = _slice_tree(sub, g)
-        layers.append(convert(sub))
+    def layers():
+        for key, g, _ in iter_layer_blocks(cfg):
+            sub = params_np[key] if g is None else params_np["groups"][key]
+            yield convert(sub if g is None else _slice_tree(sub, g))
+
     emb = {k: tensor(v).to(cfg.compute_dtype)
            for k, v in params_np["embedding"].items()}
-    return {"embedding": emb, "layers": layers,
+    return {"embedding": emb, **_layer_params(cfg, layers()),
             "final_norm": convert(params_np["final_norm"])}
 
 
@@ -86,15 +120,34 @@ def _slice_tree(tree, g: int):
     return np.asarray(tree)[g]
 
 
+class PagedCache(list):
+    """The per-layer page pools, a list as every engine helper walks it.
+    For a uniform stack ``stack`` maps each pool leaf to one (L, NP, ...)
+    tensor whose slices are the pools' tensors (None otherwise)."""
+
+    def __init__(self, pools, stack=None):
+        super().__init__(pools)
+        self.stack = stack
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device, tiered: bool = False) -> list:
+                     device, tiered: bool = False) -> PagedCache:
     """One page pool per layer (shared page table, like the reference):
     MX, wide bf16 without an MX cache, or mixed-format with ``tiered``.
     ``num_pages`` counts every physical page, a trash page the caller
-    reserves included."""
-    return [blocks.init_paged_cache(num_pages, page_size, bd, cfg, device,
-                                    tiered=tiered)
-            for _, _, bd in iter_layer_blocks(cfg)]
+    reserves included. A uniform stack lays each leaf out as one (L, ...)
+    tensor and hands out its slices."""
+    def pool(bd):
+        return blocks.init_paged_cache(num_pages, page_size, bd, cfg, device,
+                                       tiered=tiered)
+
+    if not _uniform(cfg):
+        return PagedCache([pool(bd) for _, _, bd in iter_layer_blocks(cfg)])
+    stack = {key: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
+                              device=t.device)
+             for key, t in pool(cfg.all_blocks()[0]).items()}
+    return PagedCache([{key: t[li] for key, t in stack.items()}
+                       for li in range(cfg.num_layers)], stack)
 
 
 def _walk_blocks(apply_fn, params, cfg: ModelConfig, cache: list, x):
@@ -177,7 +230,65 @@ def ragged_step_paged(params, cfg: ModelConfig, cache: list,
     x = _walk_blocks(lambda bp, x, pool, bd: blocks.apply_ragged_step(
         bp, x, pool, page_rows, row_start, seq_lens, bd, cfg,
         page_fmts=page_fmts, mixed_fmts=mixed_fmts), params, cfg, cache, x)
+    return _ragged_head(params, cfg, x, row_start, seq_lens, logit_idx)
+
+
+def _ragged_head(params, cfg: ModelConfig, x: torch.Tensor, row_start,
+                 seq_lens, logit_idx) -> torch.Tensor:
+    """Row ``logit_idx`` of each ragged row (clamped onto its last real
+    token), then the final norm and the head."""
     last = torch.clamp(seq_lens - row_start - 1, min=0)
     idx = torch.minimum(torch.clamp(logit_idx, min=0), last).long()
     x = x[torch.arange(x.shape[0], device=x.device), idx]
     return _head(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# the layer-fused megakernel step
+# ---------------------------------------------------------------------------
+
+POOL_KEYS = ("k_elems", "k_scales", "v_elems", "v_scales")
+
+
+def megakernel_stacks(params, cache) -> tuple:
+    """(the (L, ...) block params, the four (L, NP, ...) pool tensors in
+    ``POOL_KEYS`` order) that the megakernel reads."""
+    stack = getattr(cache, "stack", None)
+    if params.get("layer_stack") is None or stack is None:
+        raise ValueError(
+            "the megakernel step reads the (L, ...) stacks that model.init "
+            "(or params_from_jax) and init_paged_cache lay out for a "
+            "uniform layer stack")
+    return params["layer_stack"], tuple(stack[k] for k in POOL_KEYS)
+
+
+def megakernel_step_paged(params, cfg: ModelConfig, cache: list,
+                          tokens: torch.Tensor, page_rows: torch.Tensor,
+                          row_start: torch.Tensor, seq_lens: torch.Tensor,
+                          logit_idx: torch.Tensor, page_fmts=None,
+                          mixed_fmts=None) -> torch.Tensor:
+    """:func:`ragged_step_paged` with the whole layer stack in one call of
+    ``kernels.mx_megakernel_step``, which reads the (L, ...) stacks of
+    ``params`` (from :func:`init` or :func:`params_from_jax`) and of
+    ``cache`` (from :func:`init_paged_cache`); every argument and the
+    result as in :func:`ragged_step_paged`. The embedding, the logit-row
+    gather, the final norm and the LM head run outside the kernel, as in
+    the reference. Only configurations ``blocks.megakernel_reject_reason``
+    accepts come here (the serve engine's ladder)."""
+    from repro_torch.kernels import mx_megakernel
+
+    lay, pools = megakernel_stacks(params, cache)
+    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    d = cfg.head_dim
+    x, _ = mx_megakernel.mx_megakernel_step(
+        x, lay["norm_mixer"]["scale"], *(lay["mixer"][k]["w"] for k in
+                                         ("wq", "wk", "wv", "wo")),
+        lay["norm_ffn"]["scale"], *(lay["ffn"][k]["w"] for k in
+                                    ("gate", "up", "down")),
+        *pools, page_rows, row_start, seq_lens,
+        head_dim=d, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
+        ffn_kind=cfg.ffn_kind, quant=cfg.quant, fmt_name=cfg.quant.fmt,
+        block_size=min(cfg.quant.block_size, d), softcap=cfg.attn_softcap,
+        window=cfg.all_blocks()[0].window, compute_dtype=cfg.compute_dtype,
+        page_fmts=page_fmts, mixed_fmts=mixed_fmts)
+    return _ragged_head(params, cfg, x, row_start, seq_lens, logit_idx)

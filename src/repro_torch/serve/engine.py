@@ -6,7 +6,11 @@ pending token and one prompt chunk per prefilling sequence into a
 (max_slots, W) row batch and runs ONE ``model.ragged_step_paged`` over
 it: per layer, projections and RoPE in PyTorch, then the ragged MX
 page-walk kernel, which quantizes the rows' new K/V into their pages and
-attends over them. ``step_mode="split"``, the reference's own oracle,
+attends over them. ``step_mode="megakernel"`` runs the same step with the
+whole layer stack in one kernel launch (``model.megakernel_step_paged``
+over stacked weights and pools); configurations it cannot serve fall
+back to the per-layer ragged step, or to split, with the reference's
+reasons and log line. ``step_mode="split"``, the reference's own oracle,
 runs the separate dispatches instead: prefill chunks under a per-step
 token budget, round-robin across prefilling sequences, each batch one
 ``model.prefill_chunk_paged`` (the chunked-prefill kernel); then one
@@ -34,10 +38,9 @@ The page pools update in place: the reference's jitted steps donate the
 cache pytree and return a new one instead.
 
 Options of the reference's ``ServeConfig`` that this port does not run
-yet (the megakernel step, monolithic prefill, speculation, the mesh,
-overload control, temperature > 0, several prompt chunks per ragged
-row) raise ``NotImplementedError`` at construction; none falls back
-silently.
+yet (monolithic prefill, speculation, the mesh, overload control,
+temperature > 0, several prompt chunks per ragged row) raise
+``NotImplementedError`` at construction; none falls back silently.
 """
 from __future__ import annotations
 
@@ -50,11 +53,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import MXTensor
 from repro_torch.core.formats import FORMAT_BY_ID, FORMAT_IDS
 from repro_torch.kernels import (mx_attention_prefill_fused,
                                  mx_attention_ragged_fused,
-                                 mx_attention_verify_fused, mx_repack_pages)
-from repro_torch.nn import model
+                                 mx_attention_verify_fused,
+                                 mx_megakernel_step, mx_repack_pages)
+from repro_torch.nn import blocks, model
 from repro_torch.nn.config import ModelConfig
 
 from . import kv_cache, sampling
@@ -64,9 +69,10 @@ from .scheduler import Scheduler
 
 log = logging.getLogger(__name__)
 
-#: the page-walk kernels of the engine steps, whose launches a step counts
+#: the kernels of the engine steps (the page walks and the megakernel),
+#: whose launches a step counts
 _ATTN_KERNELS = (mx_attention_ragged_fused, mx_attention_verify_fused,
-                 mx_attention_prefill_fused)
+                 mx_attention_prefill_fused, mx_megakernel_step)
 
 #: element bit width per MX format name (drives quarter-page unit costs)
 _FMT_BITS = {"fp8_e4m3": 8, "fp8_e5m2": 8, "fp6_e3m2": 6, "fp6_e2m3": 6,
@@ -118,9 +124,11 @@ class ServeConfig:
     max_deferrals: int = 8
     tiered: bool = False
     tier_policy: Optional[TierPolicy] = None
-    # "ragged" (one dispatch a step) or "split" (the reference's oracle:
+    # "ragged" (one dispatch a step), "megakernel" (that dispatch's whole
+    # layer stack as one kernel launch) or "split" (the reference's oracle:
     # prefill-chunk dispatches, then one decode dispatch); configurations
-    # the ragged step cannot serve fall back to split
+    # the megakernel cannot serve fall back to ragged, and those the ragged
+    # step cannot serve to split
     step_mode: str = "ragged"
     # the split step's attention: "fused" (the MX page-walk kernels) or
     # "einsum" (the gather oracle; a wide bf16 cache always takes it)
@@ -162,21 +170,19 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
             "(expected 'ragged', 'split' or 'megakernel')")
     if scfg.prefill_max_chunks < 1:
         raise ValueError("prefill_max_chunks must be >= 1")
-    if scfg.step_mode == "megakernel":
-        raise _unported("step_mode='megakernel'", "A10")
     if scfg.prefill_mode != "chunked":
         raise _unported(f"prefill_mode={scfg.prefill_mode!r}",
-                        "A8 monolithic prefill")
+                        "A4 monolithic prefill")
     if scfg.spec_decode:
-        raise _unported("speculative decoding", "A7")
+        raise _unported("speculative decoding", "A2")
     if scfg.mesh_shape is not None:
-        raise _unported("sharded serving (mesh_shape)", "A11")
+        raise _unported("sharded serving (mesh_shape)", "A7")
     if scfg.slo_ms is not None or scfg.max_queue is not None:
-        raise _unported("overload control (slo_ms / max_queue)", "A9")
+        raise _unported("overload control (slo_ms / max_queue)", "A3")
     if scfg.temperature > 0:
         raise NotImplementedError(sampling.UNPORTED)
     if any(bd.mixer != "attn" for bd in cfg.all_blocks()):
-        raise _unported("non-attention mixers", "A12")
+        raise _unported("non-attention mixers", "A8")
     if scfg.prefill_max_chunks != 1:
         raise _unported("prefill_max_chunks > 1 (several prompt chunks per "
                         "ragged row)", "A5")
@@ -250,11 +256,41 @@ class ContinuousBatchingEngine:
         # ported ones); anything else runs the split dispatches
         ragged_ok = (serve_cfg.decode_kernel == "fused"
                      and cfg.quant.enabled and cfg.quant.quantize_kv_cache)
-        self.ragged = serve_cfg.step_mode == "ragged" and ragged_ok
-        if serve_cfg.step_mode == "ragged" and not self.ragged:
+        # "megakernel" is the ragged step with its layer stack fused, so
+        # it inherits every ragged prerequisite
+        ragged_like = serve_cfg.step_mode in ("ragged", "megakernel")
+        self.ragged = ragged_like and ragged_ok
+        if ragged_like and not self.ragged:
             log.info("ragged step disabled: needs attention-only mixers, "
                      "decode_kernel='fused', a quantized KV cache and "
                      "chunked prefill; using split dispatches")
+        # the reference's megakernel ladder: any rung that fails drops to
+        # the per-layer ragged step (or split) with a log line; a CUDA
+        # build or launch failure is no rung, it raises
+        self.megakernel = False
+        self._megakernel_fallback_reason = None
+        if serve_cfg.step_mode == "megakernel":
+            if not self.ragged:
+                reason = ("ragged prerequisites unmet (the megakernel is "
+                          "the ragged step fused over layers)")
+            elif serve_cfg.mesh_shape is not None:
+                # unreachable while _check_supported refuses meshes (A7)
+                reason = ("sharded mesh — megakernel under shard_map is a "
+                          "follow-on (see ROADMAP)")
+            elif any(isinstance(leaf, MXTensor)
+                     for leaf in _param_leaves(params)):
+                reason = ("MXTensor (pre-quantized) weights — the "
+                          "megakernel pre-quantizes wide masters itself")
+            else:
+                reason = blocks.megakernel_reject_reason(cfg)
+            if reason is None:
+                self.megakernel = True
+            else:
+                self._megakernel_fallback_reason = reason
+                log.info("megakernel step disabled: %s; falling back to "
+                         "the %s step", reason,
+                         "per-layer ragged" if self.ragged
+                         else "split-dispatch")
         # the ragged kernel maps -1 table entries (inactive rows, table
         # tails) onto a reserved trash page beyond the scheduler's; the
         # split step drops such writes on the host and needs none
@@ -284,11 +320,21 @@ class ContinuousBatchingEngine:
         self.cache = model.init_paged_cache(
             cfg, self.num_pages + self._trash_pages, ps, self.device,
             tiered=self.tiered)
+        if self.megakernel:
+            # the kernel reads the (L, ...) stacks behind the per-layer
+            # weights and pools; raises for params laid out otherwise
+            model.megakernel_stacks(params, self.cache)
+        self._step_model = (model.megakernel_step_paged if self.megakernel
+                            else model.ragged_step_paged)
         self._width = serve_cfg.prefill_chunk
         self.steps = 0  # steps that decoded at least one token
-        # attention kernel launches on the card over all steps / last step
+        # attention kernel launches on the card over all steps / last step,
+        # and those of one ragged or megakernel dispatch (the reference's
+        # pallas_calls_per_step; measured at the first such dispatch on
+        # the card, None on the CPU, where the plain versions run)
         self.kernel_launches = 0
         self.kernel_launches_last_step = 0
+        self.launches_per_step = None
         # host wall time of each step's model dispatches, ending in a
         # device sync (sliding window); a split step's repack is outside
         self.step_seconds: deque = deque(maxlen=4096)
@@ -616,8 +662,9 @@ class ContinuousBatchingEngine:
             return
         dev = self.device
         tier_args = self._tier_args()
+        launches0 = self._launches()
         t0 = time.perf_counter()
-        logits = model.ragged_step_paged(
+        logits = self._step_model(
             self.params, self.cfg, self.cache,
             torch.as_tensor(tokens, device=dev).long(),
             torch.as_tensor(page_rows, device=dev),
@@ -626,6 +673,12 @@ class ContinuousBatchingEngine:
             torch.as_tensor(logit_idx, device=dev), **tier_args)
         toks = sampling.greedy(logits).cpu().numpy()  # syncs
         self.step_seconds.append(time.perf_counter() - t0)
+        if self.launches_per_step is None and dev.type == "cuda":
+            self.launches_per_step = self._launches() - launches0
+            log.info("step audit: %d kernel launch(es) per engine step (%s)",
+                     self.launches_per_step,
+                     "layer-fused megakernel" if self.megakernel
+                     else "per-layer ragged step")
         self._count_dispatch("ragged")
         self._record_step_tokens(
             logits, [(seq, seq.slot) for seq in decode]
@@ -818,7 +871,7 @@ class ContinuousBatchingEngine:
         table = torch.full((rows, self.scheduler.pages_per_slot), -1,
                            dtype=torch.int32, device=dev)
         if self.ragged:
-            model.ragged_step_paged(
+            self._step_model(
                 self.params, self.cfg, self.cache,
                 torch.zeros((rows, self._width), dtype=torch.long,
                             device=dev), table, zeros, zeros + 1, zeros,
@@ -872,10 +925,14 @@ class ContinuousBatchingEngine:
                 if self.prompt_tokens else 0.0),
             "prefill_chunks": self.prefill_chunks,
             "prefill_dispatches": self.prefill_dispatches,
-            "step_mode": "ragged" if self.ragged else "split",
+            "step_mode": ("megakernel" if self.megakernel
+                          else "ragged" if self.ragged else "split"),
+            "megakernel": self.megakernel,
+            "megakernel_fallback_reason": self._megakernel_fallback_reason,
             "ragged_steps": self.dispatch_counts["ragged"],
             "decode_steps": self.steps,
             "kernel_launches": self.kernel_launches,
+            "launches_per_step": self.launches_per_step,
             "min_top2_gap_ulps": self.min_top2_gap_ulps,
         }
         for kind, n in self.dispatch_counts.items():
@@ -898,6 +955,17 @@ class ContinuousBatchingEngine:
         if sched.prefix is not None:
             stats.update(sched.prefix.stats())
         return stats
+
+
+def _param_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _param_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _param_leaves(v)
+    else:
+        yield tree
 
 
 # the default engine: continuous batching over the paged MX cache

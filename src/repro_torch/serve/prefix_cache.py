@@ -13,7 +13,7 @@ tree holds one reference per node's page while the node exists;
 requesting sequence; :meth:`evict` drops least-recently-used leaves that
 nobody else references. The chunked prefill the port runs only consumes
 page-aligned hits, so the reference's partial-page entries (a
-monolithic-prefill feature) and its npz persistence (ROADMAP A9) are not
+monolithic-prefill feature) and its npz persistence (ROADMAP A4, A3) are not
 carried over.
 """
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Temperature 0 takes the exact f32 argmax of each row, first index on
 ties, as ``jnp.argmax`` does. Stochastic sampling needs the reference's
 counter-based threefry streams to give the same tokens and is not ported
-yet (ROADMAP A7): asking for it raises ``NotImplementedError``.
+yet (ROADMAP A2): asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 UNPORTED = ("stochastic sampling (temperature > 0) is not ported to "
-            "repro_torch yet (ROADMAP A7: the reference's counter-based "
+            "repro_torch yet (ROADMAP A2: the reference's counter-based "
             "threefry streams)")
 
 

@@ -143,7 +143,7 @@ def test_prefix_preemption_scenario_is_a_near_tie_not_a_paging_fault(
 
 
 @pytest.mark.parametrize("override", [
-    dict(step_mode="megakernel"), dict(max_queue=4),
+    dict(step_mode="megakernel", prefill_max_chunks=2), dict(max_queue=4),
     dict(prefill_mode="monolithic"), dict(spec_decode=True),
     dict(mesh_shape=(1, 2)), dict(slo_ms=50.0),
     dict(temperature=0.7), dict(prefill_max_chunks=2)])
