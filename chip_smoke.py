@@ -60,11 +60,19 @@ code is not 0 and no result line is printed:
   5. the MX dot products at granite-8b widths: hold the quantize kernel
      bit-exact and the weight-only, MX x MX and dgrad matmul kernels
      within tolerance against their plain versions at one layer's seven
-     projection shapes, time each kernel beside its bound, its plain
-     version and cuBLAS, time the paper's three tiers (``mx_dot`` modes),
-     and drive the entry points (``nn.linear.apply``, ``quantize_pallas``
-     with ``mx_dot``, ``mx_matmul_trainable``) with the counts reset just
-     before and read just after;
+     projection shapes at M = 512 and M = 8, a ragged shape, blocks 8 to
+     128 on both copy paths, an f32 activation for the weight-only kernel,
+     three formats and both accumulations, with every pair of calls
+     bit-equal (a one-tile contraction with bf16 accumulation against the
+     exact tile loop); count the tensor-core instructions of the matmul
+     kernels in their SASS; time each kernel
+     beside its bound, its plain version and one library call (cuBLAS
+     bf16 on pre-dequantized operands; for dgrad the f32 matmul that
+     computes its function, its bf16 call beside it); time the paper's
+     three tiers (``mx_dot`` modes), and drive the entry points
+     (``nn.linear.apply``, ``quantize_pallas`` with ``mx_dot``,
+     ``mx_matmul_trainable``) with the counts reset just before and read
+     just after;
   6. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
@@ -2205,70 +2213,238 @@ def _mx_weight(k: int, n: int, fmt: str, block: int, gen):
     return quantize(_gauss((k, n), gen, 1 / 64), fmt, block, axis=0)
 
 
+#: phase 5's ragged shape: M, K, N off every tile edge, bk 64
+RAGGED = (77, 4160, 1000)
+#: blocks larger than a 64-element stage (128) and smaller than a k16 step
+#: (8), each on both copy paths: K / block a multiple of 16 (TMA) and not
+#: (cp.async: 4608 / 128 = 36, 576 / 8 = 72), each with the contraction
+#: split over CTAs (M 77) on one path and unsplit (M 512) on the other, and
+#: 8 or 9 bk tiles as at the projections (bk 512; 64 at K 576)
+BLOCK_SHAPES = {128: ((77, DM, 1000), (MX_ROWS, 4608, DM)),
+                8: ((MX_ROWS, DM, DM), (77, 576, 1000))}
+#: a contraction of one bk tile at block 128 (cp.async path)
+ONE_TILE = (300, 512, 260)
+
+
+def mx_matmul_cases() -> list:
+    """(label, M, K, N, format, block, accumulation, A dtypes of wo) of
+    phase 5's matmul check: the seven projections at M = 512 (fp8 e4m3 and
+    fp4 e2m1); e5m2, blocks 16 and 64 and bf16 accumulation at wq; the seven
+    projections at a decode step's M = 8; an f32 A at wq (f32
+    accumulation), the ragged shape and the split gate at M = 8 (bf16 and
+    f32 A, both accumulations) in three formats; then an f32 A at wq with
+    bf16 accumulation, blocks 8 and 128 on both copy paths and the
+    one-tile shape at block 128 (bf16 and f32 A, both accumulations), each
+    in three formats. Later cases draw their operands after the earlier
+    ones, so adding one leaves the others' inputs as they were."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    fmts = ("fp8_e4m3", "fp8_e5m2", "fp4_e2m1")
+    cases = [(name, MX_ROWS, *PROJ[name], fmt, BLOCK, f32, ("bf16",))
+             for name in PROJ for fmt in ("fp8_e4m3", "fp4_e2m1")]
+    cases += [("wq", MX_ROWS, DM, DM, fmt, block, acc, ("bf16",))
+              for fmt, block, acc in (("fp8_e5m2", BLOCK, f32),
+                                      ("fp8_e4m3", 16, f32),
+                                      ("fp8_e4m3", 64, f32),
+                                      ("fp8_e4m3", BLOCK, bf16),
+                                      ("fp4_e2m1", BLOCK, bf16))]
+    cases += [(name, DECODE_ROWS, *PROJ[name], "fp8_e4m3", BLOCK, f32,
+               ("bf16",)) for name in PROJ]
+    for fmt in fmts:
+        cases.append(("wq", MX_ROWS, DM, DM, fmt, BLOCK, f32, ("f32",)))
+        for acc in (f32, bf16):
+            cases += [("ragged", *RAGGED, fmt, BLOCK, acc, ("bf16", "f32")),
+                      ("gate", DECODE_ROWS, *PROJ["gate"], fmt, BLOCK, acc,
+                       ("bf16", "f32"))]
+    for fmt in fmts:
+        cases.append(("wq", MX_ROWS, DM, DM, fmt, BLOCK, bf16, ("f32",)))
+        cases += [(f"block {block}", *shape, fmt, block, acc,
+                   ("bf16", "f32"))
+                  for block, shapes in BLOCK_SHAPES.items()
+                  for shape in shapes for acc in (f32, bf16)]
+        cases += [("one tile", *ONE_TILE, fmt, 128, acc, ("bf16", "f32"))
+                  for acc in (f32, bf16)]
+    return cases
+
+
 def check_mx_matmuls(gen) -> dict:
-    """wo and vv at the seven projection shapes, plus formats, block sizes
-    and bf16 accumulation at one shape; returns the worst |kernel - plain|
-    of each kernel."""
+    """wo (bf16 and f32 A) and vv over mx_matmul_cases against their plain
+    versions; every kernel called twice on the same inputs must give the
+    same bits (split or not). Two kinds of bf16-accumulation case are held
+    to the exact tile loop instead (_bf16_tile_range: more than BF16_SAME
+    of the outputs equal to it, every one within the range its partials
+    reach inside the f32 bar), because the two-ulp bar against the plain
+    version assumes that both sides sum the same exact products to within
+    a bf16 rounding: an f32 A, whose products the plain version rounds to
+    f32 (24 + 8 significant bits) where the kernel's three bf16 terms
+    multiply exactly; and a contraction of one tile, where an output that
+    nearly cancels (|partial| ~1e-7 of |A|.|B|^T) makes any f32 sum's
+    order error several bf16 ulps of |partial|. Both sides' distance from
+    the exact loop and from each other is logged
+    (tools/mx_matmul_bf16_witness.py measures them more widely). Returns
+    the worst |kernel - plain| of each kernel."""
     from repro_torch.kernels import mx_matmul as mm
     from repro_torch.kernels.ops import _tile, quantize_pallas
 
     worst = {"mx_matmul_wo": 0.0, "mx_matmul_vv": 0.0}
-    cases = [(name, fmt, BLOCK, torch.float32) for name in PROJ
-             for fmt in ("fp8_e4m3", "fp4_e2m1")]
-    cases += [("wq", "fp8_e5m2", BLOCK, torch.float32),
-              ("wq", "fp8_e4m3", 16, torch.float32),
-              ("wq", "fp8_e4m3", 64, torch.float32),
-              ("wq", "fp8_e4m3", BLOCK, torch.bfloat16),
-              ("wq", "fp4_e2m1", BLOCK, torch.bfloat16)]
-    for name, fmt, block, acc in cases:
-        k, n = PROJ[name]
+    ratios = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    exact_vs_plain = 0.0
+    off = {"kernel": 0, "plain version": 0, "outputs": 0}
+    same_min = 1.0
+    cases = mx_matmul_cases()
+    for label, m, k, n, fmt, block, acc, wide in cases:
         w = _mx_weight(k, n, fmt, block, gen)
-        x = _gauss((MX_ROWS, k), gen).bfloat16()
+        x = _gauss((m, k), gen)
         xq = quantize_pallas(x, fmt, block)
         bk = max(_tile(k, 512), block)
         kw = dict(fmt_name=fmt, block_size=block, acc_dtype=acc, bk=bk)
         w_wide = w.dequantize()
-        runs = {
-            "mx_matmul_wo": (
-                lambda: mm.mx_matmul_wo(x, w.elements, w.scales, **kw),
-                lambda: mm.mx_matmul_wo_plain(x, w.elements, w.scales, **kw),
-                x.float()),
-            "mx_matmul_vv": (
-                lambda: mm.mx_matmul_vv(xq.elements, xq.scales, w.elements,
-                                        w.scales, **kw),
-                lambda: mm.mx_matmul_vv_plain(xq.elements, xq.scales,
-                                              w.elements, w.scales, **kw),
-                xq.dequantize())}
-        for kernel, (run, plain, a_wide) in runs.items():
-            got = run()
-            if got.shape != (MX_ROWS, n) or got.dtype != acc \
+        runs = [("mx_matmul_vv", "MX",
+                 lambda: mm.mx_matmul_vv(xq.elements, xq.scales, w.elements,
+                                         w.scales, **kw),
+                 lambda: mm.mx_matmul_vv_plain(xq.elements, xq.scales,
+                                               w.elements, w.scales, **kw),
+                 xq.dequantize())]
+        for dtype in wide:
+            a = x.bfloat16() if dtype == "bf16" else x
+            runs.append((
+                "mx_matmul_wo", dtype,
+                lambda a=a: mm.mx_matmul_wo(a, w.elements, w.scales, **kw),
+                lambda a=a: mm.mx_matmul_wo_plain(a, w.elements, w.scales,
+                                                  **kw),
+                a.float()))
+        for kernel, a_type, run, plain, a_wide in runs:
+            what = (f"{kernel} {label} ({m}, {k}, {n}) {fmt} block {block} "
+                    f"A {a_type} {acc}")
+            got, again = run(), run()
+            if got.shape != (m, n) or got.dtype != acc \
                     or not torch.isfinite(got).all():
-                raise AssertionError(f"{kernel} {name} {fmt}: bad output")
+                raise AssertionError(f"{what}: bad output")
+            if not torch.equal(got.view(torch.uint8), again.view(torch.uint8)):
+                raise AssertionError(f"{what}: two calls differ")
             if acc == torch.float32:
                 bound, min_same = MM_RTOL * (a_wide.abs() @ w_wide.abs()), 0.0
             else:
                 bound = _bf16_acc_bound(a_wide, w_wide, bk)
                 min_same = BF16_SAME
+            want = plain()
+            vs_plain = float((got.float() - want.float()).abs().max())
             try:
-                err, same, ratio = _mm_error(got, plain(), bound, min_same)
+                if acc == torch.bfloat16 and (a_type == "f32"
+                                              or label == "one tile"):
+                    exact_vs_plain = max(exact_vs_plain, float((
+                        (got.float() - want.float()).abs()
+                        / bound.clamp(min=1e-30)).max()))
+                    exact, lo, hi = _bf16_tile_range(a_wide, w_wide, bk)
+                    off["kernel"] += int((got != exact).sum())
+                    off["plain version"] += int((want != exact).sum())
+                    off["outputs"] += got.numel()
+                    if ((got.float() < lo.float())
+                            | (got.float() > hi.float())).any():
+                        raise AssertionError("outside the exact tile loop's "
+                                             "range")
+                    same = float((got == exact).float().mean())
+                    if same <= BF16_SAME:
+                        raise AssertionError(f"only {same:.6f} of the "
+                                             "outputs equal to the exact "
+                                             "tile loop")
+                    ratio = 0.0
+                else:
+                    _, same, ratio = _mm_error(got, want, bound, min_same)
             except AssertionError as exc:
-                raise AssertionError(f"{kernel} {name} ({k}, {n}) {fmt} "
-                                     f"block {block} {acc}: {exc}") from None
-            worst[kernel] = max(worst[kernel], err)
+                raise AssertionError(f"{what}: {exc}") from None
+            worst[kernel] = max(worst[kernel], vs_plain)
+            ratios[acc] = max(ratios[acc], ratio)
             if acc == torch.bfloat16:
-                log(f"{kernel} {name} {fmt} bf16 accumulation: "
-                    f"{same:.7f} of the outputs identical to the plain "
-                    f"version, max |diff| {err:.4g} = {2 * ratio:.3g} bf16 "
-                    "ulps of the largest |partial| or |running sum|")
+                same_min = min(same_min, same)
     torch.cuda.synchronize()
-    log(f"mx_matmul_wo / mx_matmul_vv at M={MX_ROWS} over the seven "
-        f"projections (fp8 e4m3, fp4 e2m1, block {BLOCK}, f32) and at wq "
-        "with e5m2, blocks 16 and 64, bf16 accumulation: within "
-        f"{MM_RTOL:g} x |A|.|B|^T (f32); bf16: more than {BF16_SAME} of the "
-        "outputs identical and all within two bf16 ulps of the largest "
-        "|partial| or |running sum|; max |diff| wo "
-        f"{worst['mx_matmul_wo']:.3g}, vv {worst['mx_matmul_vv']:.3g}")
+    log(f"mx_matmul_wo / mx_matmul_vv over {len(cases)} cases (the seven "
+        f"projections at M={MX_ROWS} and M={DECODE_ROWS}; e5m2, blocks 16 "
+        f"and 64 at wq; an f32 A at wq, the ragged {RAGGED}, the split gate "
+        f"at M=8 and blocks 8 and 128 on both copy paths {dict(BLOCK_SHAPES)}"
+        " with bf16 and f32 A in three formats and both accumulations; the "
+        f"one-tile {ONE_TILE} at block 128): "
+        "every pair of calls bit-equal; f32 within "
+        f"{MM_RTOL:g} x |A|.|B|^T (worst {ratios[torch.float32]:.3g} of "
+        "the bar); bf16: at least "
+        f"{same_min:.7f} of the outputs identical (bar {BF16_SAME}) and all "
+        "within two bf16 ulps of the largest |partial| or |running sum| "
+        f"(worst {ratios[torch.bfloat16]:.3g} of the bar); an f32 A and the "
+        "one tile within the range of the exact tile loop, "
+        f"{exact_vs_plain:.3g} of the bar from the plain version; of their "
+        f"{off['outputs']} outputs the kernels' {off['kernel']} and the "
+        f"plain versions' {off['plain version']} off the exact loop; max "
+        f"|kernel - plain| wo {worst['mx_matmul_wo']:.3g}, "
+        f"vv {worst['mx_matmul_vv']:.3g}")
     return worst
+
+
+def _bf16_tile_range(a: torch.Tensor, w: torch.Tensor, bk: int) -> tuple:
+    """(exact, lo, hi) of the bf16 tile loop over ``a`` (M, K) and ``w``
+    (K, N), wide f32 operands with the block scales folded in: ``exact``
+    runs it on exact partials (each bk tile's product in f64, rounded once
+    to f32, then the reference's two bf16 roundings); ``lo`` and ``hi`` on
+    every partial moved down and up by the f32 bar, MM_RTOL x |A|.|B|^T of
+    its tile. Each rounding and add is monotone, so any loop whose partials
+    lie within the f32 bar of the exact ones ends between lo and hi."""
+    outs = [torch.zeros((a.shape[0], w.shape[1]), dtype=torch.bfloat16,
+                        device=a.device) for _ in range(3)]
+    for k0 in range(0, a.shape[1], bk):
+        at, wt = a[:, k0:k0 + bk].double(), w[k0:k0 + bk].double()
+        p = at @ wt
+        slack = MM_RTOL * (at.abs() @ wt.abs())
+        for i, q in enumerate((p, p - slack, p + slack)):
+            outs[i] = (outs[i].float()
+                       + q.float().bfloat16().float()).bfloat16()
+    return tuple(outs)
+
+
+def check_matmul_sass() -> None:
+    """Tensor-core (HGMMA) and scalar FMA (FFMA) instructions of every
+    kernel in the built mx_matmul library (``cuobjdump --dump-sass``):
+    each instantiation of mx_matmul_tc_kernel must hold HGMMA."""
+    from repro_torch.kernels import build
+
+    build.load("mx_matmul")  # built if it is not yet
+    tool = build.nvcc_path().replace("nvcc", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass",
+                           str(build.library_path("mx_matmul"))],
+                          check=True, capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "FFMA" in line
+    tc = {k: v for k, v in counts.items() if "mx_matmul_tc_kernel" in k}
+    if not tc or any(hgmma == 0 for hgmma, _ in tc.values()):
+        raise AssertionError(f"mx_matmul_tc_kernel without HGMMA: {tc}")
+    log("mx_matmul SASS, HGMMA / FFMA per kernel: " + "; ".join(
+        f"{k.split('mx_matmul_cu_')[-1][8:]} {h} / {f}"
+        for k, (h, f) in counts.items()))
+
+
+def log_long_contraction_error(gen) -> None:
+    """The weight-only kernel's f32 result at granite's longest
+    contraction (down, K 14336) and M = 512 against the f64 product,
+    beside the plain version's, as a share of |A|.|B|^T."""
+    from repro_torch.kernels import mx_matmul as mm
+
+    k, n = PROJ["down"]
+    w = _mx_weight(k, n, "fp8_e4m3", BLOCK, gen)
+    x = _gauss((MX_ROWS, k), gen).bfloat16()
+    kw = dict(fmt_name="fp8_e4m3", block_size=BLOCK, bk=512)
+    w64 = w.dequantize().double()
+    exact = x.double() @ w64
+    mag = x.double().abs() @ w64.abs()
+    errs = {name: float(((run(x, w.elements, w.scales, **kw).double()
+                          - exact).abs() / mag).max())
+            for name, run in (("kernel", mm.mx_matmul_wo),
+                              ("plain version", mm.mx_matmul_wo_plain))}
+    log(f"down (K {k}) at M={MX_ROWS}, bf16 A, f32 accumulation, against "
+        "the f64 product: max |error| / |A|.|B|^T " + ", ".join(
+            f"{name} {e:.3g}" for name, e in errs.items()))
 
 
 def check_mx_dgrad(gen) -> float:
@@ -2301,10 +2477,16 @@ def _bound(nbytes: float, ops: float, peak: float) -> tuple:
 
 
 def time_mx_kernels(gen) -> dict:
-    """Kernel, plain version, bound and cuBLAS times of the four kernels at
-    granite's gate/up projection (K 4096, N 14336, fp8 e4m3, block 32),
+    """Kernel, plain version, bound and library times of the four kernels
+    at granite's gate/up projection (K 4096, N 14336, fp8 e4m3, block 32),
     at M = 512 (a ragged step) and M = 8 (a decode step); weight-only in
-    fp4 too. Every timed run starts with the L2 cache flushed."""
+    fp4 too. The library call is cuBLAS bf16 on pre-dequantized operands
+    for wo and vv, and for dgrad (f32 dy) the f32 matmul with TF32 off;
+    dgrad's bf16 call is timed beside it. Every timed run starts with the
+    L2 cache flushed."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off: the f32 yardstick and the "
+                             "plain versions compute in f32")
     from repro_torch.core import formats as F
     from repro_torch.kernels import mx_matmul as mm
     from repro_torch.kernels import mx_quantize as mq
@@ -2323,6 +2505,7 @@ def time_mx_kernels(gen) -> dict:
             f = F.get_format(fmt)
             w = _mx_weight(k, n, fmt, BLOCK, gen)
             wb = w.dequantize(torch.bfloat16)  # (K, N): cuBLAS's operand
+            wf = w.dequantize()  # (K, N) f32: dgrad's function's operand
             w_bytes = n * f.storage_len(k) + n * k // BLOCK
             xq = quantize_pallas(x, fmt, BLOCK)
             a_bytes = m * f.storage_len(k) + m * k // BLOCK
@@ -2353,9 +2536,14 @@ def time_mx_kernels(gen) -> dict:
                     lambda: mm.mx_matmul_dgrad_plain(
                         dy, w.elements, w.scales, fmt_name=fmt,
                         block_size=BLOCK, bn=_tile(n, 128)),
-                    lambda: torch.matmul(dyb, wb.T),
-                    _bound(4 * m * n + w_bytes + 4 * m * k, flops,
-                           F32_FLOPS)),
+                    # the f32 call computes dgrad's function (f32 dy, 1e-5
+                    # bar); TF32 is off, so it runs on the CUDA cores
+                    lambda: torch.matmul(dy, wf.T),
+                    # the least work for it: f32 dy splits exactly into
+                    # three bf16 terms and W's values are bf16, so three
+                    # bf16 tensor-core products compute it exactly
+                    _bound(4 * m * n + w_bytes + 4 * m * k, 3 * flops,
+                           BF16_FLOPS)),
                 "mx_quantize": (
                     lambda: mq.mx_quantize(x, fmt_name=fmt, block_size=BLOCK),
                     lambda: mq.mx_quantize_plain(x, fmt_name=fmt,
@@ -2376,12 +2564,24 @@ def time_mx_kernels(gen) -> dict:
                                            bound_ms=bound_ms,
                                            bound_by=bound_by,
                                            library_ms=lib_ms)
+                if name == "mx_matmul_dgrad":
+                    bf16_ms = cuda_ms(lambda: torch.matmul(dyb, wb.T), 25,
+                                      flush)
+                    out[(name, fmt, m)]["bf16_call_ms"] = bf16_ms
+                    yardstick = (
+                        f"f32 torch.matmul on pre-dequantized W (TF32 off, "
+                        f"the same function) {lib_ms:.4f} ms; beside it "
+                        f"cuBLAS bf16 on bf16 dy, a different function "
+                        f"(dy rounded to bf16), {bf16_ms:.4f} ms")
+                elif library:
+                    yardstick = (f"cuBLAS bf16 matmul on pre-dequantized "
+                                 f"operands {lib_ms:.4f} ms (dequantization "
+                                 "not included)")
+                else:
+                    yardstick = "no single PyTorch call computes it"
                 log(f"time {name} {fmt} M={m} K={k} N={n}: kernel {ms:.4f} "
                     f"ms (median of 25), plain {plain_ms:.3f} ms (median of "
-                    f"5), bound {bound_ms:.4g} ms ({bound_by}), "
-                    + (f"cuBLAS bf16 matmul on pre-dequantized operands "
-                       f"{lib_ms:.4f} ms (dequantization not included)"
-                       if library else "no single PyTorch call computes it"))
+                    f"5), bound {bound_ms:.4g} ms ({bound_by}), " + yardstick)
     del scratch
     return out
 
@@ -2496,7 +2696,9 @@ def check_mx_dot_products() -> list:
     gen = torch.Generator("cuda").manual_seed(5)
     t0 = time.perf_counter()
     check_mx_quantize(gen)
+    check_matmul_sass()
     worst = check_mx_matmuls(gen)
+    log_long_contraction_error(gen)
     worst["mx_matmul_dgrad"] = check_mx_dgrad(gen)
     times = time_mx_kernels(gen)
     time_three_tiers(gen)

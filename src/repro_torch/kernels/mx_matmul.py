@@ -20,10 +20,19 @@ reference's ``o_ref[...] += partial.astype(o_ref.dtype)`` does. On CUDA
 tensors each wrapper launches its kernel in ``csrc/mx_matmul.cu``; on CPU
 tensors it runs its ``*_plain`` PyTorch version, which repeats that
 arithmetic tile by tile.
+
+On the card ``mx_matmul_wo`` and ``mx_matmul_vv`` run one tensor-core
+kernel: the MX bytes are decoded to bf16 (exact) in shared memory and
+multiplied by ``wgmma``; an f32 ``a`` is split exactly into three bf16
+terms (:func:`bf16x3_split`). :func:`matmul_plan` picks its tiles, its
+copy path and how far the contraction is split over CTAs (a pure
+function of the shapes); a split call also launches a small kernel that
+sums the partials, and counts once.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -42,11 +51,10 @@ def _library():
     if _lib is None:
         lib = build.load("mx_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mx_matmul_wo_launch.argtypes = [p, i, p, p, p] + [i] * 8 + [p]
-        lib.mx_matmul_vv_launch.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.mx_matmul_tc_launch.argtypes = \
+            [p, p, i, p, p, p, p] + [i] * 15 + [p]
         lib.mx_matmul_dgrad_launch.argtypes = [p] * 4 + [i] * 7 + [p]
-        for fn in (lib.mx_matmul_wo_launch, lib.mx_matmul_vv_launch,
-                   lib.mx_matmul_dgrad_launch):
+        for fn in (lib.mx_matmul_tc_launch, lib.mx_matmul_dgrad_launch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -99,14 +107,166 @@ def _device(*tensors) -> torch.device:
     return dev
 
 
-def _acc_flag(acc_dtype) -> int:
+def _check_acc(acc_dtype) -> None:
     if acc_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"acc_dtype must be f32 or bf16, got {acc_dtype}")
-    return int(acc_dtype == torch.bfloat16)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous on a 16-byte boundary: the tensor-core kernel
+    copies 16-byte chunks counted from the base (a view at an odd offset
+    is copied once)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_tc(name: str, a, a_scales, a_kind: str, b_elems, b_scales,
+               k: int, fmt_name: str, block_size: int, acc_dtype, bk: int):
+    """One call of the tensor-core kernel (and of the reduce kernel when
+    the plan splits the contraction) on CUDA tensors; returns (M, N)."""
+    m, n = a.shape[0], b_elems.shape[0]
+    plan = matmul_plan(m, n, k, bk, fmt_name, block_size, a_kind, acc_dtype)
+    a = _aligned(a if a_kind != "mx" else a.view(torch.uint8))
+    a_s = _aligned(a_scales) if a_kind == "mx" else None
+    be, bs = _aligned(_bytes(b_elems)), _aligned(b_scales)
+    out = torch.empty((m, n), dtype=acc_dtype, device=a.device)
+    ws = (torch.empty(plan.workspace_shape(m, n), dtype=torch.float32,
+                      device=a.device) if plan.ws_slots else None)
+    err = _library().mx_matmul_tc_launch(
+        a.data_ptr(), a_s.data_ptr() if a_s is not None else None,
+        A_KINDS[a_kind], be.data_ptr(), bs.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, m, n, k,
+        a.shape[1] * a.element_size(), be.shape[1], block_size,
+        F.FORMAT_IDS[fmt_name], bk, plan.w, plan.bm, plan.splits,
+        plan.tiles_per_split, plan.ws_slots, int(acc_dtype == torch.bfloat16),
+        int(plan.lean), torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: mx_matmul_tc_launch failed: cudaError "
+                           f"{err}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's plan and its f32 split
+# ---------------------------------------------------------------------------
+
+#: streaming multiprocessors of an H100 SXM: the plan splits the
+#: contraction until the CTAs fill them
+SMS = 132
+#: weight rows of one CTA (two halves of 64 rows: wgmma's M)
+TILE_N = 128
+#: contraction elements of one pipeline stage, at most
+STAGE_K = 64
+#: A-operand kinds of the kernel (``a_kind`` of mx_matmul_tc_launch)
+A_KINDS = {"mx": 0, "bf16": 1, "f32": 2}
+
+
+@dataclass(frozen=True)
+class MatmulPlan:
+    """How ``mx_matmul_tc_kernel`` covers out (M, N) = A (M, K) . B^T.
+
+    CTAs form an (m_tiles, n_tiles, splits) grid: ``bm`` activation rows
+    (wgmma's N) by ``TILE_N`` weight rows, over ``tiles_per_split``
+    consecutive ``bk`` tiles of the contraction, each run in ``w``-wide
+    stages. ``lean`` stages (64 elements, blocks of a multiple of 8, K /
+    block a multiple of 16, every stored row a multiple of 16 bytes) arrive
+    by TMA; others by cp.async copies of the 16-byte chunks that cover each
+    row. With ``splits`` > 1
+    each CTA writes f32 partials to a workspace of ``ws_slots`` (M, N)
+    slices: one per split with f32 accumulation, one per bk tile with bf16
+    accumulation (each tile rounds on its own); a second kernel sums them
+    in ascending order.
+    """
+
+    bm: int
+    w: int
+    lean: bool
+    m_tiles: int
+    n_tiles: int
+    k_tiles: int
+    splits: int
+    tiles_per_split: int
+    ws_slots: int
+
+    def ranges(self) -> list:
+        """``[t0, t1)`` bk tiles of each split, in split order."""
+        t = self.tiles_per_split
+        return [(s * t, min((s + 1) * t, self.k_tiles))
+                for s in range(self.splits)]
+
+    def workspace_shape(self, m: int, n: int) -> tuple:
+        return (self.ws_slots, m, n)
+
+
+def _stage_width(bk: int, block_size: int, packed: bool) -> int:
+    """Largest divisor of ``bk`` that is at most STAGE_K and 16 blocks (a
+    stage's E8M0 bytes fit their ring slot), even for packed fp4."""
+    cap = min(STAGE_K, 16 * block_size, bk)
+    for w in range(cap, 0, -1):
+        if bk % w == 0 and not (packed and w % 2):
+            return w
+    raise ValueError(f"no stage width for bk {bk}")
+
+
+def matmul_plan(m: int, n: int, k: int, bk: int, fmt_name: str,
+                block_size: int = 32, a_kind: str = "mx",
+                acc_dtype=torch.float32) -> MatmulPlan:
+    """The tensor-core kernel's tiles and contraction split for one call.
+
+    ``bm`` is the smallest of 16, 64 and 128 that holds ``m``; 128 only on
+    the lean path with f32 accumulation and a bf16 or MX A (an f32 A's
+    three bf16 terms take three tiles of shared memory; bf16
+    accumulation's running sum takes registers). Where the
+    (m, n) tiles alone leave SMs idle (a decode step's M = 8 streams 61 MB
+    of weights at gate/up), the contraction is split by bk tiles until the
+    CTAs fill the card: two resident CTAs an SM at ``bm`` 16, one
+    otherwise.
+    """
+    if a_kind not in A_KINDS:
+        raise ValueError(f"a_kind must be one of {tuple(A_KINDS)}")
+    if k % bk:
+        raise ValueError(f"bk {bk} must divide K = {k}")
+    fmt = F.get_format(fmt_name)
+    w = _stage_width(bk, block_size, fmt.packed)
+    a_row = {"mx": fmt.storage_len(k), "bf16": 2 * k, "f32": 4 * k}[a_kind]
+    lean = (w == STAGE_K and block_size % 8 == 0
+            and (k // block_size) % 16 == 0
+            and fmt.storage_len(k) % 16 == 0 and a_row % 16 == 0)
+    wide = lean and a_kind != "f32" and acc_dtype == torch.float32
+    bm = next(b for b in (16, 64, 128) if m <= b or b == (128 if wide else 64))
+    m_tiles, n_tiles, k_tiles = -(-m // bm), -(-n // TILE_N), k // bk
+    base = m_tiles * n_tiles
+    target = SMS * (2 if bm == 16 else 1)
+    want = max(1, min(k_tiles, target // base))
+    tiles_per_split = -(-k_tiles // want)
+    splits = -(-k_tiles // tiles_per_split)
+    if splits == 1:
+        slots = 0
+    else:
+        slots = k_tiles if acc_dtype == torch.bfloat16 else splits
+    return MatmulPlan(bm, w, lean, m_tiles, n_tiles, k_tiles, splits,
+                      tiles_per_split, slots)
+
+
+def bf16x3_split(a: torch.Tensor) -> tuple:
+    """Plain version of the kernel's split of a flushed f32 ``a`` into
+    three bf16 terms with ``hi + mid + lo == a``: ``hi`` and ``mid`` by
+    truncation to bf16 (exact; never overflows), ``lo`` the remainder,
+    which has at most 8 significant bits and is a bf16 value (subnormal
+    included) for ``|a| >= 2**-110``. The low terms are not flushed."""
+    def trunc(x):
+        return (x.view(torch.int32) & -65536).view(torch.float32)
+
+    a = a.float()
+    hi = trunc(a)
+    r = a - hi
+    mid = trunc(r)
+    lo = r - mid
+    return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
 
 
 # ---------------------------------------------------------------------------
@@ -193,21 +353,14 @@ def mx_matmul_wo(a, b_elems, b_scales, *, fmt_name="fp8_e4m3", block_size=32,
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"a must be f32 or bf16, got {a.dtype}")
     _check_tile(bk, k, fmt, block_size)
-    out_bf16 = _acc_flag(acc_dtype)
+    _check_acc(acc_dtype)
     kw = dict(fmt_name=fmt_name, block_size=block_size, acc_dtype=acc_dtype,
               bk=bk)
     if _device(a, b_elems, b_scales).type == "cpu":
         return mx_matmul_wo_plain(a, b_elems, b_scales, **kw)
-    a, be, bs = a.contiguous(), _bytes(b_elems), b_scales.contiguous()
-    m = a.shape[0]
-    out = torch.empty((m, n), dtype=acc_dtype, device=a.device)
-    err = _library().mx_matmul_wo_launch(
-        a.data_ptr(), int(a.dtype == torch.bfloat16), be.data_ptr(),
-        bs.data_ptr(), out.data_ptr(), m, n, k, b_elems.shape[1], bk,
-        block_size, F.FORMAT_IDS[fmt_name], out_bf16,
-        torch.cuda.current_stream(a.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mx_matmul_wo_launch failed: cudaError {err}")
+    kind = "bf16" if a.dtype == torch.bfloat16 else "f32"
+    out = _launch_tc("mx_matmul_wo", a, None, kind, b_elems, b_scales, k,
+                     fmt_name, block_size, acc_dtype, bk)
     mx_matmul_wo.launches += 1
     return out
 
@@ -225,21 +378,13 @@ def mx_matmul_vv(a_elems, a_scales, b_elems, b_scales, *, fmt_name="fp8_e4m3",
     if kb != k:
         raise ValueError(f"a has K = {k}, b has K = {kb}")
     _check_tile(bk, k, fmt, block_size)
-    out_bf16 = _acc_flag(acc_dtype)
+    _check_acc(acc_dtype)
     kw = dict(fmt_name=fmt_name, block_size=block_size, acc_dtype=acc_dtype,
               bk=bk)
     if _device(a_elems, a_scales, b_elems, b_scales).type == "cpu":
         return mx_matmul_vv_plain(a_elems, a_scales, b_elems, b_scales, **kw)
-    ae, asc = _bytes(a_elems), a_scales.contiguous()
-    be, bs = _bytes(b_elems), b_scales.contiguous()
-    out = torch.empty((m, n), dtype=acc_dtype, device=a_elems.device)
-    err = _library().mx_matmul_vv_launch(
-        ae.data_ptr(), asc.data_ptr(), be.data_ptr(), bs.data_ptr(),
-        out.data_ptr(), m, n, k, a_elems.shape[1], bk, block_size,
-        F.FORMAT_IDS[fmt_name], out_bf16,
-        torch.cuda.current_stream(a_elems.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mx_matmul_vv_launch failed: cudaError {err}")
+    out = _launch_tc("mx_matmul_vv", a_elems, a_scales, "mx", b_elems,
+                     b_scales, k, fmt_name, block_size, acc_dtype, bk)
     mx_matmul_vv.launches += 1
     return out
 
