@@ -10,8 +10,11 @@ code is not 0 and no result line is printed:
 
   1. build every CUDA kernel of the path from ``src/repro_torch/kernels/
      csrc`` with nvcc (one process per source, in parallel);
-  1b. rotated q/k at granite-8b's head_dim and theta, and SiLU-and-round
-     on every finite bf16 gate, bit-equal on the card and the CPU;
+  1b. rotated q/k at granite-8b's head_dim and theta (positions below
+     1,024 and from 32,768 to 40,959), and SiLU-and-round on every finite
+     bf16 gate, bit-equal on the card and the CPU; count the RMSNorm bf16
+     outputs at width 4096 where the card's path parts from the CPU's
+     (the reference's bits);
   2. hold the ragged kernel against its plain PyTorch version on the card
      at granite-8b's attention shapes: fp8 e4m3 and e5m2 pools, packed
      fp4 pools (blocks 32 and 16) and a mixed-format (tiered) pool whose
@@ -32,8 +35,9 @@ code is not 0 and no result line is printed:
      byte for byte and the decode within tolerance against their plain
      versions and the decode oracle, the paged output bit-equal to the
      decode kernel on the contiguous cache and close to the single-pass
-     walk; time each beside its bound, its plain version and a library
-     call;
+     walk; hold the decode's split over keys where masking meets it (a
+     whole split masked inside live rows, a row with every key masked);
+     time each beside its bound, its plain version and a library call;
   2e. hold the layer-fused megakernel (one launch for the whole layer
      stack) against its plain version on the card, on granite-8b's widths
      cut to two layers: logits within one bf16 ulp of the largest, equal
@@ -64,8 +68,10 @@ code is not 0 and no result line is printed:
      128 on both copy paths, an f32 activation for the weight-only kernel,
      three formats and both accumulations, with every pair of calls
      bit-equal (a one-tile contraction with bf16 accumulation against the
-     exact tile loop); count the tensor-core instructions of the matmul
-     kernels in their SASS; time each kernel
+     exact tile loop); dgrad the same way at gate/up (fp8 and fp4, M 512
+     and the split M 8), the ragged shape, blocks 8 and 128 and the one
+     tile; count the tensor-core instructions of the matmul kernels in
+     their SASS; time each kernel
      beside its bound, its plain version and one library call (cuBLAS
      bf16 on pre-dequantized operands; for dgrad the f32 matmul that
      computes its function, its bf16 call beside it); time the paper's
@@ -189,29 +195,42 @@ def cuda_ms(fn, reps: int, before=None) -> float:
 # ---------------------------------------------------------------------------
 
 ROPE_POSITIONS = 1024
+#: the long-position window of phase 1b: past 32,768, where torch's f32
+#: cos/sin part from the C library's (C3)
+LONG_ROPE = (32768, 40960)
+#: phase 1b's RMSNorm rows at granite-8b's width
+NORM_ROWS = 4000
 
 
-def check_rope_and_silu(card: str = "cuda") -> None:
+def check_rope_and_silu(card: str = "cuda") -> dict:
     """Rotated q and k at granite-8b's head_dim 128 and theta 1e7 over
-    positions [0, 1024), and SiLU-and-round of every finite bf16 gate,
-    bit-equal on the card and the CPU. Also counts, for the record, the
-    bf16 cos/sin values the card's own f32 cos/sin would have moved at
-    positions below 4,096 (the port rotates with a host-made table)."""
+    positions [0, 1024) and [32768, 40960) (from a 40,960-position
+    table), and SiLU-and-round of every finite bf16 gate, bit-equal on
+    the card and the CPU. Also counts, for the record, the bf16 cos/sin
+    values the card's own f32 cos/sin would have moved at positions below
+    4,096 (the port rotates with a host-made table), and the RMSNorm gap:
+    bf16 outputs at width 4096 that differ between the card's path (one
+    device reduction, torch.rsqrt) and the CPU's (the reference's window
+    sum and XLA's rsqrt), for f32 and bf16 rows. Returns the gap."""
     from repro_torch.configs import get_config
-    from repro_torch.nn import ffn, rotary
+    from repro_torch.nn import ffn, norms, rotary
 
     cfg = get_config("granite-8b")
     gen = torch.Generator().manual_seed(3)
-    pos = torch.arange(ROPE_POSITIONS, dtype=torch.int32)
-    for name, heads in (("q", cfg.num_heads), ("k", cfg.num_kv_heads)):
-        x = torch.randn(ROPE_POSITIONS, heads, cfg.head_dim,
-                        generator=gen).bfloat16()
-        want = rotary.apply_rope(x, pos, cfg.rope_theta, ROPE_POSITIONS)
-        got = rotary.apply_rope(x.to(card), pos.to(card), cfg.rope_theta,
-                                ROPE_POSITIONS).cpu()
-        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
-            raise AssertionError(f"rotated {name} differs between the card "
-                                 "and the CPU")
+    windows = ((0, ROPE_POSITIONS, ROPE_POSITIONS),
+               (*LONG_ROPE, LONG_ROPE[1]))
+    for lo, hi, table in windows:
+        pos = torch.arange(lo, hi, dtype=torch.int32)
+        for name, heads in (("q", cfg.num_heads), ("k", cfg.num_kv_heads)):
+            x = torch.randn(hi - lo, heads, cfg.head_dim,
+                            generator=gen).bfloat16()
+            want = rotary.apply_rope(x, pos, cfg.rope_theta, table)
+            got = rotary.apply_rope(x.to(card), pos.to(card), cfg.rope_theta,
+                                    table).cpu()
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"rotated {name} at positions {lo}-"
+                                     f"{hi - 1} differs between the card "
+                                     "and the CPU")
     moved = {}
     for theta in (1e4, 1e5, 1e6, 1e7):
         angles = torch.arange(4096, dtype=torch.float32)[:, None] \
@@ -227,11 +246,38 @@ def check_rope_and_silu(card: str = "cuda") -> None:
     if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
         raise AssertionError("SiLU-and-round differs between the card and "
                              "the CPU")
+    gap = {}
+    scale = {"scale": 0.1 * torch.randn(cfg.d_model, generator=gen)}
+    x32 = torch.randn(NORM_ROWS, cfg.d_model, generator=gen) * torch.exp(
+        torch.empty(NORM_ROWS, 1).uniform_(-3, 3, generator=gen))
+    for x in (x32, x32.bfloat16()):
+        # bf16 outputs, as the model's norms give them (an f32 residual
+        # sum goes into the FFN norm with a bf16 result)
+        want = norms.rmsnorm_apply(scale, x, cfg.norm_eps,
+                                   dtype=torch.bfloat16)
+        got = norms.rmsnorm_apply({"scale": scale["scale"].to(card)},
+                                  x.to(card), cfg.norm_eps,
+                                  dtype=torch.bfloat16).cpu()
+        if got.dtype != want.dtype or not torch.isfinite(got.float()).all():
+            raise AssertionError("RMSNorm on the card: bad output")
+        err = (got.float() - want.float()).abs()
+        diff = err > 0
+        ulp = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+        gap[str(x.dtype).replace("torch.", "")] = {
+            "elements": int(diff.sum()), "rows": int(diff.any(-1).sum()),
+            "of_rows": NORM_ROWS, "max_ulps": float(
+                (err[diff] / ulp[diff]).max()) if diff.any() else 0.0}
     log(f"RoPE (head_dim {cfg.head_dim}, theta {cfg.rope_theta:g}, positions "
-        f"0-{ROPE_POSITIONS - 1}, q and k of granite-8b) bit-equal on the "
-        f"card and the CPU; the card's own f32 cos/sin would move "
-        f"{moved} bf16 cos+sin values below position 4096 (by theta); "
-        f"SiLU-and-round bit-equal on all {gates.numel()} finite bf16 gates")
+        f"0-{ROPE_POSITIONS - 1} and {LONG_ROPE[0]}-{LONG_ROPE[1] - 1}, q "
+        f"and k of granite-8b) bit-equal on the card and the CPU; the "
+        f"card's own f32 cos/sin would move {moved} bf16 cos+sin values "
+        f"below position 4096 (by theta); SiLU-and-round bit-equal on all "
+        f"{gates.numel()} finite bf16 gates; RMSNorm at width "
+        f"{cfg.d_model}, card (torch.mean, torch.rsqrt) against CPU (the "
+        f"reference's window sum and XLA's rsqrt), bf16 outputs that "
+        f"differ (and their largest difference in bf16 ulps of the CPU's "
+        f"value): {gap}")
+    return gap
 
 
 # ---------------------------------------------------------------------------
@@ -938,16 +984,21 @@ def check_paged_kernels() -> list:
 #: the 1,024-token case: 64 pages a slot, lengths up to the last page row
 LONG_P = 64
 LONG_LENS = [600, 48, 1024, 195, 0, 850, 17, 1000]
-#: (label, pool kind of PAGED_POOLS, pages a slot, lengths)
+#: the pair's pool kinds: phase 2c's, and packed fp6 (3D/4-byte rows), whose
+#: decode reads element by element (the decode's general loader); #2 has
+#: no uniform fp6 layout, as in the reference, so fp6 skips that check
+PAIR_POOLS = {**PAGED_POOLS, "fp6": ("fp6_e3m2", BLOCK, False)}
+#: (label, pool kind of PAIR_POOLS, pages a slot, lengths)
 PAIR_CASES = [(f"{kind} P {P}", kind, P, DECODE_LENS)
-              for kind in ("fp8_e4m3", "fp8_e5m2", "fp4", "fp4_block16")] \
+              for kind in ("fp8_e4m3", "fp8_e5m2", "fp4", "fp4_block16",
+                           "fp6")] \
     + [(f"{kind} P {LONG_P}", kind, LONG_P, LONG_LENS)
        for kind in ("fp8_e4m3", "fp4")]
 def pair_inputs(kind: str, pmax: int, lens: list, gen,
                 dev: str = "cuda") -> dict:
     """Phase 2c's granite-shaped uniform pools and tables, at ``pmax``
     pages a slot (slot 4 inactive: its table is all -1)."""
-    fmt, block, _ = PAGED_POOLS[kind]
+    fmt, block, _ = PAIR_POOLS[kind]
     npages = R * pmax
     table = _tables(lens, gen, pmax, npages)
     pools, _ = paged_pools(fmt, block, False, gen, dev, npages=npages)
@@ -973,7 +1024,8 @@ def check_pair_case(mxa, inp, label: str) -> dict:
     included); #4 within OUT_TOL of its plain version and of the oracle
     on the gathered cache; the paged output bit-equal to #4 on the
     equivalent contiguous cache (empty slots as kpos -1) and within
-    OUT_TOL of #2 on the live slots. Returns the largest differences."""
+    OUT_TOL of #2 on the live slots (not for fp6, which #2 does not take
+    uniform). Returns the largest differences."""
     from repro_torch.kernels import ref
 
     kw = _pair_kw(inp)
@@ -1000,7 +1052,9 @@ def check_pair_case(mxa, inp, label: str) -> dict:
         q, *plain_cache, torch.where(arange[None] < lens[:, None],
                                      arange[None], -1).contiguous(),
         lens - 1, **kw)
-    fused = mxa.mx_attention_decode_fused(q, *pools, table, lens, **kw)
+    fp6 = inp["fmt"].startswith("fp6")
+    fused = None if fp6 else mxa.mx_attention_decode_fused(q, *pools, table,
+                                                          lens, **kw)
     torch.cuda.synchronize()
     if not torch.equal(paged, contiguous):
         raise AssertionError(f"{label}: the paged output is not bit-equal to "
@@ -1008,11 +1062,53 @@ def check_pair_case(mxa, inp, label: str) -> dict:
     live = lens > 0
     errs = {"plain": float((out - plain).abs().max()),
             "oracle": float((out - oracle).abs().max()),
-            "fused": float((paged[live] - fused[live]).abs().max())}
+            "fused": 0.0 if fp6 else float((paged[live] - fused[live])
+                                           .abs().max())}
     for what, err in errs.items():
         if not err <= OUT_TOL:
             raise AssertionError(f"decode {label}: max |out - {what}| {err} "
                                  f"> {OUT_TOL}")
+    return errs
+
+
+def check_decode_masking(mxa, inp, label: str) -> dict:
+    """#4's split over keys where masking meets it, on the gathered cache
+    of ``inp``: every row's keys of one whole split in the middle masked
+    (kpos -1; the row's live keys before and after it), one row with
+    every key masked (the mean of V) and one whose only live keys lie in
+    the last split. Within OUT_TOL of the plain version and of the oracle
+    (row by row, each with its own kpos); two calls bit-equal. Returns
+    the largest differences."""
+    from repro_torch.kernels import ref
+
+    kw = _pair_kw(inp)
+    q = inp["q"]
+    t = inp["pmax"] * PS
+    splits, chunk = mxa.decode_plan(t)
+    if splits < 3:
+        raise AssertionError(f"{label}: {splits} splits, the cases need 3")
+    cache = mxa.gather_kv_pages(*inp["pools"], inp["table"])
+    arange = torch.arange(t, dtype=torch.int32, device=q.device)
+    kpos = arange[None].expand(R, t).clone()
+    kpos[:, chunk:2 * chunk] = -1          # split 1 masked in every row
+    kpos[3] = -1                           # row 3: every key masked
+    kpos[5, :(splits - 1) * chunk] = -1    # row 5: live keys in the last
+    pos = torch.full((R,), t - 1, dtype=torch.int32, device=q.device)
+    out = mxa.mx_attention_decode(q, *cache, kpos, pos, **kw)
+    again = mxa.mx_attention_decode(q, *cache, kpos, pos, **kw)
+    plain = mxa.mx_attention_decode_plain(q, *cache, kpos, pos, **kw)
+    oracle = torch.cat([ref.mx_attention_decode_ref(
+        q[i:i + 1], *(x[i:i + 1] for x in cache), kpos[i], t - 1,
+        fmt=inp["fmt"], block_size=inp["block"]) for i in range(R)])
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"decode masking {label}: two calls differ")
+    errs = {"plain": float((out - plain).abs().max()),
+            "oracle": float((out - oracle).abs().max())}
+    for what, err in errs.items():
+        if not err <= OUT_TOL:
+            raise AssertionError(f"decode masking {label}: max |out - "
+                                 f"{what}| {err} > {OUT_TOL}")
     return errs
 
 
@@ -1114,6 +1210,11 @@ def check_decode_pair() -> list:
     for label, inp in cases.items():
         for what, err in check_pair_case(mxa, inp, label).items():
             worst[what] = max(worst[what], err)
+    masking = {"plain": 0.0, "oracle": 0.0}
+    for label, inp in cases.items():
+        for what, err in check_decode_masking(mxa, inp, label).items():
+            masking[what] = max(masking[what], err)
+            worst[what] = max(worst[what], err)
     log(f"gather_kv_pages and mx_attention_decode at granite-8b shapes (B "
         f"{R}, KVH {KVH}, G {G}, D {D}, PS {PS}, lengths 17-300 over {P} "
         f"pages and 17-1024 over {LONG_P}, one inactive slot) on "
@@ -1123,7 +1224,13 @@ def check_decode_pair() -> list:
         f"of mx_attention_decode_ref; mx_attention_decode_paged bit-equal to "
         f"the decode kernel on the contiguous cache and within "
         f"{worst['fused']:.3g} of mx_attention_decode_fused on the live "
-        f"slots; path launches {launches}")
+        f"slots; path launches {launches}; split over keys "
+        f"(decode_plan: P {P} {mxa.decode_plan(P * PS)}, P {LONG_P} "
+        f"{mxa.decode_plan(LONG_P * PS)} as (splits, keys)) with a "
+        f"whole split masked in every row, a row with every key masked and "
+        f"a row live only in its last split: within {masking['plain']:.3g} "
+        f"of the plain version and {masking['oracle']:.3g} of the oracle, "
+        f"two calls bit-equal")
     src = "src/repro_torch/kernels/csrc/mx_attention_decode.cu"
     entries = {
         "gather": {"name": "gather_kv_pages", "route": "cuda", "source": src,
@@ -2401,7 +2508,8 @@ def _bf16_tile_range(a: torch.Tensor, w: torch.Tensor, bk: int) -> tuple:
 def check_matmul_sass() -> None:
     """Tensor-core (HGMMA) and scalar FMA (FFMA) instructions of every
     kernel in the built mx_matmul library (``cuobjdump --dump-sass``):
-    each instantiation of mx_matmul_tc_kernel must hold HGMMA."""
+    each instantiation of mx_matmul_tc_kernel and mx_dgrad_tc_kernel
+    must hold HGMMA."""
     from repro_torch.kernels import build
 
     build.load("mx_matmul")  # built if it is not yet
@@ -2417,9 +2525,10 @@ def check_matmul_sass() -> None:
         elif name is not None:
             counts[name][0] += "HGMMA" in line
             counts[name][1] += "FFMA" in line
-    tc = {k: v for k, v in counts.items() if "mx_matmul_tc_kernel" in k}
-    if not tc or any(hgmma == 0 for hgmma, _ in tc.values()):
-        raise AssertionError(f"mx_matmul_tc_kernel without HGMMA: {tc}")
+    for kernel in ("mx_matmul_tc_kernel", "mx_dgrad_tc_kernel"):
+        tc = {k: v for k, v in counts.items() if kernel in k}
+        if not tc or any(hgmma == 0 for hgmma, _ in tc.values()):
+            raise AssertionError(f"{kernel} without HGMMA: {tc}")
     log("mx_matmul SASS, HGMMA / FFMA per kernel: " + "; ".join(
         f"{k.split('mx_matmul_cu_')[-1][8:]} {h} / {f}"
         for k, (h, f) in counts.items()))
@@ -2447,9 +2556,25 @@ def log_long_contraction_error(gen) -> None:
             f"{name} {e:.3g}" for name, e in errs.items()))
 
 
+#: dgrad's cases beside the main one, as (label, M, K, N, format, block):
+#: fp4 at gate/up, M 8 (the contraction split over CTAs) in both formats,
+#: the ragged shape (a bn of 8), blocks 8 and 128 and the one-tile shape
+DGRAD_CASES = ([("gate", MX_ROWS, *PROJ["gate"], "fp4_e2m1", BLOCK)]
+               + [("gate", DECODE_ROWS, *PROJ["gate"], fmt, BLOCK)
+                  for fmt in ("fp8_e4m3", "fp4_e2m1")]
+               + [("ragged", *RAGGED, "fp8_e5m2", BLOCK)]
+               + [(f"block {block}", *shape, "fp4_e2m1" if block == 8
+                   else "fp8_e4m3", block)
+                  for block, shapes in BLOCK_SHAPES.items()
+                  for shape in shapes]
+               + [("one tile", *ONE_TILE, "fp8_e4m3", 128)])
+
+
 def check_mx_dgrad(gen) -> float:
     """dx of mx_matmul_trainable(x, W_gate).backward(dy) at granite's gate
-    projection against the plain dgrad."""
+    projection against the plain dgrad, then dgrad over DGRAD_CASES: every
+    case within MM_RTOL x |dy|.|W| of the plain version, two calls
+    bit-equal. Returns the largest |kernel - plain|."""
     from repro_torch.kernels import mx_matmul as mm
     from repro_torch.kernels.ops import _tile, mx_matmul_trainable
 
@@ -2462,10 +2587,35 @@ def check_mx_dgrad(gen) -> float:
                                     fmt_name="fp8_e4m3", block_size=BLOCK,
                                     bn=_tile(n, 128))
     mag = dy.abs() @ w.dequantize().abs().T
-    err, _, _ = _mm_error(x.grad, want, MM_RTOL * mag)
+    err, _, ratio = _mm_error(x.grad, want, MM_RTOL * mag)
+    worst_ratio = ratio
+    for label, m, k, n, fmt, block in DGRAD_CASES:
+        w = _mx_weight(k, n, fmt, block, gen)
+        dy = _gauss((m, n), gen)
+        kw = dict(fmt_name=fmt, block_size=block, bn=_tile(n, 128))
+        got = mm.mx_matmul_dgrad(dy, w.elements, w.scales, **kw)
+        again = mm.mx_matmul_dgrad(dy, w.elements, w.scales, **kw)
+        what = f"mx_matmul_dgrad {label} (M {m}, N {n}, K {k}) {fmt} block {block}"
+        if got.shape != (m, k) or not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: bad output")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"{what}: two calls differ")
+        want = mm.mx_matmul_dgrad_plain(dy, w.elements, w.scales, **kw)
+        mag = dy.abs() @ w.dequantize().abs().T
+        try:
+            e, _, ratio = _mm_error(got, want, MM_RTOL * mag)
+        except AssertionError as exc:
+            raise AssertionError(f"{what}: {exc}") from None
+        err, worst_ratio = max(err, e), max(worst_ratio, ratio)
+    torch.cuda.synchronize()
     log(f"mx_matmul_dgrad through mx_matmul_trainable.backward at (M, N, K) "
-        f"= ({MX_ROWS}, {n}, {k}): within {MM_RTOL:g} x |dy|.|W| of the "
-        f"plain version, max |diff| {err:.3g}")
+        f"= ({MX_ROWS}, {PROJ['gate'][1]}, {PROJ['gate'][0]}) and over "
+        f"{len(DGRAD_CASES)} more cases (fp4 at gate/up, M {DECODE_ROWS} "
+        f"split in both formats, the ragged {RAGGED}, blocks 8 and 128 on "
+        f"{dict(BLOCK_SHAPES)}, the one tile {ONE_TILE}): within "
+        f"{MM_RTOL:g} x |dy|.|W| of the plain version (worst "
+        f"{worst_ratio:.3g} of the bar), max |diff| {err:.3g}, every pair "
+        "of calls bit-equal")
     return err
 
 
@@ -2553,7 +2703,8 @@ def time_mx_kernels(gen) -> dict:
                     _bound(4 * m * k + a_bytes, 2.0 * m * k, F32_FLOPS))}
             for name, (run, plain, library, (bound_ms, bound_by)) \
                     in jobs.items():
-                if fmt == "fp4_e2m1" and name != "mx_matmul_wo":
+                if fmt == "fp4_e2m1" and name not in ("mx_matmul_wo",
+                                                      "mx_matmul_dgrad"):
                     continue
                 for fn in (run, plain) + ((library,) if library else ()):
                     fn()  # warm: first-use costs stay out of the times
@@ -2725,6 +2876,12 @@ def check_mx_dot_products() -> list:
         entry.update(times[(name, "fp8_e4m3", MX_ROWS)])
         entry["shape"] = f"gate/up M={MX_ROWS} K={DM} N={DFF} fp8_e4m3"
         entry["decode_ms"] = times[(name, "fp8_e4m3", DECODE_ROWS)]["ms"]
+        if name == "mx_matmul_dgrad":
+            for m, key in ((MX_ROWS, "fp4_ms"), (DECODE_ROWS,
+                                                 "fp4_decode_ms")):
+                entry[key] = times[(name, "fp4_e2m1", m)]["ms"]
+            entry["decode_library_ms"] = \
+                times[(name, "fp8_e4m3", DECODE_ROWS)]["library_ms"]
         entries.append(entry)
     return entries
 

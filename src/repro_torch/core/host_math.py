@@ -1,0 +1,124 @@
+"""Host f32 math that the jitted reference takes from XLA:CPU, bit for bit.
+
+``csrc/host_math.c`` compiles, at first use, with the host C compiler
+(``$CC``, else ``cc``) into a shared library under ``core/_build/``
+(listed in ``.gitignore``), loaded with ctypes; the file name carries a
+hash of the source and flags. The flags ``-O2 -fno-fast-math
+-ffp-contract=off`` keep every rounding where the source puts it. A
+helper that cannot be built raises: nothing falls back to torch's math.
+
+* :func:`cos_sin` -- the C library's ``cosf`` / ``sinf`` of f32 angles,
+  which the jitted reference's RoPE tables equal (C3).
+* :func:`rsqrt` -- XLA:CPU's f32 ``rsqrt``: the x86 ``rsqrtps`` estimate
+  and two FMA Newton steps (C4), of ``fma(x, scale, add)`` (RMSNorm's
+  ``sum * (1 / width) + eps``, which XLA contracts). The estimate is the
+  host CPU's, so the bits match the reference run on the same host; a
+  host that is not x86 raises ``RuntimeError``. Differentiable: its
+  gradient is ``-0.5 * scale * r**3`` times the incoming one.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "host_math.c"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+CFLAGS = ("-O2", "-fno-fast-math", "-ffp-contract=off", "-shared", "-fPIC")
+
+_lib = None
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest.update(" ".join(CFLAGS).encode())
+    return BUILD_DIR / f"libhost_math-{digest.hexdigest()[:16]}.so"
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = library_path()
+    if not path.exists():
+        cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
+        if cc is None:
+            raise RuntimeError("no C compiler (set CC): the RoPE and RMSNorm "
+                               "helpers are built from csrc/host_math.c")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cc, *CFLAGS, "-o", str(tmp), str(SOURCE),
+                               "-lm"], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {SOURCE.name} failed:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    ptr, n = ctypes.c_void_p, ctypes.c_long
+    lib.rope_cos_sin.argtypes = [ptr, ptr, ptr, n]
+    lib.rope_cos_sin.restype = None
+    lib.xla_rsqrt.argtypes = [ptr, ptr, n, ctypes.c_float, ctypes.c_float]
+    lib.xla_rsqrt.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _host_f32(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type != "cpu" or x.dtype != torch.float32:
+        raise ValueError(f"host math takes f32 CPU tensors, got {x.dtype} "
+                         f"on {x.device}")
+    return x.contiguous()
+
+
+def cos_sin(angles: torch.Tensor) -> tuple:
+    """``(cosf(angles), sinf(angles))``, one C call for the whole tensor.
+    The tables are constants: angles that need a gradient raise."""
+    if angles.requires_grad and torch.is_grad_enabled():
+        raise ValueError("cos_sin has no gradient: pass detached angles")
+    x = _host_f32(angles)
+    c, s = torch.empty_like(x), torch.empty_like(x)
+    _library().rope_cos_sin(x.data_ptr(), c.data_ptr(), s.data_ptr(),
+                            x.numel())
+    return c, s
+
+
+def _rsqrt(x: torch.Tensor, scale: float, add: float) -> torch.Tensor:
+    x = _host_f32(x)
+    out = torch.empty_like(x)
+    if _library().xla_rsqrt(x.data_ptr(), out.data_ptr(), x.numel(),
+                            scale, add) != 0:
+        raise RuntimeError("XLA:CPU's rsqrt is reproduced only on x86 hosts "
+                           "(its rsqrtps estimate)")
+    return out
+
+
+class _Rsqrt(torch.autograd.Function):
+    """The C call as an autograd node: d rsqrt(u) / du = -0.5 u^-1.5 =
+    -0.5 r^3, and du / dx = scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, add):
+        r = _rsqrt(x, scale, add)
+        ctx.save_for_backward(r)
+        ctx.scale = scale
+        return r
+
+    @staticmethod
+    def backward(ctx, grad):
+        (r,) = ctx.saved_tensors
+        return grad * (-0.5 * ctx.scale) * (r * r * r), None, None
+
+
+def rsqrt(x: torch.Tensor, scale: float = 1.0,
+          add: float = -0.0) -> torch.Tensor:
+    """XLA:CPU's f32 ``rsqrt`` of ``fma(x, scale, add)`` for every element,
+    ``scale`` and ``add`` rounded to f32 (by default ``x`` itself, signed
+    zeros kept); raises off x86. Special inputs as XLA's: +-0 and
+    subnormals give +-inf, +inf gives 0, negatives and NaN give NaN.
+    Gradients flow through it (``_Rsqrt``)."""
+    return _Rsqrt.apply(x, scale, add)

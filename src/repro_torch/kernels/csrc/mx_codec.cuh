@@ -20,6 +20,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace mx {
@@ -194,6 +195,31 @@ __device__ __forceinline__ float fp8_value(uint8_t c, int fmt) {
     }
   }
   return neg ? -mag : mag;
+}
+
+// four fp8 codes (one word, element 0 in the low byte) -> f32 values (exact),
+// by the hardware's e4m3x2 / e5m2x2 -> f16x2 conversion (fmt 0 or 1)
+__device__ __forceinline__ void fp8x4(uint32_t u, int fmt, float* v) {
+  uint32_t h0, h1;
+  if (fmt == 0) {
+    asm("{\n.reg .b16 lo, hi;\nmov.b32 {lo, hi}, %2;\n"
+        "cvt.rn.f16x2.e4m3x2 %0, lo;\ncvt.rn.f16x2.e4m3x2 %1, hi;\n}"
+        : "=r"(h0), "=r"(h1) : "r"(u));
+  } else {
+    asm("{\n.reg .b16 lo, hi;\nmov.b32 {lo, hi}, %2;\n"
+        "cvt.rn.f16x2.e5m2x2 %0, lo;\ncvt.rn.f16x2.e5m2x2 %1, hi;\n}"
+        : "=r"(h0), "=r"(h1) : "r"(u));
+  }
+  const uint32_t h[2] = {h0, h1};
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    __half2_raw raw;
+    raw.x = static_cast<unsigned short>(h[t] & 0xFFFFu);
+    raw.y = static_cast<unsigned short>(h[t] >> 16);
+    const float2 fl = __half22float2(__half2(raw));
+    v[2 * t] = fl.x;
+    v[2 * t + 1] = fl.y;
+  }
 }
 
 // _decode_fp4_codes: arithmetic E2M1 decode

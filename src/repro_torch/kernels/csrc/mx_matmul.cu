@@ -6,7 +6,8 @@
 //   * mx_matmul_vv    (_mx_matmul_kernel): both operands MX (paper Eq. 2),
 //     A stored (M, K) and B (N, K), same format and block size;
 //   * mx_matmul_dgrad (_mx_dgrad_kernel): dx (M, K) = dy (M, N) f32 x
-//     dequant(W), reading W's stored (N, K) layout as it is.
+//     dequant(W), reading W's stored (N, K) layout as it is, in bn-row
+//     contraction tiles (o += partial in f32).
 // Operands are fp8 e4m3 / e5m2 bytes or fp4 e2m1 nibbles (two per byte, low
 // first) with one E8M0 byte per block; any block size dividing K.
 //
@@ -28,7 +29,11 @@
 // the decode: every weight tile is decoded once per CTA row of tiles and
 // every A tile once per CTA column, by the same warps that copy and
 // multiply, and the decoded tiles cost shared-memory bandwidth twice
-// (written by the decode, read by wgmma). PERF.md gives the measured split.
+// (written by the decode, read by wgmma). dgrad at M = 512 does three bf16
+// products of the split dy, 180 GFLOP (182 us at 989 TFLOP/s), and has no
+// single owner of its time: products (whose W operand is read from shared
+// memory once per term), W's decode and the copies each take a share, one
+// CTA an SM running them in turn. PERF.md gives the measured split.
 //
 // Design of wo and vv (mx_matmul_tc_kernel). Only the compact bytes cross
 // HBM; the tensor cores run the products:
@@ -73,10 +78,26 @@
 //   * Ragged M, N and K edges: rows beyond M or N are zero (never read),
 //     elements beyond a stage's width are zero.
 //
-// dgrad keeps the first port's scalar kernel (mx_dgrad_kernel): one CTA of
-// 256 threads owns a 64 x 64 tile of dx and runs f32 FMAs from decoded f32
-// tiles in shared memory; f32 dy rules out exact bf16 operands without a
-// three-term split, which is that kernel's next step.
+// Design of dgrad (mx_dgrad_tc_kernel), the same machinery turned around:
+//   * dx (M, K) = dy (M, N) . W with W stored (N, K): the contraction runs
+//     over W's rows. A CTA of 512 threads owns bm = 16 or 64 dx rows by 128
+//     dx columns and walks N in stages of up to 64 rows of W, each a
+//     contiguous 128-column slice of the stored rows (its E8M0 bytes run
+//     along the output columns). The stage decodes as stored into two
+//     64-column halves, each a 128-byte-swizzled tile whose rows are the
+//     contraction index (MN-major), and wgmma reads it as a transposed A
+//     (trans-a 1, sw128_desc_mn); dy's rows are the K-major B operand.
+//   * f32 dy (flushed) splits exactly into three bf16 terms, hi's products
+//     apart from mid's and lo's, as wo's f32 A does; every bn tile (the
+//     reference's o += partial) starts fresh tensor-core sums, added to an
+//     f32 register sum with round-to-nearest, so a 14336-long contraction
+//     does not drift.
+//   * Copies are cp.async: where every row is a multiple of 16 bytes each
+//     thread issues fixed chunks; else the covering chunks of any offset.
+//     Decodes issue all their loads before any conversion.
+//   * Small M splits N over CTAs (mx_matmul.dgrad_plan) into an f32
+//     workspace summed in ascending order by mx_matmul_reduce_kernel: two
+//     calls give the same bits.
 #include <cuda.h>  // CUtensorMap; the encoder is fetched from the driver
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -89,131 +110,6 @@ namespace {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// ---------------------------------------------------------------------------
-// dgrad: dx (M, K) = dy (M, N) f32 x dequant(W (N, K)), scalar f32 FMAs
-// ---------------------------------------------------------------------------
-
-constexpr int kTile = 64;      // output tile edge
-constexpr int kChunk = 32;     // contraction elements staged at a time
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kLd = kTile + 1; // padded row of a decoded f32 tile
-
-struct DgradArgs {
-  const float* dy;         // (M, N)
-  const uint8_t* b;        // (N, ek) codes, W stored (N, K) blocked along K
-  const uint8_t* b_scales; // (N, K / block)
-  float* dx;               // (M, K)
-  int M, N, K;
-  int ek;                  // bytes of one stored row: K (fp8) or K / 2
-  int tile;                // contraction piece of one partial sum
-  int block, fmt;
-};
-
-// rows [r0, r0 + rows) x columns [c0, c0 + cols) of dy into
-// dst[c * kLd + r] (f32, flushed), zero-padded to kTile x kChunk
-__device__ __forceinline__ void load_dy(const float* __restrict__ a, int ld,
-                                        int r0, int rows, int c0, int cols,
-                                        float* dst) {
-  for (int i = threadIdx.x; i < kTile * kChunk; i += kThreads) {
-    const int r = i / kChunk, c = i % kChunk;
-    float v = 0.0f;
-    if (r < rows && c < cols) {
-      v = mx::flush(a[static_cast<size_t>(r0 + r) * ld + c0 + c]);
-    }
-    dst[c * kLd + r] = v;
-  }
-}
-
-// W rows [r0, r0 + rows) x elements [e0, e0 + elems): code and E8M0 bytes
-// staged in q / s (kChunk x kTile bytes each), then decoded with the scale
-// folded in to dst[r * kLd + c]. e0 is even for fp4, so a row's nibbles
-// start on a byte.
-__device__ __forceinline__ void load_w(
-    const uint8_t* __restrict__ codes, const uint8_t* __restrict__ scales,
-    int ek, int nblocks, int r0, int rows, int e0, int elems, int block,
-    int fmt, const mx::FmtSpec& f, uint8_t* q, uint8_t* s, float* dst) {
-  constexpr int R = kChunk, W = kTile;
-  rows = min(rows, R);
-  elems = min(elems, W);
-  const int row_bytes = f.bits == 4 ? elems / 2 : elems;
-  const int byte0 = f.bits == 4 ? e0 / 2 : e0;
-  const int kb0 = e0 / block;
-  const int nsb = elems > 0 ? (e0 + elems - 1) / block - kb0 + 1 : 0;
-  for (int i = threadIdx.x; i < R * W; i += kThreads) {
-    const int r = i / W, c = i % W;
-    const size_t row = static_cast<size_t>(r0 + r);
-    q[i] = r < rows && c < row_bytes ? codes[row * ek + byte0 + c] : 0;
-    s[i] = r < rows && c < nsb ? scales[row * nblocks + kb0 + c] : 0;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * W; i += kThreads) {
-    const int r = i / W, c = i % W;
-    float v = 0.0f;
-    if (r < rows && c < elems) {
-      const float x = mx::element_value(q + r * W, c, f, fmt);
-      v = mx::flush(x * mx::e8m0_factor(s[r * W + (e0 + c) / block - kb0]));
-    }
-    dst[r * kLd + c] = v;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) mx_dgrad_kernel(DgradArgs p) {
-  __shared__ uint8_t qb[kTile * kChunk], sb[kTile * kChunk];
-  __shared__ float As[kChunk * kLd], Bs[kChunk * kLd];
-  const mx::FmtSpec f = mx::fmt_spec(p.fmt);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
-  const int nblocks = p.K / p.block;
-  float acc[4][4], part[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int t0 = 0; t0 < p.N; t0 += p.tile) {
-    const int t1 = min(t0 + p.tile, p.N);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0.0f;
-    for (int c0 = t0; c0 < t1; c0 += kChunk) {
-      const int len = min(kChunk, t1 - c0);
-      load_dy(p.dy, p.N, m0, p.M - m0, c0, len, As);
-      load_w(p.b, p.b_scales, p.ek, nblocks, c0, len, j0, p.K - j0, p.block,
-             p.fmt, f, qb, sb, Bs);
-      __syncthreads();
-      for (int kk = 0; kk < len; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[kk * kLd + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            part[i][j] = fmaf(av[i], bv[j], part[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = j0 + tx + 16 * j;
-      if (col < p.K) p.dx[static_cast<size_t>(m) * p.K + col] = acc[i][j];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -379,64 +275,67 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
          (1ull << 62);
 }
 
+// Descriptor of the same swizzled tile read MN-major (wgmma's transposed
+// A): row r of 128 bytes holds 64 values of the output dimension at
+// contraction index r, 8-row groups 1024 bytes apart (both offsets 1024: a
+// 64-row A has one atom along its rows, so either field may carry the
+// group stride); a k16 step advances the start by 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFFu) >> 4) | ((1024ull >> 4) << 16) |
+         ((1024ull >> 4) << 32) | (1ull << 62);
+}
+
 // D (64 x N, f32 fragment) (+)= A (64 x 16, bf16) . B (N x 16, bf16)^T, both
-// from shared memory through descriptors; scale_d 0 overwrites D
-template <int N>
+// from shared memory through descriptors; scale_d 0 overwrites D. TA 1 reads
+// A MN-major (its 64 rows contiguous, wgmma's transpose of a 16-bit A).
+template <int N, int TA = 0>
 __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db,
-                                           int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<8>(float* d, uint64_t da,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<32>(float* d, uint64_t da,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t da,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+                                           int scale_d) {
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  } else {
+    static_assert(N == 64, "wgmma widths 8, 32 and 64");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  }
 }
 
 // 8 decoded values -> one 16-byte chunk of a swizzled bf16 tile (exact for
@@ -492,30 +391,6 @@ __device__ __forceinline__ void copy_rows(uint8_t* dst,
 // the high halves
 __device__ __forceinline__ uint32_t pack_hi(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// four fp8 codes (one word, element 0 in the low byte) -> f32 values
-__device__ __forceinline__ void fp8x4(uint32_t u, int fmt, float* v) {
-  uint32_t h0, h1;
-  if (fmt == 0) {
-    asm("{\n.reg .b16 lo, hi;\nmov.b32 {lo, hi}, %2;\n"
-        "cvt.rn.f16x2.e4m3x2 %0, lo;\ncvt.rn.f16x2.e4m3x2 %1, hi;\n}"
-        : "=r"(h0), "=r"(h1) : "r"(u));
-  } else {
-    asm("{\n.reg .b16 lo, hi;\nmov.b32 {lo, hi}, %2;\n"
-        "cvt.rn.f16x2.e5m2x2 %0, lo;\ncvt.rn.f16x2.e5m2x2 %1, hi;\n}"
-        : "=r"(h0), "=r"(h1) : "r"(u));
-  }
-  const uint32_t h[2] = {h0, h1};
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    __half2_raw raw;
-    raw.x = static_cast<unsigned short>(h[t] & 0xFFFFu);
-    raw.y = static_cast<unsigned short>(h[t] >> 16);
-    const float2 fl = __half22float2(__half2(raw));
-    v[2 * t] = fl.x;
-    v[2 * t + 1] = fl.y;
-  }
 }
 
 // chunks of an R-row tile each thread takes (row tid / 8 + 64 it, chunk
@@ -584,8 +459,8 @@ __device__ __forceinline__ void store_mx_tma(const TcArgs& p, bool fp4,
         v[t] = mx::decode_fp4((in[it].u.x >> (4 * t)) & 0xFu);
       }
     } else {
-      fp8x4(in[it].u.x, p.fmt, v);
-      fp8x4(in[it].u.y, p.fmt, v + 4);
+      mx::fp8x4(in[it].u.x, p.fmt, v);
+      mx::fp8x4(in[it].u.y, p.fmt, v + 4);
     }
 #pragma unroll
     for (int t = 0; t < 8; ++t) v[t] *= fac;
@@ -1028,6 +903,354 @@ __global__ void __launch_bounds__(256) mx_matmul_reduce_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// dgrad: dx (M, K) = dy (M, N) f32 x dequant(W (N, K)) on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// The wo kernel's machinery with the roles of W's axes swapped: the
+// contraction runs over W's rows n, and a CTA's 128 output columns are
+// 128 consecutive k of every row. In TcArgs terms (set by the launcher):
+// A = dy (M rows of N f32), "N" = K (dx columns), "K" = N (the
+// contraction), bk = bn, b_stride / nb = W's stored row.
+
+constexpr int kDgCols = 128;  // dx columns of a CTA: two warpgroup halves
+
+// Shared memory of the dgrad kernel: two decoded buffers (W's stage as two
+// MN-major 64-column halves, then dy's three bf16 terms), then the ring.
+// A W row's slot holds the 16-byte chunks covering its 128 code bytes
+// (fp4 64) and its E8M0 bytes of the 128 columns (at most 129, block 1),
+// each with 16 of alignment slack; a dy row's its 64 f32 values.
+template <int BM>
+struct DgLayout {
+  static constexpr int kCodes = 144;
+  static constexpr int kScales = 144;
+  static constexpr int kARow = 272;
+  static constexpr int kWCodes = 0;
+  static constexpr int kWScales = 64 * kCodes;
+  static constexpr int kA = kWScales + 64 * kScales;
+  static constexpr int kStage = kA + BM * kARow;
+  static constexpr int kWDec = 2 * 64 * kLine;
+  static constexpr int kDec = kWDec + 3 * BM * kLine;
+  static constexpr int kRing = 2 * kDec;
+  static constexpr int kFixed = kRing + 1024;  // + base alignment
+  // bm 16 runs two CTAs an SM: each takes half of the SM's shared memory
+  static constexpr int kBudget = BM <= 16 ? 232448 / 2 - 1024 : 232448;
+  static constexpr int kStages =
+      kFixed + 4 * kStage <= kBudget
+          ? 4
+          : (kFixed + 3 * kStage <= kBudget ? 3 : 2);
+  static constexpr int kSmem = kFixed + kStages * kStage;
+  static_assert(kStage % 16 == 0 && kDec % 1024 == 0, "aligned tiles");
+  static_assert(kSmem <= kBudget, "the ring fits");
+};
+
+// issue the cp.async copies of contraction stage [s0, s0 + w): W rows s0 +
+// [0, 64) at dx columns [c0, c0 + 128) (codes and E8M0 bytes), dy rows m0 +
+// [0, BM) at [s0, s0 + w)
+template <int BM>
+__device__ __forceinline__ void issue_dgrad_stage(const TcArgs& p, int s0,
+                                                  int fp4, int c0, int m0,
+                                                  uint8_t* st) {
+  using L = DgLayout<BM>;
+  const int cols = min(kDgCols, p.N - c0);
+  const int sb0 = c0 / p.block;
+  copy_rows<64, L::kCodes>(st + L::kWCodes, p.b, p.K, p.b_stride, s0,
+                           fp4 ? c0 / 2 : c0, fp4 ? cols / 2 : cols);
+  copy_rows<64, L::kScales>(st + L::kWScales, p.bs, p.K, p.nb, s0, sb0,
+                            (c0 + cols - 1) / p.block - sb0 + 1);
+  copy_rows<BM, L::kARow>(st + L::kA, p.a, p.M, p.a_stride, m0,
+                          static_cast<size_t>(s0) * 4, p.w * 4);
+}
+
+// The same copies where every row starts on 16 bytes (the launcher's fast
+// bit 2: W's rows, its E8M0 rows and dy's rows multiples of 16 bytes, the
+// stage a multiple of 4 wide, blocks of 8k): a thread's chunks are fixed
+// (W codes: row t / 8, chunk t % 8; E8M0: row t, one chunk holding the
+// tile's at most 16 bytes; dy: rows t / 16 + 32 j, chunk t % 16; rows past
+// the stage width skipped), so a stage costs each thread at most 4
+// address computations and copies.
+template <int BM>
+__device__ __forceinline__ void issue_dgrad_stage_rows(const TcArgs& p,
+                                                       int s0, int fp4,
+                                                       int c0, int m0,
+                                                       uint8_t* st) {
+  using L = DgLayout<BM>;
+  const int t = threadIdx.x;
+  const int cols = min(kDgCols, p.N - c0);
+  {
+    const int r = t >> 3, ch = t & 7;
+    const int off = (fp4 ? c0 / 2 : c0) + 16 * ch;
+    if (r < p.w && 16 * ch < (fp4 ? cols / 2 : cols)) {
+      cp_async16(st + L::kWCodes + r * L::kCodes + 16 * ch,
+                 p.b + static_cast<size_t>(s0 + r) * p.b_stride + off, 16);
+    }
+  }
+  if (t < p.w) {
+    const int sb0 = c0 / p.block;
+    cp_async16(st + L::kWScales + t * L::kScales,
+               p.bs + static_cast<size_t>(s0 + t) * p.nb + (sb0 & ~15), 16);
+  }
+#pragma unroll
+  for (int j = 0; j < (BM * 16 + kTcThreads - 1) / kTcThreads; ++j) {
+    const int r = (t >> 4) + 32 * j, ch = t & 15;
+    if (r < BM && m0 + r < p.M && 4 * ch < p.w) {
+      cp_async16(st + L::kA + r * L::kARow + 16 * ch,
+                 p.a + static_cast<size_t>(m0 + r) * p.a_stride +
+                     static_cast<size_t>(s0) * 4 + 16 * ch,
+                 16);
+    }
+  }
+}
+
+// W's stage into the decoded buffer: chunk c (columns c0 + 8c + [0, 8)) of
+// stage row r goes to half c / 8, row r, chunk c % 8 of the swizzle, so
+// each half is an MN-major tile (row = contraction index). Rows beyond the
+// stage and columns beyond K are zero. `fast` (block a multiple of 8,
+// stored rows a multiple of 16 bytes): a chunk's 8 codes are one load and
+// share one E8M0 byte; else element by element.
+__device__ __forceinline__ void decode_dgrad_w(const TcArgs& p,
+                                               const mx::FmtSpec& f, int fast,
+                                               int s0, int c0,
+                                               const uint8_t* codes,
+                                               const uint8_t* scales,
+                                               uint8_t* tile) {
+  constexpr int kIt = 64 * 16 / kTcThreads;  // rows a thread takes
+  const int cols = min(kDgCols, p.N - c0);
+  const bool fp4 = f.bits == 4;
+  const int cbyte = fp4 ? c0 / 2 : c0;
+  const int sb0 = c0 / p.block;
+  // a thread keeps its chunk c for every row it takes
+  const int c = threadIdx.x & 15;
+  const int r0 = threadIdx.x >> 4;
+  auto store = [&](int r, const float* v) {
+    uint8_t* half = tile + (c >> 3) * 64 * kLine;
+    *reinterpret_cast<uint4*>(half + r * kLine +
+                              (((c & 7) ^ (r & 7)) << 4)) =
+        make_uint4(pack_hi(v[0], v[1]), pack_hi(v[2], v[3]),
+                   pack_hi(v[4], v[5]), pack_hi(v[6], v[7]));
+  };
+  if (fast && 8 * c + 8 <= cols) {
+    // every row's bytes start on 16 bytes: all loads first, then the
+    // conversions, so that the rows' latencies overlap
+    const int sidx = (c0 + 8 * c) / p.block - sb0;
+    uint2 u[kIt];
+    uint32_t sc[kIt];
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int r = r0 + it * (kTcThreads / 16);
+      u[it] = fp4 ? make_uint2(*reinterpret_cast<const uint32_t*>(
+                                   codes + r * DgLayout<16>::kCodes + 4 * c),
+                               0u)
+                  : *reinterpret_cast<const uint2*>(
+                        codes + r * DgLayout<16>::kCodes + 8 * c);
+      sc[it] = scales[r * DgLayout<16>::kScales + sidx + static_cast<int>(
+          (static_cast<size_t>(s0 + r) * p.nb + sb0) & 15)];
+    }
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int r = r0 + it * (kTcThreads / 16);
+      float v[8];
+      if (fp4) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          v[t] = mx::decode_fp4((u[it].x >> (4 * t)) & 0xFu);
+        }
+      } else {
+        mx::fp8x4(u[it].x, p.fmt, v);
+        mx::fp8x4(u[it].y, p.fmt, v + 4);
+      }
+      const float fac = mx::e8m0_factor(static_cast<uint8_t>(sc[it]));
+#pragma unroll
+      for (int t = 0; t < 8; ++t) v[t] *= fac;
+      if (sc[it] - 1u < 16u) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) v[t] = mx::flush(v[t]);
+      }
+      if (r >= p.w) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) v[t] = 0.0f;
+      }
+      store(r, v);
+    }
+    return;
+  }
+  for (int it = 0; it < kIt; ++it) {
+    const int r = r0 + it * (kTcThreads / 16);
+    const int g = s0 + r;
+    const uint8_t* q = codes + r * DgLayout<16>::kCodes + static_cast<int>(
+        (static_cast<size_t>(g) * p.b_stride + cbyte) & 15);
+    const uint8_t* s = scales + r * DgLayout<16>::kScales + static_cast<int>(
+        (static_cast<size_t>(g) * p.nb + sb0) & 15);
+    float v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int e = 8 * c + t;
+      v[t] = r < p.w && e < cols
+                 ? mx::flush(mx::element_value(q, e, f, p.fmt) *
+                             mx::e8m0_factor(s[(c0 + e) / p.block - sb0]))
+                 : 0.0f;
+    }
+    store(r, v);
+  }
+}
+
+// dy's stage as three bf16 terms, 4 values a thread from one 16-byte read
+// (every row's stage offset a multiple of 16 bytes: N and the stage width
+// multiples of 4), written as 8-byte halves of the swizzled chunks; rows
+// beyond M and values beyond the stage are zero. decode_wide is the
+// general path.
+template <int R>
+__device__ __forceinline__ void decode_dy_vec(const TcArgs& p,
+                                              const uint8_t* raw, int row0,
+                                              uint8_t* tile) {
+  constexpr int kRow = DgLayout<16>::kARow;
+  constexpr int kIt = (R * 16 + kTcThreads - 1) / kTcThreads;
+  const int h = threadIdx.x & 15;
+  float4 x[kIt];
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    const int r = (threadIdx.x >> 4) + it * (kTcThreads / 16);
+    x[it] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < R && row0 + r < p.M && 4 * h < p.w) {
+      x[it] = *reinterpret_cast<const float4*>(raw + r * kRow + 16 * h);
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    const int r = (threadIdx.x >> 4) + it * (kTcThreads / 16);
+    if (r >= R) break;
+    const float v[4] = {mx::flush(x[it].x), mx::flush(x[it].y),
+                        mx::flush(x[it].z), mx::flush(x[it].w)};
+    float hi[4], mid[4], lo[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) split3(v[t], hi[t], mid[t], lo[t]);
+    const int off = r * kLine + (((h >> 1) ^ (r & 7)) << 4) + 8 * (h & 1);
+    *reinterpret_cast<uint2*>(tile + off) =
+        make_uint2(pack_hi(hi[0], hi[1]), pack_hi(hi[2], hi[3]));
+    *reinterpret_cast<uint2*>(tile + R * kLine + off) =
+        make_uint2(pack_hi(mid[0], mid[1]), pack_hi(mid[2], mid[3]));
+    const __nv_bfloat162 l0 = __floats2bfloat162_rn(lo[0], lo[1]);
+    const __nv_bfloat162 l1 = __floats2bfloat162_rn(lo[2], lo[3]);
+    *reinterpret_cast<uint2*>(tile + 2 * R * kLine + off) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&l0),
+                   *reinterpret_cast<const uint32_t*>(&l1));
+  }
+}
+
+// One CTA: dx rows m0 + [0, BM) by columns c0 + [0, 128), over the bn
+// tiles [t0, t1) of its split. Warpgroup g multiplies columns 64 (g % 2) +
+// [0, 64) (A: W's decoded half, MN-major) by rows BM/2 (g / 2) + [0, BM/2)
+// (B: dy's terms, K-major). dy splits exactly into three bf16 terms, hi's
+// products apart from mid's and lo's; every bn tile starts fresh
+// tensor-core sums, added to tsum with round-to-nearest at its end (the
+// reference's o += partial, and no truncation drift over N).
+// FULL: 64-wide stages (four k16 steps, none skipped).
+template <int BM, bool FULL>
+__global__ void __launch_bounds__(kTcThreads, BM <= 16 ? 2 : 1)
+    mx_dgrad_tc_kernel(TcArgs p, int fast) {
+  using L = DgLayout<BM>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem + L::kRing;
+  const mx::FmtSpec f = mx::fmt_spec(p.fmt);
+  const int fp4 = f.bits == 4;
+  const int m0 = blockIdx.x * BM, c0 = blockIdx.y * kDgCols;
+  const int t0 = blockIdx.z * p.tiles_per_split;
+  const int t1 = min(t0 + p.tiles_per_split, p.k_tiles);
+  const int per_tile = p.bk / p.w;
+  const int nst = (t1 - t0) * per_tile;
+  const int kbase = t0 * p.bk;
+  const int nks = FULL ? 4 : (p.w + 15) / 16;
+  const int wg = threadIdx.x / 128;
+  constexpr int kAcc = BM / 4;
+  float acc[kAcc], acc2[kAcc], tsum[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = acc2[i] = tsum[i] = 0.0f;
+
+  auto issue = [&](int k, uint8_t* st) {
+    if (fast & 4) {
+      issue_dgrad_stage_rows<BM>(p, kbase + k * p.w, fp4, c0, m0, st);
+    } else {
+      issue_dgrad_stage<BM>(p, kbase + k * p.w, fp4, c0, m0, st);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < L::kStages - 1; ++i) {
+    if (i < nst) issue(i, ring + i * L::kStage);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nst; ++i) {
+    const int j = i + L::kStages - 1;
+    if (j < nst) issue(j, ring + (j % L::kStages) * L::kStage);
+    cp_async_commit();
+    cp_async_wait<L::kStages - 1>();
+    // every warpgroup is past its products of stage i - 2, whose decoded
+    // buffer stage i overwrites
+    __syncthreads();
+    const int s0 = kbase + i * p.w;
+    const uint8_t* st = ring + (i % L::kStages) * L::kStage;
+    uint8_t* dec = smem + (i & 1) * L::kDec;
+    decode_dgrad_w(p, f, fast & 1, s0, c0, st + L::kWCodes,
+                   st + L::kWScales, dec);
+    if (fast & 2) {
+      decode_dy_vec<BM>(p, st + L::kA, m0, dec + L::kWDec);
+    } else {
+      decode_wide<BM, true>(p, s0, st + L::kA, m0, dec + L::kWDec);
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    wgmma_fence();
+    const bool fresh = i % per_tile == 0;
+    const uint64_t dw = sw128_desc_mn(dec + (wg & 1) * 64 * kLine);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (FULL || ks < nks) {
+        const int sd = fresh && ks == 0 ? 0 : 1;
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          const uint64_t da = sw128_desc(dec + L::kWDec + term * BM * kLine +
+                                         (wg >> 1) * (BM / 2) * kLine);
+          if (term == 0) {
+            wgmma_bf16<BM / 2, 1>(acc, dw + 128 * ks, da + 2 * ks, sd);
+          } else {
+            wgmma_bf16<BM / 2, 1>(acc2, dw + 128 * ks, da + 2 * ks,
+                                  term == 1 ? sd : 1);
+          }
+        }
+      }
+    }
+    wgmma_commit();
+    if ((i + 1) % per_tile != 0) {
+      // stage i's products run on while stage i + 1 is decoded
+      wgmma_wait<1>();
+      continue;
+    }
+    wgmma_wait<0>();
+    fence_regs<kAcc>(acc);
+    fence_regs<kAcc>(acc2);
+#pragma unroll
+    for (int q = 0; q < kAcc; ++q) tsum[q] += acc[q] + acc2[q];
+  }
+  float* dst = p.splits > 1
+                   ? p.ws + static_cast<size_t>(blockIdx.z) * p.M * p.N
+                   : static_cast<float*>(p.out);
+  store_f32<BM>(tsum, dst, p.M, p.N, m0, c0);
+}
+
+template <int BM, bool FULL>
+int launch_dgrad(const TcArgs& p, int fast, int m_tiles, int col_tiles,
+                 cudaStream_t s) {
+  using L = DgLayout<BM>;
+  auto kernel = mx_dgrad_tc_kernel<BM, FULL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(m_tiles, col_tiles, p.splits), kTcThreads, L::kSmem, s>>>(
+      p, fast);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int AK, int BM, bool LEAN>
 int launch_tc(const TcArgs& p, const TmaMaps& maps, int m_tiles, int n_tiles,
               cudaStream_t s) {
@@ -1184,15 +1407,54 @@ extern "C" int mx_matmul_tc_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mx_matmul_dgrad_launch(const void* dy, const void* b,
-                                      const void* b_scales, void* dx, int M,
-                                      int N, int K, int ek, int tile,
-                                      int block, int fmt, void* stream) {
-  const DgradArgs p{static_cast<const float*>(dy),
-                    static_cast<const uint8_t*>(b),
-                    static_cast<const uint8_t*>(b_scales),
-                    static_cast<float*>(dx), M, N, K, ek, tile, block, fmt};
-  mx_dgrad_kernel<<<dim3((K + kTile - 1) / kTile, (M + kTile - 1) / kTile),
-                    kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+// dgrad: one mx_dgrad_tc_kernel launch over (m_tiles, col_tiles, splits)
+// CTAs of the plan (mx_matmul.dgrad_plan), then, with splits > 1, one
+// reduce launch over the workspace's `splits` partials (ascending order).
+// b_stride: bytes of one stored W row; bn: the contraction tile; w: the
+// stage width (a divisor of bn, at most 64); fast: the plan's vector decode.
+extern "C" int mx_matmul_dgrad_launch(
+    const void* dy, const void* b, const void* b_scales, void* dx, void* ws,
+    int M, int N, int K, int b_stride, int bn, int w, int bm, int splits,
+    int tiles_per_split, int block, int fmt, int fast, void* stream) {
+  if (w < 1 || w > 64 || bn % w || N % bn || K % block ||
+      (fmt == 4 && K % 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TcArgs p = {};
+  p.a = static_cast<const uint8_t*>(dy);
+  p.b = static_cast<const uint8_t*>(b);
+  p.bs = static_cast<const uint8_t*>(b_scales);
+  p.out = dx;
+  p.ws = static_cast<float*>(ws);
+  p.M = M; p.N = K; p.K = N;
+  p.a_stride = N * 4; p.b_stride = b_stride;
+  p.nb = K / block;
+  p.block = block; p.fmt = fmt; p.bk = bn; p.w = w;
+  p.k_tiles = N / bn;
+  p.tiles_per_split = tiles_per_split;
+  p.splits = splits;
+  const int m_tiles = (M + bm - 1) / bm;
+  const int col_tiles = (K + kDgCols - 1) / kDgCols;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  // bit 0: W's vector decode (the plan's); bit 1: dy's 16-byte reads;
+  // bit 2: both, and E8M0 rows of 16-byte multiples: fixed-chunk copies
+  fast = (fast ? 1 : 0) | (N % 4 == 0 && w % 4 == 0 ? 2 : 0);
+  if (fast == 3 && p.nb % 16 == 0) fast |= 4;
+  const bool full = w == 64;
+  if (bm == 16) {
+    err = full ? launch_dgrad<16, true>(p, fast, m_tiles, col_tiles, s)
+               : launch_dgrad<16, false>(p, fast, m_tiles, col_tiles, s);
+  } else if (bm == 64) {
+    err = full ? launch_dgrad<64, true>(p, fast, m_tiles, col_tiles, s)
+               : launch_dgrad<64, false>(p, fast, m_tiles, col_tiles, s);
+  } else {
+    err = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0 || splits <= 1) return err;
+  const long long count = static_cast<long long>(M) * K;
+  const long long want = (count + 255) / 256;
+  const int grid = static_cast<int>(want < 4096 ? want : 4096);
+  mx_matmul_reduce_kernel<<<grid, 256, 0, s>>>(p.ws, dx, count, splits, 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -73,7 +73,7 @@ def _library(name: str):
             lib.gather_kv_pages_launch.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
             lib.gather_kv_pages_launch.restype = i32
             lib.mx_attention_decode_launch.argtypes = (
-                [ptr, i32] + [ptr] * 7 + [i32] * 8 + [f32, f32, ptr])
+                [ptr, i32] + [ptr] * 9 + [i32] * 10 + [f32, f32, ptr])
             lib.mx_attention_decode_launch.restype = i32
             lib.mx_attention_decode_smem_bytes.argtypes = [i32] * 3
             lib.mx_attention_decode_smem_bytes.restype = ctypes.c_size_t
@@ -858,6 +858,21 @@ def _launch_gather(ke, ks, ve, vs, table):
     return tuple(outs)
 
 
+#: keys a split of the CUDA decode takes: of 16-64, the fastest at B 8
+#: (granite's 21 and 64 pages) and within 12% of the fastest at B 1
+#: (tools/profile_mx_decode.py; PERF.md)
+DECODE_CHUNK = 64
+
+
+def decode_plan(t: int) -> tuple:
+    """``(splits, chunk)`` of the CUDA decode kernel: each (b, kv-head)
+    cell's T keys go to ``splits`` CTAs of DECODE_CHUNK keys (the last
+    split may be short). A function of T alone, so the paged wrapper and
+    a contiguous call at the same T run the same splits and combine in
+    the same order."""
+    return -(-t // DECODE_CHUNK), DECODE_CHUNK
+
+
 def _launch_decode(q, k_elems, k_scales, v_elems, v_scales, kpos, pos, *,
                    fmt_name, block_size, softcap):
     b, kvh, g, d = q.shape
@@ -869,20 +884,26 @@ def _launch_decode(q, k_elems, k_scales, v_elems, v_scales, kpos, pos, *,
                     ("v_elems", v_elems), ("v_scales", v_scales)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    splits, chunk = decode_plan(t)
     lib = _library("mx_attention_decode")
-    smem = lib.mx_attention_decode_smem_bytes(g, t, d)
+    smem = lib.mx_attention_decode_smem_bytes(g, d, chunk)
     if smem > _MAX_SMEM:
         raise NotImplementedError(
-            f"{g} query rows x {t} keys of logits (and a {d}-wide key tile) "
-            f"need {smem} bytes of shared memory per CTA; an H100 block has "
-            f"{_MAX_SMEM}")
+            f"{g} query rows and {chunk}-key tiles of width {d} need {smem} "
+            f"bytes of shared memory per CTA; an H100 block has {_MAX_SMEM}")
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
+    ws_o = torch.empty((b * kvh, splits, g, d), dtype=torch.float32,
+                       device=q.device)
+    ws_ml = torch.empty((b * kvh, splits, g, 2), dtype=torch.float32,
+                        device=q.device)
     err = lib.mx_attention_decode_launch(
         q.data_ptr(), int(q.dtype == torch.float32), k_elems.data_ptr(),
         k_scales.data_ptr(), v_elems.data_ptr(), v_scales.data_ptr(),
-        kpos.data_ptr(), pos.data_ptr(), out.data_ptr(), b, kvh, g, d, t, ed,
-        block_size, F.FORMAT_IDS[fmt_name], float(softcap or 0.0),
-        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+        kpos.data_ptr(), pos.data_ptr(), out.data_ptr(), ws_o.data_ptr(),
+        ws_ml.data_ptr(), b, kvh, g, d, t, ed, block_size,
+        F.FORMAT_IDS[fmt_name], splits, chunk, float(softcap or 0.0),
+        float(d ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mx_attention_decode_launch failed: cudaError "
                            f"{err}")
@@ -931,9 +952,9 @@ def mx_attention_decode(q, k_elems, k_scales, v_elems, v_scales, kpos, pos,
     ``pos`` a scalar or (B,), the last position each query sees. Key t
     counts when ``kpos[t] <= pos`` and ``kpos[t] >= 0``; a row with no
     such key gets the mean of V over T, as in the reference. Returns
-    (B, KVH, G, D) f32. CUDA tensors launch the CUDA kernel (counted in
-    ``mx_attention_decode.launches``; it raises when the (G, T) logits
-    do not fit in a block's shared memory); CPU tensors run
+    (B, KVH, G, D) f32. CUDA tensors launch the CUDA kernels, a split
+    over keys and its combine (:func:`decode_plan`; counted once in
+    ``mx_attention_decode.launches``); CPU tensors run
     :func:`mx_attention_decode_plain`.
     """
     _check_fmt(k_elems, fmt_name)

@@ -27,7 +27,10 @@ multiplied by ``wgmma``; an f32 ``a`` is split exactly into three bf16
 terms (:func:`bf16x3_split`). :func:`matmul_plan` picks its tiles, its
 copy path and how far the contraction is split over CTAs (a pure
 function of the shapes); a split call also launches a small kernel that
-sums the partials, and counts once.
+sums the partials, and counts once. ``mx_matmul_dgrad`` runs a sibling
+kernel over the same machinery: f32 dy as three bf16 terms, W's tile
+decoded as stored (rows along the contraction) and read by ``wgmma`` as a
+transposed operand, planned by :func:`dgrad_plan`.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mx_matmul_tc_launch.argtypes = \
             [p, p, i, p, p, p, p] + [i] * 15 + [p]
-        lib.mx_matmul_dgrad_launch.argtypes = [p] * 4 + [i] * 7 + [p]
+        lib.mx_matmul_dgrad_launch.argtypes = [p] * 5 + [i] * 12 + [p]
         for fn in (lib.mx_matmul_tc_launch, lib.mx_matmul_dgrad_launch):
             fn.restype = ctypes.c_int
         _lib = lib
@@ -239,17 +242,49 @@ def matmul_plan(m: int, n: int, k: int, bk: int, fmt_name: str,
     wide = lean and a_kind != "f32" and acc_dtype == torch.float32
     bm = next(b for b in (16, 64, 128) if m <= b or b == (128 if wide else 64))
     m_tiles, n_tiles, k_tiles = -(-m // bm), -(-n // TILE_N), k // bk
-    base = m_tiles * n_tiles
-    target = SMS * (2 if bm == 16 else 1)
-    want = max(1, min(k_tiles, target // base))
-    tiles_per_split = -(-k_tiles // want)
-    splits = -(-k_tiles // tiles_per_split)
+    tiles_per_split, splits = _split(m_tiles * n_tiles, k_tiles, bm)
     if splits == 1:
         slots = 0
     else:
         slots = k_tiles if acc_dtype == torch.bfloat16 else splits
     return MatmulPlan(bm, w, lean, m_tiles, n_tiles, k_tiles, splits,
                       tiles_per_split, slots)
+
+
+def _split(ctas: int, k_tiles: int, bm: int) -> tuple:
+    """(tiles_per_split, splits): the contraction's tiles split over CTAs
+    until ``ctas`` output tiles fill the card (two resident CTAs an SM at
+    ``bm`` 16, one otherwise)."""
+    target = SMS * (2 if bm == 16 else 1)
+    want = max(1, min(k_tiles, target // ctas))
+    tiles_per_split = -(-k_tiles // want)
+    return tiles_per_split, -(-k_tiles // tiles_per_split)
+
+
+def dgrad_plan(m: int, n: int, k: int, bn: int, fmt_name: str,
+               block_size: int = 32) -> MatmulPlan:
+    """The dgrad kernel's tiles for dx (M, K) = dy (M, N) . W, W (N, K).
+
+    CTAs form an (m_tiles, n_tiles, splits) grid: ``bm`` (16 or 64) dx
+    rows by ``TILE_N`` dx columns, over ``tiles_per_split`` consecutive
+    ``bn`` tiles of the contraction N, each run in ``w``-wide stages (the
+    largest divisor of bn up to STAGE_K; the contraction carries no block
+    structure). Every stage arrives by cp.async; ``lean`` here means the
+    vector decode (blocks a multiple of 8, W's stored rows a multiple of
+    16 bytes). With ``splits`` > 1 each split writes its f32 partial to
+    one of ``ws_slots`` (M, K) slices, summed in ascending order by the
+    reduce kernel. A pure function of the shapes.
+    """
+    if bn < 1 or n % bn:
+        raise ValueError(f"bn {bn} must divide N = {n}")
+    fmt = F.get_format(fmt_name)
+    w = next(s for s in range(min(STAGE_K, bn), 0, -1) if bn % s == 0)
+    lean = block_size % 8 == 0 and fmt.storage_len(k) % 16 == 0
+    bm = 16 if m <= 16 else 64
+    m_tiles, n_tiles, k_tiles = -(-m // bm), -(-k // TILE_N), n // bn
+    tiles_per_split, splits = _split(m_tiles * n_tiles, k_tiles, bm)
+    return MatmulPlan(bm, w, lean, m_tiles, n_tiles, k_tiles, splits,
+                      tiles_per_split, splits if splits > 1 else 0)
 
 
 def bf16x3_split(a: torch.Tensor) -> tuple:
@@ -407,12 +442,17 @@ def mx_matmul_dgrad(dy, b_elems, b_scales, *, fmt_name="fp8_e4m3",
     kw = dict(fmt_name=fmt_name, block_size=block_size, bn=bn)
     if _device(dy, b_elems, b_scales).type == "cpu":
         return mx_matmul_dgrad_plain(dy, b_elems, b_scales, **kw)
-    dy, be, bs = dy.contiguous(), _bytes(b_elems), b_scales.contiguous()
     m = dy.shape[0]
+    plan = dgrad_plan(m, n, k, bn, fmt_name, block_size)
+    dy, be, bs = _aligned(dy), _aligned(_bytes(b_elems)), _aligned(b_scales)
     dx = torch.empty((m, k), dtype=torch.float32, device=dy.device)
+    ws = (torch.empty(plan.workspace_shape(m, k), dtype=torch.float32,
+                      device=dy.device) if plan.ws_slots else None)
     err = _library().mx_matmul_dgrad_launch(
-        dy.data_ptr(), be.data_ptr(), bs.data_ptr(), dx.data_ptr(), m, n, k,
-        b_elems.shape[1], bn, block_size, F.FORMAT_IDS[fmt_name],
+        dy.data_ptr(), be.data_ptr(), bs.data_ptr(), dx.data_ptr(),
+        ws.data_ptr() if ws is not None else None, m, n, k, be.shape[1], bn,
+        plan.w, plan.bm, plan.splits, plan.tiles_per_split, block_size,
+        F.FORMAT_IDS[fmt_name], int(plan.lean),
         torch.cuda.current_stream(dy.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mx_matmul_dgrad_launch failed: cudaError {err}")

@@ -3,9 +3,11 @@
 Both tables are built on the host and moved to the device once, so every
 device rotates with the same bits: the reference's frequencies are what
 XLA folds its expression into at compile time, which no f32 ``pow``
-reproduces, and a CUDA card's f32 cos/sin differ from the CPU's in the
-last bits often enough to move a bf16 rounding (``chip_smoke.py`` counts
-those places on an H100).
+reproduces; its f32 cos/sin are the C library's ``cosf``/``sinf``
+(``core.host_math``), which torch's CPU cos/sin miss at long positions;
+and a CUDA card's f32 cos/sin differ from the CPU's in the last bits often
+enough to move a bf16 rounding (``chip_smoke.py`` counts those places on
+an H100).
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch.core import host_math
 
 
 def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
@@ -30,11 +34,13 @@ def rope_table(head_dim: int, theta: float, num_positions: int,
                device) -> tuple:
     """f32 ``(cos, sin)`` of the angles ``position * freq`` (one f32
     multiply) at positions ``[0, num_positions)``, each (num_positions,
-    head_dim // 2), computed on the host and moved to ``device``.
-    Shared: do not modify."""
+    head_dim // 2): the C library's ``cosf``/``sinf`` on the host, as the
+    jitted reference gets them, moved to ``device``. Shared: do not
+    modify."""
     angles = (torch.arange(num_positions, dtype=torch.float32)[:, None]
               * rope_freqs(head_dim, theta))
-    return torch.cos(angles).to(device), torch.sin(angles).to(device)
+    cos, sin = host_math.cos_sin(angles)
+    return cos.to(device), sin.to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,

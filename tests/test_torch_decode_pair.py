@@ -21,26 +21,43 @@ at those tests' sizes. Both get the same numpy inputs, quantized once.
 The two sum f32 products in other orders, hence 1e-5. The ``cuda``-marked
 test holds the CUDA kernels to the plain versions on the card and, at
 granite-8b's head_dim with logits near 100, the decode kernel and its
-plain version both to an f64 decode.
+plain version both to an f64 decode. The reference is imported by a
+fixture, so that the ``cuda`` test also runs where JAX is not installed.
 """
+import types
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jax = pytest.importorskip("jax")
-jnp = jax.numpy
 
-from repro.kernels import gather_kv_pages as jax_gather  # noqa: E402
-from repro.kernels import mx_attention_decode as jax_decode  # noqa: E402
-from repro.kernels import mx_attention_decode_paged as jax_paged  # noqa: E402
-from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import quantize as tquantize  # noqa: E402
 from repro_torch.kernels import mx_attention as tk  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 OUT_TOL = 1e-5
 TORCH_FP8 = {"fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
-JAX_FP8 = {"fp8_e4m3": jnp.float8_e4m3fn, "fp8_e5m2": jnp.float8_e5m2}
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The reference (JAX on the CPU) and what the tests call of it."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels import gather_kv_pages, mx_attention_decode
+    from repro.kernels import mx_attention_decode_paged, ref
+
+    fp8 = {"fp8_e4m3": jnp.float8_e4m3fn, "fp8_e5m2": jnp.float8_e5m2}
+
+    def j(elems, fmt=None):
+        a = jnp.asarray(elems)
+        return a.view(fp8[fmt]) if fmt in fp8 else a
+
+    return types.SimpleNamespace(jnp=jnp, gather=gather_kv_pages,
+                                 decode=mx_attention_decode,
+                                 paged=mx_attention_decode_paged, ref=ref,
+                                 j=j)
 
 
 def _cache(rng, shape, fmt, block, scale=1.0):
@@ -54,11 +71,6 @@ def _cache(rng, shape, fmt, block, scale=1.0):
 def _t(elems, fmt=None, device="cpu"):
     t = torch.from_numpy(np.array(elems)).to(device)
     return t.view(TORCH_FP8[fmt]) if fmt in TORCH_FP8 else t
-
-
-def _j(elems, fmt=None):
-    a = jnp.asarray(elems)
-    return a.view(JAX_FP8[fmt]) if fmt in JAX_FP8 else a
 
 
 def _u8(x) -> np.ndarray:
@@ -101,12 +113,12 @@ def _pool_args(c, conv):
 
 @pytest.mark.parametrize("fmt,block", [("fp8_e4m3", 32), ("fp8_e5m2", 32),
                                        ("fp4_e2m1", 32), ("fp6_e3m2", 32)])
-def test_gather_matches_reference_byte_for_byte(fmt, block):
+def test_gather_matches_reference_byte_for_byte(fmt, block, J):
     rng = np.random.default_rng(5)
     c = paged_case(fmt, block, 2, 3, 32, 32, 8, rng)
     table = c["table"].copy()
     table[1, 2:] = -1  # unallocated: the reference clips them to page 0
-    want = jax_gather(*_pool_args(c, _j), jnp.asarray(table))
+    want = J.gather(*_pool_args(c, J.j), J.jnp.asarray(table))
     pools = _pool_args(c, _t)
     got = tk.gather_kv_pages(*pools, torch.from_numpy(table))
     for name, gt, wt, pool in zip(("ke", "ks", "ve", "vs"), got, want,
@@ -127,7 +139,7 @@ def test_gather_matches_reference_byte_for_byte(fmt, block):
 
 @pytest.mark.parametrize("fmt", ["fp8_e4m3", "fp8_e5m2", "fp4_e2m1"])
 @pytest.mark.parametrize("block", [16, 32, 64])
-def test_paged_equals_contiguous_bit_for_bit(fmt, block):
+def test_paged_equals_contiguous_bit_for_bit(fmt, block, J):
     rng = np.random.default_rng(123)
     b, kvh, d, t, ps = 2, 2, 64, 64, 16
     c = paged_case(fmt, block, b, kvh, t, d, ps, rng)
@@ -147,9 +159,10 @@ def test_paged_equals_contiguous_bit_for_bit(fmt, block):
         q, *_pool_args(c, _t), torch.from_numpy(c["table"]),
         torch.from_numpy(lens), fmt_name=fmt, block_size=block).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
-    ref = np.asarray(jax_paged(
-        jnp.asarray(c["q"]), *_pool_args(c, _j), jnp.asarray(c["table"]),
-        jnp.asarray(lens), fmt_name=fmt, block_size=block))
+    ref = np.asarray(J.paged(
+        J.jnp.asarray(c["q"]), *_pool_args(c, J.j),
+        J.jnp.asarray(c["table"]), J.jnp.asarray(lens), fmt_name=fmt,
+        block_size=block))
     np.testing.assert_allclose(got, ref, rtol=0, atol=OUT_TOL)
 
 
@@ -235,15 +248,16 @@ def decode_f64(c) -> torch.Tensor:
 
 @pytest.mark.parametrize("fmt,block,shape,kind,q_dtype", DECODE_CASES)
 def test_decode_matches_reference_kernel_and_oracle(fmt, block, shape, kind,
-                                                    q_dtype):
+                                                    q_dtype, J):
     c = decode_case(fmt, block, shape, kind, q_dtype)
     got = run_decode_port(c).numpy()
     (ke, ks), (ve, vs) = c["k"], c["v"]
+    jnp = J.jnp
     jq = jnp.asarray(c["q"], jnp.bfloat16 if q_dtype == "bf16" else None)
-    jargs = (_j(ke, fmt), _j(ks), _j(ve, fmt), _j(vs))
-    want = np.asarray(jax_decode(jq, *jargs, jnp.asarray(c["kpos"]),
-                                 jnp.asarray(c["pos"]), fmt_name=fmt,
-                                 block_size=block, softcap=c["softcap"]))
+    jargs = (J.j(ke, fmt), J.j(ks), J.j(ve, fmt), J.j(vs))
+    want = np.asarray(J.decode(jq, *jargs, jnp.asarray(c["kpos"]),
+                               jnp.asarray(c["pos"]), fmt_name=fmt,
+                               block_size=block, softcap=c["softcap"]))
     np.testing.assert_allclose(got, want, rtol=0, atol=OUT_TOL)
     # the oracles take a shared kpos and a scalar pos: one row at a time
     b = shape[0]
@@ -257,7 +271,7 @@ def test_decode_matches_reference_kernel_and_oracle(fmt, block, shape, kind,
             _t(vs[rows]), torch.from_numpy(kpos[i].copy()), int(pos[i]),
             fmt=fmt, block_size=block, softcap=c["softcap"]).numpy()
         np.testing.assert_allclose(got[rows], oracle, rtol=0, atol=OUT_TOL)
-        jax_oracle = np.asarray(jref.mx_attention_decode_ref(
+        jax_oracle = np.asarray(J.ref.mx_attention_decode_ref(
             jq[rows], *(a[rows] for a in jargs), jnp.asarray(kpos[i]),
             int(pos[i]), fmt=fmt, block_size=block, softcap=c["softcap"]))
         np.testing.assert_allclose(oracle, jax_oracle, rtol=0, atol=OUT_TOL)
@@ -269,14 +283,14 @@ def test_decode_matches_reference_kernel_and_oracle(fmt, block, shape, kind,
                                    rtol=0, atol=OUT_TOL)
 
 
-def test_decode_refuses_a_format_its_storage_contradicts():
+def test_decode_refuses_a_format_its_storage_contradicts(J):
     """fp8 storage named as fp4 raises, as the reference's check does."""
     c = decode_case("fp8_e4m3", 32, (1, 1, 1, 32, 32), "tail", "f32")
     (ke, ks), (ve, vs) = c["k"], c["v"]
     with pytest.raises(ValueError, match="does not match"):
-        jax_decode(jnp.asarray(c["q"]), _j(ke, "fp8_e4m3"), _j(ks),
-                   _j(ve, "fp8_e4m3"), _j(vs), jnp.asarray(c["kpos"]),
-                   int(c["pos"]), fmt_name="fp4_e2m1")
+        J.decode(J.jnp.asarray(c["q"]), J.j(ke, "fp8_e4m3"), J.j(ks),
+                 J.j(ve, "fp8_e4m3"), J.j(vs), J.jnp.asarray(c["kpos"]),
+                 int(c["pos"]), fmt_name="fp4_e2m1")
     with pytest.raises(ValueError, match="does not match"):
         tk.mx_attention_decode(
             torch.from_numpy(c["q"]), _t(ke, "fp8_e4m3"), _t(ks),
@@ -296,6 +310,21 @@ def test_decode_refuses_a_format_its_storage_contradicts():
 HARD_CASES = [("fp8_e4m3", 32, (2, 8, 4, 128, 336), "softcap", "bf16", 5.0),
               ("fp8_e4m3", 32, (3, 8, 4, 128, 336), "per_seq", "bf16", 5.0),
               ("fp4_e2m1", 32, (3, 8, 4, 128, 336), "per_seq", "bf16", 5.0)]
+
+
+@pytest.mark.parametrize("t", [336, 1024, 5, 64, 65, 17, 100000])
+def test_decode_plan_splits_the_keys(t):
+    """The CUDA decode's key split: splits of DECODE_CHUNK keys, every
+    key in exactly one split (the last may be short)."""
+    splits, chunk = tk.decode_plan(t)
+    assert chunk == tk.DECODE_CHUNK == 64
+    assert (splits - 1) * chunk < t <= splits * chunk
+
+
+def test_decode_plan_at_granite_shapes():
+    """21 pages: 6 splits of 64 keys (384 CTAs at B 8); 64 pages: 16."""
+    assert tk.decode_plan(21 * 16) == (6, 64)
+    assert tk.decode_plan(64 * 16) == (16, 64)
 
 
 @pytest.fixture

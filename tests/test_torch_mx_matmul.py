@@ -406,6 +406,41 @@ def test_plan_stages_of_odd_shapes(m, k, n, block, fmt, lean):
         list(range(k // bk))
 
 
+@pytest.mark.parametrize("m,n,k,bn,fmt,block,lean", [
+    (512, 14336, 4096, 128, "fp8_e4m3", 32, True),   # gate/up, M 512
+    (8, 14336, 4096, 128, "fp4_e2m1", 32, True),     # M 8: split over N
+    (77, 1000, 4160, 8, "fp8_e5m2", 32, True),       # ragged, stages of 8
+    (70, 130, 1024, 130, "fp4_e2m1", 8, True),       # stages of 26
+    (33, 64, 256, 64, "fp8_e4m3", 128, True),        # block 128: one tile
+    (5, 24, 40, 24, "fp8_e4m3", 8, False),           # 40-byte rows
+    (3, 5, 6, 5, "fp4_e2m1", 2, False)])             # block 2, 3-byte rows
+def test_dgrad_plan_covers_the_contraction(m, n, k, bn, fmt, block, lean):
+    plan = tmm.dgrad_plan(m, n, k, bn, fmt, block)
+    assert bn % plan.w == 0 and plan.w <= tmm.STAGE_K
+    assert plan.w == max(s for s in range(1, 65) if bn % s == 0)
+    assert plan.lean == lean
+    assert plan.bm == (16 if m <= 16 else 64)
+    assert plan.m_tiles * plan.bm >= m > (plan.m_tiles - 1) * plan.bm
+    assert plan.n_tiles * tmm.TILE_N >= k > (plan.n_tiles - 1) * tmm.TILE_N
+    assert plan.k_tiles == n // bn
+    assert [t for r in plan.ranges() for t in range(*r)] == \
+        list(range(n // bn))
+    assert plan.ws_slots == (plan.splits if plan.splits > 1 else 0)
+    # a split only where the output tiles leave SMs idle
+    ctas = plan.m_tiles * plan.n_tiles
+    assert plan.splits == 1 or ctas * 2 <= tmm.SMS * (
+        2 if plan.bm == 16 else 1)
+    assert plan == tmm.dgrad_plan(m, n, k, bn, fmt, block)
+
+
+def test_dgrad_plan_splits_a_decode_step():
+    """At M 8, gate/up's 32 column tiles leave the card idle: the
+    contraction splits 8 ways (256 CTAs, two an SM), 14 bn tiles each."""
+    plan = tmm.dgrad_plan(8, 14336, 4096, 128, "fp8_e4m3", 32)
+    assert (plan.splits, plan.tiles_per_split) == (8, 14)
+    assert tmm.dgrad_plan(512, 14336, 4096, 128, "fp8_e4m3", 32).splits == 1
+
+
 def test_tile_choice_is_the_reference_one():
     assert [tops._tile(k, 512) for k in (4096, 14336, 1024, 96, 40, 6)] == \
         [512, 512, 512, 32, 8, 6]
@@ -473,7 +508,7 @@ def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(0)
-    bf16_same = bf16_outputs = 0
+    bf16_same = bf16_outputs = dgrad_cases = 0
     for (fmt, m, k, n, block, wide_kinds) in _card_cases():
         x = torch.from_numpy(_rand(rng, (m, k)))
         w = tquantize(torch.from_numpy(_rand(rng, (k, n))), fmt, block,
@@ -520,17 +555,23 @@ def test_cuda_kernels_match_plain_versions():
                     assert (np.abs(got - want) <= bound + 1e-30).all(), label
                 bf16_same += int((got == want).sum())
                 bf16_outputs += got.size
-        if (m, k, n, block) not in FIRST_CARD_SHAPES:
-            continue  # dgrad keeps its kernel, held at its first shapes
-        got = tmm.mx_matmul_dgrad(cuda[5], *cuda[3:5], fmt_name=fmt,
-                                  block_size=block, bn=tops._tile(n, 128))
+        # dgrad at every case: fp4, blocks 8 to 128, the ragged shape (a
+        # bn of 8), the one tile, and M 8 at the projections (the
+        # contraction split over CTAs); two calls, the same bits
+        dgrad_kw = dict(fmt_name=fmt, block_size=block,
+                        bn=tops._tile(n, 128))
+        got = tmm.mx_matmul_dgrad(cuda[5], *cuda[3:5], **dgrad_kw)
+        again = tmm.mx_matmul_dgrad(cuda[5], *cuda[3:5], **dgrad_kw)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
+            (fmt, m, k, n, block)
         want = tmm.mx_matmul_dgrad_plain(dy, w.elements, w.scales,
-                                         fmt_name=fmt, block_size=block,
-                                         bn=tops._tile(n, 128))
+                                         **dgrad_kw)
         mag = (dy.abs() @ w.dequantize().abs().T).numpy()
         assert ((got.cpu() - want).abs().numpy()
-                <= 1e-5 * mag + 1e-30).all(), (fmt, m, k, n)
+                <= 1e-5 * mag + 1e-30).all(), (fmt, m, k, n, block)
+        dgrad_cases += 1
     torch.cuda.synchronize()
     assert math.isfinite(float(got.sum()))
     # bf16 accumulation rounds where the plain version rounds
     assert bf16_same > 0.99 * bf16_outputs
+    assert dgrad_cases == len(_card_cases())
