@@ -425,9 +425,10 @@ def ragged_pool_traffic(fmt: str = "fp8_e4m3", block: int = BLOCK,
 
 
 def ragged_walk_ops_ms(pairs: int) -> float:
-    """q.k (bf16 q x exact-in-bf16 keys) and P.V (f32 probabilities x
-    values) of ``pairs`` kept (query, key) pairs, at the peak rates."""
-    return 1e3 * (2 * pairs * D / BF16_FLOPS + 2 * pairs * D / F32_FLOPS)
+    """q.k (bf16 q x exact-in-bf16 keys) and P.V (the f32 probabilities as
+    three exact bf16 terms x values) of ``pairs`` kept (query, key) pairs:
+    four bf16 tensor-core products at the bf16 peak."""
+    return 1e3 * (2 * pairs * D + 3 * 2 * pairs * D) / BF16_FLOPS
 
 
 def check_ragged_case(mxa, inp, fmt: str, label: str) -> float:
@@ -820,11 +821,11 @@ def paged_bound(inp) -> tuple:
     """(bound_ms, bound_by) of one call: each input read once, each output
     written once; pool rows read are those below the length (verify) or
     the chunk's start (prefill), a mixed page's at the row prefix its
-    format fills; a prefill writes its chunk pages whole. q.k (bf16
-    tensor cores) and P.V (f32) count the (query, key) pairs the causal
-    mask keeps: a verify query at seq_len - Tq + i, a chunk query at
-    start + i over the pages walked (padding queries included, as the
-    kernel computes them)."""
+    format fills; a prefill writes its chunk pages whole. q.k and P.V
+    (ragged_walk_ops_ms: bf16 tensor cores, P.V as three terms) count the
+    (query, key) pairs the causal mask keeps: a verify query at seq_len -
+    Tq + i, a chunk query at start + i over the pages walked (padding
+    queries included, as the kernel computes them)."""
     from repro_torch.core import formats as F
 
     nb = D // inp["block"]
@@ -859,7 +860,7 @@ def paged_bound(inp) -> tuple:
             + 4 * (b * P + 2 * b)
         written += 4 * inp["q"].numel() + 4 * b * KVH
     bytes_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
-    ops_ms = 1e3 * (2 * pairs * D / BF16_FLOPS + 2 * pairs * D / F32_FLOPS)
+    ops_ms = ragged_walk_ops_ms(pairs)
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -2505,33 +2506,61 @@ def _bf16_tile_range(a: torch.Tensor, w: torch.Tensor, bk: int) -> tuple:
     return tuple(outs)
 
 
-def check_matmul_sass() -> None:
-    """Tensor-core (HGMMA) and scalar FMA (FFMA) instructions of every
-    kernel in the built mx_matmul library (``cuobjdump --dump-sass``):
-    each instantiation of mx_matmul_tc_kernel and mx_dgrad_tc_kernel
-    must hold HGMMA."""
+def sass_counts(library: str) -> dict:
+    """{kernel: [HGMMA, FFMA, HMMA]} instruction counts of every kernel in
+    a built library (``cuobjdump --dump-sass``)."""
     from repro_torch.kernels import build
 
-    build.load("mx_matmul")  # built if it is not yet
+    build.load(library)  # built if it is not yet
     tool = build.nvcc_path().replace("nvcc", "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass",
-                           str(build.library_path("mx_matmul"))],
+                           str(build.library_path(library))],
                           check=True, capture_output=True, text=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = [0, 0]
+            counts[name] = [0, 0, 0]
         elif name is not None:
             counts[name][0] += "HGMMA" in line
             counts[name][1] += "FFMA" in line
+            counts[name][2] += "HMMA" in line
+    return counts
+
+
+def check_matmul_sass() -> None:
+    """Tensor-core (HGMMA) and scalar FMA (FFMA) instructions of every
+    kernel in the built mx_matmul library: each instantiation of
+    mx_matmul_tc_kernel and mx_dgrad_tc_kernel must hold HGMMA."""
+    counts = sass_counts("mx_matmul")
     for kernel in ("mx_matmul_tc_kernel", "mx_dgrad_tc_kernel"):
         tc = {k: v for k, v in counts.items() if kernel in k}
-        if not tc or any(hgmma == 0 for hgmma, _ in tc.values()):
+        if not tc or any(hgmma == 0 for hgmma, _, _ in tc.values()):
             raise AssertionError(f"{kernel} without HGMMA: {tc}")
     log("mx_matmul SASS, HGMMA / FFMA per kernel: " + "; ".join(
         f"{k.split('mx_matmul_cu_')[-1][8:]} {h} / {f}"
-        for k, (h, f) in counts.items()))
+        for k, (h, f, _) in counts.items()))
+
+
+def check_walk_sass() -> None:
+    """The page walk runs on the tensor cores in #1, #2, #3 and #8 (HMMA:
+    mma.sync), and #8's products on wgmma (HGMMA)."""
+    want = {"mx_attention_ragged": ("ragged_kernel",),
+            "mx_attention_paged": ("verify_kernel", "prefill_kernel"),
+            "mx_megakernel": ("megakernel",)}
+    parts = []
+    for library, kernels in want.items():
+        counts = sass_counts(library)
+        for kernel in kernels:
+            found = [v for k, v in counts.items() if kernel in k]
+            if len(found) != 1 or found[0][2] == 0 \
+                    or kernel == "megakernel" and found[0][0] == 0:
+                raise AssertionError(f"{library} {kernel}: HGMMA / FFMA / "
+                                     f"HMMA {found}")
+            parts.append(f"{kernel} {found[0][0]} / {found[0][1]} / "
+                         f"{found[0][2]}")
+    log("page walk and megakernel SASS, HGMMA / FFMA / HMMA per kernel: "
+        + "; ".join(parts))
 
 
 def log_long_contraction_error(gen) -> None:
@@ -2918,6 +2947,7 @@ def main() -> int:
     log(f"built {sorted(built) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     check_rope_and_silu()
+    check_walk_sass()
     kernel = check_ragged_kernel()
     check_repack_kernel()
     repack = time_repack_kernel()

@@ -31,13 +31,13 @@
 //
 // What bounds them on an H100 SXM (data-sheet peaks). Decode at granite
 // shapes (B=8, KVH=8, G=4, D=128, PS=16, ~20 resident pages a slot) reads
-// ~2.6 MB of compact pages: under a microsecond at 3.35 TB/s, with ~42
-// MFLOP of f32 work. Its time is latency: 64 CTAs, each walking ~20 pages
-// one after the other with a barrier per page. A prefill chunk (C=64,
-// rows 256) is bound like the ragged kernel by its f32 P.V product. This
-// first version is right and simple (scalar f32 dot products from shared
-// memory, no wgmma, no split of a cell's pages over CTAs); chip_smoke.py
-// times both kernels beside their bounds (PERF.md).
+// ~2.6 MB of compact pages: under a microsecond at 3.35 TB/s. Its time is
+// latency: 64 CTAs, each walking ~20 pages one after the other with two
+// barriers a page. A prefill chunk (C=64, rows 256) is bound like the
+// ragged kernel by its products. Both run the walk's tile (q.k on bf16
+// mma.sync, P.V as f32 FMAs in key order) with the next page's loads in
+// flight while a page folds; a cell's pages are not split over CTAs.
+// chip_smoke.py times both kernels beside their bounds (PERF.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -60,7 +60,7 @@ struct VerifyArgs {
 
 __global__ void __launch_bounds__(mxwalk::kThreads)
     verify_kernel(const VerifyArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const mxwalk::Pools& P = a.pools;
   const int cell = blockIdx.x;
   const int b = cell / P.KVH, h = cell % P.KVH;
@@ -70,17 +70,17 @@ __global__ void __launch_bounds__(mxwalk::kThreads)
   const int valid = min((seq_len + P.PS - 1) / P.PS, a.P);
   const int first = mxwalk::first_window_page(qbase, a.window, P.PS);
   const int* trow = a.table + static_cast<size_t>(b) * a.P;
+  auto page_of = [&](int p) { return static_cast<size_t>(trow[p]); };
 
   const mxwalk::Walk w = mxwalk::walk_begin(
       smem, a.q + static_cast<size_t>(cell) * rows * P.D, rows, P.D, P.PS);
   __syncthreads();
-  for (int p = first; p < valid; ++p) {
-    const size_t page = static_cast<size_t>(trow[p]);
-    mxwalk::load_tile(w, P, page, h, mxwalk::page_format(P, page));
-    mxwalk::flash_tile(w, p, a.G, qbase, a.Tq - 1, a.window, a.softcap,
-                       a.scale);
-  }
-  mxwalk::walk_finish(w, a.out + static_cast<size_t>(cell) * rows * P.D);
+  mxwalk::walk_pages(w, P, page_of, h, first, valid, a.P, a.G, qbase,
+                     a.Tq - 1, a.window, a.softcap, a.scale);
+  float* og = a.out + static_cast<size_t>(cell) * rows * P.D;
+  mxwalk::walk_finish(w, [&](int i, float4 v) {
+    *reinterpret_cast<float4*>(og + i) = v;
+  });
   if (threadIdx.x == 0) a.visits[cell] = max(0, valid - first);
 }
 
@@ -100,7 +100,7 @@ struct PrefillArgs {
 
 __global__ void __launch_bounds__(mxwalk::kThreads)
     prefill_kernel(const PrefillArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const mxwalk::Pools& P = a.pools;
   const int cell = blockIdx.x;
   const int b = cell / P.KVH, h = cell % P.KVH;
@@ -111,17 +111,20 @@ __global__ void __launch_bounds__(mxwalk::kThreads)
   const int valid = min((seq_len + P.PS - 1) / P.PS, a.P);
   const int first = mxwalk::first_window_page(start, a.window, P.PS);
   const int* trow = a.table + static_cast<size_t>(b) * a.P;
+  auto page_of = [&](int p) { return static_cast<size_t>(trow[p]); };
   const mx::FmtSpec f = mx::fmt_spec(P.fmt);
 
   const mxwalk::Walk w = mxwalk::walk_begin(
       smem, a.q + static_cast<size_t>(cell) * rows * P.D, rows, P.D, P.PS);
 
   // phase 1: quantize the chunk's pages, every row of each (the reference
-  // quantizes the whole (PS, D) tile, padding rows included)
+  // quantizes the whole (PS, D) tile, padding rows included), one warp a
+  // block
   const int jobs_per_page = P.PS * P.NB;
   for (int p = c0; p < valid; ++p) {
     const size_t page = static_cast<size_t>(trow[p]);
-    for (int job = threadIdx.x; job < 2 * jobs_per_page; job += blockDim.x) {
+    for (int job = threadIdx.x / 32; job < 2 * jobs_per_page;
+         job += mxwalk::kWarps) {
       const bool is_v = job >= jobs_per_page;
       const int jj = is_v ? job - jobs_per_page : job;
       const int j = jj / P.NB, blk = jj % P.NB;
@@ -131,32 +134,33 @@ __global__ void __launch_bounds__(mxwalk::kThreads)
           ((static_cast<size_t>(b) * a.C + t) * P.KVH + h) * P.D +
           blk * P.BS;
       const size_t prow = (page * P.PS + j) * P.KVH + h;
-      mx::quantize_block(
-          src, (is_v ? P.ve : P.ke) + prow * P.ED + blk * P.BS * f.bits / 8,
-          (is_v ? P.vs : P.ks) + prow * P.NB + blk, P.BS, f,
-          /*plus_zero=*/false);
+      // the chunk's rows quantize as they are (signed zeros kept)
+      const float x = threadIdx.x % 32 < P.BS
+                          ? mx::flush(__bfloat162float(src[threadIdx.x % 32]))
+                          : 0.0f;
+      mx::quantize_lanes(
+          x, (is_v ? P.ve : P.ke) + prow * P.ED + blk * P.BS * f.bits / 8,
+          (is_v ? P.vs : P.ks) + prow * P.NB + blk, P.BS, f);
     }
   }
   __syncthreads();
 
   // phase 2: resident pages under their formats, then the chunk's pages
   // in the hot format
-  for (int p = first; p < valid; ++p) {
-    const size_t page = static_cast<size_t>(trow[p]);
-    mxwalk::load_tile(w, P, page, h,
-                      p < c0 ? mxwalk::page_format(P, page) : P.fmt);
-    mxwalk::flash_tile(w, p, a.G, start, a.C - 1, a.window, a.softcap,
-                       a.scale);
-  }
-  mxwalk::walk_finish(w, a.out + static_cast<size_t>(cell) * rows * P.D);
+  mxwalk::walk_pages(w, P, page_of, h, first, valid, c0, a.G, start,
+                     a.C - 1, a.window, a.softcap, a.scale);
+  float* og = a.out + static_cast<size_t>(cell) * rows * P.D;
+  mxwalk::walk_finish(w, [&](int i, float4 v) {
+    *reinterpret_cast<float4*>(og + i) = v;
+  });
   if (threadIdx.x == 0) {
     a.visits[cell] = max(0, min(c0, valid) - first) + max(0, valid - c0);
   }
 }
 
 // every CTA takes kThreads threads, however few its query rows: a decode
-// cell's four rows leave most warps idle in the flash update, but the tile
-// decode (and a prefill's page writes) spread over all of them
+// cell's four rows spread their P.V over the warps by head-dim slices, and
+// the tile decode (and a prefill's page writes) over all of them
 template <class Kernel, class KArgs>
 int launch(Kernel kernel, const KArgs& a, int cells, int rows, int D, int PS,
            void* stream) {

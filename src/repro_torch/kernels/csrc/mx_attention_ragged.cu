@@ -37,14 +37,16 @@
 // shapes (R=8, KVH=8, W=64, G=4, D=128, PS=16, 21-page tables) one call
 // reads the bf16 queries and new K/V (4.2 MB + 2 x 1 MB) and the compact
 // pages it walks (1 byte per element + 1 scale byte per 32), and writes
-// the f32 output (8.4 MB): ~15 MB, 4.4 us at 3.35 TB/s. The f32
-// probabilities x values product (0.57 GFLOP at 67 TFLOP/s) bounds it
-// harder, at ~9 us; q.k could run on bf16 tensor cores exactly, since
-// dequantized fp8 values are exact in bf16. This first version is right
-// and simple: one CTA per cell, so only R * KVH = 64 of the 132 SMs work,
-// and scalar f32 dot products from shared memory, no wgmma. Splitting a
-// cell's pages over CTAs and tensor-core q.k are the levers for a later
-// change; chip_smoke.py computes the bound and times the kernel (PERF.md).
+// the f32 output (8.4 MB): ~15 MB, 4.4 us at 3.35 TB/s. Its products --
+// q.k, and P.V counted as three bf16 tensor-core products of the split
+// probabilities -- are ~2.0 GFLOP of the kept (query, key) pairs, ~2.0 us
+// at 989 TFLOP/s. The walk (mx_attention_walk.cuh) runs q.k on mma.sync
+// and P.V as f32 FMAs in key order, one CTA per cell: only R * KVH = 64
+// of the 132 SMs work, each walking its pages in order, so the P.V
+// multiply-adds and each page's dependent steps set the time
+// (tools/profile_mx_walk.py). Splitting a cell's pages over CTAs is the
+// next lever; chip_smoke.py computes the bound and times the kernel
+// (PERF.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -63,14 +65,14 @@ struct Args {
 
 __global__ void __launch_bounds__(mxwalk::kThreads)
     ragged_kernel(const Args a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int cell = blockIdx.x;
   const size_t span = static_cast<size_t>(a.cell.W) * a.cell.G *
                       a.cell.pools.D;
   float* og = a.out + cell * span;
   const int visits = mxcell::ragged_cell(
       a.cell, smem, a.q + cell * span, cell,
-      [&](int i, float v) { og[i] = v; });
+      [&](int i, float4 v) { *reinterpret_cast<float4*>(og + i) = v; });
   if (threadIdx.x == 0) a.visits[cell] = visits;
 }
 
@@ -83,16 +85,19 @@ extern "C" size_t mx_attention_ragged_smem_bytes(int W, int G, int D, int PS) {
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // page_fmts null: a uniform pool of format `fmt`, ED bytes per row (D for
 // fp8, D/2 for fp4); else a mixed pool (ED = D) whose candidate format ids
-// are the bits of mixed_mask, mixed_default the first of them.
+// are the bits of mixed_mask, mixed_default the first of them. The table
+// and lengths are as the caller holds them: the cell maps entries < 0 to
+// the trash page NP - 1, clamps the rest into the pool and the lengths
+// into [row_start + 1, row_start + W].
 extern "C" int mx_attention_ragged_launch(
     const void* q, const void* k_new, const void* v_new, void* ke, void* ks,
     void* ve, void* vs, const void* table, const void* row_start,
     const void* seq_lens, const void* page_fmts, void* out, void* visits,
-    int R, int KVH, int W, int G, int D, int ED, int PS, int P,
+    int R, int KVH, int W, int G, int D, int ED, int PS, int P, int NP,
     int block_size, int fmt, int window, int mixed_mask, int mixed_default,
     float softcap, float scale, void* stream) {
   if (!mxwalk::pools_ok(page_fmts, D, ED, PS, block_size, fmt) ||
-      R * KVH == 0) {
+      R * KVH == 0 || NP < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -109,6 +114,7 @@ extern "C" int mx_attention_ragged_launch(
   c.W = W;
   c.G = G;
   c.P = P;
+  c.NP = NP;
   c.window = window;
   c.softcap = softcap;
   c.scale = scale;

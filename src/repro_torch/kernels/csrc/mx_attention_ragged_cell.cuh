@@ -11,11 +11,11 @@
 //   2. quantize-merge the row's new wide K/V rows into the write-window
 //      pages [row_start / PS, ceil(seq_len / PS)), touching only the bytes
 //      of rows row_start <= kpos < seq_len (the trash-page rule: a -1
-//      table entry was mapped onto page NP - 1 by the caller, so an
-//      inactive row's writes land there and nowhere else);
+//      table entry names page NP - 1, so an inactive row's writes land
+//      there and nowhere else), one warp a block;
 //   3. __syncthreads (which also orders the CTA's global writes before its
 //      reads), then walk pages [first_window_page, ceil(seq_len / PS)) in
-//      order (mxwalk::load_tile, mxwalk::flash_tile);
+//      order (mxwalk::walk_pages);
 //   4. hand acc / l of every query row to `store` and return the number of
 //      pages walked.
 // The reference guarantees that write-window pages belong to one row alone,
@@ -34,70 +34,92 @@ struct Cell {
   const __nv_bfloat16* k_new;  // (R, W, KVH, D) RoPE'd new keys
   const __nv_bfloat16* v_new;  // (R, W, KVH, D) new values
   mxwalk::Pools pools;
-  const int* table;      // (R, P), already mapped into [0, NP)
+  const int* table;      // (R, P); entries < 0 name the trash page NP - 1
   const int* row_start;  // (R,)
-  const int* seq_lens;   // (R,), clamped to [row_start + 1, row_start + W]
-  int R, W, G, P, window;
+  const int* seq_lens;   // (R,), clamped here to [start + 1, start + W]
+  int R, W, G, P, NP, window;
   float softcap, scale;
 };
 
 // Run cell `cell` = r * KVH + h over the queries qg (W * G, D) bf16, rows
-// ordered (token, group member). store(i, v) receives element i = row * D
-// + d of the f32 output acc / l. Returns the pages walked. Every thread of
+// ordered (token, group member). store(i, v) receives elements i to i + 3
+// (i = row * D + d) of the f32 output acc / l as a float4. Returns the
+// pages walked. Every thread of
 // the CTA calls it; `smem` holds mxwalk::smem_bytes(W * G, D, PS) bytes.
 template <class Store>
-__device__ inline int ragged_cell(const Cell& a, float* smem,
+__device__ inline int ragged_cell(const Cell& a, void* smem,
                                   const __nv_bfloat16* qg, int cell,
                                   Store store) {
   const mxwalk::Pools& P = a.pools;
   const int r = cell / P.KVH, h = cell % P.KVH;
   const int rows = a.W * a.G;
 
+  // the wrapper's normalisation (mx_attention.normalize_rows), idempotent
   const int start = a.row_start[r];
-  const int seq_len = a.seq_lens[r];
+  const int seq_len = min(max(a.seq_lens[r], start + 1), start + a.W);
   const int n_new = seq_len - start;
-  const int w0 = max(start, 0) / P.PS;
   const int valid = min((seq_len + P.PS - 1) / P.PS, a.P);
   const int first = mxwalk::first_window_page(start, a.window, P.PS);
   const int* trow = a.table + static_cast<size_t>(r) * a.P;
+  auto page_at = [&](int p) {
+    const int e = trow[p];
+    return static_cast<size_t>(e < 0 ? a.NP - 1 : min(e, a.NP - 1));
+  };
   const mx::FmtSpec f = mx::fmt_spec(P.fmt);
 
   const mxwalk::Walk w = mxwalk::walk_begin(smem, qg, rows, P.D, P.PS);
 
-  // quantize-merge this step's new rows into the write window
-  const int jobs_per_page = P.PS * P.NB;
-  for (int p = w0; p < valid; ++p) {
-    const size_t page = static_cast<size_t>(trow[p]);
-    for (int job = threadIdx.x; job < 2 * jobs_per_page; job += blockDim.x) {
-      const bool is_v = job >= jobs_per_page;
-      const int jj = is_v ? job - jobs_per_page : job;
-      const int j = jj / P.NB, b = jj % P.NB;
-      const int kpos = p * P.PS + j;
-      if (kpos < start || kpos >= seq_len) continue;  // bytes stay untouched
-      const int t = kpos - start;
-      const __nv_bfloat16* src =
-          (is_v ? a.v_new : a.k_new) +
-          ((static_cast<size_t>(r) * a.W + t) * P.KVH + h) * P.D + b * P.BS;
-      const size_t prow = (page * P.PS + j) * P.KVH + h;
-      mx::quantize_block(
-          src, (is_v ? P.ve : P.ke) + prow * P.ED + b * P.BS * f.bits / 8,
-          (is_v ? P.vs : P.ks) + prow * P.NB + b, P.BS, f,
-          /*plus_zero=*/true);
+  // quantize-merge this step's new rows into the write window, one warp a
+  // block: job (t, K or V, block) of new row t at kpos = start + t (rows
+  // at positions below 0 or on pages past the table stay unwritten); a
+  // warp loads four blocks' values before it encodes them
+  const int t0 = max(0, -start), t1 = min(n_new, valid * P.PS - start);
+  const int njobs = max(0, t1 - t0) * 2 * P.NB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  auto job_block = [&](int job, uint8_t*& out, uint8_t*& sc) {
+    const int t = t0 + job / (2 * P.NB), rest = job % (2 * P.NB);
+    const bool is_v = rest >= P.NB;
+    const int b = is_v ? rest - P.NB : rest;
+    const int kpos = start + t;
+    const size_t prow =
+        (page_at(kpos / P.PS) * P.PS + kpos % P.PS) * P.KVH + h;
+    out = (is_v ? P.ve : P.ke) + prow * P.ED + b * P.BS * f.bits / 8;
+    sc = (is_v ? P.vs : P.ks) + prow * P.NB + b;
+    return (is_v ? a.v_new : a.k_new) +
+           ((static_cast<size_t>(r) * a.W + t) * P.KVH + h) * P.D +
+           b * P.BS;
+  };
+  for (int base = warp; base < njobs; base += 4 * mxwalk::kWarps) {
+    float x[4];
+    uint8_t *out[4], *sc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int job = base + u * mxwalk::kWarps;
+      x[u] = 0.0f;
+      if (job < njobs) {
+        const __nv_bfloat16* src = job_block(job, out[u], sc[u]);
+        if (lane < P.BS) {
+          // -0.0 (and flushed negative subnormals) -> +0.0, as the
+          // reference's one-hot f32 gather of the new rows gives
+          const float v = mx::flush(__bfloat162float(src[lane]));
+          x[u] = v == 0.0f ? 0.0f : v;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (base + u * mxwalk::kWarps < njobs) {
+        mx::quantize_lanes(x[u], out[u], sc[u], P.BS, f);
+      }
     }
   }
   __syncthreads();
 
   // online-softmax page walk; padding queries (t >= n_new) clamp onto the
   // last real position
-  for (int p = first; p < valid; ++p) {
-    const size_t page = static_cast<size_t>(trow[p]);
-    mxwalk::load_tile(w, P, page, h, mxwalk::page_format(P, page));
-    mxwalk::flash_tile(w, p, a.G, start, n_new - 1, a.window, a.softcap,
-                       a.scale);
-  }
-  for (int i = threadIdx.x; i < rows * P.D; i += blockDim.x) {
-    store(i, w.acc[i] / w.l[i / P.D]);
-  }
+  mxwalk::walk_pages(w, P, page_at, h, first, valid, a.P, a.G, start,
+                     n_new - 1, a.window, a.softcap, a.scale);
+  mxwalk::walk_finish(w, store);
   return max(0, valid - first);
 }
 

@@ -306,22 +306,39 @@ __device__ __forceinline__ void encode_block(Load x, int n, uint8_t* out,
   *scale = e;
 }
 
-// Quantize one MX block of n bf16 values of a new K/V row (a page write).
-// With plus_zero, -0.0 inputs (and flushed negative subnormals) are read as
-// +0.0, as the ragged write must: the reference gathers the new rows through
-// an exact one-hot f32 matmul, whose +0-initialised sum turns -0.0 into
-// +0.0. The chunked-prefill write quantizes its rows directly and keeps the
-// sign (plus_zero false).
-__device__ __forceinline__ void quantize_block(const __nv_bfloat16* src,
-                                               uint8_t* out, uint8_t* scale,
-                                               int n, const FmtSpec& f,
-                                               bool plus_zero) {
-  encode_block(
-      [&](int i) {
-        const float x = flush(__bfloat162float(src[i]));
-        return plus_zero && x == 0.0f ? 0.0f : x;
-      },
-      n, out, scale, f);
+// Quantize one MX block of n <= 32 values of a new K/V row (a page write)
+// held one a lane, x already flushed (lanes >= n hold 0), into packed codes
+// at `out` (n fp8 bytes, 3n/4 fp6 bytes or n/2 fp4 bytes) and one E8M0
+// byte, as encode_block does: the amax over the lanes (a max, exact in any
+// order), each lane's code by the same arithmetic; the lane holding a
+// byte's first element writes it (fp4: pairs of lanes, fp6: fours). Every
+// lane of the warp calls it.
+__device__ __forceinline__ void quantize_lanes(float x, uint8_t* out,
+                                               uint8_t* scale, int n,
+                                               const FmtSpec& f) {
+  const unsigned kFull = 0xFFFFFFFFu;
+  const int i = threadIdx.x & 31;
+  float amax = fabsf(x);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, off));
+  }
+  const uint8_t e = e8m0_from_amax(amax, f);
+  const float s = e8m0_to_scale(e);
+  const float r = e > 0 ? x / s : 0.0f;
+  const uint32_t c = i < n ? encode(fminf(fmaxf(r, -f.max), f.max), f) : 0u;
+  if (f.bits == 8) {
+    if (i < n) out[i] = static_cast<uint8_t>(c);
+  } else if (f.bits == 4) {
+    const uint32_t c1 = __shfl_down_sync(kFull, c, 1);
+    if (i < n && (i & 1) == 0) out[i >> 1] = pack_fp4(c, c1);
+  } else {
+    const uint32_t c1 = __shfl_down_sync(kFull, c, 1);
+    const uint32_t c2 = __shfl_down_sync(kFull, c, 2);
+    const uint32_t c3 = __shfl_down_sync(kFull, c, 3);
+    if (i < n && (i & 3) == 0) pack_fp6(c, c1, c2, c3, out + 3 * (i >> 2));
+  }
+  if (i == 0) *scale = e;
 }
 
 }  // namespace mx

@@ -98,15 +98,17 @@
 //   * Small M splits N over CTAs (mx_matmul.dgrad_plan) into an f32
 //     workspace summed in ascending order by mx_matmul_reduce_kernel: two
 //     calls give the same bits.
-#include <cuda.h>  // CUtensorMap; the encoder is fetched from the driver
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
 #include "mx_codec.cuh"
 
 namespace {
+
+using namespace hopper;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -184,10 +186,6 @@ struct TmaMaps {
   CUtensorMap w, ws, a, as;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -201,141 +199,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// generic-proxy writes of shared memory (the decode) visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// waits for the barrier's phase of this parity; traps rather than hang if
-// the copies never land
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (int spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (spin > (1 << 20)) __trap();
-  }
-}
-
-// one 2D box of a tensor map into shared memory, completing on the barrier
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
-         "r"(y), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// keeps the compiler from moving accumulator reads above a wgmma wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// Descriptor of a K-major bf16 tile of 128-byte rows with the 128-byte
-// swizzle (16-byte chunk c of row r stored at chunk c ^ (r & 7)), 8-row
-// groups 1024 bytes apart; the tile starts on a 1024-byte boundary and a
-// k16 step advances the start by 32 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFFu) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
-         (1ull << 62);
-}
-
-// Descriptor of the same swizzled tile read MN-major (wgmma's transposed
-// A): row r of 128 bytes holds 64 values of the output dimension at
-// contraction index r, 8-row groups 1024 bytes apart (both offsets 1024: a
-// 64-row A has one atom along its rows, so either field may carry the
-// group stride); a k16 step advances the start by 16 rows, 2048 bytes.
-__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFFu) >> 4) | ((1024ull >> 4) << 16) |
-         ((1024ull >> 4) << 32) | (1ull << 62);
-}
-
-// D (64 x N, f32 fragment) (+)= A (64 x 16, bf16) . B (N x 16, bf16)^T, both
-// from shared memory through descriptors; scale_d 0 overwrites D. TA 1 reads
-// A MN-major (its 64 rows contiguous, wgmma's transpose of a 16-bit A).
-template <int N, int TA = 0>
-__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db,
-                                           int scale_d) {
-  if constexpr (N == 8) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3"
-        "}, %4, %5, p, 1, 1, %7, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
-  } else if constexpr (N == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, %19, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
-  } else {
-    static_assert(N == 64, "wgmma widths 8, 32 and 64");
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
-  }
 }
 
 // 8 decoded values -> one 16-byte chunk of a swizzled bf16 tile (exact for
@@ -1285,27 +1148,6 @@ int launch_tc_bm(const TcArgs& p, const TmaMaps& maps, int bm, bool lean,
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
 }
 
 // 2D map over `rows` rows of `cols` elements, `stride` bytes apart, read in

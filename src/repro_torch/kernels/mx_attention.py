@@ -65,7 +65,7 @@ def _library(name: str):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "mx_attention_ragged":
             lib.mx_attention_ragged_launch.argtypes = (
-                [ptr] * 13 + [i32] * 13 + [f32, f32, ptr])
+                [ptr] * 13 + [i32] * 14 + [f32, f32, ptr])
             lib.mx_attention_ragged_launch.restype = i32
             lib.mx_attention_ragged_smem_bytes.argtypes = [i32] * 4
             lib.mx_attention_ragged_smem_bytes.restype = ctypes.c_size_t
@@ -507,7 +507,8 @@ def _on_one_device(dev, *tensors):
 # ---------------------------------------------------------------------------
 
 
-def _launch_common(wide, pools, ps: int, d: int, smem: int, rows: int):
+def _launch_common(wide, pools, ps: int, d: int, block: int, smem: int,
+                   rows: int):
     """Checks every launch shares; raises on what the kernels do not take.
     ``wide`` and ``pools`` are (name, tensor) pairs: the bf16 operands and
     the rest."""
@@ -518,16 +519,17 @@ def _launch_common(wide, pools, ps: int, d: int, smem: int, rows: int):
     for name, t in wide + pools:
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if ps > 32:
-        raise NotImplementedError("the CUDA attention kernels take "
-                                  "page_size <= 32")
-    # one lane per key of a page tile; the P.V loop gives each lane
-    # D / lanes of the logical head dim, however narrow the stored row
-    lanes = 1 << max(ps - 1, 0).bit_length()
-    if d % lanes:
-        raise NotImplementedError(
-            f"head_dim {d} must be a multiple of {lanes} (page_size rounded "
-            "up to a power of two)")
+    # the walk's tile (csrc/mx_attention_walk.cuh): 16-wide steps over the
+    # head dim, keys padded to 16 or 32, 4-element decode groups, a warp
+    # for each block of the page writes
+    if not 0 < ps <= 32:
+        raise ValueError("the CUDA attention kernels take page_size <= 32")
+    if d % 16 or not 0 < d <= 256:
+        raise ValueError(f"head_dim {d}: the CUDA attention kernels take a "
+                         "multiple of 16 up to 256")
+    if block % 4 or not 0 < block <= 32:
+        raise ValueError(f"block_size {block}: the CUDA attention kernels "
+                         "take a multiple of 4 up to 32 (a warp a block)")
     if smem > _MAX_SMEM:
         raise NotImplementedError(
             f"{rows} query rows x head_dim {d} need {smem} bytes of shared "
@@ -564,7 +566,7 @@ def _launch(q, k_new, v_new, ke, ks, ve, vs, table, start, lens, *,
     lib = _library("mx_attention_ragged")
     _launch_common([("q", q), ("k_new", k_new), ("v_new", v_new)],
                    [("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs),
-                    ("page_fmts", page_fmts)], ps, d,
+                    ("page_fmts", page_fmts)], ps, d, block_size,
                    lib.mx_attention_ragged_smem_bytes(w, g, d, ps), w * g)
     out = torch.empty((r, kvh, w, g, d), dtype=torch.float32,
                       device=q.device)
@@ -574,6 +576,7 @@ def _launch(q, k_new, v_new, ke, ks, ve, vs, table, start, lens, *,
         ks.data_ptr(), ve.data_ptr(), vs.data_ptr(), table.data_ptr(),
         start.data_ptr(), lens.data_ptr(), _ptr(page_fmts), out.data_ptr(),
         visits.data_ptr(), r, kvh, w, g, d, ed, ps, table.shape[1],
+        ke.shape[0],
         *_tail_args(fmt_name, block_size, window, page_fmts, mixed_fmts,
                     softcap, d, q.device))
     if err != 0:
@@ -590,7 +593,7 @@ def _launch_verify(q, ke, ks, ve, vs, table, lens, *, fmt_name, block_size,
     lib = _library("mx_attention_paged")
     _launch_common([("q", q)],
                    [("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs),
-                    ("page_fmts", page_fmts)], ps, d,
+                    ("page_fmts", page_fmts)], ps, d, block_size,
                    lib.mx_attention_paged_smem_bytes(tq * g, d, ps), tq * g)
     out = torch.empty((b, kvh, tq, g, d), dtype=torch.float32,
                       device=q.device)
@@ -617,7 +620,7 @@ def _launch_prefill(q, k_chunk, v_chunk, ke, ks, ve, vs, table, start, lens,
     lib = _library("mx_attention_paged")
     _launch_common([("q", q), ("k_chunk", k_chunk), ("v_chunk", v_chunk)],
                    [("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs),
-                    ("page_fmts", page_fmts)], ps, d,
+                    ("page_fmts", page_fmts)], ps, d, block_size,
                    lib.mx_attention_paged_smem_bytes(c * g, d, ps), c * g)
     out = torch.empty((b, kvh, c, g, d), dtype=torch.float32,
                       device=q.device)
@@ -673,13 +676,18 @@ def mx_attention_ragged_fused(q, k_new, v_new, ke, ks, ve, vs, page_table,
     dev = q.device
     _on_one_device(dev, k_new, v_new, ke, ks, ve, vs, page_table, row_start,
                    seq_lens, page_fmts)
-    table, start, lens = normalize_rows(page_table, row_start, seq_lens,
-                                        ke.shape[0], w)
     kw = dict(fmt_name=fmt.name, block_size=block_size, softcap=softcap,
               window=window, page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    run = _launch if dev.type == "cuda" else mx_attention_ragged_fused_plain
-    out, visits = run(q, k_new, v_new, ke, ks, ve, vs, table, start, lens,
-                      **kw)
+    if dev.type == "cuda":
+        # the kernel's cell applies normalize_rows' map itself
+        out, visits = _launch(q, k_new, v_new, ke, ks, ve, vs, *(
+            t.to(torch.int32).contiguous()
+            for t in (page_table, row_start, seq_lens)), **kw)
+    else:
+        table, start, lens = normalize_rows(page_table, row_start, seq_lens,
+                                            ke.shape[0], w)
+        out, visits = mx_attention_ragged_fused_plain(
+            q, k_new, v_new, ke, ks, ve, vs, table, start, lens, **kw)
     pools = (ke, ks, ve, vs)
     return (out, pools, visits) if debug_visits else (out, pools)
 

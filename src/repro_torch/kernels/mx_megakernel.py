@@ -57,7 +57,7 @@ def _library():
     if _lib is None:
         lib = build.load("mx_megakernel")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mx_megakernel_launch.argtypes = ([ptr] * 30 + [i32] * 18
+        lib.mx_megakernel_launch.argtypes = ([ptr] * 30 + [i32] * 23
                                              + [f32] * 3 + [ptr])
         lib.mx_megakernel_launch.restype = i32
         lib.mx_megakernel_smem_bytes.argtypes = [i32] * 4
@@ -75,6 +75,66 @@ def grid_size(w: int, g: int, d: int, ps: int) -> int:
     if n <= 0:
         raise RuntimeError(f"mx_megakernel_grid failed: cudaError {-n}")
     return n
+
+
+#: the kernel's product tile (csrc/mx_megakernel.cu): TILE_N weight
+#: columns (a gate/up pair: TILE_N / 2 of each) by one of TILE_ROWS
+#: activation rows, walked in TILE_K-deep TMA stages
+TILE_N, TILE_K = 128, 64
+TILE_ROWS = (256, 128)
+#: the step's product phases, in the kernel's order: name -> (N, K) of
+#: each job; gate_up is a pair (its tile holds both products' columns)
+PHASES = ("qkv", "wo", "gate_up", "down")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def megakernel_plan(m: int, dm: int, hd: int, kvd: int, dff: int,
+                    ctas: int) -> dict:
+    """The product plan of one launch: for each phase its jobs' (N, K),
+    the activation rows of its tiles and its tile count.
+
+    ``ctas`` CTAs take a phase's tiles grid-stride, each tile's whole
+    contraction in one CTA (summed in order, as the per-layer step's
+    products are). A CTA pulls a stage's weight boxes (16 KB) and its
+    activation rows (256 B a row) from L2 for each of its tiles in turn,
+    so a phase's time goes as its waves times that; the plan takes the
+    tile rows with the least, the larger on a tie. At granite's 512 rows
+    on 132 SMs that is 256 rows for q/k/v (96 tiles) and gate/up (448),
+    and 128 for wo and down (128 tiles where 256 rows leave 64). Returns
+    ``{name: {"jobs", "pair", "rows", "tm", "tiles"}}``.
+    """
+    if min(m, dm, hd, kvd, dff, ctas) < 1:
+        raise ValueError("megakernel_plan takes positive sizes")
+    jobs = {"qkv": ((hd, dm), (kvd, dm), (kvd, dm)), "wo": ((dm, hd),),
+            "gate_up": ((dff, dm),), "down": ((dm, dff),)}
+    plan = {}
+    for name in PHASES:
+        pair = name == "gate_up"
+        cols = TILE_N // 2 if pair else TILE_N
+        best = None
+        for rows in TILE_ROWS:
+            tm = _cdiv(m, rows)
+            tiles = sum(tm * _cdiv(n, cols) for n, _ in jobs[name])
+            cost = _cdiv(tiles, ctas) * (2 * TILE_K * 128 + rows * 128)
+            if best is None or cost < best[0]:
+                best = (cost, dict(jobs=jobs[name], pair=pair, rows=rows,
+                                   tm=tm, tiles=tiles))
+        plan[name] = best[1]
+    return plan
+
+
+def plan_units(plan: dict, name: str) -> list:
+    """The kernel's walk of phase ``name`` (its ``unit_of``): for each
+    unit in order, ``(job, tile_m, tile_n)`` -- the jobs one after the
+    other, within a job the activation tile fastest."""
+    ph = plan[name]
+    cols = TILE_N // 2 if ph["pair"] else TILE_N
+    return [(job, u % ph["tm"], u // ph["tm"])
+            for job, (n, _) in enumerate(ph["jobs"])
+            for u in range(ph["tm"] * _cdiv(n, cols))]
 
 
 def _scratch_for(dev, m: int, dm: int, hd: int, kvd: int, dff: int):
@@ -111,10 +171,18 @@ def _launch(x0, weights, norms, pools, table, start, lens, *, head_dim,
                                  "down"), weights)),
         list(zip(("ke", "ks", "ve", "vs"), pools))
         + [("norm_mixer", norms[0]), ("norm_ffn", norms[1]),
-           ("page_fmts", page_fmts)], ps, d, smem, w * h // kvh)
+           ("page_fmts", page_fmts)], ps, d, block_size, smem,
+        w * h // kvh)
     if any(t.dtype != torch.float32 for t in norms):
         raise TypeError("the CUDA megakernel takes f32 norm scales")
+    for name, t in zip(("wq", "wk", "wv", "wo", "gate", "up", "down"),
+                       weights):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(TMA)")
     cos, sin = rope_table(d, float(rope_theta), num_positions, x0.device)
+    grid = grid_size(w, h // kvh, d, ps)
+    plan = megakernel_plan(r * w, dm, h * d, kvh * d, dff, grid)
     scratch = _scratch_for(x0.device, r * w, dm, h * d, kvh * d, dff)
     out = torch.empty_like(x0)
     visits = torch.empty((layers, r, kvh, 1), dtype=torch.int32,
@@ -127,8 +195,9 @@ def _launch(x0, weights, norms, pools, table, start, lens, *, head_dim,
         cos.data_ptr(), sin.data_ptr(), *(t.data_ptr() for t in scratch),
         visits.data_ptr(), layers, r, w, h, kvh, d, dm, dff, npages, ps, ed,
         table.shape[1], num_positions, block_size, F.FORMAT_IDS[fmt_name],
-        -1 if window is None else int(window), mask, default,
-        float(norm_eps), float(softcap or 0.0), float(d ** -0.5),
+        -1 if window is None else int(window), mask, default, grid,
+        *(plan[k]["rows"] for k in PHASES), float(norm_eps),
+        float(softcap or 0.0), float(d ** -0.5),
         torch.cuda.current_stream(x0.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mx_megakernel_launch failed: cudaError {err}")

@@ -68,10 +68,10 @@ def _ref():
 
 
 def _dims(fmt="fp8_e4m3", block_size=16, head_dim=16, num_groups=2,
-          window=None, d_model=64):
+          window=None, d_model=64, d_ff=128):
     dims = dict(name="t", family="dense", d_model=d_model, vocab_size=128,
                 num_groups=num_groups, num_heads=4, num_kv_heads=2,
-                head_dim=head_dim, d_ff=128)
+                head_dim=head_dim, d_ff=d_ff)
     qkw = dict(fmt=fmt, block_size=block_size, quantize_acts=False,
                quantize_kv_cache=True)
     return dims, qkw, window
@@ -637,14 +637,17 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
     """On the card: logits within one bf16 ulp of the largest and the same
     argmax, at most CODE_FRACTION of the pool codes differing (the
     kernel's products sum in another order than cuBLAS), visits exact.
-    head_dim 16 and 32, fp8 and fp4 pools, a window, a tiered pool."""
+    head_dim 16 and 32, fp8 and fp4 pools, a window, a tiered pool; M, N
+    and K off every product tile and TMA box (d_model 144, d_ff 336);
+    granite-8b's d_ff (14336: down sums 224 stages in one CTA)."""
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cuda.matmul.allow_tf32 = False
     launches = tmk.mx_megakernel_step.launches
     mixed = ("fp8_e4m3", "fp6_e3m2", "fp4_e2m1")
     cases = [dict(), dict(fmt="fp4_e2m1", block_size=32, head_dim=32,
                           d_model=128), dict(window=12, num_groups=3),
-             dict(tiered=True, num_groups=3)]
+             dict(tiered=True, num_groups=3),
+             dict(d_model=144, d_ff=336), dict(d_ff=14336)]
     for case in cases:
         kw = dict(case)
         tiered = kw.pop("tiered", False)
@@ -703,3 +706,72 @@ def _load_device(cache, decoys):
 def _pool_bytes_cpu(cache):
     return [cache.stack[k].view(torch.uint8).cpu().numpy()
             for k in POOL_KEYS]
+
+
+# ---------------------------------------------------------------------------
+# the product plan of the CUDA launch (host side, runs here)
+# ---------------------------------------------------------------------------
+
+#: (M, DM, HD, KVD, DFF): granite-8b at the main path's 512 rows and at a
+#: decode step's 8, and the cuda case's shapes (the tiny model, M N and K
+#: off the tiles, granite's d_ff)
+PLAN_SHAPES = [(512, 4096, 4096, 1024, 14336), (8, 4096, 4096, 1024, 14336),
+               (32, 64, 64, 32, 128), (32, 144, 64, 32, 336),
+               (32, 64, 64, 32, 14336)]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("ctas", [132, 114, 64, 1])
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=lambda s: "m{}_dm{}_dff{}".format(s[0], s[1],
+                                                               s[4]))
+def test_megakernel_plan_covers_every_tile_once(shape, ctas):
+    """Every output tile of every job exactly once, each with its whole
+    contraction (summed in order in one CTA); tile rows the kernel takes
+    and covering M; the activation tile fastest, so the CTAs that share a
+    weight column block run together; no plan slower than another tile
+    size by the plan's own count (waves x bytes a stage)."""
+    m, dm, hd, kvd, dff = shape
+    plan = tmk.megakernel_plan(m, dm, hd, kvd, dff, ctas)
+    assert tuple(plan) == tmk.PHASES
+    for name, ph in plan.items():
+        assert ph["rows"] in tmk.TILE_ROWS
+        assert ph["tm"] == _cdiv(m, ph["rows"])
+        assert (ph["tm"] - 1) * ph["rows"] < m <= ph["tm"] * ph["rows"]
+        cols = tmk.TILE_N // 2 if ph["pair"] else tmk.TILE_N
+        units = tmk.plan_units(plan, name)
+        assert len(units) == ph["tiles"]
+        want = {(j, a, b) for j, (n, _) in enumerate(ph["jobs"])
+                for a in range(ph["tm"]) for b in range(_cdiv(n, cols))}
+        assert len(set(units)) == len(units) and set(units) == want
+        assert len({k for _, k in ph["jobs"]}) == 1  # the jobs share K
+        for a, b in zip(units, units[1:]):
+            if b[1]:  # same weight column block as the unit before
+                assert (a[0], a[2]) == (b[0], b[2]) and b[1] == a[1] + 1
+        waves = _cdiv(ph["tiles"], ctas)
+        cost = waves * (2 * tmk.TILE_K * 128 + ph["rows"] * 128)
+        for rows in tmk.TILE_ROWS:
+            tiles = sum(_cdiv(m, rows) * _cdiv(n, cols)
+                        for n, _ in ph["jobs"])
+            assert cost <= _cdiv(tiles, ctas) * (2 * tmk.TILE_K * 128
+                                                 + rows * 128)
+    assert plan["gate_up"]["pair"] and not plan["qkv"]["pair"]
+
+
+def test_megakernel_plan_at_granite_fills_the_card():
+    """At granite-8b's shapes on 132 SMs: 256-row tiles for q/k/v (96)
+    and gate/up (448 of 64 columns each), 128-row tiles for wo and down
+    (128, where 256 rows would leave 64); no phase leaves a third of the
+    CTAs idle."""
+    plan = tmk.megakernel_plan(512, 4096, 4096, 1024, 14336, 132)
+    got = {k: (v["rows"], v["tiles"]) for k, v in plan.items()}
+    assert got == {"qkv": (256, 96), "wo": (128, 128),
+                   "gate_up": (256, 448), "down": (128, 128)}
+    for ph in plan.values():
+        waves = _cdiv(ph["tiles"], 132)
+        assert ph["tiles"] / (waves * 132) > 2 / 3
+    with pytest.raises(ValueError):
+        tmk.megakernel_plan(0, 64, 64, 32, 128, 132)

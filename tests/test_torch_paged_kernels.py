@@ -104,11 +104,11 @@ def verify_case(fmt, block_size, tq, *, mixed=False, window=None,
 
 def prefill_case(fmt, block_size, *, mixed=False, window=None,
                  softcap=None, seed=11):
-    """Two rows of one C = 8 chunk: row 0 fresh at position 0 (8 real
-    tokens), row 1 a padded final chunk at 8 (5 real tokens) over two
-    resident pages; -1 table tails."""
+    """Two rows of one C = max(8, PS) chunk: row 0 fresh at position 0 (C
+    real tokens), row 1 a padded final chunk at C (5 real tokens) over
+    the resident pages below it; -1 table tails."""
     rng = np.random.default_rng(seed)
-    c = 8
+    c = max(8, PS)
     npages, pmax = 10, 5
     table = np.full((2, pmax), -1, np.int32)
     table[0, :2] = [6, 2]
@@ -126,8 +126,8 @@ def prefill_case(fmt, block_size, *, mixed=False, window=None,
     return dict(q=_bf16(rng, (2, KVH, c, G, D)), k_chunk=k_chunk,
                 v_chunk=_bf16(rng, (2, c, KVH, D)),
                 **_pools(rng, npages, fmt, block_size, page_fmts),
-                table=table, starts=np.asarray([0, 8], np.int32),
-                lens=np.asarray([8, 13], np.int32), fmt=fmt,
+                table=table, starts=np.asarray([0, c], np.int32),
+                lens=np.asarray([c, c + 5], np.int32), fmt=fmt,
                 block_size=block_size, window=window, softcap=softcap,
                 page_fmts=page_fmts)
 
@@ -309,10 +309,27 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
+#: the cuda-marked tests' geometries (the module's D, G and PS): the
+#: module's own, then the walk's tile at head_dim 16, 128 and 256
+#: with pages of 8-32 rows and Tq * G, C * G not multiples of 16
+GEOMETRIES = [dict(D=32, G=2, PS=4), dict(D=16, G=3, PS=8),
+              dict(D=128, G=3, PS=16), dict(D=256, G=2, PS=32)]
+
+
+@pytest.fixture(params=GEOMETRIES,
+                ids=lambda g: "d{D}_g{G}_ps{PS}".format(**g))
+def geometry(request, monkeypatch):
+    """Sets the module's geometry for one cuda-marked case."""
+    for name, value in request.param.items():
+        monkeypatch.setitem(globals(), name, value)
+    return request.param
+
+
 @pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
+def test_cuda_kernels_match_plain_versions(geometry):
     _need_card()
     for fmt, block_size, mixed in POOL_KINDS:
+        block_size = min(block_size, D)
         for tq in (1, 3):
             c = verify_case(fmt, block_size, tq, mixed=mixed, window=5,
                             softcap=5.0 if tq == 3 else None)
@@ -333,7 +350,7 @@ def test_cuda_kernels_match_plain_versions():
 
 
 @pytest.mark.cuda
-def test_cuda_ragged_decode_rows_bit_equal_verify_kernel():
+def test_cuda_ragged_decode_rows_bit_equal_verify_kernel(geometry):
     """One ragged step with decode rows and a 3-token window against the
     verify kernel over the pool the host write produces: the pools are
     identical and each row's real queries give the same bits."""

@@ -243,16 +243,32 @@ def test_mixed_pool_write_format_must_be_fp8():
             fmt_name="fp4_e2m1", page_fmts=t["page_fmts"])
 
 
+@pytest.mark.parametrize("ps,d,block", [(33, 64, 16), (8, 24, 8),
+                                         (8, 272, 16), (8, 64, 2),
+                                         (8, 128, 64)])
+def test_cuda_launch_checks_raise_value_error(ps, d, block):
+    """What the walk's tile cannot take raises before any launch: pages
+    over 32 rows, head_dim not a multiple of 16 or over 256, blocks not a
+    multiple of 4 or over 32."""
+    with pytest.raises(ValueError):
+        tk._launch_common([], [], ps, d, block, 0, 1)
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
+@pytest.mark.parametrize("d,ps,w,g", [(64, 8, 8, 2), (16, 16, 8, 2),
+                                      (32, 32, 5, 3), (128, 16, 8, 3),
+                                      (256, 8, 4, 3)])
+def test_cuda_kernel_matches_plain_version(d, ps, w, g):
+    """The walk's tile at head_dim 16-256 and pages of 8-32 rows,
+    W * G a multiple of 16 or not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     for fmt, block_size, softcap, mixed in (
             ("fp8_e4m3", 16, None, False), ("fp8_e5m2", 16, 5.0, False),
             ("fp4_e2m1", 16, None, False), ("fp4_e2m1", 32, 5.0, False),
             ("fp8_e4m3", 16, None, True), ("fp8_e5m2", 32, 5.0, True)):
-        case = make_case(fmt, block_size, window=6, softcap=softcap,
-                         mixed=mixed)
+        case = make_case(fmt, min(block_size, d), d=d, g=g, ps=ps, w=w,
+                         window=6, softcap=softcap, mixed=mixed)
         want_out, want_pools, want_visits = run_port(case, "cpu")
         out, pools, visits = run_port(case, "cuda")
         trash = case["ke"].shape[0] - 1  # scratch page: racy by contract
