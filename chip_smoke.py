@@ -20,9 +20,9 @@ code is not 0 and no result line is printed:
      fp4 pools (blocks 32 and 16) and a mixed-format (tiered) pool whose
      resident pages the repack wrote as fp8, fp6 and fp4; time each;
   2b. hold the page repack kernel bit-exact against its plain version on
-     a granite-shaped tiered layer pool, every destination format, mixed
-     sources, padding, zero and subnormal blocks; time one 36-layer
-     dispatch;
+     a granite-shaped 36-layer tiered stack, called once on the stack and
+     once a layer, every destination format, mixed sources, padding, zero
+     and subnormal blocks; time one 36-layer dispatch both ways;
   2c. hold the split step's kernels, decode/verify (Tq 1 and 4) and
      chunked prefill (B 1 and 2, no resident prefix and 10 resident
      pages), against their plain versions on fp8 e4m3/e5m2, packed fp4
@@ -53,7 +53,9 @@ code is not 0 and no result line is printed:
      with every kernel count reset just before and read just after; then
      split one full-width decode step's time into the kernel and the rest;
      then serve the same prompts with ``--tiered`` (the reference's
-     ``TierPolicy`` defaults), counts reset and read the same way; then
+     ``TierPolicy`` defaults), counts reset and read the same way (one
+     repack launch a dispatch on the layer stack, the repack calls'
+     stream time summed from CUDA events around each, no sync); then
      with ``--step-mode split`` (counts reset and read the same way,
      streams compared with the ragged run's), and split its decode and
      prefill dispatches' time into the kernel and the rest; then with
@@ -533,13 +535,14 @@ REPACK_PAGES = 200  # a tiered layer pool at granite's KV shapes
 REPACK_LIST = 8  # TierPolicy.repack_list_len
 
 
-def repack_pool(gen, dev: str = "cuda") -> tuple:
+REPACK_LAYERS = 36  # granite-8b's layer stack
+
+
+def repack_pool(gen, dev: str = "cuda", corners: bool = True) -> tuple:
     """(pools, page formats) of one granite-shaped tiered layer pool:
     pages cycle through fp8, fp6 e3m2 and fp4 e2m1 (repacked from fp8 by
-    the plain version). Pages 0 (fp8) and 1 (fp6) then get an all-zero
-    block, E8M0 byte 0 under nonzero codes, and a scale so small that the
-    decoded values fall to the bottom of the f32 range (below it, they
-    flush to zero)."""
+    the plain version). With ``corners``, pages 0 (fp8) and 1 (fp6) then
+    get the corner blocks of ``write_corners``."""
     from repro_torch.core import formats as F
     from repro_torch.core import quantize
     from repro_torch.kernels.mx_repack import mx_repack_pages_plain
@@ -561,13 +564,47 @@ def repack_pool(gen, dev: str = "cuda") -> tuple:
             torch.zeros(len(pages), dtype=torch.int32, device=dev),
             len(pages), dst_fmt_name=name, mixed_fmts=MIXED,
             block_size=BLOCK)
+    if corners:
+        write_corners(pools)
+    return pools, fmts
+
+
+def write_corners(pools) -> None:
+    """Pages 0 and 1 of (.., NP, PS, KVH, D) pools (every layer of a
+    stack) get an all-zero block, E8M0 byte 0 under nonzero codes, and a
+    scale so small that the decoded values fall to the bottom of the f32
+    range (below it, they flush to zero)."""
     for elems, scales in (pools[:2], pools[2:]):
         for page in (0, 1):
-            elems[page, 0, :, :BLOCK] = 0  # all-zero block ...
-            scales[page, 0, :, 0] = 0  # ... with E8M0 byte 0
-            scales[page, 1, :, 1] = 0  # byte 0 under nonzero codes
-            scales[page, 2, :, 2] = 3  # decoded values near 2^-124
-    return pools, fmts
+            elems[..., page, 0, :, :BLOCK] = 0  # all-zero block ...
+            scales[..., page, 0, :, 0] = 0  # ... with E8M0 byte 0
+            scales[..., page, 1, :, 1] = 0  # byte 0 under nonzero codes
+            scales[..., page, 2, :, 2] = 3  # decoded values near 2^-124
+
+
+def repack_stack(gen, dev: str = "cuda",
+                 layers: int = REPACK_LAYERS) -> tuple:
+    """(pools, page formats) of a granite-shaped tiered stack (layers, 200,
+    16, 8, 128), as ``PagedCache.stack`` holds it: each layer's pages are
+    one pool's pages shuffled within each format, so page p has format
+    fmts[p] in every layer and the layers' bytes differ; then the corner
+    blocks on pages 0 and 1 of every layer."""
+    pools, fmts = repack_pool(gen, dev, corners=False)
+    classes = [[p for p in range(REPACK_PAGES) if fmts[p] == f]
+               for f in sorted(set(fmts))]
+    stacks = [torch.empty((layers, *t.shape), dtype=t.dtype, device=dev)
+              for t in pools]
+    for layer in range(layers):
+        perm = list(range(REPACK_PAGES))
+        for cls in classes:
+            order = torch.randperm(len(cls), generator=gen).tolist()
+            for p, q in zip(cls, order):
+                perm[p] = cls[q]
+        idx = torch.tensor(perm, device=dev)
+        for st, t in zip(stacks, pools):
+            st[layer] = t[idx]
+    write_corners(stacks)
+    return stacks, fmts
 
 
 def repack_cases(fmts) -> list:
@@ -588,82 +625,114 @@ def repack_cases(fmts) -> list:
 
 
 def check_repack_kernel(dev: str = "cuda") -> None:
+    """Every case on a 36-layer stack, three ways: one stacked call (one
+    launch), one 4-D call a layer (36 launches), and the plain version;
+    every byte of every layer equal."""
     from repro_torch.kernels import mx_repack as mr
 
     gen = torch.Generator().manual_seed(2)
-    pools, fmts = repack_pool(gen, dev)
+    pools, fmts = repack_stack(gen, dev)
+    layers = pools[0].shape[0]
     for dst, ids, src, count in repack_cases(fmts):
         args = (torch.tensor(ids, dtype=torch.int32, device=dev),
                 torch.tensor(src, dtype=torch.int32, device=dev), count)
-        kernel_pools = [t.clone() for t in pools]
-        mr.mx_repack_pages(*kernel_pools, *args, dst_fmt_name=dst,
-                           mixed_fmts=MIXED, block_size=BLOCK)
-        plain_pools = [t.clone() for t in pools]
-        mr.mx_repack_pages_plain(*plain_pools, *args, dst_fmt_name=dst,
-                                 mixed_fmts=MIXED, block_size=BLOCK)
+        kw = dict(dst_fmt_name=dst, mixed_fmts=MIXED, block_size=BLOCK)
+        stacked = [t.clone() for t in pools]
+        launches = mr.mx_repack_pages.launches
+        mr.mx_repack_pages(*stacked, *args, **kw)
+        if dev == "cuda" and mr.mx_repack_pages.launches != launches + 1:
+            raise AssertionError("stacked repack: not one launch")
+        per_layer = [t.clone() for t in pools]
+        for layer in range(layers):
+            mr.mx_repack_pages(*(t[layer] for t in per_layer), *args, **kw)
+        plain = [t.clone() for t in pools]
+        mr.mx_repack_pages_plain(*plain, *args, **kw)
         if dev == "cuda":
             torch.cuda.synchronize()
-        for name, got, exp, old in zip(("ke", "ks", "ve", "vs"),
-                                       kernel_pools, plain_pools, pools):
-            if not torch.equal(got, exp):
-                raise AssertionError(f"repack to {dst}: {name} bytes differ")
-            if name == "ke" and torch.equal(got, old):
-                raise AssertionError(f"repack to {dst}: nothing changed")
-    log(f"repack kernel: every pool byte identical to the plain version on "
-        f"a ({REPACK_PAGES}, {PS}, {KVH}, {D}) tiered pool, block {BLOCK}, "
-        "to fp6 e3m2, fp6 e2m3, fp4 e2m1 and fp8 e4m3 (widening), from "
-        "mixed sources, 5 live entries of 8, zero and subnormal blocks")
+        for name, a, b, exp, old in zip(("ke", "ks", "ve", "vs"), stacked,
+                                        per_layer, plain, pools):
+            for form, got in (("stacked", a), ("per-layer", b)):
+                if not torch.equal(got, exp):
+                    bad = [layer for layer in range(layers)
+                           if not torch.equal(got[layer], exp[layer])]
+                    raise AssertionError(f"{form} repack to {dst}: {name} "
+                                         f"bytes differ in layers {bad}")
+            if name == "ke" and any(torch.equal(exp[layer], old[layer])
+                                    for layer in range(layers)):
+                raise AssertionError(f"repack to {dst}: a layer unchanged")
+    log(f"repack kernel: every byte of a ({layers}, {REPACK_PAGES}, {PS}, "
+        f"{KVH}, {D}) tiered stack identical to the plain version, one "
+        f"stacked call (one launch) and one 4-D call a layer, block "
+        f"{BLOCK}, to fp6 e3m2, fp6 e2m3, fp4 e2m1 and fp8 e4m3 "
+        "(widening), from mixed sources, 5 live entries of 8, zero and "
+        "subnormal blocks")
 
 
-def time_repack_kernel(layers: int = 36) -> dict:
-    """One engine repack dispatch: 8 fp8 pages of each of ``layers``
-    granite-shaped layer pools to fp6 e3m2 (one launch per layer), with
+def time_repack_kernel(layers: int = REPACK_LAYERS) -> dict:
+    """One engine repack dispatch: 8 fp8 pages of a ``layers``-deep
+    granite-shaped stack to fp6 e3m2, as the engine now issues it (one
+    stacked call, one launch) and, for comparison, one 4-D call a layer;
     the pages' bytes put back before every run (untimed)."""
     from repro_torch.kernels import mx_repack as mr
 
     gen = torch.Generator().manual_seed(3)
-    pools, fmts = repack_pool(gen)
+    pools, fmts = repack_stack(gen, layers=layers)
     ids = [p for p in range(REPACK_PAGES) if fmts[p] == 0][:REPACK_LIST]
     ids_t = torch.tensor(ids, dtype=torch.int32, device="cuda")
     src_t = torch.zeros(REPACK_LIST, dtype=torch.int32, device="cuda")
-    layer_pools = [[t.clone() for t in pools] for _ in range(layers)]
-    saved = [[t[ids_t.long()].clone() for t in lp] for lp in layer_pools]
+    saved = [t[:, ids_t.long()].clone() for t in pools]
+    layer_pools = [[t[layer] for t in pools] for layer in range(layers)]
+    kw = dict(dst_fmt_name="fp6_e3m2", mixed_fmts=MIXED, block_size=BLOCK)
 
     def restore():
-        for lp, sv in zip(layer_pools, saved):
-            for t, s in zip(lp, sv):
-                t[ids_t.long()] = s
+        for t, s in zip(pools, saved):
+            t[:, ids_t.long()] = s
 
-    def dispatch(fn):
+    def per_layer():
         for lp in layer_pools:
-            fn(*lp, ids_t, src_t, REPACK_LIST, dst_fmt_name="fp6_e3m2",
-               mixed_fmts=MIXED, block_size=BLOCK)
+            mr.mx_repack_pages(*lp, ids_t, src_t, REPACK_LIST, **kw)
 
-    kernel = lambda: dispatch(mr.mx_repack_pages)  # noqa: E731
-    plain = lambda: dispatch(mr.mx_repack_pages_plain)  # noqa: E731
-    for fn in (kernel, plain):
+    kernel = lambda: mr.mx_repack_pages(  # noqa: E731
+        *pools, ids_t, src_t, REPACK_LIST, **kw)
+    plain = lambda: mr.mx_repack_pages_plain(  # noqa: E731
+        *pools, ids_t, src_t, REPACK_LIST, **kw)
+    for fn in (kernel, per_layer, plain):
         restore()
         fn()
+    launches = mr.mx_repack_pages.launches
+    restore()
+    kernel()
+    torch.cuda.synchronize()
+    dispatch_launches = mr.mx_repack_pages.launches - launches
+    per_layer_ms = cuda_ms(per_layer, 25, restore)
     ms = cuda_ms(kernel, 25, restore)
     plain_ms = cuda_ms(plain, 3, restore)
     nb = D // BLOCK
     page = PS * KVH * (D + nb)  # one K or V page: codes + E8M0
     moved = layers * REPACK_LIST * 2 * (page + page)  # read fp8, write rows
-    moved += layers * 2 * 4 * REPACK_LIST  # ids, source formats
+    moved += 2 * 4 * REPACK_LIST  # ids, source formats
     bound_ms = 1e3 * moved / HBM_BYTES_PER_S
     log(f"repack dispatch ({layers} layers x {REPACK_LIST} pages, fp8 -> "
-        f"fp6 e3m2): kernel {ms:.4f} ms (median of 25, {layers} launches), "
-        f"plain {plain_ms:.2f} ms (median of 3), bound {bound_ms:.5f} ms "
-        "(bytes); no single PyTorch call computes this function")
+        f"fp6 e3m2), one 4-D call a layer as before: {per_layer_ms:.4f} ms "
+        f"(median of 25, {layers} launches)")
+    log(f"repack dispatch ({layers} layers x {REPACK_LIST} pages, fp8 -> "
+        f"fp6 e3m2), one stacked call: kernel {ms:.4f} ms (median of 25, "
+        f"{dispatch_launches} launch), plain {plain_ms:.2f} ms (median of "
+        f"3), bound {bound_ms:.5f} ms (bytes); no single PyTorch call "
+        "computes this function")
+    if dispatch_launches != 1:
+        raise AssertionError(f"a stacked dispatch made {dispatch_launches} "
+                             "launches")
     return {"name": "mx_repack_pages", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mx_repack.cu",
             "replaces": "src/repro/kernels/mx_repack.py:132",
             "launches": None,  # set by the tiered main-path run (phase 4)
             "max_abs_err": 0.0, "bit_exact": True, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": None, "per_layer_ms": per_layer_ms,
+            "dispatch_launches": dispatch_launches,
             "shape": f"{layers} layers x {REPACK_LIST} pages of ({PS}, "
-                     f"{KVH}, {D}), fp8 -> fp6_e3m2"}
+                     f"{KVH}, {D}), fp8 -> fp6_e3m2, one launch"}
 
 
 # ---------------------------------------------------------------------------
@@ -1684,9 +1753,12 @@ def check_reduced_tiered_parity(card: str = "cuda") -> None:
             raise AssertionError(
                 f"tiered {mode} run repacked {stats['repacked_pages']} "
                 f"pages, fp4 live at some step: {fp4_live}")
-        if card == "cuda":
-            if repack != stats["repack_dispatches"] * layers:
-                raise AssertionError(f"tiered {mode}: repack launches off")
+        if card == "cuda":  # a uniform stack: one launch a dispatch
+            if repack != stats["repack_dispatches"]:
+                raise AssertionError(f"tiered {mode}: {repack} repack "
+                                     f"launches over "
+                                     f"{stats['repack_dispatches']} "
+                                     "dispatches")
             if mode == "ragged" and ragged != stats["ragged_steps"] * layers:
                 raise AssertionError("tiered ragged: launch counts off")
             if mode == "split":
@@ -1819,10 +1891,26 @@ def serve_full_width_tiered(fp8_report: dict) -> dict:
     cfg, engine = serve.build_engine(args)
     prompts = serve.make_prompts(cfg, args, sharing=2)
     engine.warmup()
+    if engine.cache.stack is None:
+        raise AssertionError("granite-8b's tiered pools are not one stack")
+    # CUDA events recorded on the stream around each repack call: no sync,
+    # so the served run keeps its pace; read once the run has ended
+    repack_events = []
+    repack_pages_to = engine._repack_pages_to
+
+    def timed_repack(pids, dst_fmt):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        repack_pages_to(pids, dst_fmt)
+        end.record()
+        repack_events.append((start, end))
+
+    engine._repack_pages_to = timed_repack
     mx_attention_ragged_fused.launches = 0
     mx_repack_pages.launches = 0
     report = serve.run_batch(engine, cfg, args, prompts)
     torch.cuda.synchronize()
+    repack_ms = sum(s.elapsed_time(e) for s, e in repack_events)
     ragged = mx_attention_ragged_fused.launches
     repack = mx_repack_pages.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1831,9 +1919,10 @@ def serve_full_width_tiered(fp8_report: dict) -> dict:
     if ragged == 0 or ragged != report["ragged_steps"] * layers:
         raise AssertionError(f"tiered: {ragged} ragged launches over "
                              f"{report['ragged_steps']} steps")
-    if repack == 0 or repack != tiers["repack_dispatches"] * layers:
+    if repack == 0 or repack != tiers["repack_dispatches"]:
         raise AssertionError(f"tiered: {repack} repack launches over "
-                             f"{tiers['repack_dispatches']} dispatches")
+                             f"{tiers['repack_dispatches']} dispatches "
+                             "(one each on the layer stack)")
     if tiers["max_repacked_in_step"] > engine.tier.repack_pages_per_step:
         raise AssertionError("tiered: per-step repack budget exceeded")
     pool = engine.scheduler.pool
@@ -1861,13 +1950,18 @@ def serve_full_width_tiered(fp8_report: dict) -> dict:
         f"{fp8_report['median_step_ms']:.2f}); {ragged} ragged launches = "
         f"steps x {layers}; {tiers['repacked_pages']} pages repacked in "
         f"{tiers['repack_dispatches']} dispatches = {repack} repack "
-        f"launches / {layers}, at most {tiers['max_repacked_in_step']} a "
+        f"launches (one a dispatch on the {layers}-layer stack) in "
+        f"{repack_ms:.3f} ms of stream time over {len(repack_events)} "
+        f"repack calls (CUDA events around each, no sync), at most "
+        f"{tiers['max_repacked_in_step']} a "
         f"step; {tiers['units_in_use']}/{tiers['unit_budget']} units in use "
         f"at the end (peak {tiers['peak_units']}, census equal); live pages "
         f"fp8 {tiers['pages_fp8_e4m3']}, fp6 {tiers['pages_fp6_e3m2']}, fp4 "
         f"{tiers['pages_fp4_e2m1']} (fp8 run: peak {fp8_report['peak_pages']}"
         f" pages); peak memory {peak_gb:.2f} GB")
-    return {"ragged": ragged, "repack": repack}
+    return {"ragged": ragged, "repack": repack,
+            "repack_stream_ms": repack_ms,
+            "tokens_per_s": report["tokens_per_s"]}
 
 
 def serve_full_width_split(ragged_report: dict, ragged_leads: dict) -> dict:
@@ -2257,25 +2351,36 @@ def quantize_input(m: int, k: int, gen) -> torch.Tensor:
     return x
 
 
+#: the quantizer's cases: (M, K, block, formats); K = DM + 1 and DM + 2
+#: take the kernel's scalar tail (fp8 at K % 4 == 1, fp4 at K % 4 == 2)
+QUANT_CASES = [(MX_ROWS, DM, b, MX_FMTS) for b in (8, 16, 32, 64, 128)] \
+    + [(MX_ROWS, DFF, BLOCK, MX_FMTS), (DECODE_ROWS, DM, BLOCK, MX_FMTS),
+       (MX_ROWS, DM + 1, 1, ("fp8_e4m3", "fp8_e5m2")),
+       (MX_ROWS, DM + 2, 2, ("fp8_e4m3", "fp8_e5m2", "fp4_e2m1"))]
+
+
 def check_mx_quantize(gen) -> None:
     from repro_torch.kernels import mx_quantize as mq
 
-    for m, k in ((MX_ROWS, DM), (MX_ROWS, DFF)):
+    for m, k, block, fmts in QUANT_CASES:
         x32 = quantize_input(m, k, gen)
         for x in (x32, x32.bfloat16()):
-            for fmt in MX_FMTS:
-                got = mq.mx_quantize(x, fmt_name=fmt, block_size=BLOCK)
+            for fmt in fmts:
+                got = mq.mx_quantize(x, fmt_name=fmt, block_size=block)
                 want = mq.mx_quantize_plain(x, fmt_name=fmt,
-                                            block_size=BLOCK)
+                                            block_size=block)
                 for name, g, w in zip(("elements", "scales"), got, want):
                     if not torch.equal(g.view(torch.uint8),
                                        w.view(torch.uint8)):
-                        raise AssertionError(f"mx_quantize {fmt} {x.dtype} "
-                                             f"({m}, {k}): {name} differ")
+                        raise AssertionError(
+                            f"mx_quantize {fmt} {x.dtype} ({m}, {k}) block "
+                            f"{block}: {name} differ")
     torch.cuda.synchronize()
-    log(f"mx_quantize: elements and scales bit-exact against the plain "
-        f"version at ({MX_ROWS}, {DM}) and ({MX_ROWS}, {DFF}), all five "
-        "formats, f32 and bf16 inputs, with zero, subnormal, mixed and "
+    log("mx_quantize: elements and scales bit-exact against the plain "
+        "version at " + ", ".join(f"({m}, {k}) block {b}" for m, k, b, _
+                                  in QUANT_CASES)
+        + "; all five formats (fp8 only at K % 4 == 1, fp8 and fp4 at "
+        "K % 4 == 2), f32 and bf16 inputs, with zero, subnormal, mixed and "
         "saturating blocks")
 
 
@@ -2506,18 +2611,22 @@ def _bf16_tile_range(a: torch.Tensor, w: torch.Tensor, bk: int) -> tuple:
     return tuple(outs)
 
 
-def sass_counts(library: str) -> dict:
-    """{kernel: [HGMMA, FFMA, HMMA]} instruction counts of every kernel in
-    a built library (``cuobjdump --dump-sass``)."""
+def _sass(library: str) -> str:
+    """``cuobjdump --dump-sass`` of a built library."""
     from repro_torch.kernels import build
 
     build.load(library)  # built if it is not yet
     tool = build.nvcc_path().replace("nvcc", "cuobjdump")
-    sass = subprocess.run([tool, "--dump-sass",
+    return subprocess.run([tool, "--dump-sass",
                            str(build.library_path(library))],
                           check=True, capture_output=True, text=True).stdout
+
+
+def sass_counts(library: str) -> dict:
+    """{kernel: [HGMMA, FFMA, HMMA]} instruction counts of every kernel in
+    a built library (``cuobjdump --dump-sass``)."""
     counts, name = {}, None
-    for line in sass.splitlines():
+    for line in _sass(library).splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             counts[name] = [0, 0, 0]
@@ -2729,12 +2838,20 @@ def time_mx_kernels(gen) -> dict:
                                                  block_size=BLOCK),
                     None,  # no single PyTorch call computes it
                     # one compare (amax) and one divide per element
-                    _bound(4 * m * k + a_bytes, 2.0 * m * k, F32_FLOPS))}
+                    _bound(4 * m * k + a_bytes, 2.0 * m * k, F32_FLOPS)),
+                "mx_quantize_bf16": (
+                    lambda: mq.mx_quantize(xb, fmt_name=fmt,
+                                           block_size=BLOCK),
+                    lambda: mq.mx_quantize_plain(xb, fmt_name=fmt,
+                                                 block_size=BLOCK),
+                    None,
+                    _bound(2 * m * k + a_bytes, 2.0 * m * k, F32_FLOPS))}
             for name, (run, plain, library, (bound_ms, bound_by)) \
                     in jobs.items():
                 if fmt == "fp4_e2m1" and name not in ("mx_matmul_wo",
                                                       "mx_matmul_dgrad"):
                     continue
+                label = name.replace("_bf16", " (bf16 x)")
                 for fn in (run, plain) + ((library,) if library else ()):
                     fn()  # warm: first-use costs stay out of the times
                 ms = cuda_ms(run, 25, flush)
@@ -2759,7 +2876,7 @@ def time_mx_kernels(gen) -> dict:
                                  "not included)")
                 else:
                     yardstick = "no single PyTorch call computes it"
-                log(f"time {name} {fmt} M={m} K={k} N={n}: kernel {ms:.4f} "
+                log(f"time {label} {fmt} M={m} K={k} N={n}: kernel {ms:.4f} "
                     f"ms (median of 25), plain {plain_ms:.3f} ms (median of "
                     f"5), bound {bound_ms:.4g} ms ({bound_by}), " + yardstick)
     del scratch
@@ -2900,6 +3017,10 @@ def check_mx_dot_products() -> list:
         if name == "mx_quantize":
             entry["bit_exact"] = True
             entry["max_abs_err"] = 0.0
+            entry["bf16_ms"] = times[("mx_quantize_bf16", "fp8_e4m3",
+                                      MX_ROWS)]["ms"]
+            entry["bf16_decode_ms"] = times[("mx_quantize_bf16", "fp8_e4m3",
+                                             DECODE_ROWS)]["ms"]
         else:
             entry["max_abs_err"] = worst[name]
         entry.update(times[(name, "fp8_e4m3", MX_ROWS)])
@@ -2965,6 +3086,7 @@ def main() -> int:
     tiered = serve_full_width_tiered(full["report"])
     kernel["launches_tiered"] = tiered["ragged"]
     repack["launches"] = tiered["repack"]
+    repack["tiered_stream_ms"] = tiered["repack_stream_ms"]
     gc.collect()
     torch.cuda.empty_cache()
     split = serve_full_width_split(full["report"], full["leads"])

@@ -10,8 +10,9 @@
 //   * repro/kernels/mx_attention.py: _decode_u8_codes and the per-page
 //     format select of _dequant_rows_mixed (mixed-format pools).
 // The E8M0 shared exponent comes from the block amax by exponent-field
-// floor-log2, clipped to [0, 254]; values are snapped RNE onto the format's
-// grid with rintf and the code assembled from the exact grid value.
+// floor-log2, clipped to [0, 254]; a clipped ratio's code is its value
+// rounded to the nearest grid value, ties to even: fp8 by the hardware's
+// conversion, fp6 and fp4 from the f32 fields (encode).
 //
 // The reference runs with denormals flushed, so subnormal inputs and
 // products read as signed zero and E8M0 byte 0 (2^-127) acts as a zero
@@ -21,6 +22,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace mx {
@@ -33,7 +35,8 @@ struct FmtSpec {
   float max;
 };
 
-__device__ __forceinline__ FmtSpec fmt_spec(int fmt) {
+// (constexpr: a kernel templated on the format folds its fields)
+__host__ __device__ constexpr FmtSpec fmt_spec(int fmt) {
   switch (fmt) {
     case 0: return FmtSpec{8, 4, 3, 7, 8, 448.0f};
     case 1: return FmtSpec{8, 5, 2, 15, 15, 57344.0f};
@@ -50,6 +53,15 @@ __device__ __forceinline__ float flush(float x) {
   return fabsf(x) < kMinNormal ? copysignf(0.0f, x) : x;
 }
 
+// a * b with subnormal operands and a subnormal result read as signed
+// zero: the reference's flushed product, in one instruction where a kernel
+// wants exactly that flush (the build has no -ftz)
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // floor(log2 x) of a non-negative f32 from its exponent field (-127 for
 // zero and subnormals)
 __device__ __forceinline__ int floor_log2(float x) {
@@ -62,6 +74,15 @@ __device__ __forceinline__ float pow2(int e) {  // exact 2^e, e in [-126, 127]
 
 __device__ __forceinline__ float e8m0_to_scale(uint8_t e) {
   return __uint_as_float(e > 0 ? static_cast<uint32_t>(e) << 23 : 0x00400000u);
+}
+
+// 2^(127-e), the exact reciprocal of e8m0_to_scale(e) for e in [1, 254]
+// (2^-127, a subnormal, at 254): x * e8m0_recip(e) is x / 2^(e-127) bit
+// for bit, since both round the same real value once (no -ftz); 0 at e = 0
+__device__ __forceinline__ float e8m0_recip(uint8_t e) {
+  return __uint_as_float(e == 0 ? 0u
+                         : e < 254 ? static_cast<uint32_t>(254 - e) << 23
+                                   : 0x00400000u);
 }
 
 // the factor a decode multiplies a block's elements by: 2^(e-127), with
@@ -77,70 +98,42 @@ __device__ __forceinline__ uint8_t e8m0_from_amax(float amax,
   return static_cast<uint8_t>(min(max(e, 0), 254));
 }
 
-// formats.snap_to_fp8_grid: exact RNE onto the format's grid (value space)
-__device__ __forceinline__ float snap(float x, const FmtSpec& f) {
-  const float ax = fabsf(x);
-  const int min_norm_exp = 2 - (1 << (f.exp_bits - 1));
-  const int e = max(floor_log2(ax), min_norm_exp);
-  const float q = pow2(e - f.mant_bits);
-  const float y = rintf(x / q) * q;  // x / q is exact: q is a power of two
-  return ax == 0.0f ? x : y;
+// fp8 bytes of two ratios already clipped to [-max, max] (a in the low
+// byte), by the hardware's RNE conversion (cvt.rn.satfinite.e4m3x2/
+// e5m2x2.f32): the reference's fp8 cast, signed zero and subnormal codes
+// included (its saturation never acts on a clipped ratio). The one fp8
+// encoder of the port: the quantizer packs its words from it, and
+// encode() takes its fp8 codes from it.
+__device__ __forceinline__ uint32_t fp8_pair(float a, float b,
+                                             const FmtSpec& f) {
+  return __nv_cvt_float2_to_fp8x2(make_float2(a, b), __NV_SATFINITE,
+                                  f.exp_bits == 4 ? __NV_E4M3 : __NV_E5M2);
 }
 
-// fp8 byte of a value that lies exactly on the format's grid
-__device__ __forceinline__ uint8_t fp8_bits(float v, const FmtSpec& f) {
-  const uint32_t b = __float_as_uint(v);
-  const uint32_t sign = (b >> 31) << 7;
-  const float a = fabsf(v);
-  if (a == 0.0f) return static_cast<uint8_t>(sign);
-  const int min_norm_exp = 1 - f.bias;
-  const int e = floor_log2(a);
-  uint32_t code;
-  if (e >= min_norm_exp) {
-    code = (static_cast<uint32_t>(e + f.bias) << f.mant_bits) |
-           ((b & 0x7FFFFFu) >> (23 - f.mant_bits));
-  } else {  // subnormal: an exact multiple of the smallest step
-    code = static_cast<uint32_t>(a / pow2(min_norm_exp - f.mant_bits));
-  }
-  return static_cast<uint8_t>(sign | code);
-}
-
-// _encode_fp4_codes: E2M1 nibble of a value clipped to [-6, 6], by the
-// reference's three rounding regimes (each RNE; boundaries are grid points)
-__device__ __forceinline__ uint32_t encode_fp4(float v) {
-  const uint32_t sign = signbit(v) ? 0x8u : 0u;
-  const float mag = fminf(fabsf(v), 6.0f);
-  const float r1 = rintf(mag * 2.0f) * 0.5f;  // grid {0, .5, 1, 1.5, 2}
-  const float r2 = rintf(mag);                // grid {2, 3, 4}
-  const float r3 = rintf(mag * 0.5f) * 2.0f;  // grid {4, 6}
-  const float val = mag <= 1.75f ? r1 : (mag <= 3.5f ? r2 : r3);
-  const float code = val < 2.0f ? val * 2.0f
-                                : (val < 4.0f ? val + 2.0f
-                                              : val * 0.5f + 4.0f);
-  return static_cast<uint32_t>(code) | sign;
-}
-
-// _encode_fp6_codes: 6-bit code of a value clipped to the format's range;
-// grid snap, then exact field recovery
-__device__ __forceinline__ uint32_t encode_fp6(float v, const FmtSpec& f) {
-  const uint32_t sign = signbit(v) ? 0x20u : 0u;
-  const float s = fabsf(snap(fminf(fabsf(v), f.max), f));
-  const bool norm = s >= pow2(1 - f.bias);
-  const int e = norm ? floor_log2(s) : 0;
-  const int e_field = norm ? e + f.bias : 0;
-  const float quantum =
-      norm ? pow2(e - f.mant_bits) : pow2(1 - f.bias - f.mant_bits);
-  const float frac = s - (norm ? pow2(e) : 0.0f);
-  const int m = static_cast<int>(rintf(frac / quantum));
-  return static_cast<uint32_t>((e_field << f.mant_bits) | m) | sign;
-}
-
-// code of a ratio already clipped to [-max, max], in any format: the fp8
-// byte, the fp6 code or the fp4 nibble
+// code of a ratio already clipped to [-max, max], in any format (the fp8
+// byte, the fp6 code or the fp4 nibble; the reference's fp8 cast,
+// _encode_fp6_codes and _encode_fp4_codes): the code of r rounded to the
+// nearest grid value, ties to even (formats.snap_to_fp8_grid). fp8 comes
+// from fp8_pair. fp6 and fp4 are computed from r's f32 fields without
+// forming the grid value: where |r| is at least the format's smallest
+// normal, RNE at the format's mantissa width is an integer add on r's
+// bits (a carry steps into the exponent, as rounding up to the next
+// binade does) and the exponent is rebiased; below it, the code is |r| in
+// steps of the smallest subnormal, rounded to even (rintf; 2^mant_bits
+// there is the smallest normal's code).
 __device__ __forceinline__ uint32_t encode(float r, const FmtSpec& f) {
-  if (f.bits == 8) return fp8_bits(snap(r, f), f);
-  if (f.bits == 6) return encode_fp6(r, f);
-  return encode_fp4(r);
+  if (f.bits == 8) return fp8_pair(r, 0.0f, f) & 0xFFu;
+  const uint32_t bits = __float_as_uint(r);
+  const uint32_t mag = bits & 0x7FFFFFFFu;
+  const int sh = 23 - f.mant_bits;
+  const uint32_t normal =
+      ((mag + (1u << (sh - 1)) - 1u + ((mag >> sh) & 1u)) >> sh) -
+      (static_cast<uint32_t>(127 - f.bias) << f.mant_bits);
+  const uint32_t sub = static_cast<uint32_t>(
+      rintf(__uint_as_float(mag) * pow2(f.bias + f.mant_bits - 1)));
+  const uint32_t code =
+      __uint_as_float(mag) >= pow2(1 - f.bias) ? normal : sub;
+  return code | ((bits >> 31) << (f.bits - 1));
 }
 
 // _pack_fp4: element 2i in the low nibble, 2i+1 in the high one
@@ -268,51 +261,13 @@ __device__ __forceinline__ int mixed_fmt(int fid, int mask, int dflt) {
   return fid >= 0 && fid < 5 && ((mask >> fid) & 1) ? fid : dflt;
 }
 
-// value of element i of a full-width mixed-pool row in format f: the
-// codes fill the row prefix
-__device__ __forceinline__ float mixed_element_value(const uint8_t* row,
-                                                     int i, const FmtSpec& f) {
-  if (f.bits == 8) return u8_fp8_value(row[i], f);
-  if (f.bits == 6) return decode_fp6(unpack_fp6(row, i), f);
-  return decode_fp4(unpack_fp4(row, i));
-}
-
-// Quantize one MX block of n values x(0..n-1), already flushed, into
-// packed codes at `out` (n fp8 bytes, 3n/4 fp6 bytes or n/2 fp4 bytes)
-// and one E8M0 byte, as _quantize_rows does: exponent-field floor-log2 of
-// the amax, ratio 0 where the byte is 0, clip, RNE encode.
-template <class Load>
-__device__ __forceinline__ void encode_block(Load x, int n, uint8_t* out,
-                                             uint8_t* scale,
-                                             const FmtSpec& f) {
-  float amax = 0.0f;
-  for (int i = 0; i < n; ++i) amax = fmaxf(amax, fabsf(x(i)));
-  const uint8_t e = e8m0_from_amax(amax, f);
-  const float s = e8m0_to_scale(e);
-  auto code = [&](int i) {
-    const float r = e > 0 ? x(i) / s : 0.0f;
-    return encode(fminf(fmaxf(r, -f.max), f.max), f);
-  };
-  if (f.bits == 8) {
-    for (int i = 0; i < n; ++i) out[i] = static_cast<uint8_t>(code(i));
-  } else if (f.bits == 4) {
-    for (int i = 0; i < n; i += 2) out[i >> 1] = pack_fp4(code(i), code(i + 1));
-  } else {
-    for (int i = 0; i < n; i += 4) {
-      pack_fp6(code(i), code(i + 1), code(i + 2), code(i + 3),
-               out + 3 * (i >> 2));
-    }
-  }
-  *scale = e;
-}
-
 // Quantize one MX block of n <= 32 values of a new K/V row (a page write)
 // held one a lane, x already flushed (lanes >= n hold 0), into packed codes
 // at `out` (n fp8 bytes, 3n/4 fp6 bytes or n/2 fp4 bytes) and one E8M0
-// byte, as encode_block does: the amax over the lanes (a max, exact in any
-// order), each lane's code by the same arithmetic; the lane holding a
-// byte's first element writes it (fp4: pairs of lanes, fp6: fours). Every
-// lane of the warp calls it.
+// byte, as the reference's _quantize_rows does: the amax over the lanes (a
+// max, exact in any order), each lane's code by encode(); the lane holding
+// a byte's first element writes it (fp4: pairs of lanes, fp6: fours).
+// Every lane of the warp calls it.
 __device__ __forceinline__ void quantize_lanes(float x, uint8_t* out,
                                                uint8_t* scale, int n,
                                                const FmtSpec& f) {

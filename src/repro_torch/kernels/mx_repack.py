@@ -9,6 +9,11 @@ with recomputed scales (emax differs per format, so the old shared
 exponents are wrong for the new grid), writes the codes into the row
 prefix and zeroes the dead tail bytes.
 
+The pools may also come layer-stacked, (L, NP, PS, KVH, D) rows and
+(L, NP, PS, KVH, D // k) scales, as a uniform model's ``PagedCache.stack``
+holds them: the page list then applies to every layer, and one launch
+repacks them all.
+
 :func:`mx_repack_pages` launches the hand-written kernel in
 ``csrc/mx_repack.cu`` on CUDA tensors and runs
 :func:`mx_repack_pages_plain` on CPU tensors. The pools update in place
@@ -38,7 +43,7 @@ def _library():
     if _lib is None:
         lib = build.load("mx_repack")
         fn = lib.mx_repack_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -50,7 +55,15 @@ def mx_repack_pages_plain(ke, ks, ve, vs, page_ids, src_fmts, count: int, *,
     """PyTorch version of the kernel: entries ``n < count`` in order,
     decoded as the ragged kernel decodes a mixed page (the arithmetic
     byte decode, scales folded, subnormals flushed) and re-encoded by
-    :func:`~.mx_quantize.quantize_rows`. Returns the four pools."""
+    :func:`~.mx_quantize.quantize_rows`; layer-stacked pools layer by
+    layer. Returns the four pools."""
+    if ke.ndim == 5:
+        for layer in zip(ke, ks, ve, vs):
+            mx_repack_pages_plain(*layer, page_ids, src_fmts, count,
+                                  dst_fmt_name=dst_fmt_name,
+                                  mixed_fmts=mixed_fmts,
+                                  block_size=block_size)
+        return ke, ks, ve, vs
     dst = F.get_format(dst_fmt_name)
     w = dst.storage_len(ke.shape[-1])
     ids = page_ids.tolist()
@@ -76,15 +89,16 @@ def _launch(ke, ks, ve, vs, ids, fmts, count, dst, mixed_fmts, block_size):
         raise ValueError("the CUDA repack kernel packs whole bytes per "
                          f"block: block_size must be a multiple of 4, not "
                          f"{block_size}")
-    npages, ps, kvh, d = ke.shape
+    layers, npages, ps, kvh, d = ke.shape if ke.ndim == 5 else (1,
+                                                                 *ke.shape)
     mask = 0
     for name in mixed_fmts:
         mask |= 1 << F.FORMAT_IDS[name]
     stream = torch.cuda.current_stream(ke.device).cuda_stream
     err = _library().mx_repack_launch(
         ke.data_ptr(), ks.data_ptr(), ve.data_ptr(), vs.data_ptr(),
-        ids.data_ptr(), fmts.data_ptr(), ids.shape[0], count, npages, kvh,
-        ps, d, block_size, F.FORMAT_IDS[dst.name], mask,
+        ids.data_ptr(), fmts.data_ptr(), ids.shape[0], count, layers,
+        npages, kvh, ps, d, block_size, F.FORMAT_IDS[dst.name], mask,
         F.FORMAT_IDS[mixed_fmts[0]], stream)
     if err != 0:
         raise RuntimeError(f"mx_repack_launch failed: cudaError {err}")
@@ -99,9 +113,11 @@ def mx_repack_pages(ke, ks, ve, vs, page_ids, src_fmts, count, *,
     (``core.formats.FORMAT_IDS``; an id outside ``mixed_fmts`` decodes as
     its first format). ``page_ids`` and ``src_fmts`` are (N,) integer
     tensors on the pools' device, ids are clipped into the pool, and
-    ``count`` is an int in [1, N]. Returns the four pools. CUDA tensors
-    launch the CUDA kernel (counted in ``mx_repack_pages.launches``); CPU
-    tensors run :func:`mx_repack_pages_plain`.
+    ``count`` is an int in [1, N]. The pools are one layer's, or
+    layer-stacked with a leading L shared by all four, every layer
+    repacking the same pages. Returns the four pools. CUDA tensors
+    launch the CUDA kernel once (counted in ``mx_repack_pages.launches``);
+    CPU tensors run :func:`mx_repack_pages_plain`.
     """
     if ke.dtype != torch.uint8:
         raise ValueError(
@@ -111,12 +127,24 @@ def mx_repack_pages(ke, ks, ve, vs, page_ids, src_fmts, count, *,
     if dst_fmt_name not in F.FORMAT_IDS:
         raise ValueError(f"unknown target format {dst_fmt_name!r}")
     dst = F.get_format(dst_fmt_name)
-    npages, ps, kvh, d = ke.shape
-    nb = d // block_size
-    if d % block_size or ve.shape != ke.shape \
-            or ks.shape != (npages, ps, kvh, nb) or vs.shape != ks.shape:
+    lead = ()
+    if ke.ndim == 5:
+        lead = ke.shape[:1]
+        if any(t.ndim != 5 or t.shape[0] != lead[0] for t in (ks, ve, vs)):
+            raise ValueError(
+                "layer-stacked pools must share their leading L: got "
+                f"{[tuple(t.shape) for t in (ke, ks, ve, vs)]}")
+    if ke.ndim - len(lead) != 4:
         raise ValueError(f"tiered pools must be (NP, PS, KVH, D) uint8 and "
                          f"(NP, PS, KVH, D // {block_size}) scales")
+    npages, ps, kvh, d = ke.shape[len(lead):]
+    nb = d // block_size
+    if d % block_size or ve.shape != ke.shape \
+            or ks.shape != (*lead, npages, ps, kvh, nb) \
+            or vs.shape != ks.shape:
+        raise ValueError(f"tiered pools must be (NP, PS, KVH, D) uint8 and "
+                         f"(NP, PS, KVH, D // {block_size}) scales"
+                         + (", each under a leading L" if lead else ""))
     if any(t.dtype != torch.uint8 for t in (ks, ve, vs)):
         raise ValueError("tiered pools and scales must all be uint8")
     dst.storage_len(d)  # raises unless D packs into whole bytes

@@ -426,9 +426,13 @@ class ContinuousBatchingEngine:
         """Requantize ``pids`` (current formats per ``page_fmts``) to
         ``dst_fmt`` in place, in dispatches of ``repack_list_len`` listed
         pages (padding repeats the last live page; the kernel skips it).
-        One dispatch launches the repack once per layer pool."""
+        One dispatch repacks a uniform stack's (L, ...) pools in one call,
+        another model's pools one call a layer."""
         ll = self.tier.repack_list_len
         bs = min(self.cfg.quant.block_size, self.cfg.head_dim)
+        stack = self.cache.stack
+        pools = [{k: stack[k] for k in model.POOL_KEYS}] \
+            if stack is not None else self.cache
         for lo in range(0, len(pids), ll):
             group = pids[lo:lo + ll]
             ids = group + [group[-1]] * (ll - len(group))
@@ -437,7 +441,7 @@ class ContinuousBatchingEngine:
                                     device=self.device)
             fmts_t = torch.as_tensor(fmts, dtype=torch.int32,
                                      device=self.device)
-            for pool in self.cache:
+            for pool in pools:
                 mx_repack_pages(
                     pool["k_elems"], pool["k_scales"], pool["v_elems"],
                     pool["v_scales"], ids_t, fmts_t, len(group),

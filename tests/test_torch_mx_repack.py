@@ -10,6 +10,9 @@ decodes as the first of them. Blocks with an all-zero decode, with E8M0
 byte 0 under nonzero codes, and with decoded values below the f32
 normal range are written in. The page list carries padding (count <
 length), and an id past the pool, which is clipped onto the last page.
+Layer-stacked pools (L, NP, PS, KVH, D), as a uniform model's engine
+hands them over in one call, must equal the reference applied layer by
+layer.
 
 Bar: every byte of every pool identical, repacked pages (prefix and
 zeroed tail) and untouched pages alike. The CUDA kernel is held to the
@@ -31,22 +34,23 @@ NPAGES, PS, KVH, D = 7, 4, 2, 64
 SRC = [0, 2, 4, 3, 0, 4, 2]
 
 
-def make_pools(block_size: int, seed: int = 0, corners: bool = True):
+def make_pools(block_size: int, seed: int = 0, corners: bool = True,
+               d: int = D):
     """Numpy (ke, ks, ve, vs) tiered pools, page p in format SRC[p];
     ``corners`` writes in the zero, byte-0 and tiny-scale blocks."""
     rng = np.random.default_rng(seed)
     pools = []
     for _ in range(2):
-        elems = rng.integers(0, 256, (NPAGES, PS, KVH, D), dtype=np.uint8)
-        scales = np.zeros((NPAGES, PS, KVH, D // block_size), np.uint8)
+        elems = rng.integers(0, 256, (NPAGES, PS, KVH, d), dtype=np.uint8)
+        scales = np.zeros((NPAGES, PS, KVH, d // block_size), np.uint8)
         for p, fid in enumerate(SRC):
             fmt = F.get_format(F.FORMAT_BY_ID[fid])
             x = torch.from_numpy(
-                rng.normal(size=(PS, KVH, D)).astype(np.float32) * 4.0)
+                rng.normal(size=(PS, KVH, d)).astype(np.float32) * 4.0)
             if corners:
                 x[0, 0, :block_size] = 0.0  # an all-zero block
             codes, e = quantize_rows(x, fmt, block_size)
-            w = fmt.storage_len(D)
+            w = fmt.storage_len(d)
             elems[p, ..., :w] = codes.numpy()
             scales[p] = e.numpy()
             if corners:
@@ -57,6 +61,13 @@ def make_pools(block_size: int, seed: int = 0, corners: bool = True):
                 scales[p, 2, 1, -1] = 3
         pools += [elems, scales]
     return pools
+
+
+def make_stacked_pools(block_size: int, layers: int, seed: int = 0,
+                       d: int = D):
+    """(L, ...) pools: layer l holds ``make_pools`` of seed + l."""
+    per_layer = [make_pools(block_size, seed + l, d=d) for l in range(layers)]
+    return [np.stack(leaf) for leaf in zip(*per_layer)]
 
 
 def run_reference(pools, ids, fmts, count, dst, block_size):
@@ -111,6 +122,26 @@ def test_plain_repack_matches_reference_kernel(dst, block_size):
         assert not got[0][p, ..., w:].any()  # dead tail zeroed
 
 
+@pytest.mark.parametrize("dst,block_size", [
+    ("fp6_e3m2", 16), ("fp6_e2m3", 32), ("fp4_e2m1", 16),
+    ("fp8_e4m3", 16)])
+def test_plain_stacked_repack_matches_reference_per_layer(dst, block_size):
+    """One call on (3, NP, PS, KVH, D) pools: the reference kernel run on
+    each layer's pools in turn, byte for byte, every layer changed."""
+    layers = 3
+    pools = make_stacked_pools(block_size, layers)
+    ids, fmts, count = page_list(dst)
+    got = run_port(pools, ids, fmts, count, dst, block_size)
+    for layer in range(layers):
+        want = run_reference([a[layer] for a in pools], ids, fmts, count,
+                             dst, block_size)
+        for name, g, x, before in zip(("ke", "ks", "ve", "vs"), got, want,
+                                      pools):
+            np.testing.assert_array_equal(g[layer], x,
+                                          err_msg=f"{name}, layer {layer}")
+        assert not np.array_equal(got[0][layer], pools[0][layer])
+
+
 def test_widening_repack_is_lossless():
     """The copy-on-write promotion: fp4 and fp6 pages re-encoded to fp8
     decode to exactly their old values (away from the bottom of the
@@ -134,11 +165,16 @@ def test_widening_repack_is_lossless():
 @pytest.mark.parametrize("bad,match", [
     (dict(dtype=torch.float8_e4m3fn), "raw uint8"),
     (dict(dst="fp3"), "unknown target format"),
-    (dict(count=0), "count")])
+    (dict(count=0), "count"),
+    (dict(layers=(3, 3, 2, 3)), "share their leading L"),
+    (dict(layers=(3, 3, 3, None)), "share their leading L")])
 def test_wrapper_rejects_what_the_reference_rejects(bad, match):
     pools = [torch.from_numpy(a) for a in make_pools(16)]
     if "dtype" in bad:
         pools[0] = pools[0].view(bad["dtype"])
+    if "layers" in bad:  # stacked pools whose L differ (None: unstacked)
+        pools = [p if n is None else p.expand(n, *p.shape).contiguous()
+                 for p, n in zip(pools, bad["layers"])]
     with pytest.raises(ValueError, match=match):
         tr.mx_repack_pages(*pools, torch.zeros(2, dtype=torch.int32),
                            torch.zeros(2, dtype=torch.int32),
@@ -149,15 +185,21 @@ def test_wrapper_rejects_what_the_reference_rejects(bad, match):
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
+    """Per-layer and layer-stacked (L 3) pools, one launch a call; blocks
+    of 16 and 32 (shuffle-reduced) and of 12 at D 48 (the kernel's
+    shared-memory amax pass), every destination format."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for dst, block_size in (("fp6_e3m2", 16), ("fp6_e2m3", 32),
-                            ("fp4_e2m1", 16), ("fp8_e4m3", 32)):
-        pools = make_pools(block_size, seed=7)
-        ids, fmts, count = page_list(dst)
-        want = run_port(pools, ids, fmts, count, dst, block_size)
-        launches = tr.mx_repack_pages.launches
-        got = run_port(pools, ids, fmts, count, dst, block_size, "cuda")
-        assert tr.mx_repack_pages.launches == launches + 1
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
+    for dst, block_size, d in (("fp6_e3m2", 16, D), ("fp6_e2m3", 32, D),
+                               ("fp4_e2m1", 16, D), ("fp8_e4m3", 32, D),
+                               ("fp6_e3m2", 12, 48), ("fp4_e2m1", 12, 48)):
+        for layers in (None, 3):
+            pools = make_pools(block_size, seed=7, d=d) if layers is None \
+                else make_stacked_pools(block_size, layers, seed=7, d=d)
+            ids, fmts, count = page_list(dst)
+            want = run_port(pools, ids, fmts, count, dst, block_size)
+            launches = tr.mx_repack_pages.launches
+            got = run_port(pools, ids, fmts, count, dst, block_size, "cuda")
+            assert tr.mx_repack_pages.launches == launches + 1
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)

@@ -46,15 +46,19 @@ from repro_torch.serve import (ContinuousBatchingEngine,  # noqa: E402
                                PagePool, ServeConfig, TierPolicy)
 
 LOGIT_TOL_ULPS = 1
+#: init seed of the three-layer model of the one-call-a-dispatch test:
+#: every greedy pick of its churn leads by more than LOGIT_TOL_ULPS
+STACK_SEED = 5
 POOL_KEYS = ("k_elems", "k_scales", "v_elems", "v_scales")
 AGGRESSIVE = dict(hot_steps=1, cold_steps=3, repack_pages_per_step=3)
 
 
-def _configs(fmt="fp8_e4m3"):
+def _configs(fmt="fp8_e4m3", layers=1):
     """The reference tiering tests' model (d_model 64, 4/2 heads of 16,
-    weight-only MX, MX KV pages, block 16), in both packages."""
+    weight-only MX, MX KV pages, block 16; one layer unless named), in
+    both packages."""
     dims = dict(name="t", family="dense", d_model=64, vocab_size=128,
-                num_groups=1, num_heads=4, num_kv_heads=2, head_dim=16,
+                num_groups=layers, num_heads=4, num_kv_heads=2, head_dim=16,
                 d_ff=128)
     jcfg = JaxModelConfig(
         pattern=(JaxBlockDef("attn"),), quant=JAX_MXFP8.replace(
@@ -67,8 +71,8 @@ def _configs(fmt="fp8_e4m3"):
 
 
 @functools.lru_cache(maxsize=None)
-def _models(seed, fmt="fp8_e4m3"):
-    jcfg, tcfg = _configs(fmt)
+def _models(seed, fmt="fp8_e4m3", layers=1):
+    jcfg, tcfg = _configs(fmt, layers)
     jparams, _ = jmodel.init(jax.random.PRNGKey(seed), jcfg)
     tparams = tmodel.params_from_jax(
         jax.tree_util.tree_map(np.asarray, jparams), tcfg, "cpu")
@@ -92,8 +96,8 @@ def _churn_reqs(rng, n=6):
     return reqs
 
 
-def _engines(seed, serve, fmt="fp8_e4m3", policy=None):
-    jcfg, jparams, tcfg, tparams = _models(seed, fmt)
+def _engines(seed, serve, fmt="fp8_e4m3", policy=None, layers=1):
+    jcfg, jparams, tcfg, tparams = _models(seed, fmt, layers)
     jtier = ttier = None
     if policy is not None:
         jtier, ttier = JaxTierPolicy(**policy), TierPolicy(**policy)
@@ -187,6 +191,43 @@ def test_tiered_engine_matches_reference_step_by_step(scenario):
         assert stats["preemptions"] >= 1
     assert len(teng.page_fmts) == teng.num_pages + 1
     assert int(teng.page_fmts[-1]) == teng._base_fmt_id  # the trash page
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_uniform_stack_repacks_in_one_call_per_dispatch(monkeypatch,
+                                                        stacked):
+    """A three-layer uniform model under the aggressive churn: the engine
+    hands the repack its (L, ...) pools in one call a dispatch; with the
+    stack hidden (as a non-uniform model has none) it calls once a layer.
+    Either way the run matches the reference step by step."""
+    from repro_torch.serve import engine as engine_mod
+
+    layers = 3
+    _, reqs, serve, policy = SCENARIOS["aggressive"]
+    jeng, teng = _engines(STACK_SEED, serve, policy=policy, layers=layers)
+    assert teng.cache.stack is not None
+    if not stacked:
+        teng.cache.stack = None
+    calls = []
+    repack = engine_mod.mx_repack_pages
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].ndim)
+        return repack(*args, **kwargs)
+
+    monkeypatch.setattr(engine_mod, "mx_repack_pages", counted)
+    jstreams, tstreams = _lockstep(jeng, teng, reqs())
+    _assert_streams(jstreams, tstreams, teng)
+    _assert_pools_equal(jeng, teng)
+    stats, jstats = teng.cache_stats(), jeng.cache_stats()
+    for key in ("repacked_pages", "repack_dispatches", "units_in_use"):
+        assert stats[key] == jstats[key], key
+    dispatches = stats["repack_dispatches"]
+    assert dispatches > 0 and stats["pages_fp4_e2m1"] > 0
+    if stacked:
+        assert calls == [5] * dispatches
+    else:
+        assert calls == [4] * (dispatches * layers)
 
 
 def test_swap_restore_preserves_narrow_page_formats():
