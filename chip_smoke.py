@@ -17,13 +17,16 @@ code is not 0 and no result line is printed:
      (the reference's bits);
   2. hold the ragged kernel against its plain PyTorch version on the card
      at granite-8b's attention shapes: fp8 e4m3 and e5m2 pools, packed
-     fp4 pools (blocks 32 and 16) and a mixed-format (tiered) pool whose
-     resident pages the repack wrote as fp8, fp6 and fp4; time each;
+     fp4 pools (blocks 32 and 16), a mixed-format (tiered) pool whose
+     resident pages the repack wrote as fp8, fp6 and fp4, and a
+     speculative step's rows (verify windows of 1 + K = 5 new tokens
+     beside decode rows and prefill chunks); time each;
   2b. hold the page repack kernel bit-exact against its plain version on
      a granite-shaped 36-layer tiered stack, called once on the stack and
      once a layer, every destination format, mixed sources, padding, zero
      and subnormal blocks; time one 36-layer dispatch both ways;
-  2c. hold the split step's kernels, decode/verify (Tq 1 and 4) and
+  2c. hold the split step's kernels, decode/verify (Tq 1, 4 and the
+     speculative step's 1 + K = 5: 20 query rows a KV head) and
      chunked prefill (B 1 and 2, no resident prefix and 10 resident
      pages), against their plain versions on fp8 e4m3/e5m2, packed fp4
      (blocks 32 and 16) and repacked mixed pools; the ragged kernel's
@@ -41,13 +44,19 @@ code is not 0 and no result line is printed:
   2e. hold the layer-fused megakernel (one launch for the whole layer
      stack) against its plain version on the card, on granite-8b's widths
      cut to two layers: logits within one bf16 ulp of the largest, equal
-     argmax, at most 1e-3 of the pool bytes differing;
+     argmax, at most 1e-3 of the pool bytes differing; the same on the
+     speculative step's rows, all 1 + K logits rows of each window;
   3. serve the same prompts with a reduced granite on the card and on the
      CPU (where the plain versions run) and require equal greedy streams,
      with the default cache and with an aggressively tiered one (equal
      per-step page formats too), in the ragged, the split and the
      megakernel step, and split and megakernel streams equal to ragged
-     ones;
+     ones; then with speculation (K 4; n-gram drafts, and replayed drafts
+     that are all accepted) in the three steps, streams equal on card and
+     CPU and equal to the non-spec ones; then sampled requests
+     (temperature 0.8, top-p 0.95, top-k 50, fixed seeds whose decisions
+     all clear a one-ulp logit gap on the CPU), spec off and on, streams
+     equal on card and CPU;
   4. serve granite-8b at full width (36 layers, random seeded weights)
      through ``repro_torch.launch.serve`` with the ``ServeConfig`` defaults,
      with every kernel count reset just before and read just after; then
@@ -62,7 +71,17 @@ code is not 0 and no result line is printed:
      ``--step-mode megakernel`` (counts reset and read the same way: one
      launch a step), then time its layer stack beside the plain version
      and the bound, compare one step with the per-layer CUDA ragged step,
-     and profile one step kernel by kernel;
+     and profile one step kernel by kernel; then with ``--spec-decode``
+     (K 4, greedy; n-gram drafts, then replayed drafts): 36 launches a
+     step, streams equal to the non-spec run's but where a pick leads by
+     at most one bf16 ulp; then the sampler alone at (8, 49152) and (8,
+     5, 49152), elapsed and traced; then sampled (``--temperature 0.8
+     --top-p 0.95 --top-k 50 --seed 3``), spec off and on: tokens/s,
+     median step, the sampler's elapsed ms a step (CUDA events, host gaps
+     included) beside its kernel ms, tokens a verify row, then the same
+     run again with every sampled token held against the port's sampler
+     on the CPU over the same logits rows (vocab 49,152), streams equal
+     to the first run's;
   5. the MX dot products at granite-8b widths: hold the quantize kernel
      bit-exact and the weight-only, MX x MX and dgrad matmul kernels
      within tolerance against their plain versions at one layer's seven
@@ -89,11 +108,13 @@ from __future__ import annotations
 
 import functools
 import gc
+import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -134,6 +155,11 @@ ROWS = [(150, 1),    # decode, mid-page start
         (250, 1),    # decode at a longer context
         (0, 0),      # inactive
         (300, 1)]    # decode, last page
+SPEC_K = 4  # ServeConfig.num_draft_tokens: verify windows of 1 + K
+#: a speculative ragged step's rows: decode rows, verify windows of 1 + K
+#: new tokens (one across the page boundary at 48) and prefill chunks
+VERIFY_ROWS = [(150, 1), (46, 1 + SPEC_K), (0, 64), (131, 64), (0, 0),
+               (250, 1 + SPEC_K), (0, 0), (300, 1 + SPEC_K)]
 
 
 def log(msg: str) -> None:
@@ -287,14 +313,15 @@ def check_rope_and_silu(card: str = "cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def ragged_rows(gen: torch.Generator) -> tuple:
-    """(table, starts, lens, written pages) of ROWS over R * P pool pages
-    and the trash page R * P: each live row owns pages of a permutation."""
+def ragged_rows(gen: torch.Generator, rows=ROWS) -> tuple:
+    """(table, starts, lens, written pages) of ``rows`` over R * P pool
+    pages and the trash page R * P: each live row owns pages of a
+    permutation."""
     table = torch.full((R, P), -1, dtype=torch.int32)
     perm = torch.randperm(R * P, generator=gen)
     starts, lens, off = [], [], 0
     writes = set()
-    for i, (start, n_new) in enumerate(ROWS):
+    for i, (start, n_new) in enumerate(rows):
         if n_new:
             pages = -(-(start + n_new) // PS)
             table[i, :pages] = perm[off:off + pages]
@@ -318,15 +345,16 @@ def ragged_pool(gen: torch.Generator, fmt: str, block: int) -> tuple:
 
 
 def ragged_inputs(fmt: str, gen: torch.Generator, block: int = BLOCK,
-                  mixed: bool = False, dev: str = "cuda"):
-    """One ragged step's inputs at granite shapes. ``mixed``: a tiered pool
+                  mixed: bool = False, dev: str = "cuda", rows=ROWS):
+    """One ragged step's inputs at granite shapes over ``rows``. ``mixed``:
+    a tiered pool
     of uint8 rows; write-window pages hold fp8, resident pages cycle
     through fp8, fp6 e3m2 and fp4 e2m1, repacked from fp8 by the port's
     repack (plain version), with ``page_fmts`` their ids."""
     from repro_torch.core import formats as F
     from repro_torch.kernels.mx_repack import mx_repack_pages_plain
 
-    table, starts, lens, writes = ragged_rows(gen)
+    table, starts, lens, writes = ragged_rows(gen, rows)
     npages = R * P + 1  # + the trash page
     ke, ks = ragged_pool(gen, fmt, block)
     ve, vs = ragged_pool(gen, fmt, block)
@@ -352,7 +380,7 @@ def ragged_inputs(fmt: str, gen: torch.Generator, block: int = BLOCK,
         starts=torch.tensor(starts, device=dev),
         lens=torch.tensor(lens, device=dev), block=block,
         page_fmts=page_fmts, fmts=None if page_fmts is None
-        else page_fmts.tolist())
+        else page_fmts.tolist(), rows=rows)
 
 
 def _call_args(inp, pools) -> tuple:
@@ -401,17 +429,18 @@ def ragged_bound(fmt: str = "fp8_e4m3", block: int = BLOCK,
 
 def ragged_pool_traffic(fmt: str = "fp8_e4m3", block: int = BLOCK,
                         inp=None) -> tuple:
-    """(pool bytes, kept (query, key) pairs) of one ragged step over ROWS:
-    the K and V rows attended from the pool (the resident ones below each
-    row's start; a mixed page's rows at the prefix its format fills) and
-    the merged new rows written."""
+    """(pool bytes, kept (query, key) pairs) of one ragged step over
+    ``inp``'s rows (ROWS without ``inp``): the K and V rows attended from
+    the pool (the resident ones below each row's start; a mixed page's
+    rows at the prefix its format fills) and the merged new rows
+    written."""
     from repro_torch.core import formats as F
 
     nb = D // block
     wbytes = F.get_format(fmt).storage_len(D)  # bytes of a written row
     resident_bytes = 0  # one K or V row of every resident position
     rows_written = pairs = 0
-    for i, (start, n_new) in enumerate(ROWS):
+    for i, (start, n_new) in enumerate(ROWS if inp is None else inp["rows"]):
         seq_len = start + max(n_new, 1)
         for p in range(min(-(-start // PS), P)):
             ed = wbytes
@@ -437,7 +466,7 @@ def check_ragged_case(mxa, inp, fmt: str, label: str) -> float:
     """Kernel against plain version on the same inputs: pool bytes
     identical but for the trash page, visits exact, out within OUT_TOL.
     Returns max |out - plain| over the live rows."""
-    live = [i for i, (_, n) in enumerate(ROWS) if n]
+    live = [i for i, (_, n) in enumerate(inp["rows"]) if n]
     trash = R * P  # scratch page: inactive rows write it concurrently
     kernel_pools = [t.clone() for t in inp["pools"]]
     out, _, visits = mxa.mx_attention_ragged_fused(
@@ -478,14 +507,21 @@ def check_ragged_kernel() -> dict:
         worst = max(worst, check_ragged_case(mxa, ragged_inputs(fmt, gen),
                                              fmt, fmt))
     # key in the kernels line -> (log label, pool format, block, mixed)
-    variants = {"fp4": ("fp4 e2m1 block 32", "fp4_e2m1", 32, False),
-                "fp4_block16": ("fp4 e2m1 block 16", "fp4_e2m1", 16, False),
-                "mixed": ("mixed fp8/fp6/fp4", "fp8_e4m3", BLOCK, True)}
+    variants = {"fp4": ("fp4 e2m1 block 32 pool", "fp4_e2m1", 32, False),
+                "fp4_block16": ("fp4 e2m1 block 16 pool", "fp4_e2m1", 16,
+                                False),
+                "mixed": ("mixed fp8/fp6/fp4 pool", "fp8_e4m3", BLOCK,
+                          True)}
     timed = {}
     for key, (label, fmt, block, mixed) in variants.items():
         inp = ragged_inputs(fmt, gen, block, mixed)
         worst = max(worst, check_ragged_case(mxa, inp, fmt, label))
         timed[key] = (label, inp, fmt)
+    # a speculative step's rows: verify windows beside decode and prefill
+    label = f"verify windows (1 + K = {1 + SPEC_K}) beside decode and prefill"
+    inp = ragged_inputs("fp8_e4m3", gen, rows=VERIFY_ROWS)
+    worst = max(worst, check_ragged_case(mxa, inp, "fp8_e4m3", label))
+    timed["verify_windows"] = (label, inp, "fp8_e4m3")
     # time the main path's format (e4m3): kernel vs plain, both on the card
     inp = ragged_inputs("fp8_e4m3", gen)
     pools = [t.clone() for t in inp["pools"]]
@@ -522,7 +558,7 @@ def check_ragged_kernel() -> dict:
         vbound, vby = ragged_bound(fmt, vinp["block"], vinp)
         entry[f"ms_{key}"] = vms
         entry[f"bound_ms_{key}"] = vbound
-        log(f"ragged kernel time, {label} pool: {vms:.4f} ms (median of "
+        log(f"ragged kernel time, {label}: {vms:.4f} ms (median of "
             f"25; fp8 e4m3 {ms:.4f} ms), bound {vbound:.4f} ms ({vby})")
     return entry
 
@@ -748,6 +784,10 @@ CHUNK = 64  # ServeConfig.prefill_chunk
 PREFILL_ROWS = {"b1_fresh": [(0, CHUNK)], "b1_resident": [(160, CHUNK)],
                 "b2": [(0, CHUNK), (160, 37)]}
 #: pool kinds of phase 2c: label -> (format, block, mixed)
+#: the verify kernel's query windows: decode, a 4-token window, and the
+#: split speculative step's 1 + K (20 query rows a KV head at G 4: one
+#: full 16-row block of the walk and part of a second)
+VERIFY_TQS = (1, 4, 1 + SPEC_K)
 PAGED_POOLS = {"fp8_e4m3": ("fp8_e4m3", BLOCK, False),
                "fp8_e5m2": ("fp8_e5m2", BLOCK, False),
                "fp4": ("fp4_e2m1", 32, False),
@@ -947,9 +987,10 @@ def time_paged(mxa, inp, reps: int = 25) -> tuple:
 
 
 def check_ragged_bit_equals_verify(mxa, gen) -> None:
-    """Decode rows (Tq 1) and 4-token windows of the ragged kernel against
-    the verify kernel over the pool the host write produced: the pools
-    are identical and every live row's real queries give the same bits."""
+    """Decode rows (Tq 1), 4-token and verify windows (VERIFY_TQS) of the
+    ragged kernel against the verify kernel over the pool the host write
+    produced: the pools are identical and every live row's real queries
+    give the same bits."""
     from repro_torch.core import MXFP8
     from repro_torch.nn.attention import AttnConfig, _write_pages
 
@@ -957,7 +998,7 @@ def check_ragged_bit_equals_verify(mxa, gen) -> None:
     cfg = AttnConfig(d_model=KVH * G * D, num_heads=KVH * G,
                      num_kv_heads=KVH, head_dim=D)
     live = [i for i, n in enumerate(DECODE_LENS) if n]
-    for tq in (1, 4):
+    for tq in VERIFY_TQS:
         inp = verify_inputs("fp8_e4m3", tq, gen)
         table, lens = inp["table"][live], inp["lens"][live]
         starts = lens - tq
@@ -986,8 +1027,8 @@ def check_ragged_bit_equals_verify(mxa, gen) -> None:
             raise AssertionError(f"Tq {tq}: the ragged kernel's rows are not "
                                  "bit-equal to the verify kernel's")
     log(f"ragged kernel vs verify kernel over the host-written pool: "
-        f"{len(live)} slots, Tq 1 and 4, pool bytes identical and outputs "
-        "bit-equal")
+        f"{len(live)} slots, Tq {VERIFY_TQS}, pool bytes identical and "
+        "outputs bit-equal")
 
 
 def check_paged_kernels() -> list:
@@ -997,11 +1038,12 @@ def check_paged_kernels() -> list:
 
     gen = torch.Generator().manual_seed(7)
     worst = {"verify": 0.0, "prefill": 0.0}
+    worst_tq = dict.fromkeys(VERIFY_TQS, 0.0)
     timed = {}
     for label in PAGED_POOLS:
-        for tq in (1, 4):
+        for tq in VERIFY_TQS:
             inp = verify_inputs(label, tq, gen)
-            worst["verify"] = max(worst["verify"], check_paged_case(
+            worst_tq[tq] = max(worst_tq[tq], check_paged_case(
                 mxa, inp, f"verify {label} Tq {tq}"))
             timed[("verify", label, tq)] = inp
         for key, rows in PREFILL_ROWS.items():
@@ -1009,11 +1051,14 @@ def check_paged_kernels() -> list:
             worst["prefill"] = max(worst["prefill"], check_paged_case(
                 mxa, inp, f"prefill {label} {key}"))
             timed[("prefill", label, key)] = inp
-    log(f"verify kernel (Tq 1 and 4) and prefill kernel (B 1 fresh, B 1 over "
-        f"10 resident pages, B 2 with a padded final chunk) on fp8 e4m3, "
-        f"e5m2, fp4 blocks 32 and 16 and a repacked mixed pool: every pool "
-        f"byte identical to the plain versions, visits exact, max |out - "
-        f"plain| verify {worst['verify']:.3g}, prefill {worst['prefill']:.3g}")
+    worst["verify"] = max(worst_tq.values())
+    by_tq = ", ".join(f"Tq {tq} ({tq * G} query rows a KV head) {e:.3g}"
+                      for tq, e in worst_tq.items())
+    log(f"verify kernel and prefill kernel (B 1 fresh, B 1 over 10 resident "
+        f"pages, B 2 with a padded final chunk) on fp8 e4m3, e5m2, fp4 "
+        f"blocks 32 and 16 and a repacked mixed pool: every pool byte "
+        f"identical to the plain versions, visits exact, max |out - plain| "
+        f"verify {by_tq}; prefill {worst['prefill']:.3g}")
     check_ragged_bit_equals_verify(mxa, gen)
     src = "src/repro_torch/kernels/csrc/mx_attention_paged.cu"
     entries = {}
@@ -1025,6 +1070,8 @@ def check_paged_kernels() -> list:
                  "replaces": "src/repro/kernels/mx_attention.py" + replaces,
                  "launches": None, "max_abs_err": worst[kind],
                  "library_ms": None}
+        if kind == "verify":
+            entry[f"max_abs_err_tq{1 + SPEC_K}"] = worst_tq[1 + SPEC_K]
         for (k, label, shape), inp in timed.items():
             if k != kind or (label != "fp8_e4m3" and shape != main[1]):
                 continue
@@ -1364,13 +1411,16 @@ def granite_serving_config(layers=None):
     return cfg if layers is None else cfg.replace(num_groups=layers)
 
 
-def megakernel_inputs(cfg, gen, dev: str = "cuda") -> dict:
-    """ROWS at granite's widths: a stacked cache of quantized normal values
-    over R * P + 1 pages (the last the trash page), the weights of a
-    seeded init, W random tokens a row, logits of each row's last token."""
+def megakernel_inputs(cfg, gen, dev: str = "cuda", rows=ROWS,
+                      params=None) -> dict:
+    """``rows`` at granite's widths: a stacked cache of quantized normal
+    values over R * P + 1 pages (the last the trash page), the weights of
+    a seeded init (or ``params``), W random tokens a row, logits from each
+    row's last token (from its first on a decode or verify row of
+    VERIFY_ROWS, whose steps gather 1 + K logits rows)."""
     from repro_torch.nn import model
 
-    table, starts, lens, _ = ragged_rows(gen)
+    table, starts, lens, _ = ragged_rows(gen, rows)
     cache = model.init_paged_cache(cfg, R * P + 1, PS, dev)
     for pool in cache:
         for name in ("k", "v"):
@@ -1378,13 +1428,16 @@ def megakernel_inputs(cfg, gen, dev: str = "cuda") -> dict:
             pool[f"{name}_elems"].view(torch.uint8).copy_(
                 elems.view(torch.uint8))
             pool[f"{name}_scales"].copy_(scales)
-    params = model.init(cfg, torch.Generator(dev).manual_seed(3), dev)
+    if params is None:
+        params = model.init(cfg, torch.Generator(dev).manual_seed(3), dev)
     tokens = torch.randint(0, cfg.vocab_size, (R, W), generator=gen)
     i32 = dict(dtype=torch.int32, device=dev)
+    first = 1 + SPEC_K if rows is VERIFY_ROWS else 1
     return dict(params=params, cache=cache, args=(
                     tokens.to(dev), table.to(dev), torch.tensor(starts, **i32),
                     torch.tensor(lens, **i32),
-                    torch.tensor([max(n - 1, 0) for _, n in ROWS], **i32)))
+                    torch.tensor([0 if n <= first else n - 1 for _, n in rows],
+                                 **i32)))
 
 
 def megakernel_layers(params, cfg, cache, tokens, table, starts, lens,
@@ -1416,22 +1469,24 @@ def megakernel_layers(params, cfg, cache, tokens, table, starts, lens,
 
 
 def megakernel_plain_step(params, cfg, cache, tokens, table, starts, lens,
-                          lidx):
+                          lidx, num_logits=None):
     """``model.megakernel_step_paged`` with the kernel's plain version in
     its place."""
     from repro_torch.nn import model
 
     x, _ = megakernel_layers(params, cfg, cache, tokens, table, starts, lens,
                              plain=True)()
-    return model._ragged_head(params, cfg, x, starts, lens, lidx)
+    return model._ragged_head(params, cfg, x, starts, lens, lidx, num_logits)
 
 
 def compare_steps(want, got, want_pools, got_pools, live) -> dict:
-    """Two steps' logits over the ``live`` rows and their pools (every
-    page but the trash page, the last): the largest |logit difference|,
-    one bf16 ulp of the largest |logit|, the rows whose argmax agrees and
-    the share of pool bytes that differ."""
-    want, got = want[live].float(), got[live].float()
+    """Two steps' logits over the ``live`` rows (each row's 1 + K logits
+    rows counted apart) and their pools (every page but the trash page,
+    the last): the largest |logit difference|, one bf16 ulp of the largest
+    |logit|, the logits rows whose argmax agrees and the share of pool
+    bytes that differ."""
+    want = want[live].float().flatten(0, -2)
+    got = got[live].float().flatten(0, -2)
     top = float(want.abs().max())
     differing = total = 0
     for w, g in zip(want_pools, got_pools):
@@ -1442,7 +1497,7 @@ def compare_steps(want, got, want_pools, got_pools, live) -> dict:
         max_abs_err=float((got - want).abs().max()),
         ulp=2.0 ** (np.floor(np.log2(top)) - 7),
         argmax_equal=int((got.argmax(-1) == want.argmax(-1)).sum()),
-        rows=len(live), codes_differing=differing, codes=total,
+        rows=want.shape[0], codes_differing=differing, codes=total,
         finite=bool(torch.isfinite(got).all()))
 
 
@@ -1525,6 +1580,32 @@ def check_megakernel() -> dict:
         raise AssertionError(f"megakernel against its plain version: {c}")
     if all(torch.equal(g, p) for g, p in zip(got_pools, pools0)):
         raise AssertionError("megakernel: the write window was not written")
+    # a speculative step's rows, the 1 + K logits rows of each window
+    vinp = megakernel_inputs(cfg, torch.Generator().manual_seed(6),
+                             rows=VERIFY_ROWS, params=inp["params"])
+    vpools0 = [t.clone() for t in stacked_pools(vinp["cache"])]
+    vlive = [i for i, (_, n) in enumerate(VERIFY_ROWS) if n]
+    vstep = (vinp["params"], cfg, vinp["cache"], vinp["args"], vpools0)
+    nl = 1 + SPEC_K
+    vwant, vwant_pools = run_with_pools(functools.partial(
+        megakernel_plain_step, num_logits=nl), *vstep)
+    launches = mk.mx_megakernel_step.launches
+    vgot, vgot_pools = run_with_pools(functools.partial(
+        model.megakernel_step_paged, num_logits=nl), *vstep)
+    if mk.mx_megakernel_step.launches - launches != 1:
+        raise AssertionError("the megakernel step did not launch once")
+    vc = compare_steps(vwant, vgot, vwant_pools, vgot_pools, vlive)
+    if not vc["finite"] or vc["max_abs_err"] > vc["ulp"] \
+            or vc["argmax_equal"] != vc["rows"] \
+            or vc["codes_differing"] > MEGA_CODE_FRACTION * vc["codes"]:
+        raise AssertionError(f"megakernel against its plain version, "
+                             f"verify windows: {vc}")
+    log(f"megakernel, verify windows (VERIFY_ROWS, 1 + K = {nl} logits rows "
+        f"a row, {vc['rows']} rows): within {vc['max_abs_err']:.4g} of the "
+        f"plain version (one bf16 ulp: {vc['ulp']:.4g}), argmax equal in "
+        f"{vc['argmax_equal']}/{vc['rows']}, {vc['codes_differing']} of "
+        f"{vc['codes']} pool bytes differ")
+    del vinp, vpools0, vstep, vwant_pools, vgot_pools
     grid = mk.grid_size(W, G, D, PS)
     kernel = megakernel_layers(inp["params"], cfg, inp["cache"],
                                *inp["args"][:4])
@@ -1547,7 +1628,8 @@ def check_megakernel() -> dict:
             "source": "src/repro_torch/kernels/csrc/mx_megakernel.cu",
             "replaces": "src/repro/kernels/mx_megakernel.py:439",
             "launches": None,  # set by the main path's run (phase 4)
-            "max_abs_err": c["max_abs_err"], "ms_reduced": ms,
+            "max_abs_err": max(c["max_abs_err"], vc["max_abs_err"]),
+            "ms_reduced": ms,
             "plain_ms_reduced": plain_ms, "library_ms": None,
             "grid": grid}
 
@@ -1558,13 +1640,18 @@ def check_megakernel() -> dict:
 
 
 def reduced_streams(device: str, params, cfg, prompts,
-                    step_mode: str = "ragged"):
-    from repro_torch.serve import ServeConfig, ServeEngine
+                    step_mode: str = "ragged", sampled=None, **serve):
+    """The reduced workload's streams and stats; ``sampled``: each
+    request's SamplingParams knobs (None: greedy), ``serve``: more
+    ServeConfig knobs."""
+    from repro_torch.serve import SamplingParams, ServeConfig, ServeEngine
 
     eng = ServeEngine(params, cfg, ServeConfig(max_seq=96, max_slots=3,
-                                               step_mode=step_mode),
+                                               step_mode=step_mode, **serve),
                       device=device)
-    ids = [eng.submit(p, 6) for p in prompts]
+    ids = [eng.submit(p, 6, sampling_params=None if sampled is None
+                      else SamplingParams(**sampled[i]))
+           for i, p in enumerate(prompts)]
     out = eng.run()
     return [out[i] for i in ids], eng.cache_stats()
 
@@ -1782,6 +1869,126 @@ def check_reduced_tiered_parity(card: str = "cuda") -> None:
     log("reduced granite, tiered (default policy): split streams equal the "
         f"ragged step's ({ragged_stats['repacked_pages']} pages repacked "
         "there)")
+
+
+#: phase 3's and phase 4's stochastic requests
+SAMPLING = dict(temperature=0.8, top_p=0.95, top_k=50)
+#: the decision margins a card/CPU logit gap of one bf16 ulp (|logit| < 4
+#: in the reduced runs: 2^-6) cannot cross: a pick's perturbed-score lead
+#: (two logits move) and an acceptance test's |u - p| / p (log p moves by
+#: the draft's logit and the normalizer's)
+LEAD_TOL = ACCEPT_TOL = 2 * 2.0 ** -6 / SAMPLING["temperature"]
+#: phase 3's sampled runs: (step mode, spec) -> the first request's seed
+#: (request i draws with seed + i); on the CPU every decision of that run
+#: clears LEAD_TOL and ACCEPT_TOL (asserted)
+SAMPLE_SEEDS = {("ragged", False): 98, ("ragged", True): 9,
+                ("split", True): 27, ("megakernel", True): 51}
+
+
+def replay_drafter(streams):
+    """A drafter that proposes what followed its history in ``streams``
+    (prompt + generated tokens of a greedy non-spec run): while a greedy
+    spec run agrees with that run, every draft is accepted and each
+    verify window emits K + 1 tokens, the path that random weights never
+    give the n-gram drafter."""
+    from repro_torch.serve.spec_decode import Drafter
+
+    class ReplayDrafter(Drafter):
+        def propose(self, history, k):
+            h = np.asarray(history)
+            for st in streams:
+                if len(st) > len(h) and np.array_equal(st[:len(h)], h):
+                    cont = np.asarray(st[len(h):len(h) + k])
+                    return np.concatenate([cont, np.full(
+                        k - len(cont), cont[-1])]).astype(np.int32)
+            return np.full(k, h[-1], np.int32)
+
+    return ReplayDrafter()
+
+
+def check_reduced_spec_and_sampling(card: str = "cuda") -> dict:
+    """Phase 3's speculative and sampled runs, the card against the CPU:
+    greedy speculation (K = SPEC_K; the n-gram drafter, then the replay
+    drafter, whose drafts are all accepted) in the ragged, split and
+    megakernel steps, whose streams also equal the greedy non-spec
+    streams; then SAMPLING requests with fixed seeds, spec off and on
+    (ragged) and on (split, megakernel). Returns the launches of the
+    verify-window kernels (#1, #2, #8) in the greedy spec runs."""
+    from repro_torch.kernels import (mx_attention_ragged_fused,
+                                     mx_attention_verify_fused,
+                                     mx_megakernel_step)
+    from repro_torch.nn import model
+
+    cfg = reduced_config()
+    params = model.init(cfg, torch.Generator().manual_seed(REDUCED_SEED),
+                        "cpu")
+    on_card = _to_device(params, card)
+    prompts = reduced_prompts(cfg)
+    layers = cfg.num_layers
+    plain, _ = reduced_streams("cpu", params, cfg, prompts)
+    kernel_of = {"ragged": mx_attention_ragged_fused,
+                 "split": mx_attention_verify_fused,
+                 "megakernel": mx_megakernel_step}
+    launches, notes = {}, []
+    spec = dict(spec_decode=True, num_draft_tokens=SPEC_K)
+    for (mode, kernel), drafter in itertools.product(
+            kernel_of.items(), ("ngram", "replay")):
+        kw = dict(spec, drafter=drafter if drafter == "ngram"
+                  else replay_drafter(plain))
+        want, cpu_stats = reduced_streams("cpu", params, cfg, prompts, mode,
+                                          **kw)
+        n0 = kernel.launches
+        got, stats = reduced_streams(card, on_card, cfg, prompts, mode,
+                                     **kw)
+        n = kernel.launches - n0
+        what = f"reduced greedy spec {mode}, {drafter} drafter"
+        _same_streams(got, want, f"{what}, card vs CPU")
+        _same_streams(want, plain, f"{what} vs non-spec")
+        if stats["step_mode"] != mode or not stats["spec_steps"] or (
+                drafter == "replay" and stats["accepted_per_step"] < 2):
+            raise AssertionError(f"{what}: {stats}")
+        per = {"ragged": stats["ragged_steps"] * layers,
+               "split": stats["dispatches_verify"] * layers,
+               "megakernel": stats["ragged_steps"]}[mode]
+        if card == "cuda" and (n == 0 or n != per):
+            raise AssertionError(f"reduced spec {mode}: {n} launches of "
+                                 f"{kernel.__name__}, expected {per}")
+        launches[mode] = launches.get(mode, 0) + n
+        notes.append(f"{mode} {drafter} {stats['accepted_per_step']:.2f} "
+                     f"tokens a verify row ({stats['spec_steps']} verify "
+                     f"steps, {n} launches of {kernel.__name__})")
+    log(f"reduced granite, greedy speculation (K {SPEC_K}): streams equal on "
+        "card and CPU and equal to the non-spec streams; " + "; ".join(notes))
+    notes = []
+    for (mode, spec_on), seed in SAMPLE_SEEDS.items():
+        kw = spec if spec_on else {}
+        sampled = [dict(SAMPLING, seed=seed + i) for i in range(len(prompts))]
+        what = f"reduced sampled {mode}, spec {'on' if kw else 'off'}"
+        want, cpu_stats = reduced_streams("cpu", params, cfg, prompts, mode,
+                                          sampled, **kw)
+        if not (cpu_stats["min_sample_lead"] > LEAD_TOL
+                and cpu_stats["min_accept_margin"] > ACCEPT_TOL):
+            raise AssertionError(
+                f"{what}: a decision within the card/CPU gap: lead "
+                f"{cpu_stats['min_sample_lead']}, |u - p| "
+                f"{cpu_stats['min_accept_margin']} (seed {seed})")
+        got, stats = reduced_streams(card, on_card, cfg, prompts, mode,
+                                     sampled, **kw)
+        _same_streams(got, want, f"{what}, card vs CPU")
+        notes.append(
+            f"{mode} spec {'on' if kw else 'off'} (seeds {seed}-"
+            f"{seed + len(prompts) - 1}): smallest perturbed-score lead "
+            f"{stats['min_sample_lead']:.4f} (CPU "
+            f"{cpu_stats['min_sample_lead']:.4f})"
+            + (f", smallest |u - p(draft)| / p(draft) "
+               f"{stats['min_accept_margin']:.4f}, "
+               f"{stats['accepted_per_step']:.2f} tokens a verify row"
+               if kw else ""))
+    log(f"reduced granite, sampled (temperature {SAMPLING['temperature']}, "
+        f"top-p {SAMPLING['top_p']}, top-k {SAMPLING['top_k']}; decisions "
+        f"clear {LEAD_TOL:.4f} on the CPU): streams equal on card and CPU; "
+        + "; ".join(notes))
+    return launches
 
 
 def _to_device(tree, device):
@@ -2191,6 +2398,315 @@ def serve_full_width_megakernel(ragged: dict) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "equal": equal,
             "full_width": pairs, "report": report, "peak_gb": peak_gb,
             "busy": busy}
+
+
+SAMPLE_ARGV = ["--temperature", str(SAMPLING["temperature"]), "--top-p",
+               str(SAMPLING["top_p"]), "--top-k", str(SAMPLING["top_k"]),
+               "--seed", "3"]
+SPEC_ARGV = ["--spec-decode", "--num-draft-tokens", str(SPEC_K)]
+
+
+def time_sampler(engine) -> list:
+    """Have ``engine`` record CUDA events around each sampling call (its
+    ``_sample_rows`` and ``_verify_rows``, which make the keys on the host
+    and end in the tokens' copy to the host): the stream's elapsed time
+    from the step's logits to its tokens, host gaps included. Returns the
+    list the (call name, start, end) triples land in."""
+    events = []
+    for name in ("_sample_rows", "_verify_rows"):
+        fn = getattr(engine, name)
+
+        def timed(*args, fn=fn, name=name):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args)
+            end.record()
+            events.append((name, start, end))
+            return out
+
+        setattr(engine, name, timed)
+    return events
+
+
+def check_sampler_on_cpu(engine) -> dict:
+    """Have ``engine`` hold every sampling call against the port's sampler
+    on the CPU, applied to the same logits rows copied to the host: the
+    tokens, counts and emitted rows of the rows it picks must be equal.
+    Returns the running tally (calls, rows, the smallest perturbed-score
+    lead and |u - p(draft)| the CPU saw)."""
+    from repro_torch.serve import sampling
+
+    tally = {"sample_calls": 0, "verify_calls": 0, "rows": 0,
+             "min_lead": float("inf"), "min_accept_margin": float("inf")}
+    sample_rows, verify_rows = engine._sample_rows, engine._verify_rows
+
+    def vectors(n, picks):
+        got = engine._sampling_vectors(n, picks)
+        return None if got is None else [torch.as_tensor(v).cpu()
+                                         for v in got[0]]
+
+    def checked_sample(logits, picks):
+        vecs = vectors(logits.shape[0], picks)
+        toks = sample_rows(logits, picks)
+        host = logits.float().cpu()
+        if vecs is None:
+            want, lead = sampling.greedy(host), None
+        else:
+            want, lead = sampling.sample(host, *vecs, with_lead=True)
+        rows = [row for row, _ in picks]
+        if not np.array_equal(toks[rows], want.numpy()[rows]):
+            raise AssertionError(f"sampled tokens {toks[rows]} on the card, "
+                                 f"{want.numpy()[rows]} on the CPU")
+        if lead is not None:
+            tally["min_lead"] = min(tally["min_lead"],
+                                    float(lead[rows].min()))
+        tally["sample_calls"] += 1
+        tally["rows"] += len(rows)
+        return toks
+
+    def checked_verify(logits, drafts, picks):
+        n = logits.shape[0]
+        vecs = vectors(n, picks)
+        n_emit, emitted = verify_rows(logits, drafts, picks)
+        host = logits.float().cpu()
+        if vecs is None:  # a greedy batch: the neutral vectors
+            vecs = [torch.from_numpy(a.astype(np.int64) if a.dtype
+                                     == np.uint32 else a)
+                    for a in sampling.slot_arrays(n).values()]
+        want_n, want_e, (gap, lead) = sampling.verify_rejection(
+            host, torch.from_numpy(np.asarray(drafts)), *vecs, margins=True)
+        for row, _ in picks:
+            m = int(want_n[row])
+            if int(n_emit[row]) != m or not np.array_equal(
+                    emitted[row, :m], want_e[row, :m].numpy()):
+                raise AssertionError(
+                    f"verify row {row}: the card emitted "
+                    f"{emitted[row, :int(n_emit[row])]}, the CPU "
+                    f"{want_e[row, :m].numpy()}")
+            tally["min_lead"] = min(tally["min_lead"], float(lead[row]))
+            counted = gap[row, :min(m, drafts.shape[1])]
+            if len(counted):
+                tally["min_accept_margin"] = min(
+                    tally["min_accept_margin"], float(counted.min()))
+        tally["verify_calls"] += 1
+        tally["rows"] += len(picks)
+        return n_emit, emitted
+
+    engine._sample_rows, engine._verify_rows = checked_sample, checked_verify
+    return tally
+
+
+def sampler_calls(vocab: int) -> dict:
+    """The sampler alone at the main path's shapes, on the card: ``sample``
+    over (8, vocab) and ``verify_rejection`` over (8, 1 + K, vocab) f32
+    logits with SAMPLING's filters, as the engine calls them (name ->
+    call)."""
+    from repro_torch.serve import sampling
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    n = R
+    vecs = [torch.full((n,), SAMPLING["temperature"], device="cuda"),
+            torch.full((n,), SAMPLING["top_p"], device="cuda"),
+            torch.full((n,), SAMPLING["top_k"], device="cuda"),
+            torch.arange(n, device="cuda"),
+            torch.arange(n, device="cuda") * 7]
+    logits = 3 * torch.randn(n, vocab, generator=gen, device="cuda")
+    window = 3 * torch.randn(n, 1 + SPEC_K, vocab, generator=gen,
+                             device="cuda")
+    drafts = torch.randint(0, vocab, (n, SPEC_K), generator=gen,
+                           device="cuda")
+    return {"sample": lambda: sampling.sample(logits, *vecs),
+            "verify": lambda: sampling.verify_rejection(window, drafts,
+                                                        *vecs)}
+
+
+def trace_calls(run, calls: int) -> tuple:
+    """(host ms a call, kernel ms a call, {kernel: (launches a call, ms a
+    call)}) of ``calls`` calls of ``run`` under torch.profiler; the kernel
+    ms is the sum of the traced kernels' device durations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        n, ms = by_name.get(evt.name, (0, 0.0))
+        by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
+    kernels = {k: (n / calls, ms / calls) for k, (n, ms) in by_name.items()}
+    return host_ms, sum(ms for _, ms in kernels.values()), kernels
+
+
+def time_sampler_calls(vocab: int) -> dict:
+    """Each of :func:`sampler_calls`: its elapsed ms (CUDA events, median
+    of 10), then 3 calls traced (:func:`trace_calls`): host ms, kernel ms
+    and launches a call, and the kernels by name. Fails if the trace
+    shows no kernel."""
+    out = {}
+    for name, run in sampler_calls(vocab).items():
+        out[f"{name}_ms"] = cuda_ms(run, 10)
+        host_ms, kernel_ms, kernels = trace_calls(run, 3)
+        if not kernel_ms:
+            raise AssertionError(f"sampler {name}: the trace shows no "
+                                 "kernel time")
+        out.update({f"{name}_host_ms": host_ms,
+                    f"{name}_kernel_ms": kernel_ms,
+                    f"{name}_launches": sum(k for k, _ in kernels.values()),
+                    f"{name}_kernels": kernels})
+    return out
+
+
+def serve_full_width_spec_and_sampling(ragged: dict) -> dict:
+    """Phase 4's speculative and sampled runs on the same prompts, every
+    kernel count reset just before a run and read just after: (1) greedy
+    speculation (K = SPEC_K; the n-gram drafter, then the replay drafter
+    over the non-spec run's streams, whose drafts are accepted): #1
+    launched 36 times a step, and every stream equal to the non-spec
+    ragged run's except where a pick of one of the two leads by at most
+    GAP_TOL_ULPS bf16 ulps; (2) the sampler alone
+    (:func:`time_sampler_calls`: elapsed and traced kernel ms a call);
+    (3) SAMPLING (launcher flags, base seed 3), spec off and on: a timed
+    run (the sampler's elapsed time from CUDA events around each call,
+    host gaps included, beside the traced kernel ms of the same calls
+    alone), then the same run again on a fresh engine with every sampling
+    call held
+    against the port's sampler on the CPU, and its streams equal the
+    first run's. ``ragged``: :func:`serve_full_width`'s result. Returns
+    the reports and the #1 launches of the spec run."""
+    from repro_torch.kernels import mx_attention_ragged_fused
+    from repro_torch.launch import serve
+
+    rr = ragged["report"]
+    args = serve.parse_args(FULL_ARGV + ["--new-tokens", "32"] + SPEC_ARGV)
+    out, params = {}, None
+    for drafter in ("ngram", "replay"):
+        cfg, engine = serve.build_engine(args, params)
+        params = engine.params
+        prompts = serve.make_prompts(cfg, args, sharing=2)
+        if drafter == "replay":
+            engine.drafter = replay_drafter([rr["results"][i]
+                                             for i in rr["ids"]])
+        engine.warmup()
+        leads = record_leads(engine)
+        mx_attention_ragged_fused.launches = 0
+        report = serve.run_batch(engine, cfg, args, prompts)
+        torch.cuda.synchronize()
+        on_card = engine.device.type == "cuda"  # else a CPU rehearsal
+        del engine
+        launches = mx_attention_ragged_fused.launches
+        what = f"greedy spec run ({drafter} drafter)"
+        if on_card and (launches == 0 or launches
+                        != report["ragged_steps"] * cfg.num_layers):
+            raise AssertionError(f"{what}: {launches} ragged launches over "
+                                 f"{report['ragged_steps']} steps")
+        parts = []
+        for i, prompt in zip(report["ids"], report["prompts"]):
+            toks = report["results"][i]
+            if len(toks) != len(prompt) + 32 or toks.min() < 0 \
+                    or toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"{what} request {i}: malformed stream")
+            diff = np.flatnonzero(toks != rr["results"][i])
+            if len(diff):
+                k = int(diff[0]) - len(prompt)
+                parts.append((k, leads[i][k], ragged["leads"][i][k]))
+        if any(min(a, b) > GAP_TOL_ULPS for _, a, b in parts):
+            raise AssertionError(
+                f"{what}: streams part from the non-spec run's at a pick "
+                f"both lead by more than {GAP_TOL_ULPS} bf16 ulp: {parts}")
+        spec = report["spec"]
+        log(f"granite-8b {what}, K {SPEC_K}: {report['generated_tokens']} "
+            f"tokens in {report['seconds']:.2f} s = "
+            f"{report['tokens_per_s']:.1f} tok/s (spec off: "
+            f"{rr['tokens_per_s']:.1f}); {report['ragged_steps']} steps, "
+            f"median {report['median_step_ms']:.2f} ms (spec off: "
+            f"{rr['median_step_ms']:.2f} ms, {rr['ragged_steps']} steps); "
+            f"{spec['accepted_per_step']:.3f} tokens emitted per verify row "
+            f"({spec['accepted_tokens']} of {spec['drafted_tokens']} drafts "
+            f"accepted); {launches} ragged launches = steps x "
+            f"{cfg.num_layers}; {len(prompts) - len(parts)} of "
+            f"{len(prompts)} streams equal the non-spec run's (the others "
+            "part at (generated token, top-2 lead of the pick there in bf16 "
+            f"ulps: spec, non-spec) {parts}, each a near-tie of at most "
+            f"{GAP_TOL_ULPS} ulp in one run)")
+        out[f"greedy_spec_{drafter}"] = dict(report, launches=launches)
+    out["spec_launches"] = out["greedy_spec_ngram"]["launches"]
+    alone = time_sampler_calls(cfg.vocab_size)
+    for name, shape in (("sample", f"({R}, {cfg.vocab_size})"),
+                        ("verify", f"({R}, {1 + SPEC_K}, {cfg.vocab_size})")):
+        log(f"sampler alone on the card, {name} over {shape}: "
+            f"{alone[f'{name}_ms']:.4f} ms elapsed (CUDA events, median of "
+            f"10); traced over 3 calls: {alone[f'{name}_kernel_ms']:.4f} ms "
+            f"of kernels in {alone[f'{name}_launches']:g} launches, host "
+            f"{alone[f'{name}_host_ms']:.3f} ms a call")
+    out.update(alone)
+    for spec_on in (False, True):
+        argv = FULL_ARGV + ["--new-tokens", "32"] + SAMPLE_ARGV \
+            + (SPEC_ARGV if spec_on else [])
+        args = serve.parse_args(argv)
+        what = f"sampled, spec {'on' if spec_on else 'off'}"
+        _, engine = serve.build_engine(args, params)
+        engine.warmup()
+        events = time_sampler(engine)
+        mx_attention_ragged_fused.launches = 0
+        first = serve.run_batch(engine, cfg, args, prompts)
+        torch.cuda.synchronize()
+        n = mx_attention_ragged_fused.launches
+        if on_card and n != first["ragged_steps"] * cfg.num_layers:
+            raise AssertionError(f"{what}: {n} ragged launches over "
+                                 f"{first['ragged_steps']} steps")
+        sampler_ms = sum(s.elapsed_time(e) for _, s, e in events)
+        calls = Counter(name for name, _, _ in events)
+        kernel_ms = (calls["_sample_rows"] * alone["sample_kernel_ms"]
+                     + calls["_verify_rows"] * alone["verify_kernel_ms"])
+        del engine
+        _, engine = serve.build_engine(args, params)
+        engine.warmup()
+        tally = check_sampler_on_cpu(engine)
+        again = serve.run_batch(engine, cfg, args, prompts)
+        del engine
+        for i, prompt in zip(first["ids"], first["prompts"]):
+            toks = first["results"][i]
+            if len(toks) != len(prompt) + 32 or toks.min() < 0 \
+                    or toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"{what} request {i}: malformed stream")
+            if not np.array_equal(toks, again["results"][i]):
+                raise AssertionError(f"{what}: request {i}'s stream differs "
+                                     "between two runs of the same seeds")
+        if not tally["rows"] or (spec_on and not tally["verify_calls"]):
+            raise AssertionError(f"{what}: the CPU check saw {tally}")
+        steps = first["ragged_steps"]
+        extra = (f"; {first['spec']['accepted_per_step']:.3f} tokens emitted "
+                 "per verify row" if spec_on else "")
+        log(f"granite-8b {what} (temperature {SAMPLING['temperature']}, "
+            f"top-p {SAMPLING['top_p']}, top-k {SAMPLING['top_k']}, base "
+            f"seed 3): {first['generated_tokens']} tokens in "
+            f"{first['seconds']:.2f} s = {first['tokens_per_s']:.1f} tok/s; "
+            f"{steps} steps, median {first['median_step_ms']:.2f} ms; sampler "
+            f"elapsed {sampler_ms / steps:.3f} ms a step (CUDA events around "
+            f"{calls['_sample_rows']} sample and {calls['_verify_rows']} "
+            f"verify calls, logits to tokens on the host, host gaps "
+            f"included), of which kernels {kernel_ms / steps:.3f} ms a step "
+            f"(each call's traced kernel ms alone){extra}; streams equal in "
+            f"a second run, where all "
+            f"{tally['rows']} sampled rows ({tally['sample_calls']} sample "
+            f"and {tally['verify_calls']} verify calls, vocab "
+            f"{cfg.vocab_size}) equal the port's sampler on the CPU over the "
+            f"same logits (smallest perturbed-score lead "
+            f"{tally['min_lead']:.4g}, smallest |u - p(draft)| / p(draft) "
+            f"{tally['min_accept_margin']:.4g})")
+        out["sampled_spec" if spec_on else "sampled"] = dict(
+            first, sampler_elapsed_ms_per_step=sampler_ms / steps,
+            sampler_kernel_ms_per_step=kernel_ms / steps, cpu_check=tally)
+    return out
 
 
 def profile_breakdown(runs: dict, walk: tuple, steps: int = 3,
@@ -3079,6 +3595,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_reduced_parity()
     check_reduced_tiered_parity()
+    spec_reduced = check_reduced_spec_and_sampling()
     full = serve_full_width()
     kernel["launches"] = full["launches"]
     gc.collect()
@@ -3101,6 +3618,13 @@ def main() -> int:
         mega[key] = full_mega[key]
     mega["streams_equal_ragged"] = full_mega["equal"]
     mega["full_width"] = full_mega["full_width"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    sampled = serve_full_width_spec_and_sampling(full)
+    kernel["launches_spec"] = sampled["spec_launches"]
+    kernel["launches_spec_reduced"] = spec_reduced["ragged"]
+    verify["launches_spec_reduced"] = spec_reduced["split"]
+    mega["launches_spec_reduced"] = spec_reduced["megakernel"]
     gc.collect()
     torch.cuda.empty_cache()
     kernels = [kernel, verify, prefill] + pair + [repack, mega] \

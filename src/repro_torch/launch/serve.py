@@ -21,10 +21,20 @@ one kernel launch (``kernels.mx_megakernel_step``), and logs the launches
 a step takes; ``--step-mode split`` runs the reference's split step
 (prefill-chunk dispatches under ``--prefill-token-budget``, then one
 decode dispatch a step), and ``--decode-kernel einsum`` its gather
-oracle, which also falls back to split. Runs on the card unless
-``--device cpu``. The reference's other flags (the HTTP server,
-sampling, speculation, the mesh, the fixed-slot engine, monolithic
-prefill) are not ported yet and exit with an error naming ROADMAP.md.
+oracle, which also falls back to split. ``--temperature`` / ``--top-p`` /
+``--top-k`` / ``--seed`` set the default sampling (each request's stream
+from the base seed and its id), and ``--spec-decode`` drafts
+``--num-draft-tokens`` tokens a step by prompt lookup and verifies them in
+the same step:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+      --batch 8 --prompt-len 236 --shared-prefix 64 --ragged \
+      --new-tokens 32 --temperature 0.8 --top-p 0.95 --seed 3 --spec-decode
+
+Runs on the card unless ``--device cpu``. The reference's other flags
+(the HTTP server, overload control, the mesh, the fixed-slot engine,
+monolithic prefill, several chunks a row) are not ported yet and exit
+with an error naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -44,16 +54,16 @@ log = logging.getLogger("repro_torch.serve")
 
 #: flags of the reference launcher that this port does not take yet
 UNPORTED_FLAGS = (
-    "--temperature", "--top-p", "--top-k", "--seed", "--slo-ms",
-    "--max-queue", "--serve", "--host", "--port", "--prefix-snapshot",
-    "--engine", "--max-slots", "--page-size",
-    "--no-prefix-cache", "--prefill-mode", "--prefill-chunk",
-    "--prefill-max-chunks", "--mesh", "--spec-decode", "--num-draft-tokens")
+    "--slo-ms", "--max-queue", "--serve", "--host", "--port",
+    "--prefix-snapshot", "--engine", "--prefill-mode",
+    "--prefill-max-chunks", "--mesh")
 
 TIER_FMTS = ["fp6_e3m2", "fp6_e2m3", "fp4_e2m1"]
 
 
-def build_engine(args) -> tuple:
+def build_engine(args, params=None) -> tuple:
+    """(model config, engine) of ``args``; ``params`` (of the same config)
+    are reused, else random weights are made from seed 0."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     quant = {"": cfg.quant, "wide": WIDE, "mxfp8": MXFP8,
              "mxfp4": MXFP4}[args.quant]
@@ -61,12 +71,22 @@ def build_engine(args) -> tuple:
         block_size=cfg.quant.block_size, quantize_acts=False,
         quantize_kv_cache=args.quantize_kv or not args.quant))
     device = torch.device(args.device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = model.init(cfg, gen, device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = model.init(cfg, gen, device)
     max_seq = args.shared_prefix + args.prompt_len + args.new_tokens
+    if args.spec_decode:
+        # room for the last verify window of a request
+        max_seq += args.num_draft_tokens
     serve_cfg = ServeConfig(
-        max_seq=max_seq, max_slots=args.batch, tiered=args.tiered,
+        max_seq=max_seq, temperature=args.temperature, top_p=args.top_p,
+        top_k=args.top_k, seed=args.seed,
+        max_slots=args.max_slots or args.batch, page_size=args.page_size,
+        prefix_cache=not args.no_prefix_cache,
+        prefill_chunk=args.prefill_chunk, tiered=args.tiered,
         step_mode=args.step_mode, decode_kernel=args.decode_kernel,
+        spec_decode=args.spec_decode,
+        num_draft_tokens=args.num_draft_tokens,
         prefill_token_budget=args.prefill_token_budget or None,
         tier_policy=TierPolicy(
             mid_fmt=args.tier_mid_fmt, cold_fmt=args.tier_cold_fmt,
@@ -120,6 +140,8 @@ def run_batch(engine, cfg, args, prompts=None) -> dict:
         "prefix_hit_rate": stats["prefix_hit_rate"],
         "peak_pages": stats["peak_pages"],
         "min_top2_gap_ulps": stats["min_top2_gap_ulps"],
+        "min_sample_lead": stats["min_sample_lead"],
+        "min_accept_margin": stats["min_accept_margin"],
         "prompts": prompts, "ids": ids, "results": results,
     }
     log.info("served %d requests in %.2fs (%.1f tok/s); %s step, %d steps "
@@ -137,6 +159,14 @@ def run_batch(engine, cfg, args, prompts=None) -> dict:
                  report["step_mode"],
                  stats["prefill_tokens_computed"]
                  / max(stats["prefill_dispatches"], 1))
+    if engine.spec_enabled:
+        report["spec"] = {k: stats[k] for k in (
+            "spec_steps", "drafted_tokens", "accepted_tokens",
+            "emitted_tokens", "accepted_per_step", "draft_acceptance_rate")}
+        log.info("speculative decoding: %d verify steps, %.2f tokens "
+                 "emitted per verify row, %d of %d drafts accepted",
+                 stats["spec_steps"], stats["accepted_per_step"],
+                 stats["accepted_tokens"], stats["drafted_tokens"])
     if engine.tiered:
         tiered = {k: v for k, v in stats.items() if k.startswith("pages_")
                   or k in ("unit_budget", "units_in_use", "peak_units",
@@ -163,6 +193,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="requests, and decode slots")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="default sampling temperature (0 = exact greedy)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="default nucleus-sampling mass (1.0 = disabled)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="default top-k cutoff (0 = disabled)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="engine base RNG seed; each request's stream is "
+                         "derived from (seed, request id)")
+    ap.add_argument("--max-slots", type=int, default=0,
+                    help="decode slots (default: --batch)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable radix-tree prompt sharing")
+    ap.add_argument("--prefill-chunk", type=int, default=64,
+                    help="chunked-prefill chunk length in tokens (a "
+                         "multiple of --page-size)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decoding: draft K tokens a step by "
+                         "prompt lookup and verify them in the same step "
+                         "(greedy prefix match at temperature 0, rejection "
+                         "sampling above)")
+    ap.add_argument("--num-draft-tokens", type=int, default=4,
+                    help="drafts per sequence per verify step (K)")
     ap.add_argument("--ragged", action="store_true",
                     help="vary prompt lengths across requests")
     ap.add_argument("--shared-prefix", type=int, default=0,
@@ -213,9 +267,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     for arg in rest:
         flag = arg.split("=", 1)[0]
         if flag in UNPORTED_FLAGS:
-            ap.error(f"{flag} is not ported to repro_torch yet: its "
-                     "launcher serves weight-only MX with an MX KV cache, "
-                     "greedy, with the ServeConfig defaults (see "
+            ap.error(f"{flag} is not ported to repro_torch yet (see "
                      "ROADMAP.md, section A)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")

@@ -20,6 +20,8 @@ the megakernel the stacks, one copy of each.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -212,35 +214,43 @@ def prefill_chunk_paged(params, cfg: ModelConfig, cache: list,
 def ragged_step_paged(params, cfg: ModelConfig, cache: list,
                       tokens: torch.Tensor, page_rows: torch.Tensor,
                       row_start: torch.Tensor, seq_lens: torch.Tensor,
-                      logit_idx: torch.Tensor, page_fmts=None,
+                      logit_idx: torch.Tensor,
+                      num_logits: Optional[int] = None, page_fmts=None,
                       mixed_fmts=None) -> torch.Tensor:
     """One ragged engine step: tokens (R, W), page_rows (R, P), row_start
     (R,), seq_lens (R,) = row_start + n_new, logit_idx (R,).
 
-    Every layer's new K/V is quantize-written into its pages inside the
-    ragged kernel; ``cache`` is updated in place. Returns logits (R, V)
-    f32 of row ``logit_idx`` (clamped onto the row's last real token),
-    gathered before the final norm and head as the reference does. The
-    reference's ``num_logits > 1`` (speculative verify windows) is not
-    ported yet. A tiered cache passes ``page_fmts``, one (NP,) int32
-    tensor of format ids shared by every layer like the page table, and
-    its candidate formats ``mixed_fmts``.
+    Decode rows (n_new 1), verify windows (1 + K) and prefill chunks (up
+    to W) share the batch. Every layer's new K/V is quantize-written into
+    its pages inside the ragged kernel; ``cache`` is updated in place.
+    Returns f32 logits gathered before the final norm and head, as the
+    reference does: with ``num_logits`` an int, (R, num_logits, V) of rows
+    ``logit_idx .. logit_idx + num_logits - 1``, each clamped onto the
+    row's last real token (a verify window reads all 1 + K); with None,
+    (R, V) of row ``logit_idx`` alone. A tiered cache passes
+    ``page_fmts``, one (NP,) int32 tensor of format ids shared by every
+    layer like the page table, and its candidate formats ``mixed_fmts``.
     """
     x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
     x = _walk_blocks(lambda bp, x, pool, bd: blocks.apply_ragged_step(
         bp, x, pool, page_rows, row_start, seq_lens, bd, cfg,
         page_fmts=page_fmts, mixed_fmts=mixed_fmts), params, cfg, cache, x)
-    return _ragged_head(params, cfg, x, row_start, seq_lens, logit_idx)
+    return _ragged_head(params, cfg, x, row_start, seq_lens, logit_idx,
+                        num_logits)
 
 
 def _ragged_head(params, cfg: ModelConfig, x: torch.Tensor, row_start,
-                 seq_lens, logit_idx) -> torch.Tensor:
-    """Row ``logit_idx`` of each ragged row (clamped onto its last real
-    token), then the final norm and the head."""
-    last = torch.clamp(seq_lens - row_start - 1, min=0)
-    idx = torch.minimum(torch.clamp(logit_idx, min=0), last).long()
-    x = x[torch.arange(x.shape[0], device=x.device), idx]
-    return _head(params, cfg, x)
+                 seq_lens, logit_idx, num_logits=None) -> torch.Tensor:
+    """Rows ``logit_idx ..`` of each ragged row (``num_logits`` of them,
+    or one with None), each clamped onto its last real token, then the
+    final norm and the head."""
+    last = torch.clamp(seq_lens - row_start - 1, min=0)[:, None]
+    n = 1 if num_logits is None else num_logits
+    idx = logit_idx.long()[:, None] + torch.arange(n, device=x.device)
+    idx = torch.minimum(torch.clamp(idx, min=0), last)
+    x = x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+    logits = _head(params, cfg, x)
+    return logits[:, 0] if num_logits is None else logits
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +275,8 @@ def megakernel_stacks(params, cache) -> tuple:
 def megakernel_step_paged(params, cfg: ModelConfig, cache: list,
                           tokens: torch.Tensor, page_rows: torch.Tensor,
                           row_start: torch.Tensor, seq_lens: torch.Tensor,
-                          logit_idx: torch.Tensor, page_fmts=None,
+                          logit_idx: torch.Tensor,
+                          num_logits: Optional[int] = None, page_fmts=None,
                           mixed_fmts=None) -> torch.Tensor:
     """:func:`ragged_step_paged` with the whole layer stack in one call of
     ``kernels.mx_megakernel_step``, which reads the (L, ...) stacks of
@@ -291,4 +302,5 @@ def megakernel_step_paged(params, cfg: ModelConfig, cache: list,
         block_size=min(cfg.quant.block_size, d), softcap=cfg.attn_softcap,
         window=cfg.all_blocks()[0].window, compute_dtype=cfg.compute_dtype,
         page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    return _ragged_head(params, cfg, x, row_start, seq_lens, logit_idx)
+    return _ragged_head(params, cfg, x, row_start, seq_lens, logit_idx,
+                        num_logits)

@@ -34,13 +34,25 @@ host (``page_fmts``) with a device mirror that every layer's kernels
 read, and they travel with a page's bytes through swap-out, restore and
 copy-on-write.
 
+Sampling follows the reference's per-slot vectors (temperature, top-p,
+top-k, seed, stream counter): each row's token is a pure function of its
+request's seed and its index in the request's stream
+(``serve.sampling``), sampled in PyTorch on the device beside the
+logits; a batch of greedy rows alone takes the exact argmax.
+``spec_decode`` drafts K tokens a decode row (``serve.spec_decode``) and
+verifies them in the same step: the ragged step feeds verify windows of
+1 + K new tokens and reads their 1 + K logits rows (``num_logits``); the
+split step runs ``model.verify_step_paged`` at Tq = 1 + K. Acceptance is
+``sampling.verify_rejection``; the write window's shared pages are copied
+first, and rejected drafts roll back by position alone.
+
 The page pools update in place: the reference's jitted steps donate the
 cache pytree and return a new one instead.
 
 Options of the reference's ``ServeConfig`` that this port does not run
-yet (monolithic prefill, speculation, the mesh, overload control,
-temperature > 0, several prompt chunks per ragged row) raise
-``NotImplementedError`` at construction; none falls back silently.
+yet (monolithic prefill, the mesh, overload control, several prompt
+chunks per ragged row) raise ``NotImplementedError`` at construction;
+none falls back silently.
 """
 from __future__ import annotations
 
@@ -62,7 +74,7 @@ from repro_torch.kernels import (mx_attention_prefill_fused,
 from repro_torch.nn import blocks, model
 from repro_torch.nn.config import ModelConfig
 
-from . import kv_cache, sampling
+from . import kv_cache, sampling, spec_decode
 from .kv_cache import PAGE_UNITS_FULL, UNITS_BY_BITS
 from .sampling import SamplingParams
 from .scheduler import Scheduler
@@ -104,13 +116,19 @@ class ServeConfig:
     """The reference's serving knobs, same names and defaults. The ones
     below the line select paths that are not ported yet: anything but
     their defaults raises ``NotImplementedError`` at construction. The
-    reference's knobs that only those paths read (top-p/top-k/seed, the
-    drafter, the monolithic path's trace cache) are left out. ``tiered``
-    reinterprets ``num_pages`` as the fp8-equivalent byte budget
-    (``num_pages * 4`` quarter-page units) over a physical pool twice
-    that size."""
+    reference's knob that only those paths read (the monolithic path's
+    trace cache) is left out. ``tiered`` reinterprets ``num_pages`` as the
+    fp8-equivalent byte budget (``num_pages * 4`` quarter-page units) over
+    a physical pool twice that size."""
 
     max_seq: int = 1024
+    # default sampling of requests without their own SamplingParams:
+    # temperature 0 is the exact greedy argmax, top_k 0 is off; ``seed``
+    # is the base seed mixed with each request id (sampling.resolve_seed)
+    temperature: float = 0.0
+    top_p: float = 1.0
+    top_k: int = 0
+    seed: int = 0
     eos_id: Optional[int] = None
     max_slots: int = 8
     page_size: int = 16
@@ -133,11 +151,16 @@ class ServeConfig:
     # the split step's attention: "fused" (the MX page-walk kernels) or
     # "einsum" (the gather oracle; a wide bf16 cache always takes it)
     decode_kernel: str = "fused"
+    # speculative decoding: draft num_draft_tokens a decode row and verify
+    # them in the same step (sampling.verify_rejection: greedy prefix
+    # match at temperature 0, rejection sampling above); ``drafter`` is
+    # "ngram" or a spec_decode.Drafter
+    spec_decode: bool = False
+    num_draft_tokens: int = 4
+    drafter: object = "ngram"
     # ---- not ported yet
     prefill_max_chunks: int = 1  # one prompt chunk per row and step
-    temperature: float = 0.0  # 0 => greedy, the only ported sampler
     prefill_mode: str = "chunked"
-    spec_decode: bool = False
     mesh_shape: Optional[tuple] = None
     slo_ms: Optional[float] = None
     max_queue: Optional[int] = None
@@ -170,17 +193,19 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
             "(expected 'ragged', 'split' or 'megakernel')")
     if scfg.prefill_max_chunks < 1:
         raise ValueError("prefill_max_chunks must be >= 1")
+    if scfg.spec_decode:
+        if scfg.num_draft_tokens < 1:
+            raise ValueError("spec_decode needs num_draft_tokens >= 1")
+        spec_decode.resolve_drafter(scfg.drafter, cfg.vocab_size)
+    SamplingParams(temperature=scfg.temperature, top_p=scfg.top_p,
+                   top_k=scfg.top_k).validate()
     if scfg.prefill_mode != "chunked":
         raise _unported(f"prefill_mode={scfg.prefill_mode!r}",
                         "A4 monolithic prefill")
-    if scfg.spec_decode:
-        raise _unported("speculative decoding", "A2")
     if scfg.mesh_shape is not None:
         raise _unported("sharded serving (mesh_shape)", "A7")
     if scfg.slo_ms is not None or scfg.max_queue is not None:
         raise _unported("overload control (slo_ms / max_queue)", "A3")
-    if scfg.temperature > 0:
-        raise NotImplementedError(sampling.UNPORTED)
     if any(bd.mixer != "attn" for bd in cfg.all_blocks()):
         raise _unported("non-attention mixers", "A8")
     if scfg.prefill_max_chunks != 1:
@@ -250,6 +275,16 @@ class ContinuousBatchingEngine:
         # the split step's attention path, as the reference sets it
         self.cfg_decode = cfg.replace(decode_kernel=serve_cfg.decode_kernel)
         self.serve_cfg = serve_cfg
+        # speculation: K drafts a decode row, verified in the same step
+        self.spec_enabled = bool(serve_cfg.spec_decode)
+        self._k = serve_cfg.num_draft_tokens if self.spec_enabled else 0
+        self.drafter = (spec_decode.resolve_drafter(serve_cfg.drafter,
+                                                    cfg.vocab_size)
+                        if self.spec_enabled else None)
+        # requests without their own SamplingParams sample with these
+        self._default_sampling = SamplingParams(
+            temperature=serve_cfg.temperature, top_p=serve_cfg.top_p,
+            top_k=serve_cfg.top_k).validate()
         # the reference's ladder, decided here once from the configuration:
         # the one-dispatch ragged step needs the fused kernel and an MX
         # pool (attention-only mixers and chunked prefill are the only
@@ -316,6 +351,7 @@ class ContinuousBatchingEngine:
             prefix_cache=serve_cfg.prefix_cache,
             admit_window=serve_cfg.admit_window,
             max_deferrals=serve_cfg.max_deferrals,
+            num_draft_tokens=self._k,
             unit_budget=unit_budget, track_allocs=self.tiered)
         self.cache = model.init_paged_cache(
             cfg, self.num_pages + self._trash_pages, ps, self.device,
@@ -326,7 +362,8 @@ class ContinuousBatchingEngine:
             model.megakernel_stacks(params, self.cache)
         self._step_model = (model.megakernel_step_paged if self.megakernel
                             else model.ragged_step_paged)
-        self._width = serve_cfg.prefill_chunk
+        # the ragged rows: one prompt chunk, or one verify window
+        self._width = max(1 + self._k, serve_cfg.prefill_chunk)
         self.steps = 0  # steps that decoded at least one token
         # attention kernel launches on the card over all steps / last step,
         # and those of one ragged or megakernel dispatch (the reference's
@@ -338,15 +375,25 @@ class ContinuousBatchingEngine:
         # host wall time of each step's model dispatches, ending in a
         # device sync (sliding window); a split step's repack is outside
         self.step_seconds: deque = deque(maxlen=4096)
-        # device dispatches by kind, as the reference counts them (its
-        # "verify" kind comes with speculation, ROADMAP A7)
-        self.dispatch_counts = {"decode": 0, "prefill": 0, "ragged": 0,
-                                "write": 0, "repack": 0}
+        # device dispatches by kind, as the reference counts them
+        self.dispatch_counts = {"decode": 0, "verify": 0, "prefill": 0,
+                                "ragged": 0, "write": 0, "repack": 0}
         self.prefill_dispatches = 0  # prefill-carrying model dispatches
         self._rr_clock = 0  # the split step's round-robin over prefills
-        # smallest lead of a sampled token over its runner-up, in bf16 ulps
-        # of its logit: how close the greedy decisions came to a tie
+        # how close the decisions came to going the other way: the
+        # smallest lead of a greedy pick over its runner-up in bf16 ulps of
+        # its logit; of a stochastic pick's perturbed score (logit + gumbel)
+        # over the runner-up's; and |u - p(draft)| / p(draft) of a
+        # stochastic acceptance test that counted
         self.min_top2_gap_ulps = float("inf")
+        self.min_sample_lead = float("inf")
+        self.min_accept_margin = float("inf")
+        # speculative decoding stats, as the reference keeps them
+        self.spec_steps = 0  # steps that verified drafts
+        self.spec_seq_steps = 0  # (sequence, verify step) pairs
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.emitted_tokens = 0  # tokens recorded by verify steps
         self.prompt_tokens = 0
         self.prefill_tokens = 0
         self.prefill_chunks = 0
@@ -457,7 +504,7 @@ class ContinuousBatchingEngine:
     def _protected_pages(self) -> set:
         """Pages the tiering pass must not touch this step: a prefilling
         sequence's pages from its resume point on, and every decode-ready
-        sequence's write page."""
+        sequence's live write window (1 + K rows under speculation)."""
         sched = self.scheduler
         ps = self.serve_cfg.page_size
         protected = set()
@@ -465,7 +512,8 @@ class ContinuousBatchingEngine:
             protected.update(seq.pages[seq.prefill_pos // ps:])
         for seq in sched.decode_ready():
             lo = seq.pos // ps
-            protected.update(seq.pages[lo:min(len(seq.pages), lo + 1)])
+            hi = min(len(seq.pages), (seq.pos + self._k) // ps + 1)
+            protected.update(seq.pages[lo:hi])
         return protected
 
     def _run_repack(self) -> None:
@@ -592,20 +640,25 @@ class ContinuousBatchingEngine:
                 return None
 
     def _ensure_pages(self) -> None:
-        """Grow each decoding sequence's table for this step's token and
-        give it sole ownership of the page it writes (copy-on-write)."""
+        """Grow each decoding sequence's table for this step's write window
+        (its token, and K drafts under speculation) and give it sole
+        ownership of every page in the window (copy-on-write): shared
+        pages are never written, so rejected drafts touch only pages the
+        sequence owns alone."""
         sched = self.scheduler
         ps = self.serve_cfg.page_size
+        span = 1 + self._k
         for seq in list(sched.decode_ready()):
             if sched.slots[seq.slot] is not seq:
                 continue  # already preempted by an elder this pass
-            while not sched.try_grow(seq, 1):
+            while not sched.try_grow(seq, span):
                 if not self._relieve_pressure(seq):
                     raise RuntimeError(
                         "page pool exhausted for a lone sequence")
-            wp = seq.pos // ps
-            pid = seq.pages[wp]
-            if sched.pool.ref(pid) > 1:
+            for wp in range(seq.pos // ps, (seq.pos + span - 1) // ps + 1):
+                pid = seq.pages[wp]
+                if sched.pool.ref(pid) == 1:
+                    continue
                 src_fmt = (int(self.page_fmts[pid])
                            if self.tiered else None)
                 new = self._alloc_one(seq)
@@ -630,7 +683,8 @@ class ContinuousBatchingEngine:
             for seq in sched.decode_ready():
                 if sched.slots[seq.slot] is not seq:
                     continue
-                self._mark_write(seq.pages[seq.pos // ps:seq.pos // ps + 1])
+                self._mark_write(seq.pages[seq.pos // ps:
+                                           (seq.pos + span - 1) // ps + 1])
 
     def _tier_args(self) -> dict:
         if not self.tiered:
@@ -639,15 +693,130 @@ class ContinuousBatchingEngine:
                     mixed_fmts=self._mixed_fmts)
 
     def _record_step_tokens(self, logits: torch.Tensor, picks) -> None:
-        """Keep the smallest top-2 lead of the ``(seq, logits row)``
+        """Keep the smallest top-2 lead of the greedy ``(seq, logits row)``
         picks."""
         if picks:
             gap = float(sampling.top2_gap_ulps(
                 logits[[row for _, row in picks]]).min())
             self.min_top2_gap_ulps = min(self.min_top2_gap_ulps, gap)
 
+    # -- sampling -----------------------------------------------------------
+
+    def _req_sampling(self, req) -> SamplingParams:
+        return req.sampling if req.sampling is not None \
+            else self._default_sampling
+
+    def _sampling_vectors(self, rows: int, picks) -> Optional[tuple]:
+        """The reference's per-row sampling vectors (temperatures, top-p,
+        top-k on the device; seeds, counters) for ``rows`` logits rows,
+        ``picks`` being (row, seq) pairs; the other rows stay greedy. A
+        row's counter is its request's next stream index,
+        ``len(generated)``, so slot, batch and preemption never enter its
+        key. Returns (vectors, the set of stochastic rows), or None when
+        every pick is greedy: the step then takes the exact argmax, which
+        is what the vectors would give."""
+        arrs = sampling.slot_arrays(rows)
+        hot = set()
+        for row, seq in picks:
+            sp = self._req_sampling(seq.req)
+            arrs["temps"][row] = sp.temperature
+            arrs["top_ps"][row] = sp.top_p
+            arrs["top_ks"][row] = sp.top_k
+            arrs["seeds"][row] = seq.req.seed
+            arrs["counters"][row] = len(seq.req.generated)
+            if sp.temperature > 0:
+                hot.add(row)
+        if not hot:
+            return None
+        # seeds and counters stay on the host, where the keys are made
+        return tuple(torch.as_tensor(arrs[k], device=self.device)
+                     for k in ("temps", "top_ps", "top_ks")) \
+            + (arrs["seeds"], arrs["counters"]), hot
+
+    def _sample_rows(self, logits: torch.Tensor, picks) -> np.ndarray:
+        """One token per row of (N, V) ``logits`` (``sampling.sample``),
+        on the host (this syncs); records the picks' margins."""
+        got = self._sampling_vectors(logits.shape[0], picks)
+        hot = set() if got is None else got[1]
+        if got is None:
+            toks = sampling.greedy(logits).cpu().numpy()
+        else:
+            toks, lead = sampling.sample(logits, *got[0], with_lead=True)
+            toks, lead = toks.cpu().numpy(), lead.cpu().numpy()
+            self.min_sample_lead = min([self.min_sample_lead]
+                                       + [float(lead[row]) for row in hot])
+        self._record_step_tokens(logits, [(seq, row) for row, seq in picks
+                                          if row not in hot])
+        return toks
+
+    def _verify_rows(self, logits: torch.Tensor, drafts: np.ndarray,
+                     picks) -> tuple:
+        """Acceptance of each verify row: (N, 1 + K, V) ``logits``, (N, K)
+        host ``drafts``; returns host (num_emitted (N,), emitted (N, 1 + K))
+        of ``sampling.verify_rejection`` and records the margins of the
+        decisions that counted. A greedy batch takes its argmax targets
+        and ``spec_decode.greedy_accept``, which is what verify_rejection
+        gives greedy rows."""
+        n, t, v = logits.shape
+        got = self._sampling_vectors(n, picks)
+        hot = set() if got is None else got[1]
+        if got is None:
+            targets = sampling.greedy(logits.reshape(n * t, v)).reshape(
+                n, t).cpu().numpy()
+            n_emit = np.zeros((n,), np.int64)
+            emitted = np.zeros((n, t), np.int64)
+            for row, _ in picks:
+                acc, em = spec_decode.greedy_accept(drafts[row],
+                                                    targets[row])
+                n_emit[row] = acc + 1
+                emitted[row, :acc + 1] = em
+        else:
+            n_emit, emitted, (gap, lead) = sampling.verify_rejection(
+                logits, torch.as_tensor(drafts, device=self.device), *got[0],
+                margins=True)
+            n_emit, emitted = n_emit.cpu().numpy(), emitted.cpu().numpy()
+            gap, lead = gap.cpu().numpy(), lead.cpu().numpy()
+            for row in hot:
+                # the tests up to the first rejection, and the last draw
+                self.min_accept_margin = min(
+                    self.min_accept_margin,
+                    float(gap[row, :min(int(n_emit[row]), t - 1)].min()))
+                self.min_sample_lead = min(self.min_sample_lead,
+                                           float(lead[row]))
+        self._record_step_tokens(
+            logits.reshape(n * t, v),
+            [(seq, row * t + j) for row, seq in picks if row not in hot
+             for j in range(int(n_emit[row]))])
+        return n_emit, emitted
+
+    def _draft(self, seq, k: int) -> np.ndarray:
+        """The drafter's ``k`` proposals after ``seq``'s history."""
+        history = np.concatenate([seq.req.prompt,
+                                  np.asarray(seq.req.generated, np.int32)])
+        drafts = np.asarray(self.drafter.propose(history, k), np.int32)
+        if drafts.shape != (k,):
+            raise ValueError(f"drafter returned shape {drafts.shape}, "
+                             f"wanted ({k},)")
+        return drafts
+
+    def _emit(self, seq, tokens) -> None:
+        """Record a verify row's emitted tokens: each validates one more
+        written row (advance) before it is recorded; stopping early (EOS,
+        max_new) leaves the rest past the position, rolled back."""
+        sched = self.scheduler
+        self.spec_seq_steps += 1
+        self.drafted_tokens += self._k
+        self.accepted_tokens += len(tokens) - 1
+        for tok in tokens:
+            sched.advance(seq)
+            self.emitted_tokens += 1
+            if not sched.record_token(seq, int(tok),
+                                      eos_id=self.serve_cfg.eos_id):
+                break
+
     def _ragged_step(self) -> None:
         sched = self.scheduler
+        k = self._k
         self._ensure_pages()
         if self.tiered:
             # mark the pages this step's prefill rows write, by the same
@@ -661,9 +830,12 @@ class ContinuousBatchingEngine:
                     self._mark_write(
                         seq.pages[st // ps: (st + real - 1) // ps + 1])
         (tokens, row_start, seq_lens, logit_idx, page_rows, _modes,
-         decode, prefill) = sched.assemble_ragged(self._width)
+         decode, prefill) = sched.assemble_ragged(self._width,
+                                                  extra_tokens=k)
         if not decode and not prefill:
             return
+        for seq in decode if k else ():
+            tokens[seq.slot, 1:1 + k] = self._draft(seq, k)
         dev = self.device
         tier_args = self._tier_args()
         launches0 = self._launches()
@@ -674,8 +846,23 @@ class ContinuousBatchingEngine:
             torch.as_tensor(page_rows, device=dev),
             torch.as_tensor(row_start, device=dev),
             torch.as_tensor(seq_lens, device=dev),
-            torch.as_tensor(logit_idx, device=dev), **tier_args)
-        toks = sampling.greedy(logits).cpu().numpy()  # syncs
+            torch.as_tensor(logit_idx, device=dev),
+            num_logits=1 + k if k else None, **tier_args)
+        # decode rows sample row 0 without speculation and verify their
+        # 1 + K rows with it; a prompt-final chunk samples its first token
+        # (stream index 0) from its row 0
+        firsts = [(seq.slot, seq) for seq, _, _, final in prefill if final]
+        verify = [(seq.slot, seq) for seq in decode] if k else []
+        if not k:
+            firsts = [(seq.slot, seq) for seq in decode] + firsts
+        toks = (self._sample_rows(logits[:, 0] if k else logits, firsts)
+                if firsts else None)  # syncs
+        if verify:
+            n_emit, emitted = self._verify_rows(logits, tokens[:, 1:1 + k],
+                                                verify)  # syncs
+        if not firsts and not verify and dev.type == "cuda":
+            # only non-final chunks ran: no token read synced the step
+            torch.cuda.synchronize(dev)
         self.step_seconds.append(time.perf_counter() - t0)
         if self.launches_per_step is None and dev.type == "cuda":
             self.launches_per_step = self._launches() - launches0
@@ -684,19 +871,20 @@ class ContinuousBatchingEngine:
                      "layer-fused megakernel" if self.megakernel
                      else "per-layer ragged step")
         self._count_dispatch("ragged")
-        self._record_step_tokens(
-            logits, [(seq, seq.slot) for seq in decode]
-            + [(seq, seq.slot) for seq, _, _, final in prefill if final])
         if decode:
             self.steps += 1
+            self.spec_steps += bool(k)
         if prefill:
             self.prefill_chunks += len(prefill)
             self.prefill_tokens += int(sum(t[2] for t in prefill))
             self.prefill_dispatches += 1
         eos = self.serve_cfg.eos_id
         for seq in decode:
-            sched.advance(seq)
-            sched.record_token(seq, int(toks[seq.slot]), eos_id=eos)
+            if k:
+                self._emit(seq, emitted[seq.slot, :int(n_emit[seq.slot])])
+            else:
+                sched.advance(seq)
+                sched.record_token(seq, int(toks[seq.slot]), eos_id=eos)
         for seq, st, real, final in prefill:
             seq.pos = st + real
             seq.prefill_pos = None if final else st + real
@@ -775,11 +963,10 @@ class ContinuousBatchingEngine:
         toks = None
         if any(final):
             # the reference samples every row of the batch in one dispatch
-            toks = sampling.greedy(logits[:, -1]).cpu().numpy()
+            # (stream index 0 of each request)
+            toks = self._sample_rows(logits[:, -1], [
+                (i, seq) for i, seq in enumerate(seqs) if final[i]])
             self._count_dispatch("prefill")
-            self._record_step_tokens(
-                logits[:, -1], [(seq, i) for i, seq in enumerate(seqs)
-                                if final[i]])
         for i, seq in enumerate(seqs):
             seq.pos = int(starts[i]) + int(reals[i])
             seq.prefill_pos = int(starts[i]) + c
@@ -802,11 +989,10 @@ class ContinuousBatchingEngine:
             torch.as_tensor(tokens, device=dev).long(),
             torch.as_tensor(page_rows, device=dev),
             torch.as_tensor(pos, device=dev), **self._tier_args())
-        toks = sampling.greedy(logits[:, -1]).cpu().numpy()  # syncs
+        toks = self._sample_rows(logits[:, -1], [(seq.slot, seq)
+                                                 for seq in act])  # syncs
         seconds = time.perf_counter() - t0
         self._count_dispatch("decode")
-        self._record_step_tokens(logits[:, -1],
-                                 [(seq, seq.slot) for seq in act])
         self.steps += 1
         for seq in act:
             sched.advance(seq)
@@ -814,15 +1000,46 @@ class ContinuousBatchingEngine:
                                eos_id=self.serve_cfg.eos_id)
         return seconds
 
+    def _spec_step(self) -> float:
+        """One draft + verify step over the decode-ready slots: each feeds
+        its pending token and K drafts through ``model.verify_step_paged``
+        (Tq = 1 + K, every token's K/V written into pages the sequence
+        owns alone), and ``sampling.verify_rejection`` picks what to emit.
+        Rejected drafts roll back by position. Returns its host seconds."""
+        sched = self.scheduler
+        k = self._k
+        self._ensure_pages()
+        tokens, pos, page_rows, act = sched.assemble(extra_tokens=k)
+        for seq in act:
+            tokens[seq.slot, 1:] = self._draft(seq, k)
+        dev = self.device
+        t0 = time.perf_counter()
+        logits = model.verify_step_paged(
+            self.params, self.cfg_decode, self.cache,
+            torch.as_tensor(tokens, device=dev).long(),
+            torch.as_tensor(page_rows, device=dev),
+            torch.as_tensor(pos, device=dev), **self._tier_args())
+        n_emit, emitted = self._verify_rows(
+            logits, tokens[:, 1:], [(seq.slot, seq) for seq in act])
+        seconds = time.perf_counter() - t0
+        self._count_dispatch("verify")
+        self.steps += 1
+        self.spec_steps += 1
+        for seq in act:
+            self._emit(seq, emitted[seq.slot, :int(n_emit[seq.slot])])
+        return seconds
+
     def _split_step(self) -> None:
         """The reference's split order: prefill chunks under the budget
         (a prompt's final chunk samples its first token, and the sequence
-        decodes in this same step), the tiering pass, then one decode
-        dispatch if any sequence is ready."""
+        decodes in this same step), the tiering pass, then one decode (or
+        verify) dispatch if any sequence is ready."""
         seconds = self._run_prefill_chunks()
         self._run_repack()
         if self.scheduler.decode_ready():
-            seconds = (seconds or 0.0) + self._decode_step()
+            seconds = (seconds or 0.0) + (
+                self._spec_step() if self.spec_enabled
+                else self._decode_step())
         if seconds is not None:
             self.step_seconds.append(seconds)
 
@@ -879,6 +1096,7 @@ class ContinuousBatchingEngine:
                 self.params, self.cfg, self.cache,
                 torch.zeros((rows, self._width), dtype=torch.long,
                             device=dev), table, zeros, zeros + 1, zeros,
+                num_logits=1 + self._k if self._k else None,
                 **self._tier_args())
         else:
             model.decode_step_paged(
@@ -890,10 +1108,15 @@ class ContinuousBatchingEngine:
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
                sampling_params: Optional[SamplingParams] = None) -> int:
-        """Queue one request; returns its id. Use with :meth:`run`."""
-        if sampling_params is not None:
-            sampling_params.validate()  # raises for temperature > 0
-        return self.scheduler.submit(prompt, max_new_tokens)
+        """Queue one request; returns its id. Use with :meth:`run`.
+        ``sampling_params`` overrides the engine's default temperature,
+        top-p, top-k and seed for this request (None: the defaults)."""
+        sp = (sampling_params.validate() if sampling_params is not None
+              else self._default_sampling)
+        seed = sampling.resolve_seed(sp, self.serve_cfg.seed,
+                                     self.scheduler._next_id)
+        return self.scheduler.submit(prompt, max_new_tokens, sampling=sp,
+                                     seed=seed)
 
     def run(self) -> Dict[int, np.ndarray]:
         """Serve until drained. Returns {request_id: prompt + generated}."""
@@ -938,6 +1161,8 @@ class ContinuousBatchingEngine:
             "kernel_launches": self.kernel_launches,
             "launches_per_step": self.launches_per_step,
             "min_top2_gap_ulps": self.min_top2_gap_ulps,
+            "min_sample_lead": self.min_sample_lead,
+            "min_accept_margin": self.min_accept_margin,
         }
         for kind, n in self.dispatch_counts.items():
             stats[f"dispatches_{kind}"] = n
@@ -955,6 +1180,21 @@ class ContinuousBatchingEngine:
                 "repacked_pages": self.repacked_pages,
                 "repack_dispatches": self.repack_dispatches,
                 "max_repacked_in_step": self.max_repacked_in_step,
+            })
+        if self.spec_enabled:
+            stats.update({
+                "spec_steps": self.spec_steps,
+                "drafted_tokens": self.drafted_tokens,
+                "accepted_tokens": self.accepted_tokens,
+                "emitted_tokens": self.emitted_tokens,
+                # tokens a sequence emits per verify step it takes part in
+                # (1: no better than decode, K + 1: every draft accepted)
+                "accepted_per_step": (
+                    self.emitted_tokens / self.spec_seq_steps
+                    if self.spec_seq_steps else 0.0),
+                "draft_acceptance_rate": (
+                    self.accepted_tokens / self.drafted_tokens
+                    if self.drafted_tokens else 0.0),
             })
         if sched.prefix is not None:
             stats.update(sched.prefix.stats())

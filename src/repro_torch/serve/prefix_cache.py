@@ -64,6 +64,12 @@ class PrefixCache:
             stack.extend(node.children.values())
 
     @property
+    def pages_held(self) -> List[int]:
+        """The physical pages the tree holds a reference on, one entry a
+        node."""
+        return [n.page for n in self._iter_nodes()]
+
+    @property
     def num_nodes(self) -> int:
         return sum(1 for _ in self._iter_nodes())
 

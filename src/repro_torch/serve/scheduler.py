@@ -21,6 +21,13 @@ mid-stream.
     the pages it owns alone; shared pages keep its reference).
   * **recycling** — EOS or max_new_tokens frees the slot and drops the
     sequence's page references the same step.
+  * **speculation** — with ``num_draft_tokens`` K, a decode row becomes a
+    verify window of 1 + K new tokens (the engine fills the draft
+    columns); submission refuses a request whose last window would pass
+    ``max_seq``.
+
+Each request carries its sampling parameters and resolved seed; its
+stream counter is ``len(generated)``, which preemption and restore keep.
 
 The scheduler never touches device memory.
 """
@@ -53,6 +60,10 @@ class Request:
     prompt: np.ndarray  # (S,) int32
     max_new_tokens: int
     generated: List[int] = dataclasses.field(default_factory=list)
+    # a sampling.SamplingParams (None: the engine's defaults) and the
+    # resolved uint32 seed; sampling keys are (seed, len(generated))
+    sampling: Optional[object] = None
+    seed: int = 0
     # preemption snapshot: (cache_snapshot, owned_idx, pages, resident
     # tokens, cached_tokens, prefill_pos); owned_idx are the page-table
     # positions that were exclusively owned (extracted + freed), the rest
@@ -88,6 +99,7 @@ class Scheduler:
     def __init__(self, *, max_slots: int, num_pages: int, page_size: int,
                  max_seq: int, prefill_chunk: int, prefix_cache: bool = False,
                  admit_window: int = 4, max_deferrals: int = 8,
+                 num_draft_tokens: int = 0,
                  unit_budget: Optional[int] = None,
                  track_allocs: bool = False):
         self.max_slots = max_slots
@@ -107,6 +119,11 @@ class Scheduler:
         if admit_window < 1:
             raise ValueError("admit_window must be >= 1")
         self.admit_window = admit_window
+        if num_draft_tokens < 0:
+            raise ValueError("num_draft_tokens must be >= 0")
+        # every verify step writes 1 + K rows: submission keeps the last
+        # window inside max_seq's page table
+        self.num_draft_tokens = num_draft_tokens
         if max_deferrals < 0:
             raise ValueError("max_deferrals must be >= 0")
         self.max_deferrals = max_deferrals
@@ -129,7 +146,8 @@ class Scheduler:
 
     # -- submission ---------------------------------------------------------
 
-    def submit(self, prompt: np.ndarray, max_new_tokens: int) -> int:
+    def submit(self, prompt: np.ndarray, max_new_tokens: int,
+               sampling=None, seed: int = 0) -> int:
         """Queue one request; invalid inputs fail here with a ValueError."""
         prompt = np.asarray(prompt)
         if not np.issubdtype(prompt.dtype, np.integer):
@@ -148,7 +166,17 @@ class Scheduler:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new ({max_new_tokens}) "
                 f"exceeds max_seq={self.max_seq}")
-        req = Request(self._next_id, prompt, int(max_new_tokens))
+        if (self.num_draft_tokens
+                and len(prompt) + max_new_tokens + self.num_draft_tokens
+                > self.max_seq):
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new ({max_new_tokens}) + "
+                f"speculative draft window ({self.num_draft_tokens}) "
+                f"exceeds max_seq={self.max_seq}: a verify step near the "
+                f"end of this request would overflow its page table "
+                f"(shrink num_draft_tokens or raise max_seq)")
+        req = Request(self._next_id, prompt, int(max_new_tokens),
+                      sampling=sampling, seed=int(seed))
         self._next_id += 1
         self.queue.append(req)
         return req.id
@@ -261,7 +289,8 @@ class Scheduler:
 
     def try_grow(self, seq: ActiveSeq, num_tokens: int = 1) -> bool:
         """Grow ``seq``'s page table to cover ``num_tokens`` rows written
-        at ``seq.pos``; all-or-nothing."""
+        at ``seq.pos`` (1 for decode, 1 + K for a verify window);
+        all-or-nothing."""
         need = pages_spanned(seq.pos, num_tokens, self.page_size) \
             - len(seq.pages)
         if need <= 0:
@@ -317,15 +346,17 @@ class Scheduler:
         chunk = min(self.prefill_chunk, width)
         return min(chunk, len(seq.req.prompt) - seq.prefill_pos)
 
-    def assemble_ragged(self, width: int):
+    def assemble_ragged(self, width: int, extra_tokens: int = 0):
         """One packed (max_slots, width) row batch for the ragged step.
 
         Returns (tokens, row_start, seq_lens, logit_idx, page_rows, modes,
         decode, prefill): ``row_start``/``seq_lens`` bound each row's new
         positions (inactive rows: 0 / 1 with an all -1 table, so their
-        write lands on the trash page); ``logit_idx`` is the row whose
-        logits the host reads; ``modes`` is 0 inactive, 1 decode, 2
-        prefill chunk; ``prefill`` lists ``(seq, start, real, final)``.
+        write lands on the trash page); a decode row carries its pending
+        token and ``extra_tokens`` draft columns the engine fills (a
+        verify window); ``logit_idx`` is the first row whose logits the
+        host reads; ``modes`` is 0 inactive, 1 decode or verify, 2 prefill
+        chunk; ``prefill`` lists ``(seq, start, real, final)``.
         """
         ns, pps = self.max_slots, self.pages_per_slot
         tokens = np.zeros((ns, width), np.int32)
@@ -340,7 +371,7 @@ class Scheduler:
                 raise RuntimeError("active sequence with no pending token")
             tokens[seq.slot, 0] = seq.req.generated[-1]
             row_start[seq.slot] = seq.pos
-            seq_lens[seq.slot] = seq.pos + 1
+            seq_lens[seq.slot] = seq.pos + 1 + extra_tokens
             modes[seq.slot] = 1
             page_rows[seq.slot, : len(seq.pages)] = seq.pages
         prefill = []
@@ -361,16 +392,18 @@ class Scheduler:
         return (tokens, row_start, seq_lens, logit_idx, page_rows, modes,
                 decode, prefill)
 
-    def assemble(self):
-        """Fixed-shape numpy batch for the split step's decode dispatch.
+    def assemble(self, extra_tokens: int = 0):
+        """Fixed-shape numpy batch for the split step's decode or verify
+        dispatch.
 
-        Returns (tokens (NS, 1), pos (NS,), page_rows (NS, P), active):
-        inactive rows, and sequences still streaming their prompt, are
-        token 0 / pos 0 / pages -1 (their writes drop, their logits are
-        ignored).
+        Returns (tokens (NS, 1 + extra_tokens), pos (NS,), page_rows
+        (NS, P), active): column 0 is each slot's pending token, the
+        engine fills the draft columns; inactive rows, and sequences still
+        streaming their prompt, are token 0 / pos 0 / pages -1 (their
+        writes drop, their logits are ignored).
         """
         ns, pps = self.max_slots, self.pages_per_slot
-        tokens = np.zeros((ns, 1), np.int32)
+        tokens = np.zeros((ns, 1 + extra_tokens), np.int32)
         pos = np.zeros((ns,), np.int32)
         page_rows = np.full((ns, pps), -1, np.int32)
         act = self.decode_ready()

@@ -330,7 +330,9 @@ def test_cuda_kernels_match_plain_versions(geometry):
     _need_card()
     for fmt, block_size, mixed in POOL_KINDS:
         block_size = min(block_size, D)
-        for tq in (1, 3):
+        # Tq 9: Tq * G (18 or 27) fills one 16-row block of the walk and
+        # part of a second, as a verify window of 1 + K does at G 4
+        for tq in (1, 3, 9):
             c = verify_case(fmt, block_size, tq, mixed=mixed, window=5,
                             softcap=5.0 if tq == 3 else None)
             want_out, want_visits, _ = run_verify_port(c, "cpu")
