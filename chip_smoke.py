@@ -100,7 +100,22 @@ code is not 0 and no result line is printed:
      (``nn.linear.apply``, ``quantize_pallas`` with ``mx_dot``,
      ``mx_matmul_trainable``) with the counts reset just before and read
      just after;
-  6. print the kernels line, then the device line last.
+  6. the serving front end at full width, after phase 4's runs: eight
+     concurrent SSE clients (``serve.server.sse_generate``) through
+     ``ServeHTTPServer`` on 127.0.0.1 port 0 over the ragged step, each
+     stream equal to phase 4's direct stream for its prompt, #1's count
+     reset just before and read just after (36 launches a step), HTTP
+     tokens/s and client-side time to first token logged; a client that
+     hangs up after four tokens is cancelled and its slot and pages freed;
+     with ``max_queue`` 2 and both slots of a two-slot engine busy, a burst
+     of eight gives six 429s (``Retry-After`` >= 0.05 s) and the admitted
+     streams complete, and after ``/v1/drain`` a submission gets 503; the
+     ragged engine's prefix-cache snapshot loads into a fresh engine on the
+     same weights with equal tree, page bytes and warm-hit stream, and the
+     same for a tiered engine (equal formats, some page below fp8); a
+     reduced granite's snapshot saved on the card loads on the CPU and one
+     saved on the CPU loads on the card, with equal warm hits;
+  7. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -2820,6 +2835,468 @@ def split_step_breakdown(engine, cfg, pos: int = 300) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the serving front end (HTTP/SSE, cancel, overload, snapshots)
+# ---------------------------------------------------------------------------
+
+#: phase 6's queue cap and the burst it sheds from: with both slots busy,
+#: the first FRONT_QUEUE submissions of a FRONT_BURST queue, the rest shed
+FRONT_QUEUE = 2
+FRONT_BURST = 8
+#: tokens a client reads before it hangs up (6b)
+HANGUP_AFTER = 4
+
+
+def _sse_client(port: int, payload: dict, first_token=None):
+    """A coroutine that streams one request through ``sse_generate``:
+    returns (request id, tokens, final event, the host clock when the
+    request was sent, and when each token event arrived); a refusal
+    raises RuntimeError with the status line. ``first_token`` (an
+    asyncio.Event) is set at the first token."""
+    from repro_torch.serve.server import sse_generate
+
+    async def go():
+        t0 = time.perf_counter()
+        rid, tokens, final, arrivals = None, [], None, []
+        async for event in sse_generate("127.0.0.1", port, payload):
+            if "request_id" in event and rid is None:
+                rid = event["request_id"]
+            if "token" in event:
+                arrivals.append(time.perf_counter())
+                if first_token is not None:
+                    first_token.set()
+                tokens.append(event["token"])
+            if event.get("done"):
+                final = event
+        return rid, tokens, final, t0, arrivals
+
+    return go()
+
+
+def _tree_leaves_of(engine) -> tuple:
+    """(tree page ids in export order, their bytes by snapshot leaf)."""
+    from repro_torch.nn import model
+    from repro_torch.serve import kv_cache
+
+    pids = [n["page"] for n in engine.scheduler.prefix.export_state()
+            ["nodes"]]
+    layout = model.reference_cache_leaves(engine.cfg, engine.cache)
+    return pids, kv_cache.extract_leaves(engine.cache, layout,
+                                         engine._ids(pids))
+
+
+def _lead(leads: dict, rid: int, k: int):
+    """The top-2 lead (bf16 ulps) of request ``rid``'s k-th pick, from
+    :func:`record_leads` (None where it was not recorded)."""
+    got = leads.get(rid, [])
+    return got[k] if k < len(got) else None
+
+
+def _warm_hit(engine, prompt, new_tokens: int) -> np.ndarray:
+    rid = engine.submit(prompt, new_tokens)
+    return engine.run()[rid][len(prompt):]
+
+
+def _check_snapshot_roundtrip(saver, fresh, path, warm_prompt,
+                              new_tokens: int, what: str) -> dict:
+    """Save ``saver``'s prefix cache, load it into ``fresh``: equal tree,
+    equal page bytes (and formats, tiered); the warm hit of
+    ``warm_prompt`` on both must give one stream."""
+    n_pages = saver.save_prefix_cache(path)
+    nodes = fresh.load_prefix_cache(path)
+    if saver.scheduler.prefix.export_state()["nodes"] and not n_pages:
+        raise AssertionError(f"{what}: nothing saved")
+    strip = [[{k: v for k, v in n.items() if k != "page"} for n in
+              e.scheduler.prefix.export_state()["nodes"]]
+             for e in (saver, fresh)]
+    if strip[0] != strip[1] or nodes != len(strip[0]) or not nodes:
+        raise AssertionError(f"{what}: the loaded tree differs")
+    (pids0, leaves0), (pids1, leaves1) = (_tree_leaves_of(e)
+                                          for e in (saver, fresh))
+    if not all(torch.equal(a, b) for a, b in zip(leaves0, leaves1)):
+        raise AssertionError(f"{what}: the loaded page bytes differ")
+    out = {"pages": n_pages, "bytes": sum(t.numel() for t in leaves0)}
+    if saver.tiered:
+        fmts = [[int(e.page_fmts[p]) for p in ids]
+                for e, ids in ((saver, pids0), (fresh, pids1))]
+        if fmts[0] != fmts[1]:
+            raise AssertionError(f"{what}: page formats differ")
+        if all(f == saver._base_fmt_id for f in fmts[0]):
+            raise AssertionError(f"{what}: no page below the base format")
+        if saver.scheduler.pool.units_in_use != \
+                fresh.scheduler.pool.units_in_use:
+            raise AssertionError(f"{what}: units in use differ")
+        out["formats"] = dict(Counter(fmts[0]))
+    warm = [_warm_hit(e, warm_prompt, new_tokens) for e in (saver, fresh)]
+    if not np.array_equal(*warm):
+        k = int(np.flatnonzero(warm[0] != warm[1])[0])
+        raise AssertionError(f"{what}: the warm hits part at token {k}")
+    out["warm"] = warm[0]
+    return out
+
+
+def http_run(engine, prompts, new_tokens: int) -> dict:
+    """Serve ``prompts`` (``new_tokens`` each) to as many concurrent SSE
+    clients through a ``ServeHTTPServer`` over ``engine`` on 127.0.0.1
+    port 0, then drain. #1's count is reset just before the clients start
+    and read once they are done. Returns the clients' results (``got``:
+    :func:`_sse_client`'s tuples, in prompt order), the ragged steps and
+    #1 launches of the run, its seconds and tokens/s, the client-side time
+    to first token (``ttft_s``: p50 and max), each token's delivery lag
+    from the engine's recording to its client's receipt (``lag_s``: p50
+    and max; one host clock, one process), the engine's own admission
+    latency p50, the median wall time of an ``engine.step()`` call and of
+    its model dispatch, and the host time a step spent outside
+    ``engine.step()``."""
+    import asyncio
+
+    from repro_torch.kernels import mx_attention_ragged_fused
+    from repro_torch.serve import AsyncServeEngine, ServeHTTPServer
+
+    recorded, walls = {}, []
+    step = engine.step
+
+    def timed_step():
+        t = time.perf_counter()
+        try:
+            return step()
+        finally:
+            walls.append(time.perf_counter() - t)
+
+    async def serve_clients():
+        aeng = AsyncServeEngine(engine)
+        deliver = engine.scheduler.on_token
+
+        def stamped(req, token, finished):
+            recorded.setdefault(req.id, []).append(time.perf_counter())
+            deliver(req, token, finished)
+
+        engine.scheduler.on_token = stamped
+        srv = ServeHTTPServer(aeng, host="127.0.0.1", port=0)
+        await srv.start()
+        try:
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(
+                _sse_client(srv.port, {"prompt": p.tolist(),
+                                       "max_new_tokens": new_tokens})
+                for p in prompts))
+            seconds = time.perf_counter() - t0
+            await aeng.drain()
+        finally:
+            await srv.stop()
+        return got, seconds
+
+    engine.step = timed_step
+    mx_attention_ragged_fused.launches = 0
+    steps0 = engine.dispatch_counts["ragged"]
+    dispatch0 = len(engine.step_seconds)
+    try:
+        got, seconds = asyncio.run(serve_clients())
+    finally:
+        engine.step = step
+    launches = mx_attention_ragged_fused.launches
+    steps = engine.dispatch_counts["ragged"] - steps0
+    dispatch = list(engine.step_seconds)[dispatch0:]
+    ttft = sorted(g[4][0] - g[3] for g in got)
+    lags = sorted(a - r for g in got for a, r in zip(g[4], recorded[g[0]]))
+    generated = sum(len(g[1]) for g in got)
+    return {"got": got, "steps": steps, "launches": launches,
+            "seconds": seconds, "generated": generated,
+            "tokens_per_s": generated / seconds,
+            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+            "lag_p50_s": lags[len(lags) // 2], "lag_max_s": lags[-1],
+            "admission_p50_s":
+                engine.cache_stats()["admission_latency_p50"],
+            "step_call_ms": 1e3 * statistics.median(walls),
+            "dispatch_ms": 1e3 * statistics.median(dispatch),
+            "outside_steps_ms": 1e3 * (seconds - sum(walls)) / steps}
+
+
+def front_end_phase(direct: dict, argv=FULL_ARGV, device: str = "cuda",
+                    tiered_tokens: int = TIERED_NEW_TOKENS) -> dict:
+    """Phase 6 on one engine configuration (``argv``: phase 4's);
+    ``direct``: phase 4's ragged run (:func:`serve_full_width`), whose
+    streams the server must give. (a) FRONT_BURST concurrent SSE clients
+    (phase 4's prompts) through ``ServeHTTPServer`` on 127.0.0.1:0, #1's
+    count reset just before and read just after; (b) one client hangs up
+    after HANGUP_AFTER tokens; (c) a burst of FRONT_BURST submissions
+    against ``max_queue`` FRONT_QUEUE with both slots of a two-slot engine
+    busy, then a drain and a refused submission; (d) snapshots of the
+    ragged engine and of a tiered one (``tiered_tokens`` new tokens)
+    into fresh engines on the same weights. Every gate raises."""
+    import asyncio
+    import dataclasses
+    import re
+    import tempfile
+
+    from repro_torch.core.formats import FORMAT_BY_ID
+    from repro_torch.launch import serve
+    from repro_torch.serve import AsyncServeEngine, ServeHTTPServer
+
+    rep = direct["report"]
+    new_tokens = len(rep["results"][rep["ids"][0]]) - len(rep["prompts"][0])
+    args = serve.parse_args(argv + ["--new-tokens", str(new_tokens),
+                                    "--device", device])
+    t0 = time.perf_counter()
+    cfg, engine = serve.build_engine(args)
+    prompts = serve.make_prompts(cfg, args, sharing=2)
+    if any(not np.array_equal(a, b) for a, b in zip(prompts, rep["prompts"])):
+        raise AssertionError("phase 6 drew other prompts than phase 4")
+    engine.warmup()
+    leads = record_leads(engine)
+    out = {"build_s": time.perf_counter() - t0}
+
+    run = http_run(engine, prompts, new_tokens)
+    got, steps, launches = run["got"], run["steps"], run["launches"]
+
+    async def hang_up():
+        """(b): read HANGUP_AFTER tokens, then hang up; the request asks
+        for all max_seq allows, so it cannot end before the hang-up."""
+        aeng = AsyncServeEngine(engine)
+        srv = ServeHTTPServer(aeng, host="127.0.0.1", port=0)
+        await srv.start()
+        try:
+            body = json.dumps({"prompt": prompts[2].tolist(),
+                               "max_new_tokens": engine.serve_cfg.max_seq
+                               - len(prompts[2])}).encode()
+            reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                           srv.port)
+            writer.write((f"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                          f"Content-Length: {len(body)}\r\n\r\n").encode()
+                         + body)
+            await writer.drain()
+            seen = 0
+            while seen < HANGUP_AFTER:
+                line = await reader.readline()
+                if not line:
+                    raise AssertionError("6b: the stream ended early")
+                seen += line.startswith(b"data: {\"token\"")
+            writer.close()
+            await writer.wait_closed()
+            await aeng.drain()
+        finally:
+            await srv.stop()
+
+    # (a) the streams, token for token
+    parts = []
+    for (rid, tokens, final, _, _), i in zip(got, rep["ids"]):
+        want = rep["results"][i][len(rep["prompts"][i]):].tolist()
+        if final is None or final.get("tokens") != tokens:
+            raise AssertionError(f"6a: request {rid}: malformed final event")
+        if tokens != want:
+            k = next(j for j, (a, b) in enumerate(zip(tokens, want))
+                     if a != b) if len(tokens) == len(want) else len(tokens)
+            parts.append((i, k, _lead(leads, rid, k),
+                          _lead(direct["leads"], i, k)))
+    if parts:
+        raise AssertionError(
+            "6a: SSE streams part from phase 4's direct streams at "
+            f"(request, generated token, top-2 lead there in bf16 ulps: "
+            f"server, direct) {parts}")
+    if device == "cuda" and (
+            launches == 0 or launches != steps * cfg.num_layers):
+        raise AssertionError(f"6a: {launches} #1 launches over {steps} "
+                             f"ragged steps of {cfg.num_layers} layers")
+    out.update({k: v for k, v in run.items() if k != "got"})
+    log(f"6a front end: {len(got)} concurrent SSE clients through "
+        f"ServeHTTPServer (127.0.0.1, port 0) on the ragged step: "
+        f"{run['generated']} tokens in {run['seconds']:.2f} s = "
+        f"{out['tokens_per_s']:.1f} tok/s through HTTP (phase 4's direct "
+        f"run: {rep['tokens_per_s']:.1f}); client-side time to first token "
+        f"p50 {out['ttft_p50_s'] * 1e3:.1f} ms, max "
+        f"{out['ttft_max_s'] * 1e3:.1f} ms (the engine's admission latency "
+        f"p50 {out['admission_p50_s'] * 1e3:.1f} ms); a token reaches its "
+        f"client p50 {out['lag_p50_s'] * 1e3:.1f} ms, max "
+        f"{out['lag_max_s'] * 1e3:.1f} ms after the engine recorded it; "
+        f"median engine.step() {out['step_call_ms']:.2f} ms (its model "
+        f"dispatch {out['dispatch_ms']:.2f}; phase 4's "
+        f"{rep['median_step_ms']:.2f}), {out['outside_steps_ms']:.2f} ms a "
+        f"step outside engine.step(); {steps} ragged steps, {launches} "
+        f"#1 launches = steps x {cfg.num_layers}; every stream equals phase "
+        "4's direct stream token for token")
+    # (b) the hang-up
+    asyncio.run(hang_up())
+    sched = engine.scheduler
+    tree = len(sched.prefix.export_state()["nodes"])
+    if sched.cancellations != 1 or any(s is not None for s in sched.slots) \
+            or sched.pool.pages_in_use != tree:
+        raise AssertionError(
+            f"6b: {sched.cancellations} cancellations, slots "
+            f"{[s is not None for s in sched.slots]}, {sched.pool.pages_in_use}"
+            f" pages in use against the tree's {tree}")
+    log(f"6b hang-up after {HANGUP_AFTER} tokens: 1 cancellation, every slot "
+        f"free, {sched.pool.pages_in_use} pages in use = the prefix tree's")
+
+    # (c) overload: both slots of a two-slot engine busy, then a burst
+    qargs = serve.parse_args(argv + [
+        "--new-tokens", str(new_tokens), "--device", device, "--max-slots",
+        "2", "--max-queue", str(FRONT_QUEUE)])
+    _, qengine = serve.build_engine(qargs, params=engine.params)
+
+    async def serve_c():
+        aeng = AsyncServeEngine(qengine)
+        srv = ServeHTTPServer(aeng, host="127.0.0.1", port=0)
+        await srv.start()
+        try:
+            busy, steps_at = [], []
+            for p in prompts[:2]:
+                started = asyncio.Event()
+                busy.append(asyncio.ensure_future(_sse_client(
+                    srv.port, {"prompt": p.tolist(),
+                               "max_new_tokens": new_tokens}, started)))
+                await started.wait()
+                steps_at.append(qengine.steps)
+            # what the queue cap's Retry-After is made of: the controller's
+            # first-token interval, here one sample, the gap between the
+            # busy requests' first tokens
+            gate = (qengine.overload.ewma_interval,
+                    list(qengine.admission_latencies),
+                    steps_at[1] - steps_at[0])
+
+            async def one(p):
+                try:
+                    return await _sse_client(srv.port, {
+                        "prompt": p.tolist(), "max_new_tokens": 8})
+                except RuntimeError as e:
+                    return str(e)
+
+            burst = await asyncio.gather(*(
+                one(prompts[i % len(prompts)]) for i in range(FRONT_BURST)))
+            busy = [await t for t in busy]
+            await aeng.drain()
+            try:
+                await _sse_client(srv.port, {"prompt": prompts[0].tolist(),
+                                             "max_new_tokens": 2})
+                refused = None
+            except RuntimeError as e:
+                refused = str(e)
+        finally:
+            await srv.stop()
+        return busy, burst, refused, gate
+
+    busy, burst, refused, gate = asyncio.run(serve_c())
+    sheds = [r for r in burst if isinstance(r, str)]
+    retry = [float(m) for s in sheds
+             for m in re.findall(r"Retry-After: ([0-9.]+)", s)]
+    served = [r for r in burst if not isinstance(r, str)]
+    want_sheds = FRONT_BURST - FRONT_QUEUE
+    if len(sheds) != want_sheds or not all("429" in s for s in sheds) \
+            or len(retry) != want_sheds or min(retry) < 0.05 \
+            or qengine.cache_stats()["shed_count"] != want_sheds:
+        raise AssertionError(f"6c: {len(sheds)} refusals ({sheds[:2]}...), "
+                             f"Retry-After {retry}, want {want_sheds} 429s")
+    if any(len(r[1]) != 8 for r in served) or \
+            any(len(r[1]) != new_tokens for r in busy):
+        raise AssertionError("6c: an admitted stream did not complete")
+    if refused is None or "503" not in refused:
+        raise AssertionError(f"6c: after the drain: {refused}")
+    out.update(sheds=len(sheds), retry_after_s=min(retry))
+    log(f"6c overload: max_queue {FRONT_QUEUE}, both slots busy, a burst of "
+        f"{FRONT_BURST}: {len(served)} queued and completed, {len(sheds)} "
+        f"answered 429 with Retry-After {min(retry):.3f}-{max(retry):.3f} s; "
+        "after /v1/drain a submission gets 503")
+    interval, lats, steps_between = gate
+    log(f"6c Retry-After: the controller's first-token interval "
+        f"{interval * 1e3:.1f} ms = busy request 2's admission latency "
+        f"{lats[-1] * 1e3:.1f} ms + {(interval - lats[-1]) * 1e3:.1f} ms for "
+        f"request 1's first token to reach its client and request 2 the "
+        f"engine ({(busy[1][3] - busy[0][4][0]) * 1e3:.1f} ms of it in the "
+        f"client); request 1's admission latency on the fresh engine "
+        f"{lats[0] * 1e3:.1f} ms; {steps_between} decode steps between the "
+        f"two clients' first tokens")
+    out.update(retry_interval_ms=interval * 1e3,
+               busy_admission_ms=[x * 1e3 for x in lats])
+    del qengine
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) snapshots at full width
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _, fresh = serve.build_engine(args, params=engine.params)
+        snap = _check_snapshot_roundtrip(engine, fresh, tmp / "ragged.npz",
+                                         prompts[0], new_tokens, "6d ragged")
+        direct0 = rep["results"][rep["ids"][0]][len(prompts[0]):]
+        log(f"6d snapshot: {snap['pages']} pages ({snap['bytes'] / 1e6:.1f} "
+            "MB) into a fresh engine on the same weights: tree and bytes "
+            "equal; the warm hit equals the saving engine's (and phase 4's "
+            f"cold stream: {np.array_equal(snap['warm'], direct0)})")
+        del fresh
+        targs = serve.parse_args(argv + [
+            "--new-tokens", str(tiered_tokens), "--tiered", "--device",
+            device])
+        _, tsaver = serve.build_engine(targs, params=engine.params)
+        del engine
+        gc.collect()
+        tsaver.warmup()
+        serve.run_batch(tsaver, cfg, targs, prompts)
+        _, tfresh = serve.build_engine(targs, params=tsaver.params)
+        # a load restarts its pages' ages (as in the reference), so the two
+        # engines would demote on other steps: both warm hits run with the
+        # repack paused and read the formats as saved
+        for e in (tsaver, tfresh):
+            e.tier = dataclasses.replace(e.tier, repack_pages_per_step=0)
+        tsnap = _check_snapshot_roundtrip(tsaver, tfresh, tmp / "tiered.npz",
+                                          prompts[0], new_tokens,
+                                          "6d tiered")
+    out.update(snapshot_pages=snap["pages"], tiered_pages=tsnap["pages"],
+               tiered_formats={FORMAT_BY_ID[k]: v
+                               for k, v in tsnap["formats"].items()})
+    log(f"6d tiered snapshot ({tiered_tokens} new tokens): {tsnap['pages']} "
+        f"pages by format {out['tiered_formats']}: formats, units and bytes "
+        "equal after the load; the warm hits (repack paused) equal")
+    del tsaver, tfresh
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def snapshots_across_devices(card: str = "cuda") -> None:
+    """(e) Reduced granite (phase 3's model and prompts): a snapshot saved
+    by the card's engine loads into a CPU engine, and one saved on the CPU
+    into the card's; the warm hits must be equal both ways."""
+    import tempfile
+
+    from repro_torch.nn import model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = reduced_config()
+    params = model.init(cfg, torch.Generator().manual_seed(REDUCED_SEED),
+                        "cpu")
+    on_card = _to_device(params, card)
+    prompts = reduced_prompts(cfg)
+
+    def make(device):
+        return ServeEngine(on_card if device == card else params, cfg,
+                           ServeConfig(max_seq=96, max_slots=3),
+                           device=device)
+
+    gaps = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src, dst in ((card, "cpu"), ("cpu", card)):
+            saver = make(src)
+            for p in prompts:
+                saver.submit(p, 6)
+            saver.run()
+            path = Path(tmp) / f"{src}.npz"
+            pages = saver.save_prefix_cache(path)
+            loader = make(dst)
+            loader.load_prefix_cache(path)
+            warm = [_warm_hit(e, prompts[1], 6) for e in (saver, loader)]
+            gaps += [e.min_top2_gap_ulps for e in (saver, loader)]
+            if not np.array_equal(*warm):
+                raise AssertionError(
+                    f"6e: {src} -> {dst}: warm hits part at token "
+                    f"{int(np.flatnonzero(warm[0] != warm[1])[0])} (smallest "
+                    f"leads {saver.min_top2_gap_ulps}, "
+                    f"{loader.min_top2_gap_ulps} ulps)")
+    log(f"6e reduced granite: snapshots ({pages} pages) saved on the card "
+        "load on the CPU and the other way; the warm hits are equal both "
+        f"ways (smallest top-2 lead {min(gaps):.0f} bf16 ulps)")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the MX dot products at granite-8b widths
 # ---------------------------------------------------------------------------
 
@@ -3625,6 +4102,13 @@ def main() -> int:
     kernel["launches_spec_reduced"] = spec_reduced["ragged"]
     verify["launches_spec_reduced"] = spec_reduced["split"]
     mega["launches_spec_reduced"] = spec_reduced["megakernel"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    front = front_end_phase(full)
+    kernel["launches_server"] = front["launches"]
+    snapshots_across_devices()
+    log(f"front end phase: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     kernels = [kernel, verify, prefill] + pair + [repack, mega] \

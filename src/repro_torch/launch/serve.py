@@ -31,16 +31,31 @@ the same step:
       --batch 8 --prompt-len 236 --shared-prefix 64 --ragged \
       --new-tokens 32 --temperature 0.8 --top-p 0.95 --seed 3 --spec-decode
 
+``--serve`` starts the HTTP/SSE front end (``serve.server``) instead of
+the batch workload: ``POST /v1/generate`` streams tokens as server-sent
+events, ``/v1/cancel`` abandons a request, ``/v1/drain`` stops admitting
+and waits for resident requests, ``GET /v1/health`` reports the overload
+stats; ``--slo-ms`` / ``--max-queue`` arm load shedding (429), and
+``--prefix-snapshot PATH`` loads a prefix-cache snapshot at start if the
+file exists and writes it back after the drain on the way out:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+      --reduced --serve --port 8000 --slo-ms 500 --max-queue 16 \
+      --prefix-snapshot prefix.npz --device cpu
+
 Runs on the card unless ``--device cpu``. The reference's other flags
-(the HTTP server, overload control, the mesh, the fixed-slot engine,
-monolithic prefill, several chunks a row) are not ported yet and exit
-with an error naming ROADMAP.md.
+(the mesh, the fixed-slot engine, monolithic prefill, several chunks a
+row) are not ported yet and exit with an error naming ROADMAP.md.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import logging
+import os
 import time
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,15 +63,14 @@ import torch
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import MXFP4, MXFP8, WIDE
 from repro_torch.nn import model
-from repro_torch.serve import ServeConfig, ServeEngine, TierPolicy
+from repro_torch.serve import (AsyncServeEngine, ServeConfig, ServeEngine,
+                               ServeHTTPServer, TierPolicy)
 
 log = logging.getLogger("repro_torch.serve")
 
 #: flags of the reference launcher that this port does not take yet
-UNPORTED_FLAGS = (
-    "--slo-ms", "--max-queue", "--serve", "--host", "--port",
-    "--prefix-snapshot", "--engine", "--prefill-mode",
-    "--prefill-max-chunks", "--mesh")
+UNPORTED_FLAGS = ("--engine", "--prefill-mode", "--prefill-max-chunks",
+                  "--mesh")
 
 TIER_FMTS = ["fp6_e3m2", "fp6_e2m3", "fp4_e2m1"]
 
@@ -81,6 +95,8 @@ def build_engine(args, params=None) -> tuple:
     serve_cfg = ServeConfig(
         max_seq=max_seq, temperature=args.temperature, top_p=args.top_p,
         top_k=args.top_k, seed=args.seed,
+        slo_ms=args.slo_ms or None,
+        max_queue=args.max_queue if args.max_queue >= 0 else None,
         max_slots=args.max_slots or args.batch, page_size=args.page_size,
         prefix_cache=not args.no_prefix_cache,
         prefill_chunk=args.prefill_chunk, tiered=args.tiered,
@@ -185,6 +201,41 @@ def run_batch(engine, cfg, args, prompts=None) -> dict:
     return report
 
 
+def _run_server(engine, args, until=None) -> None:
+    """Serve HTTP/SSE over ``engine`` on ``args.host``:``args.port`` until
+    interrupted, or until the coroutine ``until(server)`` returns; then
+    drain, stop, and write the prefix snapshot back. ``--prefix-snapshot``
+    is loaded first if its file exists."""
+    async def serve():
+        if args.prefix_snapshot and os.path.exists(args.prefix_snapshot):
+            n = engine.load_prefix_cache(args.prefix_snapshot)
+            log.info("warm-started prefix cache: %d entries from %s", n,
+                     args.prefix_snapshot)
+        aeng = AsyncServeEngine(engine)
+        server = ServeHTTPServer(aeng, host=args.host, port=args.port)
+        await server.start()
+        log.info("serving on http://%s:%d (POST /v1/generate, /v1/cancel, "
+                 "/v1/drain; GET /v1/health)", args.host, server.port)
+        try:
+            if until is None:
+                await server.serve_forever()
+            else:
+                await until(server)
+        finally:  # also on an interrupt, which cancels this task
+            log.info("draining...")
+            await aeng.drain()
+            await server.stop()
+            if args.prefix_snapshot:
+                n = engine.save_prefix_cache(args.prefix_snapshot)
+                log.info("saved prefix cache: %d pages to %s", n,
+                         args.prefix_snapshot)
+
+    try:
+        asyncio.run(serve())
+    except KeyboardInterrupt:
+        pass
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -202,6 +253,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0,
                     help="engine base RNG seed; each request's stream is "
                          "derived from (seed, request id)")
+    ap.add_argument("--slo-ms", type=float, default=0,
+                    help="admission-latency SLO in ms: shed submissions "
+                         "(429) once the predicted first-token latency "
+                         "exceeds it (0 = no latency-model shedding)")
+    ap.add_argument("--max-queue", type=int, default=-1,
+                    help="hard queue-depth cap; submissions past it are "
+                         "shed (429). -1 = unbounded")
+    ap.add_argument("--serve", action="store_true",
+                    help="start the HTTP/SSE server instead of running "
+                         "the batch workload")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--prefix-snapshot", default="",
+                    help="path of a prefix-cache snapshot "
+                         "(save_prefix_cache): loaded at start if it "
+                         "exists, written back when the server exits")
     ap.add_argument("--max-slots", type=int, default=0,
                     help="decode slots (default: --batch)")
     ap.add_argument("--page-size", type=int, default=16)
@@ -278,11 +345,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main(argv=None) -> dict:
+def main(argv=None) -> Optional[dict]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg, engine = build_engine(args)
     engine.warmup()
+    if args.serve:
+        return _run_server(engine, args)
     return run_batch(engine, cfg, args)
 
 

@@ -152,6 +152,27 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                        for li in range(cfg.num_layers)], stack)
 
 
+def reference_cache_leaves(cfg: ModelConfig, cache: list) -> list:
+    """The reference's paged-cache pytree leaves (``repro.nn.model.
+    init_paged_cache``) in ``jax.tree_util`` order, as ``(pool key, the
+    port's layer indices, stacked)``: its top-level keys sorted, each
+    prologue and epilogue block one unstacked layer, and the ``groups``
+    tuple one leaf a pattern block and pool key, stacked over
+    ``num_groups`` on a leading axis. A prefix snapshot's leaves come in
+    this order, so snapshots pass between the two packages."""
+    n_pro, n_pat = len(cfg.prologue), len(cfg.pattern)
+    first_epi = n_pro + cfg.num_groups * n_pat
+    blocks_by_key = {f"prologue{j}": [([j], False)] for j in range(n_pro)}
+    blocks_by_key.update({f"epilogue{j}": [([first_epi + j], False)]
+                          for j in range(len(cfg.epilogue))})
+    blocks_by_key["groups"] = [
+        ([n_pro + g * n_pat + i for g in range(cfg.num_groups)], True)
+        for i in range(n_pat) if cfg.num_groups]
+    return [(key, layers, stacked) for name in sorted(blocks_by_key)
+            for layers, stacked in blocks_by_key[name]
+            for key in sorted(cache[layers[0]])]
+
+
 def _walk_blocks(apply_fn, params, cfg: ModelConfig, cache: list, x):
     for bp, pool, (_, _, bd) in zip(params["layers"], cache,
                                     iter_layer_blocks(cfg)):

@@ -46,17 +46,26 @@ split step runs ``model.verify_step_paged`` at Tq = 1 + K. Acceptance is
 ``sampling.verify_rejection``; the write window's shared pages are copied
 first, and rejected drafts roll back by position alone.
 
+The serving front end's hooks are the reference's: ``submit`` passes
+the overload gate (``serve.overload``, armed by ``ServeConfig.slo_ms`` /
+``max_queue``; a shed raises ``ShedError``) and each request's first
+sampled token feeds the gate's estimates and ``admission_latencies``;
+``cancel`` abandons a request wherever it is; ``save_prefix_cache`` /
+``load_prefix_cache`` persist the prefix tree with the exact bytes of its
+pages (tiered: their formats too) in the reference's npz layout, so a
+snapshot passes between the two packages and between step modes.
+
 The page pools update in place: the reference's jitted steps donate the
 cache pytree and return a new one instead.
 
 Options of the reference's ``ServeConfig`` that this port does not run
-yet (monolithic prefill, the mesh, overload control, several prompt
-chunks per ragged row) raise ``NotImplementedError`` at construction;
-none falls back silently.
+yet (monolithic prefill, the mesh, several prompt chunks per ragged row)
+raise ``NotImplementedError`` at construction; none falls back silently.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import time
 from collections import deque
@@ -76,6 +85,7 @@ from repro_torch.nn.config import ModelConfig
 
 from . import kv_cache, sampling, spec_decode
 from .kv_cache import PAGE_UNITS_FULL, UNITS_BY_BITS
+from .overload import OverloadConfig, OverloadController
 from .sampling import SamplingParams
 from .scheduler import Scheduler
 
@@ -158,12 +168,15 @@ class ServeConfig:
     spec_decode: bool = False
     num_draft_tokens: int = 4
     drafter: object = "ngram"
+    # overload control (serve.overload): shed submissions once the
+    # predicted first-token latency passes slo_ms or the queue holds
+    # max_queue requests; None for either leaves it off
+    slo_ms: Optional[float] = None
+    max_queue: Optional[int] = None
     # ---- not ported yet
     prefill_max_chunks: int = 1  # one prompt chunk per row and step
     prefill_mode: str = "chunked"
     mesh_shape: Optional[tuple] = None
-    slo_ms: Optional[float] = None
-    max_queue: Optional[int] = None
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -204,8 +217,6 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
                         "A4 monolithic prefill")
     if scfg.mesh_shape is not None:
         raise _unported("sharded serving (mesh_shape)", "A7")
-    if scfg.slo_ms is not None or scfg.max_queue is not None:
-        raise _unported("overload control (slo_ms / max_queue)", "A3")
     if any(bd.mixer != "attn" for bd in cfg.all_blocks()):
         raise _unported("non-attention mixers", "A8")
     if scfg.prefill_max_chunks != 1:
@@ -285,6 +296,12 @@ class ContinuousBatchingEngine:
         self._default_sampling = SamplingParams(
             temperature=serve_cfg.temperature, top_p=serve_cfg.top_p,
             top_k=serve_cfg.top_k).validate()
+        # the admission gate; with neither knob set it only keeps stats
+        self.overload = OverloadController(OverloadConfig(
+            slo_ms=serve_cfg.slo_ms, max_queue=serve_cfg.max_queue))
+        # submit -> first sampled token, in host seconds (sliding window)
+        self._submit_time: Dict[int, float] = {}
+        self.admission_latencies: deque = deque(maxlen=4096)
         # the reference's ladder, decided here once from the configuration:
         # the one-dispatch ragged step needs the fused kernel and an MX
         # pool (attention-only mixers and chunked prefill are the only
@@ -692,6 +709,14 @@ class ContinuousBatchingEngine:
         return dict(page_fmts=self._sync_fmts(),
                     mixed_fmts=self._mixed_fmts)
 
+    def _record_first_token(self, req_id: int) -> None:
+        """One admission-latency sample: submit to first sampled token."""
+        t0 = self._submit_time.pop(req_id, None)
+        if t0 is not None:
+            latency = time.perf_counter() - t0
+            self.admission_latencies.append(latency)
+            self.overload.observe_first_token(latency)
+
     def _record_step_tokens(self, logits: torch.Tensor, picks) -> None:
         """Keep the smallest top-2 lead of the greedy ``(seq, logits row)``
         picks."""
@@ -890,6 +915,7 @@ class ContinuousBatchingEngine:
             seq.prefill_pos = None if final else st + real
             if final:
                 sched.register_prefix(seq)
+                self._record_first_token(seq.req.id)
                 sched.record_token(seq, int(toks[seq.slot]), eos_id=eos)
 
     # -- the split step -----------------------------------------------------
@@ -973,6 +999,7 @@ class ContinuousBatchingEngine:
             if final[i]:
                 seq.prefill_pos = None
                 sched.register_prefix(seq)
+                self._record_first_token(seq.req.id)
                 sched.record_token(seq, int(toks[i]),
                                    eos_id=self.serve_cfg.eos_id)
 
@@ -1110,13 +1137,114 @@ class ContinuousBatchingEngine:
                sampling_params: Optional[SamplingParams] = None) -> int:
         """Queue one request; returns its id. Use with :meth:`run`.
         ``sampling_params`` overrides the engine's default temperature,
-        top-p, top-k and seed for this request (None: the defaults)."""
+        top-p, top-k and seed for this request (None: the defaults).
+        Raises :class:`~.overload.ShedError` when overload control sheds
+        it, before it costs a slot, pages or prefill."""
+        self.overload.admit(len(self.scheduler.queue))
         sp = (sampling_params.validate() if sampling_params is not None
               else self._default_sampling)
         seed = sampling.resolve_seed(sp, self.serve_cfg.seed,
                                      self.scheduler._next_id)
-        return self.scheduler.submit(prompt, max_new_tokens, sampling=sp,
-                                     seed=seed)
+        rid = self.scheduler.submit(prompt, max_new_tokens, sampling=sp,
+                                    seed=seed)
+        self._submit_time[rid] = time.perf_counter()
+        return rid
+
+    def cancel(self, request_id: int) -> bool:
+        """Abandon a request between steps, wherever it is (queued,
+        mid-prefill, decoding, mid-verify, swapped out), freeing its slot
+        and page references (``Scheduler.cancel``). False: it had already
+        finished, or never existed."""
+        found = self.scheduler.cancel(request_id)
+        if found:
+            self._submit_time.pop(request_id, None)
+            if self.tiered:
+                self._swap_fmts.pop(request_id, None)
+        return found
+
+    def save_prefix_cache(self, path) -> int:
+        """Write the prefix tree and the exact bytes of every page it holds
+        to ``path`` (``np.savez``, the reference's layout): ``structure``
+        (``PrefixCache.export_state`` as JSON bytes), ``page_ids``, and for
+        each leaf of ``model.reference_cache_leaves`` its bytes, dtype
+        name and shape; a tiered engine adds each page's format id
+        (``page_fmts``). Returns the number of pages saved."""
+        prefix = self.scheduler.prefix
+        if prefix is None:
+            raise RuntimeError("engine has no prefix cache to save")
+        state = prefix.export_state()
+        pids = sorted({node["page"] for node in state["nodes"]})
+        payload = {
+            "structure": np.frombuffer(json.dumps(state).encode(), np.uint8),
+            "page_ids": np.asarray(pids, np.int64),
+        }
+        if self.tiered:
+            payload["page_fmts"] = np.asarray(
+                [int(self.page_fmts[p]) for p in pids], np.int32)
+        if pids:
+            layout = model.reference_cache_leaves(self.cfg, self.cache)
+            leaves = kv_cache.extract_leaves(self.cache, layout,
+                                             self._ids(pids))
+            geometry = kv_cache.snapshot_geometry(self.cache, layout,
+                                                  len(pids))
+            for i, (data, (name, shape)) in enumerate(zip(leaves, geometry)):
+                payload[f"leaf_{i}_bytes"] = data.cpu().numpy().reshape(-1)
+                payload[f"leaf_{i}_dtype"] = np.asarray(name)
+                payload[f"leaf_{i}_shape"] = np.asarray(shape, np.int64)
+        np.savez(path, **payload)
+        return len(pids)
+
+    def load_prefix_cache(self, path) -> int:
+        """Warm-start an empty prefix cache from :meth:`save_prefix_cache`
+        output (this package's or the reference's): fresh pages, the saved
+        bytes restored into them verbatim, the tree rebuilt over the new
+        ids and, tiered, each page's saved format re-applied. A snapshot
+        of another model or page geometry raises ``ValueError`` before any
+        page is taken. Returns the number of tree nodes imported."""
+        prefix = self.scheduler.prefix
+        if prefix is None:
+            raise RuntimeError("engine has no prefix cache to load into")
+        with np.load(path) as data:
+            state = json.loads(bytes(data["structure"]).decode())
+            old_ids = [int(x) for x in data["page_ids"]]
+            leaves, fmts = [], []
+            if old_ids:
+                layout = model.reference_cache_leaves(self.cfg, self.cache)
+                for i, (name, shape) in enumerate(kv_cache.snapshot_geometry(
+                        self.cache, layout, len(old_ids))):
+                    got_name = str(data[f"leaf_{i}_dtype"])
+                    got_shape = tuple(int(n) for n in data[f"leaf_{i}_shape"])
+                    if got_name != name or got_shape != shape:
+                        raise ValueError(
+                            f"prefix snapshot leaf {i} is {got_name}"
+                            f"{got_shape}, this engine expects {name}{shape}"
+                            " — saved under a different model or page "
+                            "config")
+                    # as bytes: the last axis widens by the element size
+                    leaves.append(torch.from_numpy(np.array(
+                        data[f"leaf_{i}_bytes"])).reshape(*shape[:-1], -1))
+                if self.tiered:
+                    fmts = [int(f) for f in data["page_fmts"]]
+        prefix.check_state(state)
+        new_ids = []
+        if old_ids:
+            new_ids = self.scheduler.alloc_with_evict(len(old_ids))
+            if new_ids is None:
+                raise RuntimeError(
+                    f"page pool cannot hold {len(old_ids)} imported "
+                    "prefix pages")
+            kv_cache.restore_leaves(
+                self.cache, layout, [b.to(self.device) for b in leaves],
+                self._ids(new_ids))
+        count = prefix.import_state(state, dict(zip(old_ids, new_ids)))
+        if self.tiered:
+            # alloc reset the fresh pages to the base format: put back the
+            # formats their bytes were saved in
+            self._drain_allocs()
+            for pid, fid in zip(new_ids, fmts):
+                if fid != self._base_fmt_id:
+                    self._set_page_fmt(pid, FORMAT_BY_ID[fid])
+        return count
 
     def run(self) -> Dict[int, np.ndarray]:
         """Serve until drained. Returns {request_id: prompt + generated}."""
@@ -1144,6 +1272,8 @@ class ContinuousBatchingEngine:
             "skipped_admissions": sched.skipped_admissions,
             "deferred_admissions": sched.deferred_admissions,
             "deferral_fallbacks": sched.deferral_fallbacks,
+            "cancellations": sched.cancellations,
+            "shed_count": self.overload.shed_count,
             "cow_copies": sched.cow_copies,
             "prompt_tokens": self.prompt_tokens,
             "prefill_tokens_computed": self.prefill_tokens,
@@ -1181,6 +1311,13 @@ class ContinuousBatchingEngine:
                 "repack_dispatches": self.repack_dispatches,
                 "max_repacked_in_step": self.max_repacked_in_step,
             })
+        if self.admission_latencies:
+            lat = np.sort(np.asarray(self.admission_latencies))
+            stats["admission_latency_p50"] = float(
+                lat[int(0.50 * (len(lat) - 1))])
+            stats["admission_latency_p95"] = float(
+                lat[int(round(0.95 * (len(lat) - 1)))])
+            stats["admission_latency_mean"] = float(lat.mean())
         if self.spec_enabled:
             stats.update({
                 "spec_steps": self.spec_steps,

@@ -208,6 +208,41 @@ def restore_seq(cache: list, snapshot: list, page_ids: torch.Tensor) -> None:
             leaf[page_ids] = snap[key]
 
 
+def snapshot_geometry(cache: list, layout: list, num_pages: int) -> list:
+    """(dtype name, shape) of each snapshot leaf over ``num_pages`` listed
+    pages; ``layout`` is ``model.reference_cache_leaves``. The names are
+    numpy's (``float8_e4m3fn``, ``uint8``, ``bfloat16``), as snapshots
+    record them."""
+    out = []
+    for key, layers, stacked in layout:
+        pool = cache[layers[0]][key]
+        lead = (len(layers),) if stacked else ()
+        out.append((str(pool.dtype).removeprefix("torch."),
+                    lead + (num_pages, *pool.shape[1:])))
+    return out
+
+
+def extract_leaves(cache: list, layout: list,
+                   page_ids: torch.Tensor) -> list:
+    """The bytes of pages ``page_ids`` as snapshot leaves (uint8, one a
+    ``layout`` entry; a stacked leaf has the layer axis first)."""
+    out = []
+    for key, layers, stacked in layout:
+        rows = [cache[li][key].view(torch.uint8).index_select(0, page_ids)
+                for li in layers]
+        out.append(torch.stack(rows) if stacked else rows[0])
+    return out
+
+
+def restore_leaves(cache: list, layout: list, leaves: list,
+                   page_ids: torch.Tensor) -> None:
+    """Inverse of :func:`extract_leaves` onto pages ``page_ids``."""
+    for (key, layers, stacked), data in zip(layout, leaves):
+        for j, li in enumerate(layers):
+            cache[li][key].view(torch.uint8)[page_ids] = (
+                data[j] if stacked else data)
+
+
 def cache_nbytes(cache: list) -> int:
     """Total bytes of every pool leaf."""
     return sum(leaf.numel() * leaf.element_size()

@@ -11,14 +11,17 @@ Ownership (all accounting lives in :class:`~.kv_cache.PagePool`): the
 tree holds one reference per node's page while the node exists;
 :meth:`acquire` retains one reference per matched page for the
 requesting sequence; :meth:`evict` drops least-recently-used leaves that
-nobody else references. The chunked prefill the port runs only consumes
-page-aligned hits, so the reference's partial-page entries (a
-monolithic-prefill feature) and its npz persistence (ROADMAP A4, A3) are not
-carried over.
+nobody else references. :meth:`export_state` and :meth:`import_state`
+carry the tree through a snapshot in the reference's structure. The
+chunked prefill the port runs only consumes page-aligned hits, so the
+reference's partial-page entries (a monolithic-prefill feature, ROADMAP
+A4) are not carried over: an export lists none, and an import refuses a
+snapshot that has some.
 """
 from __future__ import annotations
 
 import heapq
+from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -177,6 +180,60 @@ class PrefixCache:
             if parent is not self._root and candidate(parent):
                 heapq.heappush(heap, (parent.last_use, next(tick), parent))
         return freed
+
+    # -- persistence ---------------------------------------------------------
+
+    def export_state(self) -> Dict:
+        """The tree's structure, without page bytes: nodes in BFS order,
+        each with its parent's index (-1: the root), so parents precede
+        children; page ids are this pool's physical ids (the engine saves
+        the pages' bytes beside them and remaps the ids on import), and
+        the ``last_use`` clocks keep the LRU order across a restart."""
+        nodes = []
+        index = {id(self._root): -1}
+        queue = deque(self._root.children.values())
+        while queue:
+            node = queue.popleft()
+            index[id(node)] = len(nodes)
+            nodes.append({"parent": index[id(node.parent)],
+                          "key": list(node.key), "page": int(node.page),
+                          "last_use": int(node.last_use)})
+            queue.extend(node.children.values())
+        return {"page_size": self.page_size, "nodes": nodes,
+                "partials": []}
+
+    def check_state(self, state: Dict) -> None:
+        """Raise unless :meth:`import_state` can take ``state`` now."""
+        if self._root.children:
+            raise RuntimeError("import_state requires an empty prefix cache")
+        if state["page_size"] != self.page_size:
+            raise ValueError(
+                f"snapshot page_size {state['page_size']} != "
+                f"engine page_size {self.page_size}")
+        if state["partials"]:
+            raise ValueError(
+                f"snapshot holds {len(state['partials'])} partial-page "
+                "entries, which come with monolithic prefill (ROADMAP A4, "
+                "not ported to repro_torch yet)")
+
+    def import_state(self, state: Dict, page_map: Dict[int, int]) -> int:
+        """Rebuild the tree of :meth:`export_state` over the pages that
+        ``page_map`` maps the exported ids to, whose bytes the engine has
+        restored. The caller hands over one pool reference a page (its
+        ``alloc`` reference), which becomes the node's, as if ``insert``
+        had grown the tree. Needs an empty tree. Returns the node count."""
+        self.check_state(state)
+        by_index = {-1: self._root}
+        for i, entry in enumerate(state["nodes"]):
+            parent = by_index[entry["parent"]]
+            key = tuple(int(t) for t in entry["key"])
+            node = _Node(key, page_map[int(entry["page"])], parent)
+            node.last_use = int(entry["last_use"])
+            parent.children[key] = node
+            by_index[i] = node
+        self._clock = max([self._clock]
+                          + [int(n["last_use"]) for n in state["nodes"]])
+        return len(state["nodes"])
 
     def stats(self) -> Dict[str, int]:
         return {

@@ -25,6 +25,9 @@ mid-stream.
     verify window of 1 + K new tokens (the engine fills the draft
     columns); submission refuses a request whose last window would pass
     ``max_seq``.
+  * **cancel** — between steps, a request is abandoned wherever it is
+    (active, queued, swapped out) and every page reference it holds is
+    dropped; ``on_token`` streams each recorded token to a consumer.
 
 Each request carries its sampling parameters and resolved seed; its
 stream counter is ``len(generated)``, which preemption and restore keep.
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -71,6 +74,7 @@ class Request:
     swap: Optional[tuple] = None
     deferred: bool = False  # deferral hit this request at least once
     defer_count: int = 0  # admission attempts deferral has cost it
+    cancelled: bool = False
 
     @property
     def remaining(self) -> int:
@@ -143,6 +147,10 @@ class Scheduler:
         self.cow_copies = 0
         self.deferred_admissions = 0
         self.deferral_fallbacks = 0
+        self.cancellations = 0
+        # streaming hook, called as on_token(request, token, finished)
+        # after every recorded token (the async server's delivery path)
+        self.on_token: Optional[Callable] = None
 
     # -- submission ---------------------------------------------------------
 
@@ -180,6 +188,43 @@ class Scheduler:
         self._next_id += 1
         self.queue.append(req)
         return req.id
+
+    def cancel(self, request_id: int) -> bool:
+        """Abandon a request wherever it is; True if it was found.
+
+        Cancel runs on the host between steps, so an active sequence
+        (decoding, mid-prefill or mid-verify) holds no half-landed window:
+        all its page references go in one ``pool.free`` (pages the prefix
+        tree still holds stay cached) and its slot is released. A queued
+        fresh request is dequeued. A queued swapped-out request already
+        gave up the pages it owned alone at preemption: the shared
+        references its swap tuple still pins are freed and the snapshot
+        dropped. A finished or unknown id returns False.
+        """
+        for seq in self.active():
+            if seq.req.id == request_id:
+                self.pool.free(seq.pages)
+                self.slots[seq.slot] = None
+                self._mark_cancelled(seq.req)
+                return True
+        for qi, req in enumerate(self.queue):
+            if req.id != request_id:
+                continue
+            if req.swap is not None:
+                _snapshot, owned_idx, pages, *_ = req.swap
+                owned = set(owned_idx)
+                shared = [p for i, p in enumerate(pages) if i not in owned]
+                if shared:
+                    self.pool.free(shared)
+                req.swap = None
+            del self.queue[qi]
+            self._mark_cancelled(req)
+            return True
+        return False
+
+    def _mark_cancelled(self, req: Request) -> None:
+        req.cancelled = True
+        self.cancellations += 1
 
     # -- admission / eviction ----------------------------------------------
 
@@ -336,6 +381,8 @@ class Scheduler:
             self.pool.free(seq.pages)
             self.slots[seq.slot] = None
             self.finished.append(seq.req)
+        if self.on_token is not None:
+            self.on_token(seq.req, int(token), finished)
         return not finished
 
     # -- per-step batch assembly -------------------------------------------

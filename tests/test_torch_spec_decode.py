@@ -662,6 +662,7 @@ def test_launcher_serves_sampled_speculative_requests_on_cpu():
     args = serve.parse_args(["--arch", "granite-8b", "--spec-decode",
                              "--num-draft-tokens", "2"])
     assert (args.spec_decode, args.num_draft_tokens) == (True, 2)
-    for flag in ("--serve", "--mesh", "--engine", "--slo-ms"):
+    for flag in ("--prefill-mode", "--mesh", "--engine",
+                 "--prefill-max-chunks"):
         with pytest.raises(SystemExit):
             serve.parse_args(["--arch", "granite-8b", flag, "1"])
