@@ -115,7 +115,22 @@ code is not 0 and no result line is printed:
      same for a tiered engine (equal formats, some page below fp8); a
      reduced granite's snapshot saved on the card loads on the CPU and one
      saved on the CPU loads on the card, with equal warm hits;
-  7. print the kernels line, then the device line last.
+  7. monolithic prefill: (a) phase 4's eight prompts at full width
+     through ``--prefill-mode monolithic`` (dense prefill, an install into
+     pages, then the split step's decode through #2), every kernel count
+     reset just before and read just after (#2 once per layer of each
+     decode dispatch, no other attention kernel); once request 0 has
+     finished, a ninth request, its prompt and 40 more tokens, hits the
+     whole prompt, mid-page (its partial page copied first), and its
+     stream equals the same prompt served cold without a prefix cache
+     wherever every pick leads by more than two bf16 ulps;
+     then the eight prompts cut to 119 tokens through the continuous
+     engine and, as one batch, ``FixedSlotEngine``, equal wherever every
+     pick leads by more than two bf16 ulps; tokens/s, the median step and
+     the peak memory logged; (b) a reduced granite's monolithic run with
+     a next turn (a partial-page hit) and a fixed-slot batch, streams
+     equal on the card and the CPU;
+  8. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -131,6 +146,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -3297,6 +3313,310 @@ def snapshots_across_devices(card: str = "cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: monolithic prefill, the fixed-slot engine and the batch API
+# ---------------------------------------------------------------------------
+
+#: 7a's chat turn: request 0's whole prompt and this many more tokens
+NEXT_TURN = 40
+#: 7b: new tokens a request, and the port-init seed of the reduced model:
+#: the smallest seed from REDUCED_SEED up whose every greedy pick of 7b's
+#: CPU runs (monolithic with its next turn, and fixed-slot) leads its
+#: runner-up by more than GAP_TOL_ULPS (asserted; with 6 new tokens none
+#: of seeds 11-129 does: vocab-512 bf16 logits tie often)
+MONO_NEW = 4
+MONO_SEED = 38
+#: 7a's comparisons: streams may part only at a pick that leads its
+#: runner-up by at most this many bf16 ulps in both runs
+TIE_ULPS = 2
+
+
+def fixed_slot_leads(run) -> tuple:
+    """``run()``'s result, and the top-2 lead (bf16 ulps) of every pick the
+    fixed-slot engine makes inside it, as a (B, picks) array: each call of
+    ``serve.engine._sample`` is traced."""
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve import sampling
+
+    rows = []
+    sample = engine_mod._sample
+
+    def traced(logits, key, temperature):
+        rows.append(sampling.top2_gap_ulps(logits[:, -1]).cpu().numpy())
+        return sample(logits, key, temperature)
+
+    engine_mod._sample = traced
+    try:
+        out = run()
+    finally:
+        engine_mod._sample = sample
+    return out, np.stack(rows, axis=1)
+
+
+def _tie_parting(got, want, got_leads, want_leads) -> Optional[tuple]:
+    """None if the generated streams ``got`` and ``want`` are equal, else
+    (k, lead there in ``got``'s run, in ``want``'s) at the first token k
+    where they part; raises unless both picks there lead by at most
+    TIE_ULPS. A difference at rounding level between the two runs flips
+    only a pick that is a near-tie in both: a fault (a wrong tail
+    prefill, install offset or copy-on-write) that flips a clearly
+    decided pick fails, even where its own run's pick is a near-tie."""
+    diff = np.flatnonzero(np.asarray(got) != np.asarray(want))
+    if not len(diff):
+        return None
+    k = int(diff[0])
+    a, b = float(got_leads[k]), float(want_leads[k])
+    if max(a, b) > TIE_ULPS:
+        raise AssertionError(
+            f"streams part at generated token {k}, where the picks lead "
+            f"by {a} and {b} bf16 ulps (one more than {TIE_ULPS})")
+    return k, a, b
+
+
+def _monolithic_run(engine, prompts, new_tokens: int, next_turn) -> tuple:
+    """Serve ``prompts``; once request 0 has finished, submit the
+    ``next_turn`` prompt. Returns ({request id: stream}, the request ids,
+    the next turn's id, the prefix hit it was admitted with, in tokens)."""
+    ids = [engine.submit(p, new_tokens) for p in prompts]
+    while not any(r.id == ids[0] for r in engine.scheduler.finished):
+        engine.step()
+    nxt = engine.submit(next_turn, new_tokens)
+    seq = None
+    while seq is None:
+        engine.step()
+        seq = next((s for s in engine.scheduler.active()
+                    if s.req.id == nxt), None)
+    return engine.run(), ids, nxt, seq.cached_tokens
+
+
+def serve_full_width_monolithic(argv=FULL_ARGV, device: str = "cuda",
+                                new_tokens: int = 32) -> dict:
+    """7a: phase 4's eight prompts through monolithic admission (the fused
+    decode kernel, the prefix cache on), then a ninth request, request
+    0's prompt and NEXT_TURN more tokens, once request 0 has finished: a
+    hit that ends mid-page, whose partial page is copied first. Every
+    kernel count is reset just before the run and read just after: #2
+    once per layer of each decode dispatch, no other attention kernel.
+    The ninth stream must equal the same prompt served cold without a
+    prefix cache, and the eight prompts cut to the shortest's length
+    through the continuous engine must equal them through the fixed-slot
+    engine as one batch, each wherever every pick leads by more than
+    TIE_ULPS (the two sides' products run at other row counts)."""
+    import dataclasses
+
+    from repro_torch.kernels import (mx_attention_prefill_fused,
+                                     mx_attention_ragged_fused,
+                                     mx_attention_verify_fused,
+                                     mx_megakernel_step, mx_repack_pages)
+    from repro_torch.launch import serve
+    from repro_torch.serve import FixedSlotEngine, ServeEngine, kv_cache
+
+    t_phase = time.perf_counter()
+    args = serve.parse_args(argv + ["--new-tokens", str(new_tokens),
+                                    "--prefill-mode", "monolithic",
+                                    "--device", device])
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cfg, first = serve.build_engine(args)
+    prompts = serve.make_prompts(cfg, args, sharing=2)
+    if len(prompts[0]) % args.page_size == 0:
+        raise AssertionError("request 0's prompt fills whole pages: the "
+                             "next turn's hit would not end mid-page")
+    turn = np.concatenate([prompts[0], np.random.default_rng(7).integers(
+        0, cfg.vocab_size, NEXT_TURN)]).astype(np.int32)
+    # room for the next turn, in whole pages
+    scfg = dataclasses.replace(first.serve_cfg, max_seq=kv_cache.pages_for(
+        len(turn) + new_tokens, args.page_size) * args.page_size)
+    params = first.params
+    del first
+    engine = ServeEngine(params, cfg, scfg, device=device)
+    engine.warmup()
+    leads = record_leads(engine)
+    admit_ms = []
+    admit = engine._admit_monolithic
+
+    def timed_admit(seq):
+        t = time.perf_counter()
+        admit(seq)  # its first pick reads the card's logits: a sync
+        admit_ms.append(1e3 * (time.perf_counter() - t))
+
+    engine._admit_monolithic = timed_admit
+    counted = (mx_attention_verify_fused, mx_attention_ragged_fused,
+               mx_attention_prefill_fused, mx_megakernel_step,
+               mx_repack_pages)
+    for k in counted:
+        k.launches = 0
+    t0 = time.perf_counter()
+    results, ids, nxt, hit = _monolithic_run(engine, prompts, new_tokens,
+                                             turn)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    verify, *others = (k.launches for k in counted)
+    stats = engine.cache_stats()
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device == "cuda" else float("nan"))
+    decode = stats["dispatches_decode"]
+    dispatches = {k[len("dispatches_"):]: v for k, v in stats.items()
+                  if k.startswith("dispatches_")}
+    if stats["step_mode"] != "split" or stats["ragged_steps"]:
+        raise AssertionError(f"monolithic run: step mode "
+                             f"{stats['step_mode']}")
+    if device == "cuda" and (verify != decode * cfg.num_layers or not verify
+                             or any(others)):
+        raise AssertionError(
+            f"monolithic run: {verify} #2 launches over {decode} decode "
+            f"dispatches of {cfg.num_layers} layers; ragged, prefill, "
+            f"megakernel, repack launches {others}")
+    for rid, prompt in zip(ids + [nxt], prompts + [turn]):
+        toks = results[rid]
+        if len(toks) != len(prompt) + new_tokens or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size \
+                or not np.array_equal(toks[:len(prompt)], prompt):
+            raise AssertionError(f"monolithic request {rid}: malformed "
+                                 "stream")
+    if hit != len(prompts[0]) or stats["prefix_partial_inserts"] < 1 \
+            or stats["cow_copies"] < 1:
+        raise AssertionError(
+            f"the next turn hit {hit} tokens (request 0's prompt: "
+            f"{len(prompts[0])}); {stats['prefix_partial_inserts']} "
+            f"partial entries inserted, {stats['cow_copies']} copies")
+    generated = new_tokens * (len(prompts) + 1)
+    # the next turn served cold, on the same weights, no prefix cache
+    cold_eng = ServeEngine(params, cfg, dataclasses.replace(
+        scfg, prefix_cache=False), device=device)
+    cold_leads = record_leads(cold_eng)
+    rid = cold_eng.submit(turn, new_tokens)
+    cold = cold_eng.run()[rid][len(turn):]
+    warm = results[nxt][len(turn):]
+    # the tail prefill's products run at 40 rows, the cold one's at 323:
+    # cuBLAS may pick other algorithms, so a tied pick may go either way
+    turn_part = _tie_parting(warm, cold, leads[nxt], cold_leads[rid])
+    del cold_eng
+    # the fixed-slot engine on the prompts cut to the shortest's length
+    cut_len = min(map(len, prompts))
+    cut = [p[:cut_len] for p in prompts]
+    cut_cfg = dataclasses.replace(scfg, max_seq=cut_len + new_tokens)
+    cont = ServeEngine(params, cfg, cut_cfg, device=device)
+    cont_leads = record_leads(cont)
+    cids = [cont.submit(p, new_tokens) for p in cut]
+    cont_out = cont.run()
+    del cont
+    fixed = FixedSlotEngine(params, cfg, cut_cfg, device=device)
+    t1 = time.perf_counter()
+    out, fixed_leads = fixed_slot_leads(
+        lambda: fixed.generate(np.stack(cut), new_tokens))
+    fixed_s = time.perf_counter() - t1
+    parts = [_tie_parting(out[i, cut_len:], cont_out[c][cut_len:],
+                          fixed_leads[i], cont_leads[c])
+             for i, c in enumerate(cids)]
+    equal = sum(p is None for p in parts)
+    log(f"7a granite-8b monolithic prefill: {len(prompts)} requests "
+        f"(prompts {min(map(len, prompts))}-{max(map(len, prompts))} "
+        f"tokens), then a next turn of {len(turn)} tokens after request 0 "
+        f"finished; {generated} tokens in {seconds:.2f} s = "
+        f"{generated / seconds:.1f} tok/s; {len(engine.step_seconds)} "
+        f"decode steps, median {1e3 * np.median(engine.step_seconds):.2f}"
+        f" ms, sum {sum(engine.step_seconds):.2f} s; {len(admit_ms)} "
+        f"admissions (dense prefill, install, first pick), sum "
+        f"{1e-3 * sum(admit_ms):.2f} s, median {np.median(admit_ms):.1f} "
+        f"ms, max {max(admit_ms):.1f} ms; dispatches "
+        f"{dispatches}; "
+        f"#2 launches {verify} = {decode} decode dispatches x "
+        f"{cfg.num_layers}, no ragged, chunked-prefill, megakernel or "
+        f"repack launch; the next turn hit {hit} tokens (request 0's "
+        f"prompt, {hit % args.page_size} rows into its last page), "
+        f"{stats['prefix_partial_inserts']} partial entries inserted, "
+        f"{stats['cow_copies']} copy-on-write pages; its stream "
+        + ("equals the cold run's" if turn_part is None else
+           "equals the cold run's up to generated token "
+           f"{turn_part[0]}, where they part at a pick that leads by "
+           f"{turn_part[1]:.0f} (warm) and {turn_part[2]:.0f} (cold) bf16 "
+           "ulps")
+        + f" (smallest lead {min(leads[nxt]):.0f} warm, "
+        f"{min(cold_leads[rid]):.0f} cold); peak memory {peak_gb:.2f} GB")
+    log(f"7a fixed-slot engine: the eight prompts cut to {cut_len} tokens "
+        f"as one ({len(cut)}, {cut_len}) batch, {new_tokens} tokens each "
+        f"in {fixed_s:.2f} s; {equal} of {len(cut)} streams equal the "
+        f"continuous monolithic run's; the others part at (generated "
+        f"token, top-2 lead of the pick there in bf16 ulps: fixed, "
+        f"continuous) {[p for p in parts if p is not None]}, each at most "
+        f"{TIE_ULPS}; smallest lead of any pick: fixed "
+        f"{fixed_leads.min():.0f}, continuous "
+        f"{min(min(v) for v in cont_leads.values()):.0f}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": verify, "tokens_per_s": generated / seconds,
+            "admit_ms": admit_ms,
+            "fixed_equal": equal, "turn_part": turn_part}
+
+
+def check_reduced_monolithic(card: str = "cuda") -> None:
+    """7b: phase 3's reduced granite and prompts through monolithic
+    admission, with a next turn extending request 0 (a partial-page hit),
+    and through the fixed-slot engine on the prompts cut to the shortest's
+    length, on the card and on the CPU: equal streams, every CPU pick
+    leading by more than GAP_TOL_ULPS."""
+    from repro_torch.kernels import mx_attention_verify_fused
+    from repro_torch.nn import model
+    from repro_torch.serve import FixedSlotEngine, ServeConfig, ServeEngine
+
+    cfg = reduced_config()
+    params = model.init(cfg, torch.Generator().manual_seed(MONO_SEED),
+                        "cpu")
+    on_card = _to_device(params, card)
+    prompts = reduced_prompts(cfg)
+    turn = np.concatenate([prompts[0], np.random.default_rng(7).integers(
+        0, cfg.vocab_size, 10)])
+    # a pool roomy enough that request 0's partial entry outlives it
+    scfg = ServeConfig(max_seq=96, max_slots=3, num_pages=64,
+                       prefill_mode="monolithic")
+
+    def mono(device, p):
+        eng = ServeEngine(p, cfg, scfg, device=device)
+        results, ids, nxt, hit = _monolithic_run(eng, prompts, MONO_NEW,
+                                                 turn)
+        return [results[i] for i in ids + [nxt]], hit, eng.cache_stats()
+
+    want, cpu_hit, cpu_stats = mono("cpu", params)
+    verify0 = mx_attention_verify_fused.launches
+    got, hit, stats = mono(card, on_card)
+    verify = mx_attention_verify_fused.launches - verify0
+    if not cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
+        raise AssertionError("reduced monolithic run has a near-tie pick: "
+                             f"{cpu_stats['min_top2_gap_ulps']} ulps")
+    if hit != cpu_hit or hit != len(prompts[0]) or hit % PS == 0 \
+            or stats["cow_copies"] < 1:
+        raise AssertionError(f"reduced next turn hit {hit} tokens "
+                             f"({stats['cow_copies']} copies)")
+    _same_streams(got, want, "reduced monolithic, card vs CPU")
+    if card == "cuda" and (verify != stats["dispatches_decode"]
+                           * cfg.num_layers or not verify):
+        raise AssertionError(f"reduced monolithic run: {verify} #2 "
+                             f"launches over {stats['dispatches_decode']} "
+                             "decode dispatches")
+    cut_len = min(map(len, prompts))
+    batch = np.stack([p[:cut_len] for p in prompts]).astype(np.int32)
+    fcfg = ServeConfig(max_seq=cut_len + MONO_NEW)
+    fixed_cpu, cpu_leads = fixed_slot_leads(lambda: FixedSlotEngine(
+        params, cfg, fcfg, device="cpu").generate(batch, MONO_NEW))
+    fixed_card, _ = fixed_slot_leads(lambda: FixedSlotEngine(
+        on_card, cfg, fcfg, device=card).generate(batch, MONO_NEW))
+    if not cpu_leads.min() > GAP_TOL_ULPS:
+        raise AssertionError("reduced fixed-slot run has a near-tie pick: "
+                             f"{cpu_leads.min()} ulps")
+    _same_streams(list(fixed_card), list(fixed_cpu),
+                  "reduced fixed-slot, card vs CPU")
+    log(f"7b reduced granite, monolithic prefill: {len(prompts)} requests "
+        f"and a next turn through 3 slots ({verify} #2 launches = "
+        f"{stats['dispatches_decode']} decode dispatches x "
+        f"{cfg.num_layers}); the next turn hit {hit} tokens, "
+        f"{hit % PS} rows into a page ({stats['cow_copies']} copy-on-write "
+        f"pages); streams equal on card and CPU (smallest lead "
+        f"{cpu_stats['min_top2_gap_ulps']:.0f} bf16 ulps); fixed-slot "
+        f"engine, a ({len(prompts)}, {cut_len}) batch: streams equal on "
+        f"card and CPU (smallest lead {cpu_leads.min():.0f} ulps)")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the MX dot products at granite-8b widths
 # ---------------------------------------------------------------------------
 
@@ -4109,6 +4429,15 @@ def main() -> int:
     kernel["launches_server"] = front["launches"]
     snapshots_across_devices()
     log(f"front end phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mono = serve_full_width_monolithic()
+    verify["launches_monolithic"] = mono["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_reduced_monolithic()
+    log(f"monolithic phase: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     kernels = [kernel, verify, prefill] + pair + [repack, mega] \

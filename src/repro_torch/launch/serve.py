@@ -43,9 +43,19 @@ file exists and writes it back after the drain on the way out:
       --reduced --serve --port 8000 --slo-ms 500 --max-queue 16 \
       --prefix-snapshot prefix.npz --device cpu
 
+``--prefill-mode monolithic`` admits each prompt with one dense prefill
+(prefix hits may end mid-page) and decodes through the split step;
+``--engine fixed`` runs the fixed-slot golden engine on a fixed batch
+(the shared head and ``--prompt-len`` tokens a row) through its
+``generate``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+      --reduced --batch 4 --prompt-len 24 --shared-prefix 16 \
+      --new-tokens 8 --engine fixed --device cpu
+
 Runs on the card unless ``--device cpu``. The reference's other flags
-(the mesh, the fixed-slot engine, monolithic prefill, several chunks a
-row) are not ported yet and exit with an error naming ROADMAP.md.
+(the mesh, several chunks a row) are not ported yet and exit with an
+error naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -63,21 +73,22 @@ import torch
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import MXFP4, MXFP8, WIDE
 from repro_torch.nn import model
-from repro_torch.serve import (AsyncServeEngine, ServeConfig, ServeEngine,
-                               ServeHTTPServer, TierPolicy)
+from repro_torch.serve import (AsyncServeEngine, FixedSlotEngine,
+                               ServeConfig, ServeEngine, ServeHTTPServer,
+                               TierPolicy)
 
 log = logging.getLogger("repro_torch.serve")
 
 #: flags of the reference launcher that this port does not take yet
-UNPORTED_FLAGS = ("--engine", "--prefill-mode", "--prefill-max-chunks",
-                  "--mesh")
+UNPORTED_FLAGS = ("--prefill-max-chunks", "--mesh")
 
 TIER_FMTS = ["fp6_e3m2", "fp6_e2m3", "fp4_e2m1"]
 
 
 def build_engine(args, params=None) -> tuple:
-    """(model config, engine) of ``args``; ``params`` (of the same config)
-    are reused, else random weights are made from seed 0."""
+    """(model config, engine) of ``args`` (``--engine``: the continuous
+    engine, or the fixed-slot one); ``params`` (of the same config) are
+    reused, else random weights are made from seed 0."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     quant = {"": cfg.quant, "wide": WIDE, "mxfp8": MXFP8,
              "mxfp4": MXFP4}[args.quant]
@@ -99,7 +110,8 @@ def build_engine(args, params=None) -> tuple:
         max_queue=args.max_queue if args.max_queue >= 0 else None,
         max_slots=args.max_slots or args.batch, page_size=args.page_size,
         prefix_cache=not args.no_prefix_cache,
-        prefill_chunk=args.prefill_chunk, tiered=args.tiered,
+        prefill_mode=args.prefill_mode, prefill_chunk=args.prefill_chunk,
+        tiered=args.tiered,
         step_mode=args.step_mode, decode_kernel=args.decode_kernel,
         spec_decode=args.spec_decode,
         num_draft_tokens=args.num_draft_tokens,
@@ -109,7 +121,8 @@ def build_engine(args, params=None) -> tuple:
             hot_steps=args.tier_hot_steps, cold_steps=args.tier_cold_steps,
             repack_pages_per_step=args.tier_repack_pages)
         if args.tiered else None)
-    return cfg, ServeEngine(params, cfg, serve_cfg, device=device)
+    kind = FixedSlotEngine if args.engine == "fixed" else ServeEngine
+    return cfg, kind(params, cfg, serve_cfg, device=device)
 
 
 def make_prompts(cfg, args, sharing=None) -> list:
@@ -127,6 +140,33 @@ def make_prompts(cfg, args, sharing=None) -> list:
                             rng.integers(0, cfg.vocab_size, size=(int(s),))
                             .astype(np.int32)])
             for i, s in enumerate(lens)]
+
+
+def fixed_prompts(cfg, args) -> np.ndarray:
+    """The fixed-slot workload, drawn as the reference launcher draws it:
+    the ``--shared-prefix`` head, then ``--prompt-len`` tokens a row."""
+    rng = np.random.default_rng(0)
+    head = rng.integers(0, cfg.vocab_size,
+                        size=(args.shared_prefix,)).astype(np.int32)
+    tails = rng.integers(0, cfg.vocab_size,
+                         size=(args.batch, args.prompt_len)).astype(np.int32)
+    return np.concatenate(
+        [np.broadcast_to(head, (args.batch, args.shared_prefix)), tails],
+        axis=1)
+
+
+def run_fixed(engine, cfg, args) -> dict:
+    """The fixed-slot engine's batch through ``generate``, and a report."""
+    prompts = fixed_prompts(cfg, args)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, args.new_tokens)
+    dt = time.perf_counter() - t0
+    generated = args.batch * args.new_tokens
+    log.info("generated %s in %.2fs (%.1f tok/s, first row: %s...)",
+             out.shape, dt, generated / dt, out[0, :12].tolist())
+    return {"requests": args.batch, "seconds": dt,
+            "generated_tokens": generated, "tokens_per_s": generated / dt,
+            "prompts": prompts, "out": out}
 
 
 def run_batch(engine, cfg, args, prompts=None) -> dict:
@@ -290,6 +330,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="tokens of common prompt head across requests "
                          "(exercises the prefix cache)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--engine", default="continuous",
+                    choices=["continuous", "fixed"],
+                    help="'continuous' (default): continuous batching over "
+                         "the paged MX cache; 'fixed': the fixed-slot "
+                         "golden engine on a fixed batch")
+    ap.add_argument("--prefill-mode", default="chunked",
+                    choices=["chunked", "monolithic"],
+                    help="prompt prefill path: 'chunked' (default) streams "
+                         "fixed-size chunks straight into MX pages inside "
+                         "the engine steps; 'monolithic' prefills each "
+                         "prompt densely at admission, installs its cache "
+                         "into pages, and decodes through the split step")
     ap.add_argument("--quant", default="",
                     choices=["", "wide", "mxfp8", "mxfp4"],
                     help="weight and KV format (default: the config's, "
@@ -338,6 +390,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                      "ROADMAP.md, section A)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.spec_decode and args.engine != "continuous":
+        ap.error("--spec-decode requires --engine continuous (the "
+                 "fixed-slot reference engine has no verify path)")
+    if args.serve and args.engine != "continuous":
+        ap.error("--serve requires --engine continuous (the async front "
+                 "end drives the continuous-batching step loop)")
+    if args.tiered and args.engine != "continuous":
+        ap.error("--tiered requires --engine continuous")
     if args.tiered and (args.quant not in ("", "mxfp8")
                         or args.quant and not args.quantize_kv):
         ap.error("--tiered requires --quant mxfp8 --quantize-kv "
@@ -349,6 +409,8 @@ def main(argv=None) -> Optional[dict]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg, engine = build_engine(args)
+    if args.engine == "fixed":
+        return run_fixed(engine, cfg, args)
     engine.warmup()
     if args.serve:
         return _run_server(engine, args)

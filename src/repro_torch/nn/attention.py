@@ -1,6 +1,7 @@
 """Grouped-query attention over the paged KV cache (port of
-``repro.nn.attention``): the ragged engine step and the split step's
-decode, verify and chunked-prefill paths.
+``repro.nn.attention``): the ragged engine step, the split step's
+decode, verify and chunked-prefill paths, and the contiguous ring-buffer
+cache of dense (monolithic) prefill and fixed-slot decode.
 
 Pools are plain dicts of tensors laid out as in the reference: an MX
 pool ``{"k_elems", "k_scales", "v_elems", "v_scales"}`` with elements
@@ -16,6 +17,14 @@ the reference: ``"fused"`` runs the MX page-walk kernels
 (``kernels.mx_attention_verify_fused`` / ``mx_attention_prefill_fused``),
 ``"einsum"`` the gather-and-dequantize oracle (``_read_cache``,
 ``_mask``, ``_attend``), which also serves wide pools.
+
+The contiguous cache (:func:`init_cache`) holds the same storage leaves
+as a pool, ``(B, T, KVH, .)``, plus ``kpos`` (T,) int32, each slot's
+absolute key position (-1: empty). A windowed layer's cache is a ring of
+``min(window, max_seq)`` slots unless ``no_ring``. Dense prefill attends
+over :func:`cache_kv_view`, the quantize-then-dequantize snap of its K/V,
+so full prefill, tail prefill over gathered pages and decode all read
+the values the cache holds.
 """
 from __future__ import annotations
 
@@ -45,6 +54,11 @@ class AttnConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None  # sliding window (None = full causal)
     softcap: Optional[float] = None
+    # query rows a dense prefill attends at a time (bounds its logits)
+    query_chunk: int = 1024
+    # paged serving: no ring wraparound, so a prefill cache's slot is the
+    # absolute position and it reshapes 1:1 into pages
+    no_ring: bool = False
     # the split step's attention: "fused" (MX page-walk kernels) or
     # "einsum" (the gather oracle; wide pools always take it)
     decode_kernel: str = "einsum"
@@ -174,6 +188,142 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v.float())
     return out.to(q.dtype).reshape(b, s, h, d)
+
+
+def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    qpos: torch.Tensor, kpos: torch.Tensor,
+                    cfg: AttnConfig) -> torch.Tensor:
+    """:func:`_attend` over ``cfg.query_chunk`` query rows at a time
+    (when the rows divide into several chunks), which bounds the live
+    logits; every row's result is :func:`_attend`'s."""
+    s, cs = q.shape[1], cfg.query_chunk
+    if s <= cs or s % cs:
+        return _attend(q, k, v, qpos, kpos, cfg)
+    return torch.cat([_attend(q[:, i:i + cs], k, v, qpos[:, i:i + cs],
+                              kpos, cfg) for i in range(0, s, cs)], dim=1)
+
+
+def rope_len(n: int) -> int:
+    """RoPE table length for positions below ``n``, rounded up to a
+    multiple of 1,024 so that prompts of many lengths share a few
+    tables (a table's rows do not depend on its length)."""
+    return -(-n // 1024) * 1024
+
+
+# ---------------------------------------------------------------------------
+# the contiguous cache: dense prefill and fixed-slot decode
+# ---------------------------------------------------------------------------
+
+
+def cache_len(cfg: AttnConfig, max_seq: int) -> int:
+    if cfg.no_ring:
+        return max_seq
+    return min(cfg.window, max_seq) if cfg.window else max_seq
+
+
+def init_cache(batch: int, max_seq: int, cfg: AttnConfig,
+               quant: QuantConfig, device) -> dict:
+    """An empty (ring-buffer) cache: a pool's storage leaves with leading
+    dims (batch, cache_len) and ``kpos`` (cache_len,) int32 at -1."""
+    t = cache_len(cfg, max_seq)
+    cache = init_paged_pool(batch, t, cfg, quant, device)
+    cache["kpos"] = torch.full((t,), -1, dtype=torch.int32, device=device)
+    return cache
+
+
+def _write_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                 slot: int, pos: int, quant: QuantConfig,
+                 cfg: AttnConfig) -> None:
+    """Write one token's K/V (B, 1, KVH, D) at ring slot ``slot`` (in
+    place) and record its position."""
+    if "k" in cache:
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    else:
+        kq, vq = _quantize_kv_token(k_new, v_new, cfg, quant)
+        for name, mx in (("k", kq), ("v", vq)):
+            elems = cache[f"{name}_elems"]
+            elems[:, slot] = mx.elements[:, 0].view(elems.dtype)
+            cache[f"{name}_scales"][:, slot] = mx.scales[:, 0]
+    cache["kpos"][slot] = pos
+
+
+def cache_kv_view(k: torch.Tensor, v: torch.Tensor, cfg: AttnConfig,
+                  quant: QuantConfig) -> tuple:
+    """K/V exactly as the cache will hold them: the identity for a wide
+    cache, the quantize-then-dequantize snap of the cache's own write and
+    read pair (:func:`_quantize_kv_token`, :func:`_read_cache`) for an MX
+    one."""
+    if not _mx_cache(quant):
+        return k, v
+    kq, vq = _quantize_kv_token(k, v, cfg, quant)
+    view = {"k_elems": kq.elements, "k_scales": kq.scales,
+            "v_elems": vq.elements, "v_scales": vq.scales}
+    return _read_cache(view, quant, cfg, k.dtype)
+
+
+def gather_page_kv(pool: dict, page_ids: torch.Tensor, cfg: AttnConfig,
+                   quant: QuantConfig, dtype=torch.bfloat16) -> tuple:
+    """Dequantized K/V of pool pages ``page_ids`` in table order, each
+    (1, n * PS, KVH, D): row t is absolute position t of the cached
+    prefix (the tail prefill's read of shared pages)."""
+    view = {key: leaf[page_ids.long()].reshape(1, -1, *leaf.shape[2:])
+            for key, leaf in pool.items()}
+    return _read_cache(view, quant, cfg, dtype)
+
+
+def apply_decode(params, x: torch.Tensor, cache: dict, pos: int,
+                 cfg: AttnConfig, quant: QuantConfig,
+                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """One-token decode against the contiguous cache: x (B, 1, d_model),
+    ``pos`` the shared position. Writes the token's K/V at ring slot
+    ``pos % T`` (``cache`` in place), then attends over the whole cache
+    (empty slots masked by ``kpos``)."""
+    b = x.shape[0]
+    h, d = cfg.num_heads, cfg.head_dim
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_decode_qkv(params, x, posv, cfg, compute_dtype,
+                                  rope_len(pos + 1))
+    _write_cache(cache, k, v, pos % cache["kpos"].shape[0], pos, quant, cfg)
+    kc, vc = _read_cache(cache, quant, cfg, compute_dtype)
+    out = _attend(q, kc, vc, posv, cache["kpos"][None], cfg)
+    return linear.apply(params["wo"], out.reshape(b, 1, h * d),
+                        compute_dtype)
+
+
+def prefill_cache(positions: torch.Tensor, cfg: AttnConfig,
+                  quant: QuantConfig, k: torch.Tensor, v: torch.Tensor,
+                  max_seq: int) -> dict:
+    """A fresh cache of full-sequence K/V (B, S, KVH, D) at ``positions``
+    (B, S): the last ``cache_len`` tokens, at the ring slots decode would
+    give them (slot p % T: when the tail fills the ring, a roll by its
+    first position)."""
+    b, s = positions.shape
+    t = cache_len(cfg, max_seq)
+    cache = init_cache(b, max_seq, cfg, quant, k.device)
+    take = min(s, t)
+    shift = int(positions[0, s - take]) % t if take == t else 0
+    k_tail, v_tail = k[:, s - take:], v[:, s - take:]
+
+    def place(leaf, rows):
+        leaf[:, :take] = rows
+        return torch.roll(leaf, shift, dims=1) if shift else leaf
+
+    if "k" in cache:
+        cache["k"] = place(cache["k"], k_tail.to(cache["k"].dtype))
+        cache["v"] = place(cache["v"], v_tail.to(cache["v"].dtype))
+    else:
+        kq, vq = _quantize_kv_token(k_tail, v_tail, cfg, quant)
+        for name, mx in (("k", kq), ("v", vq)):
+            elems = cache[f"{name}_elems"]
+            cache[f"{name}_elems"] = place(elems,
+                                           mx.elements.view(elems.dtype))
+            cache[f"{name}_scales"] = place(cache[f"{name}_scales"],
+                                            mx.scales)
+    kpos = cache["kpos"]
+    kpos[:take] = positions[0, s - take:].to(torch.int32)
+    cache["kpos"] = torch.roll(kpos, shift) if shift else kpos
+    return cache
 
 
 def _page_size(pool: dict) -> int:

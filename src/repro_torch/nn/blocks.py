@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from . import attention, ffn
+from . import attention, ffn, linear
 from .config import BlockDef, ModelConfig
 from .norms import rmsnorm_apply, rmsnorm_init
 
@@ -17,7 +17,8 @@ def _attn_cfg(cfg: ModelConfig, bd: BlockDef) -> attention.AttnConfig:
         d_model=cfg.d_model, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
         rope_theta=cfg.rope_theta, window=bd.window,
-        softcap=cfg.attn_softcap, decode_kernel=cfg.decode_kernel)
+        softcap=cfg.attn_softcap, query_chunk=cfg.query_chunk,
+        no_ring=cfg.serve_full_cache, decode_kernel=cfg.decode_kernel)
 
 
 def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
@@ -53,6 +54,84 @@ def _decode_tail(params, x: torch.Tensor, h: torch.Tensor, norm_eps: float,
     h = rmsnorm_apply(params["norm_ffn"], x_sum, norm_eps, dtype=dt)
     h = ffn.apply(params["ffn"], h, dt)
     return x_sum.to(dt) + h
+
+
+def init_cache(batch: int, max_seq: int, bd: BlockDef, cfg: ModelConfig,
+               device) -> dict:
+    """The block's empty contiguous (ring-buffer) cache."""
+    _require_ported(bd, cfg)
+    return attention.init_cache(batch, max_seq, _attn_cfg(cfg, bd),
+                                cfg.quant, device)
+
+
+def apply_decode(params, x: torch.Tensor, cache: dict, pos: int,
+                 bd: BlockDef, cfg: ModelConfig) -> torch.Tensor:
+    """One-token decode of one block against its contiguous cache: x (B,
+    1, d_model) at the shared position ``pos``; ``cache`` in place."""
+    _require_ported(bd, cfg)
+    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    h = attention.apply_decode(params["mixer"], h, cache, pos,
+                               _attn_cfg(cfg, bd), cfg.quant,
+                               cfg.compute_dtype)
+    return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype)
+
+
+def _attn_prefill(params, x: torch.Tensor, positions: torch.Tensor,
+                  bd: BlockDef, cfg: ModelConfig, keys=None) -> tuple:
+    """The dense prefill of one block over ``x`` (B, S, d_model) at
+    ``positions`` (B, S): the QKV projection and RoPE shared with every
+    decode path (``attention._project_decode_qkv``), attention over the
+    cache representation of the new K/V (``cache_kv_view``), preceded by
+    ``keys`` = (K, V, key positions) of a cached prefix if given, then
+    the output projection and the block's tail. Returns (x, k, v)."""
+    _require_ported(bd, cfg)
+    acfg, dt = _attn_cfg(cfg, bd), cfg.compute_dtype
+    b, s, _ = x.shape
+    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    q, k, v = attention._project_decode_qkv(
+        params["mixer"], h, positions, acfg, dt,
+        attention.rope_len(int(positions.max()) + 1))
+    ks, vs = attention.cache_kv_view(k, v, acfg, cfg.quant)
+    kpos = positions
+    if keys is not None:
+        kp, vp, pref_pos = keys
+        ks, vs = torch.cat([kp, ks], dim=1), torch.cat([vp, vs], dim=1)
+        kpos = torch.cat([pref_pos, positions[0]])
+    out = attention._attend_chunked(q, ks, vs, positions, kpos, acfg)
+    h = linear.apply(params["mixer"]["wo"], out.reshape(b, s, -1), dt)
+    return _decode_tail(params, x, h, cfg.norm_eps, dt), k, v
+
+
+def prefill_block(params, x: torch.Tensor, positions: torch.Tensor,
+                  bd: BlockDef, cfg: ModelConfig, max_seq: int) -> tuple:
+    """Dense prefill of one block that also builds its contiguous cache:
+    x (B, S, d_model) at ``positions`` (B, S). Returns (x, cache)."""
+    x, k, v = _attn_prefill(params, x, positions, bd, cfg)
+    return x, attention.prefill_cache(positions, _attn_cfg(cfg, bd),
+                                      cfg.quant, k, v, max_seq)
+
+
+def prefill_block_tail(params, x: torch.Tensor, positions: torch.Tensor,
+                       pool: dict, prefix_pages: torch.Tensor, bd: BlockDef,
+                       cfg: ModelConfig, max_seq: int) -> tuple:
+    """Prefill of a prompt's uncached tail against its cached prefix
+    pages: x (1, S_tail, d_model) at absolute ``positions`` (1, S_tail),
+    ``prefix_pages`` the ``ceil(pos0 / page_size)`` pages holding the
+    prefix's ``pos0 = positions[0, 0]`` tokens in ``pool`` (read only).
+    The gather pulls whole pages, so a hit that ends mid-page leaves rows
+    past ``pos0`` that key position -1 masks. Returns (x, the tail's
+    cache at relative slots 0.., for installing into its pages)."""
+    acfg = _attn_cfg(cfg, bd)
+    kp, vp = attention.gather_page_kv(pool, prefix_pages, acfg, cfg.quant,
+                                      cfg.compute_dtype)
+    pos0 = positions[0, 0]
+    pref = torch.arange(kp.shape[1], dtype=positions.dtype,
+                        device=x.device)
+    pref = torch.where(pref < pos0, pref, torch.full_like(pref, -1))
+    x, k, v = _attn_prefill(params, x, positions, bd, cfg,
+                            keys=(kp, vp, pref))
+    return x, attention.prefill_cache(positions - positions[:, :1], acfg,
+                                      cfg.quant, k, v, max_seq)
 
 
 def init_paged_cache(num_pages: int, page_size: int, bd: BlockDef,

@@ -39,12 +39,16 @@ class ModelConfig:
     head_dim: int = 0
     rope_theta: float = 10000.0
     attn_softcap: Optional[float] = None
+    query_chunk: int = 1024
     d_ff: int = 0
     ffn_kind: str = "swiglu"
     tied_embeddings: bool = True
     norm_eps: float = 1e-6
     quant: QuantConfig = QuantConfig()
     compute_dtype: torch.dtype = torch.bfloat16
+    # paged serving: full-length (non-ring) prefill caches, so a prompt's
+    # cache reshapes 1:1 into its pages (window masking still applies)
+    serve_full_cache: bool = False
     # the split step's paged attention: "einsum" (the gather oracle, the
     # reference's default here) or "fused" (the MX page-walk kernels); the
     # serve engine sets it from ServeConfig.decode_kernel

@@ -1,7 +1,8 @@
 """LM assembly for serving (port of ``repro.nn.model``): embedding ->
 attention blocks -> final norm -> LM head, one engine step at a time: the
 ragged step, its layer-fused megakernel form, or the split step's decode /
-verify and prefill chunk.
+verify and prefill chunk; and the contiguous-cache path of dense prefill
+(``prefill``, ``prefill_with_prefix``) and one-token ``decode_step``.
 
 Parameters are a plain dict::
 
@@ -17,6 +18,15 @@ Where every layer is the same block, each leaf lives in one (L, ...)
 tensor (``params["layer_stack"]``, ``PagedCache.stack``) and the
 per-layer entries are its slices: the per-layer steps read the slices,
 the megakernel the stacks, one copy of each.
+
+The contiguous cache has the reference's pytree structure, so the two
+packages' caches compare leaf by leaf::
+
+  {"prologue{j}": block cache, "groups": (block cache of pattern block i
+   with every leaf stacked over num_groups, ...), "epilogue{j}": ...}
+
+each block cache being ``attention.init_cache``'s dict; :func:`cache_layers`
+gives its per-layer views in execution order.
 """
 from __future__ import annotations
 
@@ -183,6 +193,103 @@ def _walk_blocks(apply_fn, params, cfg: ModelConfig, cache: list, x):
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return embedding.logits(params["embedding"], x, cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the contiguous cache: dense prefill and one-token decode
+# ---------------------------------------------------------------------------
+
+
+def _stack_layers(cfg: ModelConfig, layers: list) -> dict:
+    """Per-layer block caches (execution order) -> the reference's cache
+    structure, each pattern block's leaves stacked over the groups."""
+    n_pro, n_pat = len(cfg.prologue), len(cfg.pattern)
+    first_epi = n_pro + cfg.num_groups * n_pat
+    cache = {f"prologue{j}": layers[j] for j in range(n_pro)}
+    cache["groups"] = tuple(
+        {key: torch.stack([layers[n_pro + g * n_pat + i][key]
+                           for g in range(cfg.num_groups)])
+         for key in layers[n_pro + i]}
+        for i in range(n_pat)) if cfg.num_groups else ()
+    cache.update({f"epilogue{j}": layers[first_epi + j]
+                  for j in range(len(cfg.epilogue))})
+    return cache
+
+
+def cache_layers(cfg: ModelConfig, cache: dict) -> list:
+    """The contiguous cache's per-layer block caches in
+    :func:`iter_layer_blocks` order: views, so writes land in ``cache``."""
+    out = []
+    for key, g, _ in iter_layer_blocks(cfg):
+        if g is None:
+            out.append(cache[key])
+        else:
+            blk = cache["groups"][int(key[len("block"):])]
+            out.append({k: leaf[g] for k, leaf in blk.items()})
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device) -> dict:
+    """An empty contiguous cache of ``batch`` rows and ``max_seq``
+    positions (ring buffers on windowed layers unless
+    ``cfg.serve_full_cache``)."""
+    return _stack_layers(cfg, [
+        blocks.init_cache(batch, max_seq, bd, cfg, device)
+        for _, _, bd in iter_layer_blocks(cfg)])
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            max_seq: Optional[int] = None) -> tuple:
+    """Dense prefill of tokens (B, S) at positions 0..S-1. Returns (the
+    last token's logits (B, 1, V) f32, the contiguous cache of
+    ``max_seq`` positions, default S)."""
+    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    layers = []
+    for bp, (_, _, bd) in zip(params["layers"], iter_layer_blocks(cfg)):
+        x, c = blocks.prefill_block(bp, x, positions, bd, cfg,
+                                    max_seq or s)
+        layers.append(c)
+    return _head(params, cfg, x[:, -1:]), _stack_layers(cfg, layers)
+
+
+def prefill_with_prefix(params, cfg: ModelConfig, cache: list,
+                        tokens: torch.Tensor, prefix_pages: torch.Tensor,
+                        pos0: int, max_seq: int) -> tuple:
+    """Prefill of a prompt's uncached tail, tokens (1, S_tail) at
+    positions ``pos0..``, against the ``ceil(pos0 / page_size)`` pages
+    ``prefix_pages`` of the paged ``cache`` (read only) that hold its
+    first ``pos0`` tokens; ``pos0`` may end mid-page (a partial-page hit).
+    Returns (the last token's logits (1, 1, V) f32, the tail's contiguous
+    cache at relative slots 0.. of ``max_seq`` positions, which
+    ``kv_cache.install_prefill`` or ``install_prefill_offset`` writes
+    into the sequence's tail pages)."""
+    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    b, s = tokens.shape
+    positions = (pos0 + torch.arange(s, dtype=torch.int32,
+                                     device=x.device))[None].expand(b, s)
+    layers = []
+    for bp, pool, (_, _, bd) in zip(params["layers"], cache,
+                                    iter_layer_blocks(cfg)):
+        x, c = blocks.prefill_block_tail(bp, x, positions, pool,
+                                         prefix_pages, bd, cfg, max_seq)
+        layers.append(c)
+    return _head(params, cfg, x[:, -1:]), _stack_layers(cfg, layers)
+
+
+def decode_step(params, cfg: ModelConfig, cache: dict,
+                tokens: torch.Tensor, pos: int) -> tuple:
+    """One-token decode, tokens (B, 1), every row at position ``pos``,
+    against the contiguous ``cache`` (updated in place). Returns (logits
+    (B, 1, V) f32, cache)."""
+    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    for bp, c, (_, _, bd) in zip(params["layers"], cache_layers(cfg, cache),
+                                 iter_layer_blocks(cfg)):
+        x = blocks.apply_decode(bp, x, c, int(pos), bd, cfg)
+    return _head(params, cfg, x), cache
 
 
 def decode_step_paged(params, cfg: ModelConfig, cache: list,

@@ -1,5 +1,6 @@
-"""Continuous-batching serve engine over the paged KV cache (port of
-``repro.serve.engine``: the ragged step and the split step).
+"""Serving engines (port of ``repro.serve.engine``): the
+continuous-batching engine over the paged KV cache, with the ragged step
+and the split step, and the fixed-slot engine over contiguous caches.
 
 ``step_mode="ragged"`` (the default) packs each decode-ready sequence's
 pending token and one prompt chunk per prefilling sequence into a
@@ -55,12 +56,25 @@ sampled token feeds the gate's estimates and ``admission_latencies``;
 pages (tiered: their formats too) in the reference's npz layout, so a
 snapshot passes between the two packages and between step modes.
 
+``prefill_mode="monolithic"`` admits each request with one dense
+prefill (``model.prefill``, or ``model.prefill_with_prefix`` over a
+prefix hit, which may end mid-page in a partial-page entry: the shared
+partial page is copied first and the tail's rows land at its offset) and
+installs the prefill's contiguous cache into the request's pages; as in
+the reference it turns the ragged step off and decodes through the split
+step's dispatches, with a log line. ``FixedSlotEngine``, the reference's
+golden engine, prefills a fixed batch densely and decodes it with one
+shared position over contiguous ring-buffer caches
+(``model.decode_step``); ``generate`` is the batch API of both engines.
+
 The page pools update in place: the reference's jitted steps donate the
-cache pytree and return a new one instead.
+cache pytree and return a new one instead. The reference bounds its
+per-length jitted prefill traces with an LRU (``prefill_trace_cache``);
+PyTorch runs eagerly, so the port has no traces to bound and no knob.
 
 Options of the reference's ``ServeConfig`` that this port does not run
-yet (monolithic prefill, the mesh, several prompt chunks per ragged row)
-raise ``NotImplementedError`` at construction; none falls back silently.
+yet (the mesh, several prompt chunks per ragged row) raise
+``NotImplementedError`` at construction; none falls back silently.
 """
 from __future__ import annotations
 
@@ -126,8 +140,9 @@ class ServeConfig:
     """The reference's serving knobs, same names and defaults. The ones
     below the line select paths that are not ported yet: anything but
     their defaults raises ``NotImplementedError`` at construction. The
-    reference's knob that only those paths read (the monolithic path's
-    trace cache) is left out. ``tiered`` reinterprets ``num_pages`` as the
+    reference's bound on the monolithic path's jitted traces
+    (``prefill_trace_cache``) has nothing to bound here and is left out.
+    ``tiered`` reinterprets ``num_pages`` as the
     fp8-equivalent byte budget (``num_pages * 4`` quarter-page units) over
     a physical pool twice that size."""
 
@@ -145,6 +160,11 @@ class ServeConfig:
     num_pages: Optional[int] = None  # default: max_slots * pages_per_slot
     prefix_cache: bool = True
     admit_window: int = 4
+    # "chunked" streams each prompt through prefill_chunk-token chunks in
+    # the engine steps; "monolithic" prefills it whole at admission (dense
+    # attention, then an install into its pages) and decodes through the
+    # split step
+    prefill_mode: str = "chunked"
     prefill_chunk: int = 64
     # the split step's prefill tokens per engine step, spent round-robin
     # across prefilling sequences in whole chunks (default: one chunk)
@@ -175,7 +195,6 @@ class ServeConfig:
     max_queue: Optional[int] = None
     # ---- not ported yet
     prefill_max_chunks: int = 1  # one prompt chunk per row and step
-    prefill_mode: str = "chunked"
     mesh_shape: Optional[tuple] = None
 
 
@@ -195,11 +214,12 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
         raise ValueError(
             f"unknown prefill_mode {scfg.prefill_mode!r} "
             "(expected 'chunked' or 'monolithic')")
-    if scfg.prefill_chunk <= 0:
-        raise ValueError("prefill_chunk must be >= 1")
-    if scfg.prefill_token_budget is not None \
-            and scfg.prefill_token_budget <= 0:
-        raise ValueError("prefill_token_budget must be >= 1")
+    if scfg.prefill_mode == "chunked":
+        if scfg.prefill_chunk <= 0:
+            raise ValueError("prefill_chunk must be >= 1")
+        if scfg.prefill_token_budget is not None \
+                and scfg.prefill_token_budget <= 0:
+            raise ValueError("prefill_token_budget must be >= 1")
     if scfg.step_mode not in ("ragged", "split", "megakernel"):
         raise ValueError(
             f"unknown step_mode {scfg.step_mode!r} "
@@ -212,9 +232,6 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
         spec_decode.resolve_drafter(scfg.drafter, cfg.vocab_size)
     SamplingParams(temperature=scfg.temperature, top_p=scfg.top_p,
                    top_k=scfg.top_k).validate()
-    if scfg.prefill_mode != "chunked":
-        raise _unported(f"prefill_mode={scfg.prefill_mode!r}",
-                        "A4 monolithic prefill")
     if scfg.mesh_shape is not None:
         raise _unported("sharded serving (mesh_shape)", "A7")
     if any(bd.mixer != "attn" for bd in cfg.all_blocks()):
@@ -261,6 +278,71 @@ def _validate_tiering(cfg: ModelConfig, scfg: ServeConfig,
             "repack_list_len >= 1")
 
 
+def _exact_cuda_products(device: torch.device) -> None:
+    """On a card, turn off the two cuBLAS switches that move the bf16
+    rounding points of the dense products (``nn.linear._dot_rounded``)
+    and the f32 attention sums away from the reference's."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _sample(logits: torch.Tensor, key, temperature: float) -> torch.Tensor:
+    """The fixed-slot engine's pick from the last logits row of (B, S, V)
+    ``logits``: the exact f32 argmax at temperature <= 0, else a
+    categorical draw of ``logits / temperature`` under the one threefry
+    ``key`` over the whole (B, V) batch, as ``jax.random.categorical``."""
+    logits = logits[:, -1].to(torch.float32)
+    if temperature <= 0:
+        return sampling.greedy(logits)
+    keys = torch.as_tensor(np.asarray(key, np.int64), device=logits.device)
+    return sampling.categorical(keys, logits / temperature)[0]
+
+
+class FixedSlotEngine:
+    """A fixed batch of slots sharing one position (the reference's golden
+    engine): one dense ``model.prefill`` of the whole (B, S0) batch into
+    contiguous caches of ``serve_cfg.max_seq`` positions, then one
+    ``model.decode_step`` a token. Runs on the card unless ``device`` is
+    the CPU; ``params`` live on that device."""
+
+    def __init__(self, params, cfg: ModelConfig, serve_cfg: ServeConfig,
+                 device="cuda"):
+        self.params = params
+        self.cfg = cfg
+        self.serve_cfg = serve_cfg
+        self.device = torch.device(device)
+        _exact_cuda_products(self.device)
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, max_new_tokens: int,
+                 key=None) -> np.ndarray:
+        """prompts (B, S0) int32 -> (B, S0 + max_new_tokens) int32. At
+        temperature > 0 the first token draws under ``key`` (default
+        ``PRNGKey(0)``, two uint32 words) and each later one under the
+        second half of a ``split`` of the running key, as the
+        reference."""
+        key = sampling.prng_key(0) if key is None else np.asarray(key)
+        toks = torch.as_tensor(np.asarray(prompts, np.int32),
+                               device=self.device).long()
+        s0 = toks.shape[1]
+        temp = self.serve_cfg.temperature
+        logits, cache = model.prefill(self.params, self.cfg, toks,
+                                      max_seq=self.serve_cfg.max_seq)
+        out = [toks]
+        tok = _sample(logits, key, temp)
+        for i in range(max_new_tokens):
+            out.append(tok[:, None])
+            if i == max_new_tokens - 1:
+                break
+            key, sub = sampling.split(key)
+            logits, cache = model.decode_step(self.params, self.cfg, cache,
+                                              tok[:, None], s0 + i)
+            tok = _sample(logits, sub, temp)
+        return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+
+
 class ContinuousBatchingEngine:
     """Continuous batching over a paged MX KV cache on one device."""
 
@@ -275,14 +357,13 @@ class ContinuousBatchingEngine:
             _validate_tiering(cfg, serve_cfg, self.tier)
         _check_supported(cfg, serve_cfg)
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            # either switch moves the bf16 rounding points of the dense
-            # products (nn.linear._dot_rounded) away from the reference's
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
-                = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        _exact_cuda_products(self.device)
         self.params = params
         self.cfg = cfg
+        # monolithic prefill builds full-length (non-ring) caches: slot ==
+        # absolute position, so a prompt's cache reshapes into its pages
+        self.chunked = serve_cfg.prefill_mode == "chunked"
+        self.cfg_prefill = cfg.replace(serve_full_cache=True)
         # the split step's attention path, as the reference sets it
         self.cfg_decode = cfg.replace(decode_kernel=serve_cfg.decode_kernel)
         self.serve_cfg = serve_cfg
@@ -303,11 +384,13 @@ class ContinuousBatchingEngine:
         self._submit_time: Dict[int, float] = {}
         self.admission_latencies: deque = deque(maxlen=4096)
         # the reference's ladder, decided here once from the configuration:
-        # the one-dispatch ragged step needs the fused kernel and an MX
-        # pool (attention-only mixers and chunked prefill are the only
-        # ported ones); anything else runs the split dispatches
+        # the one-dispatch ragged step needs the fused kernel, an MX pool
+        # and chunked prefill (monolithic admission dispatches outside the
+        # step; attention-only mixers are the only ported ones); anything
+        # else runs the split dispatches
         ragged_ok = (serve_cfg.decode_kernel == "fused"
-                     and cfg.quant.enabled and cfg.quant.quantize_kv_cache)
+                     and cfg.quant.enabled and cfg.quant.quantize_kv_cache
+                     and self.chunked)
         # "megakernel" is the ragged step with its layer stack fused, so
         # it inherits every ragged prerequisite
         ragged_like = serve_cfg.step_mode in ("ragged", "megakernel")
@@ -348,9 +431,10 @@ class ContinuousBatchingEngine:
         # split step drops such writes on the host and needs none
         self._trash_pages = 1 if self.ragged else 0
         # the split step's prefill budget in whole chunks (at least one)
-        self._chunks_per_step = max(
-            1, (serve_cfg.prefill_token_budget or serve_cfg.prefill_chunk)
-            // serve_cfg.prefill_chunk)
+        if self.chunked:
+            self._chunks_per_step = max(
+                1, (serve_cfg.prefill_token_budget
+                    or serve_cfg.prefill_chunk) // serve_cfg.prefill_chunk)
         ps = serve_cfg.page_size
         pages_per_slot = kv_cache.pages_for(serve_cfg.max_seq, ps)
         self.num_pages = (serve_cfg.num_pages
@@ -364,7 +448,7 @@ class ContinuousBatchingEngine:
         self.scheduler = Scheduler(
             max_slots=serve_cfg.max_slots, num_pages=self.num_pages,
             page_size=ps, max_seq=serve_cfg.max_seq,
-            prefill_chunk=serve_cfg.prefill_chunk,
+            prefill_chunk=serve_cfg.prefill_chunk if self.chunked else 0,
             prefix_cache=serve_cfg.prefix_cache,
             admit_window=serve_cfg.admit_window,
             max_deferrals=serve_cfg.max_deferrals,
@@ -594,9 +678,62 @@ class ContinuousBatchingEngine:
                             self._set_page_fmt(seq.pages[i],
                                                FORMAT_BY_ID[fid])
                 continue
-            # chunked admission binds the slot and pages; the prompt
-            # streams through the ragged steps
             self.prompt_tokens += len(seq.req.prompt)
+            # chunked admission only binds the slot and pages (the prompt
+            # streams through the engine steps); monolithic prefills here
+            if not self.chunked:
+                self._admit_monolithic(seq)
+
+    def _admit_monolithic(self, seq) -> None:
+        """Prefill ``seq``'s prompt whole and install it into its pages:
+        cold, one ``model.prefill``; over a prefix hit, a tail prefill
+        against the hit's pages. A hit that ends mid-page extends the
+        partial page in place, so a shared one is copied first (if no
+        page is left for the copy, the tree's partial entry lets go of
+        it) and the tail's rows land at its offset. Then the prompt
+        registers in the prefix tree and its first token is sampled from
+        the prefill's logits (stream index 0)."""
+        sched = self.scheduler
+        ps = self.serve_cfg.page_size
+        prompt = seq.req.prompt
+        cached = seq.cached_tokens
+        dev = self.device
+        if cached:
+            n_full, valid = divmod(cached, ps)
+            n_gather = n_full + (1 if valid else 0)
+            tail = prompt[cached:]
+            if valid and sched.pool.ref(seq.pages[n_full]) > 1:
+                self._copy_on_write(seq, n_full)
+            logits, pfcache = model.prefill_with_prefix(
+                self.params, self.cfg_prefill, self.cache,
+                torch.as_tensor(tail[None], device=dev).long(),
+                self._ids(seq.pages[:n_gather]), cached,
+                kv_cache.pages_for(len(tail), ps) * ps)
+            self._count_dispatch("prefill")
+            self.prefill_tokens += len(tail)
+            layers = model.cache_layers(self.cfg_prefill, pfcache)
+            ids = self._ids(seq.pages[n_full:])
+            if valid:
+                kv_cache.install_prefill_offset(self.cache, layers, ids, ps,
+                                                valid, len(tail))
+            else:
+                kv_cache.install_prefill(self.cache, layers, ids, ps)
+        else:
+            logits, pfcache = model.prefill(
+                self.params, self.cfg_prefill,
+                torch.as_tensor(prompt[None], device=dev).long(),
+                max_seq=kv_cache.pages_for(len(prompt), ps) * ps)
+            self._count_dispatch("prefill")
+            self.prefill_tokens += len(prompt)
+            kv_cache.install_prefill(
+                self.cache, model.cache_layers(self.cfg_prefill, pfcache),
+                self._ids(seq.pages), ps)
+        self._count_dispatch("write")
+        sched.register_prefix(seq)
+        tok = int(self._sample_rows(logits[:, -1], [(0, seq)])[0])
+        self._count_dispatch("prefill")
+        self._record_first_token(seq.req.id)
+        sched.record_token(seq, tok, eos_id=self.serve_cfg.eos_id)
 
     def _swap_out(self, victim) -> None:
         """Preempt ``victim``: snapshot + free only the pages it owns
@@ -656,6 +793,36 @@ class ContinuousBatchingEngine:
             if not self._relieve_pressure(seq):
                 return None
 
+    def _copy_on_write(self, seq, i: int) -> Optional[int]:
+        """Give ``seq`` sole ownership of its shared page ``seq.pages[i]``
+        before a write: a fresh page with the shared one's bytes, or, when
+        none is left, the prefix tree's partial entry lets go of it
+        (:meth:`_unpin_partial`). Returns the new page (None: written in
+        place); raises when the pool cannot give either."""
+        sched = self.scheduler
+        pid = seq.pages[i]
+        new = self._alloc_one(seq)
+        if new is None:
+            if self._unpin_partial(pid):
+                return None
+            raise RuntimeError("page pool exhausted for a lone sequence")
+        kv_cache.copy_page(self.cache, pid, new)
+        self._count_dispatch("write")
+        sched.pool.free([pid])
+        seq.pages[i] = new
+        sched.cow_copies += 1
+        return new
+
+    def _unpin_partial(self, pid: int) -> bool:
+        """When a page that must be written is shared and no page is left
+        for its copy, and its only other holder is the prefix tree's
+        partial entry, drop that entry so the writer owns the page: a pool
+        sized to its sequences must not deadlock on the tree's own pin.
+        True if the writer now holds ``pid`` alone."""
+        prefix = self.scheduler.prefix
+        return (prefix is not None and prefix.release_partial(pid)
+                and self.scheduler.pool.ref(pid) == 1)
+
     def _ensure_pages(self) -> None:
         """Grow each decoding sequence's table for this step's write window
         (its token, and K drafts under speculation) and give it sole
@@ -678,16 +845,9 @@ class ContinuousBatchingEngine:
                     continue
                 src_fmt = (int(self.page_fmts[pid])
                            if self.tiered else None)
-                new = self._alloc_one(seq)
-                if new is None:
-                    raise RuntimeError(
-                        "page pool exhausted for a lone sequence")
-                kv_cache.copy_page(self.cache, pid, new)
-                self._count_dispatch("write")
-                sched.pool.free([pid])
-                seq.pages[wp] = new
-                sched.cow_copies += 1
-                if self.tiered and src_fmt != self._base_fmt_id:
+                new = self._copy_on_write(seq, wp)
+                if self.tiered and new is not None \
+                        and src_fmt != self._base_fmt_id:
                     # the copy inherited a narrow encoding, and this
                     # step's write lands fp8 bytes: promote the copy to
                     # the base format first (widening is lossless)
@@ -1061,7 +1221,7 @@ class ContinuousBatchingEngine:
         (a prompt's final chunk samples its first token, and the sequence
         decodes in this same step), the tiering pass, then one decode (or
         verify) dispatch if any sequence is ready."""
-        seconds = self._run_prefill_chunks()
+        seconds = self._run_prefill_chunks() if self.chunked else None
         self._run_repack()
         if self.scheduler.decode_ready():
             seconds = (seconds or 0.0) + (
@@ -1173,7 +1333,8 @@ class ContinuousBatchingEngine:
         if prefix is None:
             raise RuntimeError("engine has no prefix cache to save")
         state = prefix.export_state()
-        pids = sorted({node["page"] for node in state["nodes"]})
+        pids = sorted({node["page"] for node in state["nodes"]}
+                      | {ent["page"] for ent in state["partials"]})
         payload = {
             "structure": np.frombuffer(json.dumps(state).encode(), np.uint8),
             "page_ids": np.asarray(pids, np.int64),
@@ -1226,6 +1387,11 @@ class ContinuousBatchingEngine:
                 if self.tiered:
                     fmts = [int(f) for f in data["page_fmts"]]
         prefix.check_state(state)
+        missing = ({n["page"] for n in state["nodes"]}
+                   | {e["page"] for e in state["partials"]}) - set(old_ids)
+        if missing:
+            raise ValueError(f"prefix snapshot names pages {sorted(missing)}"
+                             " that it does not carry")
         new_ids = []
         if old_ids:
             new_ids = self.scheduler.alloc_with_evict(len(old_ids))
@@ -1255,6 +1421,24 @@ class ContinuousBatchingEngine:
             out[req.id] = np.concatenate(
                 [req.prompt, np.asarray(req.generated, np.int32)])
         self.scheduler.finished.clear()
+        return out
+
+    def generate(self, prompts: np.ndarray, max_new_tokens: int,
+                 key=None) -> np.ndarray:
+        """The batch API, shaped as ``FixedSlotEngine.generate``: (B, S0)
+        prompts -> (B, S0 + max_new_tokens) int32, a row that stops early
+        at EOS right-padded with ``eos_id`` (0 without one). ``key`` is
+        the reference's argument; each request samples from its own seed,
+        so nothing reads it, there or here."""
+        prompts = np.asarray(prompts, np.int32)
+        b, s0 = prompts.shape
+        ids = [self.submit(prompts[i], max_new_tokens) for i in range(b)]
+        results = self.run()
+        pad = self.serve_cfg.eos_id if self.serve_cfg.eos_id is not None \
+            else 0
+        out = np.full((b, s0 + max_new_tokens), pad, np.int32)
+        for row, rid in enumerate(ids):
+            out[row, :len(results[rid])] = results[rid]
         return out
 
     def cache_stats(self) -> Dict[str, float]:
@@ -1351,3 +1535,14 @@ def _param_leaves(tree):
 
 # the default engine: continuous batching over the paged MX cache
 ServeEngine = ContinuousBatchingEngine
+
+
+def make_serve_step(cfg: ModelConfig):
+    """The (params, cache, tokens, pos) -> (logits, cache) one-token
+    decode step over a contiguous cache (``model.decode_step``; the cache
+    updates in place and is returned as the reference returns it)."""
+
+    def serve_step(params, cache, tokens, pos):
+        return model.decode_step(params, cfg, cache, tokens, pos)
+
+    return serve_step

@@ -177,6 +177,44 @@ def _leaves(pool: dict):
     return [(key, leaf.view(torch.uint8)) for key, leaf in pool.items()]
 
 
+def _install_pairs(cache: list, prefill_layers: list) -> list:
+    """(destination, source) uint8 views of an install, a pair a layer and
+    leaf: (NP, PS, ...) pool leaves against (1, T, ...) prefill leaves.
+    On a uniform stack the pools are slices of ``PagedCache.stack``, so
+    the writes land in the tensors the stacked kernels read. ``kpos`` is
+    not installed."""
+    return [(leaf.view(torch.uint8), lay[key].view(torch.uint8))
+            for pool, lay in zip(cache, prefill_layers)
+            for key, leaf in pool.items()]
+
+
+def install_prefill(cache: list, prefill_layers: list,
+                    page_ids: torch.Tensor, page_size: int) -> None:
+    """Write one request's prefill cache into its pages ``page_ids`` in
+    place. ``prefill_layers`` are the per-layer views
+    (``model.cache_layers``) of a batch-1 cache of ``len(page_ids) *
+    page_size`` positions without a ring (``serve_full_cache``), so slot t
+    is row t % page_size of page t // page_size."""
+    n = page_ids.shape[0]
+    for dst, src in _install_pairs(cache, prefill_layers):
+        dst[page_ids] = src[0].reshape(n, page_size, *src.shape[2:])
+
+
+def install_prefill_offset(cache: list, prefill_layers: list,
+                           page_ids: torch.Tensor, page_size: int,
+                           offset: int, num_rows: int) -> None:
+    """Write a prefill tail that starts mid-page (a partial-page prefix
+    hit): row r of ``prefill_layers`` lands at row ``offset + r`` of the
+    span of ``page_ids``, for the first ``num_rows`` rows (the rest is
+    padding). The caller owns every written page alone (copy-on-write
+    first); the first page keeps its cached rows below ``offset``."""
+    rows = torch.arange(num_rows, device=page_ids.device) + offset
+    pidx = page_ids[rows // page_size]
+    sidx = rows % page_size
+    for dst, src in _install_pairs(cache, prefill_layers):
+        dst[pidx, sidx] = src[0, :num_rows]
+
+
 def copy_page(cache: list, src: int, dst: int) -> None:
     """Copy physical page ``src`` -> ``dst`` in every layer's pool (the
     device half of copy-on-write)."""

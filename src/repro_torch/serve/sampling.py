@@ -152,6 +152,15 @@ def fold_in(keys, data):
     return _stack(list(threefry2x32(keys[..., 0], keys[..., 1], d * 0, d)))
 
 
+def split(key, num: int = 2):
+    """``jax.random.split`` of one (2,) key into (num, 2) keys (jax's
+    partitionable layout: key i is the threefry of the counter pair
+    ``[0, i]``, which is ``fold_in(key, i)``); tensor or numpy, as
+    ``key`` is."""
+    xp = torch if isinstance(key, torch.Tensor) else np
+    return fold_in(key, xp.arange(num))
+
+
 def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.bits`` (32-bit) of ``shape`` under each key: (..., 2)
     keys -> (..., *shape) int64 words. Element i's counters are the hi and
@@ -187,11 +196,12 @@ def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:
 
 
 def categorical(keys: torch.Tensor, logits: torch.Tensor) -> tuple:
-    """``jax.random.categorical`` over the last axis: (N, 2) keys and
-    (N, V) f32 logits -> ((N,) argmax of the perturbed scores logits +
-    gumbel, (N,) how far each pick won: the gap between the top two
-    scores, inf where one is finite)."""
-    scores = gumbel(keys, logits.shape[-1:]) + logits
+    """``jax.random.categorical`` over the last axis of (N, V) f32 logits,
+    under (N, 2) keys, one a row, or one (2,) key drawing the whole (N,
+    V) noise: ((N,) argmax of the perturbed scores logits + gumbel, (N,)
+    how far each pick won: the gap between the top two scores, inf where
+    one is finite)."""
+    scores = gumbel(keys, logits.shape[keys.dim() - 1:]) + logits
     drawn = torch.argmax(scores, dim=-1)
     top2 = scores.topk(2, dim=-1).values
     return drawn, top2[:, 0] - top2[:, 1]

@@ -8,9 +8,13 @@ batches (ragged) or (max_slots, 1) decode batches (split) and a
 mid-stream.
 
   * **admission** — FCFS with a bounded skip-ahead window; with a prefix
-    cache, the longest page-aligned hit is retained into the request's
-    page table first. Admission binds the slot and all of the prompt's
-    pages; the prompt then streams through chunks (``prefill_pos``).
+    cache, the longest hit is retained into the request's page table
+    first (page-aligned under chunked prefill; monolithic prefill, with
+    ``prefill_chunk`` 0, also takes a hit that ends in a partial-page
+    entry). Admission binds the slot and all of the prompt's pages; the
+    prompt then streams through chunks (``prefill_pos``), or the engine
+    prefills it whole at once (monolithic: ``pos`` is the prompt's
+    length and ``prefill_pos`` None).
   * **deferral** — a request sharing an unregistered page-aligned head
     with a still-prefilling sequence waits (at most ``max_deferrals``
     attempts) until those pages register, so a shared-prefix burst
@@ -94,14 +98,15 @@ class ActiveSeq:
     pos: int  # next cache write position == tokens currently resident
     pages: List[int]
     order: int  # admission sequence number (preemption picks the youngest)
-    cached_tokens: int = 0  # page-aligned prefix-cache hit at admission
+    cached_tokens: int = 0  # prefix-cache hit at admission
     # next prompt chunk's start row; None once the prompt is resident
     prefill_pos: Optional[int] = None
 
 
 class Scheduler:
     def __init__(self, *, max_slots: int, num_pages: int, page_size: int,
-                 max_seq: int, prefill_chunk: int, prefix_cache: bool = False,
+                 max_seq: int, prefill_chunk: int = 0,
+                 prefix_cache: bool = False,
                  admit_window: int = 4, max_deferrals: int = 8,
                  num_draft_tokens: int = 0,
                  unit_budget: Optional[int] = None,
@@ -109,10 +114,11 @@ class Scheduler:
         self.max_slots = max_slots
         self.page_size = page_size
         self.max_seq = max_seq
-        if prefill_chunk <= 0 or prefill_chunk % page_size != 0:
+        # chunked prefill (0: monolithic): chunk starts stay page-aligned
+        if prefill_chunk and prefill_chunk % page_size != 0:
             raise ValueError(
-                f"prefill_chunk={prefill_chunk} must be a positive multiple "
-                f"of page_size={page_size}: chunk starts must stay "
+                f"prefill_chunk={prefill_chunk} must be a multiple of "
+                f"page_size={page_size}: chunk starts must stay "
                 "page-aligned so no page blends two chunks")
         self.prefill_chunk = prefill_chunk
         self.pages_per_slot = pages_for(max_seq, page_size)
@@ -270,8 +276,13 @@ class Scheduler:
                 raise RuntimeError("mid-stream request without snapshot")
             hit, cached = [], 0
             if self.prefix is not None:
-                hit, cached = self.prefix.acquire(req.prompt)
-            if (self.prefix is not None
+                # chunks start on page boundaries, so chunked prefill takes
+                # page-aligned hits only; monolithic admission also takes a
+                # partial last page (the engine copies it and installs the
+                # tail's rows in place)
+                hit, cached = self.prefix.acquire(
+                    req.prompt, full_only=bool(self.prefill_chunk))
+            if (self.prefill_chunk and self.prefix is not None
                     and req.defer_count < self.max_deferrals):
                 # a prompt sharing an unregistered page-aligned head with a
                 # sequence still streaming chunks waits until those pages
@@ -301,9 +312,12 @@ class Scheduler:
             pages = hit + ids
             if self.prefix is not None:
                 self.prefix.record_lookup(cached)
-            # only the prefix hit is resident so far; the tail streams
-            # through chunks
-            pos0, prefill_pos = cached, cached
+            if self.prefill_chunk:
+                # only the prefix hit is resident so far; the tail streams
+                # through chunks
+                pos0, prefill_pos = cached, cached
+            else:
+                pos0, prefill_pos = len(req.prompt), None
         seq = ActiveSeq(req=req, slot=slot, pos=pos0, pages=pages,
                         order=self._order, cached_tokens=cached,
                         prefill_pos=prefill_pos)
@@ -328,9 +342,11 @@ class Scheduler:
 
     def register_prefix(self, seq: ActiveSeq) -> None:
         """Insert ``seq``'s full prompt pages into the radix tree once
-        their bytes are resident."""
+        their bytes are resident; monolithic prefill also registers the
+        prompt's partial last page (chunked prefill cannot use it)."""
         if self.prefix is not None:
-            self.prefix.insert(seq.req.prompt, seq.pages)
+            self.prefix.insert(seq.req.prompt, seq.pages,
+                               partial=not self.prefill_chunk)
 
     def try_grow(self, seq: ActiveSeq, num_tokens: int = 1) -> bool:
         """Grow ``seq``'s page table to cover ``num_tokens`` rows written

@@ -144,13 +144,26 @@ def test_prefix_preemption_scenario_is_a_near_tie_not_a_paging_fault(
 
 @pytest.mark.parametrize("override", [
     dict(step_mode="megakernel", prefill_max_chunks=2),
-    dict(prefill_mode="monolithic"), dict(mesh_shape=(1, 2)),
-    dict(prefill_max_chunks=2)])
+    dict(mesh_shape=(1, 2)), dict(prefill_max_chunks=2)])
 def test_unported_serve_options_raise(override):
     _, tcfg = _configs()
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine({}, tcfg, ServeConfig(**override),
                                  device="cpu")
+
+
+def test_monolithic_prefill_with_tiering_raises_as_the_reference():
+    """Monolithic prefill is ported, but the tiered cache still refuses
+    it, with the reference's ValueError and message."""
+    jcfg, tcfg = _configs()
+    kw = dict(max_seq=32, max_slots=2, page_size=8, tiered=True,
+              prefill_mode="monolithic")
+    jparams, _ = jmodel.init(jax.random.PRNGKey(0), jcfg)
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jparams, jcfg, JaxServeConfig(**kw))
+    with pytest.raises(ValueError) as got:
+        ContinuousBatchingEngine({}, tcfg, ServeConfig(**kw), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_launcher_batch_workload_on_cpu():
@@ -162,8 +175,33 @@ def test_launcher_batch_workload_on_cpu():
     assert report["requests"] == 3 and report["generated_tokens"] == 12
     assert report["kernel_launches"] == 0  # CPU tensors: the plain version
     assert report["prefix_hit_rate"] > 0
-    with pytest.raises(SystemExit):  # still unported: names ROADMAP A4
-        serve.main(["--arch", "granite-8b", "--engine", "fixed"])
+    with pytest.raises(SystemExit):  # still unported: names ROADMAP A5
+        serve.main(["--arch", "granite-8b", "--prefill-max-chunks", "2"])
+
+
+def test_launcher_fixed_engine_and_monolithic_prefill_on_cpu():
+    """``--engine fixed`` runs the fixed-slot engine's ``generate`` on the
+    reference launcher's fixed batch; ``--prefill-mode monolithic`` serves
+    the batch workload through monolithic admission (split dispatches, a
+    prefix hit from the shared head); the reference's ``--engine fixed``
+    rules refuse speculation, the server and the tiered cache."""
+    from repro_torch.launch import serve
+
+    common = ["--arch", "granite-8b", "--reduced", "--batch", "3",
+              "--prompt-len", "24", "--shared-prefix", "16",
+              "--new-tokens", "4", "--device", "cpu"]
+    fixed = serve.main(common + ["--engine", "fixed"])
+    assert fixed["out"].shape == (3, 16 + 24 + 4)
+    np.testing.assert_array_equal(fixed["out"][:, :40], fixed["prompts"])
+    assert (fixed["prompts"][:, :16] == fixed["prompts"][0, :16]).all()
+    mono = serve.main(common + ["--prefill-mode", "monolithic", "--ragged"])
+    assert mono["step_mode"] == "split" and mono["ragged_steps"] == 0
+    assert mono["generated_tokens"] == 12 and mono["prefix_hit_rate"] > 0
+    assert mono["dispatches"]["prefill"] == 2 * 3
+    for flags in (["--spec-decode"], ["--serve"], ["--tiered"]):
+        with pytest.raises(SystemExit):
+            serve.parse_args(["--arch", "granite-8b", "--engine", "fixed",
+                              *flags])
 
 
 def test_launcher_tiered_on_cpu():

@@ -358,6 +358,9 @@ def test_snapshot_rejects_mismatched_geometry(R, tmp_path):
 
 
 def test_snapshot_refuses_partial_entries(R, tmp_path):
+    """Partial-page entries load with the pages the snapshot carries
+    (tests/test_torch_monolithic.py round-trips them); an entry on a page
+    the snapshot does not carry is refused before any page is taken."""
     e1 = _port(R, **SNAP)
     _fill(e1, new=4)
     path = tmp_path / "prefix.npz"
@@ -365,13 +368,14 @@ def test_snapshot_refuses_partial_entries(R, tmp_path):
     with np.load(path) as data:
         payload = dict(data)
     state = json.loads(bytes(payload["structure"]).decode())
-    state["partials"] = [{"node": 0, "tail": [1, 2], "page": 0,
+    state["partials"] = [{"node": 0, "tail": [1, 2],
+                          "page": int(payload["page_ids"].max()) + 1,
                           "last_use": 1}]
     payload["structure"] = np.frombuffer(json.dumps(state).encode(),
                                          np.uint8)
     np.savez(tmp_path / "partial.npz", **payload)
     e2 = _port(R, **SNAP)
-    with pytest.raises(ValueError, match="A4"):
+    with pytest.raises(ValueError, match="does not carry"):
         e2.load_prefix_cache(tmp_path / "partial.npz")
     assert e2.scheduler.pool.pages_in_use == 0
 
@@ -800,7 +804,7 @@ def test_launcher_flags_reach_serve_config():
     for flag in ("--slo-ms", "--max-queue", "--serve", "--host", "--port",
                  "--prefix-snapshot"):
         assert flag not in tlaunch.UNPORTED_FLAGS
-    assert "--engine" in tlaunch.UNPORTED_FLAGS
+    assert "--mesh" in tlaunch.UNPORTED_FLAGS
     args = tlaunch.parse_args(LAUNCH + ["--slo-ms", "250", "--max-queue",
                                         "3", "--serve", "--port", "0"])
     _, eng = tlaunch.build_engine(args)
@@ -809,8 +813,8 @@ def test_launcher_flags_reach_serve_config():
     assert args.serve and args.port == 0 and args.host == "127.0.0.1"
     _, eng = tlaunch.build_engine(tlaunch.parse_args(LAUNCH))
     assert (eng.serve_cfg.slo_ms, eng.serve_cfg.max_queue) == (None, None)
-    with pytest.raises(SystemExit):
-        tlaunch.parse_args(LAUNCH + ["--engine", "fixed"])
+    with pytest.raises(SystemExit):  # the front end needs --engine continuous
+        tlaunch.parse_args(LAUNCH + ["--engine", "fixed", "--serve"])
 
 
 def test_run_server_loads_and_writes_back_the_snapshot(tmp_path, caplog):
