@@ -130,7 +130,26 @@ code is not 0 and no result line is printed:
      the peak memory logged; (b) a reduced granite's monolithic run with
      a next turn (a partial-page hit) and a fixed-slot batch, streams
      equal on the card and the CPU;
-  8. print the kernels line, then the device line last.
+  8. the configs past granite: (a) gemma2-9b at full width (42 layers,
+     local layers windowed at 4,096, softcaps, GeGLU, post-norms, head_dim
+     256; random seeded weights) with the ServeConfig defaults: phase 4's
+     eight prompt shapes and a ninth request of 4,200 tokens, past the
+     window, #1's count reset just before and read just after (exactly 42
+     launches a step); one full-width step with #1 and with #1's plain
+     version on the card (logits within STEP_TOL_ULPS, argmax equal where
+     the pick leads by more than two ulps, visits equal, a local layer's
+     walk of the long rows shorter than a global layer's), #1 timed at a
+     local and a global layer's inputs beside its plain version and its
+     bound; then
+     ``--step-mode megakernel``: the reference's fallback reason logged,
+     the ragged step served, streams equal; (b) phi4-mini-3.8b at full
+     width on phase 4's workload, ragged (#1 32 launches a step) then
+     megakernel (#8 one a step), streams equal where every pick leads by
+     more than one ulp, #1 (a layer's call) and #8's layer stack timed
+     beside their plain versions and bounds; (c) reduced gemma2-2b, gemma2-9b and phi4-mini
+     through the ragged, split and monolithic steps and the fixed-slot
+     engine, streams equal on card and CPU;
+  9. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -140,6 +159,7 @@ import functools
 import gc
 import itertools
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -426,11 +446,16 @@ def _kw(inp, fmt: str) -> dict:
     return kw
 
 
-def _causal_keys(first: int, n_q: int, last_key: int) -> int:
+def _causal_keys(first: int, n_q: int, last_key: int, window=None) -> int:
     """(query, key) pairs a causal mask keeps: queries at positions
-    ``first``, ``first + 1``, ... (``n_q`` of them) each see keys 0 up to
-    their own position, and none past ``last_key``."""
-    return sum(min(first + i, last_key) + 1 for i in range(n_q))
+    ``first``, ``first + 1``, ... (``n_q`` of them, none past
+    ``last_key``, where the kernel clamps them) each see keys from their
+    own position less ``window - 1`` (0 without a window) up to it."""
+    kept = 0
+    for i in range(n_q):
+        t = min(first + i, last_key)
+        kept += t + 1 if window is None else min(t + 1, window)
+    return kept
 
 
 def _rows_below(p: int, end: int) -> int:
@@ -438,59 +463,71 @@ def _rows_below(p: int, end: int) -> int:
     return max(0, min(PS, end - p * PS))
 
 
-def ragged_bound(fmt: str = "fp8_e4m3", block: int = BLOCK,
-                 inp=None) -> tuple:
-    """(bound_ms, bound_by) of one call: each input read once and each
-    output written once. Pool rows read are the resident ones below each
-    row's start (a mixed page's rows at the prefix its format fills);
-    q.k and P.V count the (query, key) pairs the causal mask keeps, a
-    padding query clamped to its row's last real one as the kernel
-    clamps it."""
-    pool_bytes, pairs = ragged_pool_traffic(fmt, block, inp)
-    read = (2 * R * KVH * W * G * D  # q
-            + 2 * 2 * R * W * KVH * D  # k_new, v_new
-            + 4 * (R * P + 2 * R))  # table, row_start, seq_lens
-    written = (4 * R * KVH * W * G * D  # f32 out
-               + 4 * R * KVH)  # visits
+def ragged_bound(fmt: str = "fp8_e4m3", block: int = BLOCK, inp=None,
+                 rows=None, shape=(R, KVH, W, G, D), window=None,
+                 table_len: int = R * P) -> tuple:
+    """(bound_ms, bound_by) of one call over ``rows`` (``inp``'s, else
+    ROWS) at ``shape`` = q's (R, KVH, W, G, D), ``table_len`` table
+    entries: each input read once and each output written once. Pool
+    rows read are the resident ones below each row's start that its
+    queries can see (a mixed page's rows at the prefix its format
+    fills); q.k and P.V count the (query, key) pairs the causal mask and
+    ``window`` keep, a padding query clamped to its row's last real one
+    as the kernel clamps it."""
+    r, kvh, w, g, d = shape
+    pool_bytes, pairs = ragged_pool_traffic(fmt, block, inp, rows, shape,
+                                            window)
+    read = (2 * r * kvh * w * g * d  # q
+            + 2 * 2 * r * w * kvh * d  # k_new, v_new
+            + 4 * (table_len + 2 * r))  # table, row_start, seq_lens
+    written = (4 * r * kvh * w * g * d  # f32 out
+               + 4 * r * kvh)  # visits
     bytes_ms = 1e3 * (read + pool_bytes + written) / HBM_BYTES_PER_S
-    ops_ms = ragged_walk_ops_ms(pairs)
+    ops_ms = ragged_walk_ops_ms(pairs, d)
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def ragged_pool_traffic(fmt: str = "fp8_e4m3", block: int = BLOCK,
-                        inp=None) -> tuple:
+                        inp=None, rows=None, shape=(R, KVH, W, G, D),
+                        window=None) -> tuple:
     """(pool bytes, kept (query, key) pairs) of one ragged step over
-    ``inp``'s rows (ROWS without ``inp``): the K and V rows attended from
-    the pool (the resident ones below each row's start; a mixed page's
-    rows at the prefix its format fills) and the merged new rows
-    written."""
+    ``rows`` (``inp``'s, else ROWS) at ``shape`` (q's): the K and V rows
+    attended from the pool (the resident ones below each row's start,
+    from the first its queries see under ``window``; a mixed page's rows
+    at the prefix its format fills) and the merged new rows written (an
+    inactive row writes one to the trash page)."""
     from repro_torch.core import formats as F
 
-    nb = D // block
-    wbytes = F.get_format(fmt).storage_len(D)  # bytes of a written row
+    _, kvh, w, g, d = shape
+    rows = rows or (ROWS if inp is None else inp["rows"])
+    nb = d // block
+    wbytes = F.get_format(fmt).storage_len(d)  # bytes of a written row
     resident_bytes = 0  # one K or V row of every resident position
     rows_written = pairs = 0
-    for i, (start, n_new) in enumerate(ROWS if inp is None else inp["rows"]):
+    for i, (start, n_new) in enumerate(rows):
         seq_len = start + max(n_new, 1)
-        for p in range(min(-(-start // PS), P)):
+        lo = 0 if window is None else max(start - window + 1, 0)
+        for p in range(lo // PS, -(-start // PS)):
             ed = wbytes
             if inp is not None and inp["fmts"] is not None:
                 page = int(inp["table"][i, p]) if n_new else R * P
                 ed = F.get_format(F.FORMAT_BY_ID[inp["fmts"][page]]) \
-                    .storage_len(D)
-            resident_bytes += _rows_below(p, start) * KVH * (ed + nb)
+                    .storage_len(d)
+            resident_bytes += (_rows_below(p, start) - _rows_below(p, lo)) \
+                * kvh * (ed + nb)
         rows_written += max(n_new, 1)
-        pairs += KVH * G * _causal_keys(start, W, seq_len - 1)
-    return (2 * resident_bytes + 2 * rows_written * KVH * (wbytes + nb),
+        pairs += kvh * g * _causal_keys(start, w, seq_len - 1, window)
+    return (2 * resident_bytes + 2 * rows_written * kvh * (wbytes + nb),
             pairs)
 
 
-def ragged_walk_ops_ms(pairs: int) -> float:
+def ragged_walk_ops_ms(pairs: int, d: int = D) -> float:
     """q.k (bf16 q x exact-in-bf16 keys) and P.V (the f32 probabilities as
-    three exact bf16 terms x values) of ``pairs`` kept (query, key) pairs:
-    four bf16 tensor-core products at the bf16 peak."""
-    return 1e3 * (2 * pairs * D + 3 * 2 * pairs * D) / BF16_FLOPS
+    three exact bf16 terms x values) of ``pairs`` kept (query, key) pairs
+    at head_dim ``d``: four bf16 tensor-core products at the bf16
+    peak."""
+    return 1e3 * (2 * pairs * d + 3 * 2 * pairs * d) / BF16_FLOPS
 
 
 def check_ragged_case(mxa, inp, fmt: str, label: str) -> float:
@@ -906,9 +943,10 @@ def prefill_inputs(label: str, rows: list, gen, dev: str = "cuda") -> dict:
 
 def run_paged(mxa, inp, pools, plain: bool = False):
     """One call of the verify or prefill kernel (or its plain version, with
-    the wrapper's normalisation) on ``pools``; returns (out, visits)."""
-    kw = dict(fmt_name=inp["fmt"], block_size=inp["block"])
-    if inp["page_fmts"] is not None:
+    the wrapper's normalisation) on ``pools``; returns (out, visits).
+    ``inp["kw"]``, where given, holds a captured call's keywords."""
+    kw = inp.get("kw") or dict(fmt_name=inp["fmt"], block_size=inp["block"])
+    if inp.get("page_fmts") is not None:
         kw.update(page_fmts=inp["page_fmts"], mixed_fmts=MIXED)
     npages = pools[0].shape[0]
     if inp["kind"] == "verify":
@@ -922,7 +960,8 @@ def run_paged(mxa, inp, pools, plain: bool = False):
             **kw)
     if plain:
         table, starts, lens = mxa.normalize_prefill(
-            inp["table"], inp["starts"], inp["lens"], npages, CHUNK)
+            inp["table"], inp["starts"], inp["lens"], npages,
+            inp["q"].shape[2])
         return mxa.mx_attention_prefill_fused_plain(
             inp["q"], inp["k"], inp["v"], *pools, table, starts, lens, **kw)
     out, _, visits = mxa.mx_attention_prefill_fused(
@@ -1477,10 +1516,10 @@ def megakernel_layers(params, cfg, cache, tokens, table, starts, lens,
     and returns (x, visits): the kernel's wrapper, or with ``plain`` its
     plain version (on the card, with cuBLAS products)."""
     from repro_torch.kernels import mx_megakernel as mk
-    from repro_torch.nn import embedding, model
+    from repro_torch.nn import model
 
     lay, pools = model.megakernel_stacks(params, cache)
-    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    x = model._embed(params, cfg, tokens)
     weights = [lay["mixer"][k]["w"] for k in ("wq", "wk", "wv", "wo")] \
         + [lay["ffn"][k]["w"] for k in ("gate", "up", "down")]
     norms = (lay["norm_mixer"]["scale"], lay["norm_ffn"]["scale"])
@@ -1550,21 +1589,25 @@ def run_with_pools(fn, params, cfg, cache, args, pools0) -> tuple:
     return logits, [t.clone() for t in stacked]
 
 
-def megakernel_bound(cfg) -> tuple:
-    """(bound_ms, bound_by) of the layer stack over ROWS: the products'
-    FLOPs at the bf16 peak plus each layer's walk (q.k and P.V of the kept
-    pairs), against the bytes of the weights, the norm scales, the
-    residual in and out and each layer's pool rows read and written."""
-    m = R * W
-    dm, dff = cfg.d_model, cfg.d_ff
-    hd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+def megakernel_bound(cfg, rows=ROWS) -> tuple:
+    """(bound_ms, bound_by) of the layer stack over ``rows`` (W columns
+    a row): the products' FLOPs at the bf16 peak plus each layer's walk
+    (q.k and P.V of the kept pairs, as :func:`ragged_bound` counts them),
+    against the bytes of the weights, the norm scales, the residual in
+    and out and each layer's pool rows read and written."""
+    m = len(rows) * W
+    dm, dff, d = cfg.d_model, cfg.d_ff, cfg.head_dim
+    kvh = cfg.num_kv_heads
+    hd, kvd = cfg.num_heads * d, kvh * d
     per_layer = dm * hd + 2 * dm * kvd + hd * dm + 3 * dm * dff
     layers = cfg.num_layers
-    pool_bytes, pairs = ragged_pool_traffic()
+    pool_bytes, pairs = ragged_pool_traffic(
+        cfg.quant.fmt, min(cfg.quant.block_size, d), rows=rows,
+        shape=(len(rows), kvh, W, cfg.num_heads // kvh, d))
     ops_ms = (1e3 * 2.0 * m * per_layer * layers / BF16_FLOPS
-              + layers * ragged_walk_ops_ms(pairs))
+              + layers * ragged_walk_ops_ms(pairs, d))
     nbytes = (layers * (2 * per_layer + 2 * 4 * dm + pool_bytes)
-              + 2 * 2 * m * dm + 4 * (R * P + 2 * R))
+              + 2 * 2 * m * dm + 4 * len(rows) * (P + 2))
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations")
@@ -2273,6 +2316,53 @@ def serve_full_width_split(ragged_report: dict, ragged_leads: dict) -> dict:
             "report": report}
 
 
+def megakernel_drift(params, cfg, cache, step_args, label: str) -> dict:
+    """One step of ROWS (``step_args``) over ``cache``'s pages through the
+    per-layer CUDA ragged step, the megakernel and the megakernel's plain
+    version (cuBLAS products, the plain walk), each from the same pools:
+    every pair's largest logit difference, argmax and differing pool
+    bytes. The ragged step's distance from the plain version is the drift
+    that another product and sum order alone gives; raises unless every
+    step is finite with equal argmax and the megakernel lies within
+    MEGA_DRIFT_FACTOR of that distance. The pools are restored after."""
+    from repro_torch.nn import model
+
+    stacked = stacked_pools(cache)
+    pools0 = [t.clone() for t in stacked]
+    live = [i for i, (_, n) in enumerate(ROWS) if n]
+    runs = {name: run_with_pools(fn, params, cfg, cache, step_args, pools0)
+            for name, fn in (("ragged", model.ragged_step_paged),
+                             ("megakernel", model.megakernel_step_paged),
+                             ("plain", megakernel_plain_step))}
+    for t, t0 in zip(stacked, pools0):
+        t.copy_(t0)
+    pairs = {}
+    for a, b in (("ragged", "megakernel"), ("plain", "megakernel"),
+                 ("plain", "ragged")):
+        c = compare_steps(runs[a][0], runs[b][0], runs[a][1], runs[b][1],
+                          live)
+        pairs[f"{b} vs {a}"] = c
+        log(f"{label} of ROWS over the run's pages ({cfg.num_layers} "
+            f"layers), {b} against {a}: largest |logit difference| "
+            f"{c['max_abs_err']:.4g} ({c['max_abs_err'] / c['ulp']:.1f} bf16 "
+            f"ulps of the largest logit), argmax equal in "
+            f"{c['argmax_equal']}/{c['rows']} live rows, "
+            f"{c['codes_differing']} of {c['codes']} pool bytes differ "
+            f"({c['codes_differing'] / c['codes']:.3g})")
+    mk_plain, rg_plain = pairs["megakernel vs plain"], pairs["ragged vs plain"]
+    if not all(c["finite"] and c["argmax_equal"] == c["rows"]
+               for c in pairs.values()) \
+            or mk_plain["max_abs_err"] > MEGA_DRIFT_FACTOR \
+            * rg_plain["max_abs_err"] \
+            or mk_plain["codes_differing"] > MEGA_DRIFT_FACTOR \
+            * rg_plain["codes_differing"]:
+        raise AssertionError(
+            f"{label}, megakernel: {pairs} (bar: finite, equal argmax, "
+            f"within {MEGA_DRIFT_FACTOR}x the ragged step's distance from "
+            "the plain version)")
+    return pairs
+
+
 def serve_full_width_megakernel(ragged: dict) -> dict:
     """The same prompts through ``--step-mode megakernel``, every kernel
     count reset just before the run and read just after: one megakernel
@@ -2355,8 +2445,6 @@ def serve_full_width_megakernel(ragged: dict) -> dict:
                  .to(dev), table.to(dev), torch.tensor(starts, **i32),
                  torch.tensor(lens, **i32),
                  torch.tensor([max(n - 1, 0) for _, n in ROWS], **i32))
-    stacked = stacked_pools(engine.cache)
-    pools0 = [t.clone() for t in stacked]
     kernel = megakernel_layers(params, cfg, engine.cache, *step_args[:4])
     plain = megakernel_layers(params, cfg, engine.cache, *step_args[:4],
                               plain=True)
@@ -2368,41 +2456,8 @@ def serve_full_width_megakernel(ragged: dict) -> dict:
         f"ROWS): {ms:.3f} ms (median of 5), plain version {plain_ms:.1f} ms "
         f"(one run), bound {bound_ms:.4f} ms ({bound_by}); visits equal the "
         "plain version's; no single PyTorch call computes this function")
-    live = [i for i, (_, n) in enumerate(ROWS) if n]
-    runs = {name: run_with_pools(fn, params, cfg, engine.cache, step_args,
-                                 pools0)
-            for name, fn in (("ragged", model.ragged_step_paged),
-                             ("megakernel", model.megakernel_step_paged),
-                             ("plain", megakernel_plain_step))}
-    for t, t0 in zip(stacked, pools0):
-        t.copy_(t0)
-    # the megakernel and the per-layer CUDA ragged step each against the
-    # plain version (cuBLAS products, the plain walk), and against each
-    # other: the ragged step's distance from the plain version is the
-    # drift that another product and sum order alone gives
-    pairs = {}
-    for a, b in (("ragged", "megakernel"), ("plain", "megakernel"),
-                 ("plain", "ragged")):
-        c = compare_steps(runs[a][0], runs[b][0], runs[a][1], runs[b][1],
-                          live)
-        pairs[f"{b} vs {a}"] = c
-        log(f"full-width step of ROWS over the run's pages, {b} against "
-            f"{a}: largest |logit difference| {c['max_abs_err']:.4g} "
-            f"({c['max_abs_err'] / c['ulp']:.1f} bf16 ulps of the largest "
-            f"logit), argmax equal in {c['argmax_equal']}/{c['rows']} live "
-            f"rows, {c['codes_differing']} of {c['codes']} pool bytes differ "
-            f"({c['codes_differing'] / c['codes']:.3g})")
-    mk_plain, rg_plain = pairs["megakernel vs plain"], pairs["ragged vs plain"]
-    if not all(c["finite"] and c["argmax_equal"] == c["rows"]
-               for c in pairs.values()) \
-            or mk_plain["max_abs_err"] > MEGA_DRIFT_FACTOR \
-            * rg_plain["max_abs_err"] \
-            or mk_plain["codes_differing"] > MEGA_DRIFT_FACTOR \
-            * rg_plain["codes_differing"]:
-        raise AssertionError(
-            f"full-width megakernel step: {pairs} (bar: finite, equal "
-            f"argmax, within {MEGA_DRIFT_FACTOR}x the ragged step's "
-            "distance from the plain version)")
+    pairs = megakernel_drift(params, cfg, engine.cache, step_args,
+                             "full-width step")
     # a greedy pick can flip between two steps only where its lead is
     # below twice their largest logit difference
     near = 2 * np.ceil(pairs["megakernel vs ragged"]["max_abs_err"]
@@ -3617,6 +3672,625 @@ def check_reduced_monolithic(card: str = "cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: gemma2-9b and phi4-mini at full width, the reduced new archs
+# ---------------------------------------------------------------------------
+
+#: phase 8's full-width workloads: phase 4's prompt shapes on other configs
+GEMMA_ARGV = ["--arch", "gemma2-9b", "--batch", "8", "--prompt-len", "236",
+              "--shared-prefix", "64", "--ragged", "--new-tokens", "32"]
+PHI4_ARGV = ["--arch", "phi4-mini-3.8b"] + GEMMA_ARGV[2:]
+#: the ninth gemma2-9b request's prompt: past the local layers' window of
+#: 4,096, so their walks of it begin past page 0
+LONG_PROMPT = 4200
+#: 8a's full-width step with #1 against the same step with #1's plain
+#: version on the card: the largest logit difference, in bf16 ulps of the
+#: largest |logit|. Each #1 call there is held to OUT_TOL against its plain
+#: version on the same inputs (a local and a global layer, time_walk); the
+#: step's 42 layers, softcaps and post-norms carry those f32 sum-order
+#: differences to the logits: 4.37 measured on an H100 80GB HBM3 at 700 W
+#: (PERF.md), the bar about twice that
+STEP_TOL_ULPS = 8
+#: a greedy pick leading by at most this many bf16 ulps may go either way
+#: between two runs whose logits differ in their last bits
+PICK_TIE_ULPS = 2
+#: (row_start, n_new) of 8a's step: phase 2's rows, the two inactive ones
+#: replaced by a chunk and a decode row past the window
+STEP8_ROWS = [(150, 1), (46, 3), (0, 64), (131, 64), (4136, 64), (250, 1),
+              (4200, 1), (300, 1)]
+#: 8a's split step on the tiered cache: the long request and two of the
+#: short ones, SPLIT8_NEW new tokens each, under phase 3's aggressive tier
+#: policy, so that pages narrow while the long prompt still prefills
+SPLIT8_NEW = 4
+SPLIT8_ARGV = ["--batch", "3", "--prompt-len", str(LONG_PROMPT),
+               "--new-tokens", str(SPLIT8_NEW), "--step-mode", "split",
+               "--tiered", "--tier-hot-steps",
+               str(AGGRESSIVE_TIERS["hot_steps"]), "--tier-cold-steps",
+               str(AGGRESSIVE_TIERS["cold_steps"]), "--tier-repack-pages",
+               str(AGGRESSIVE_TIERS["repack_pages_per_step"])]
+#: port-init seeds of 8c's reduced models: every greedy pick of each CPU
+#: run (ragged, split, monolithic, fixed-slot) leads its runner-up by more
+#: than GAP_TOL_ULPS (asserted); the smallest such seeds from 0 (the two
+#: reduced gemma2 configs differ only in their names)
+ARCH_SEEDS = {"gemma2-2b": 17, "gemma2-9b": 17, "phi4-mini-3.8b": 2}
+#: 8c's prompts: the first four of phase 3's
+ARCH_PROMPTS = 4
+
+
+def _check_streams(report, cfg, new_tokens: int, what: str) -> None:
+    for i, prompt in zip(report["ids"], report["prompts"]):
+        toks = report["results"][i]
+        if len(toks) != len(prompt) + new_tokens or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size \
+                or not np.array_equal(toks[:len(prompt)], prompt):
+            raise AssertionError(f"{what} request {i}: malformed stream")
+
+
+class _LogLines(logging.Handler):
+    """The messages a logger emits while attached (INFO and up)."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.lines = []
+        self.logger = logging.getLogger(name)
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+#: the kernels 8a and 8b count, by their module attribute
+COUNTED8 = ("mx_attention_ragged_fused", "mx_megakernel_step",
+            "mx_repack_pages", "mx_attention_verify_fused",
+            "mx_attention_prefill_fused")
+
+
+def _serve_counted(engine, cfg, args, prompts) -> tuple:
+    """(report, greedy leads, {kernel: launches}) of one batch run with
+    the counts of COUNTED8 reset just before and read just after."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    engine.warmup()
+    leads = record_leads(engine)
+    counted = {name: getattr(kernels, name) for name in COUNTED8}
+    for k in counted.values():
+        k.launches = 0
+    report = serve.run_batch(engine, cfg, args, prompts)
+    torch.cuda.synchronize()
+    return report, leads, {n: k.launches for n, k in counted.items()}
+
+
+def _only_launched(n: dict, want: dict, what: str) -> None:
+    """Raises unless the counts ``n`` are ``want`` for its kernels and 0
+    for the others."""
+    got = {k: v for k, v in n.items() if v or k in want}
+    if got != want or not all(want.values()):
+        raise AssertionError(f"{what}: launches {n}, expected {want}")
+
+
+def _step8_inputs(engine, cfg, rows, gen) -> tuple:
+    """(tokens, table, starts, lens, logit rows) of one ragged step over
+    ``rows`` on the engine's pages (each live row owns pages of a
+    permutation; the pages hold what the run left there)."""
+    dev = engine.device
+    pmax = max(-(-(s + n) // PS) for s, n in rows)
+    table = torch.full((len(rows), pmax), -1, dtype=torch.int32)
+    perm = torch.randperm(engine.num_pages, generator=gen)
+    off = 0
+    for i, (start, n_new) in enumerate(rows):
+        pages = -(-(start + n_new) // PS)
+        table[i, :pages] = perm[off:off + pages]
+        off += pages
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (torch.randint(0, cfg.vocab_size, (len(rows), W), generator=gen)
+            .to(dev), table.to(dev),
+            torch.tensor([s for s, _ in rows], **i32),
+            torch.tensor([s + n for s, n in rows], **i32),
+            torch.tensor([n - 1 for _, n in rows], **i32))
+
+
+def gemma2_step_check(engine, cfg) -> dict:
+    """8a's full-width step over STEP8_ROWS on the run's pages, with #1
+    and then with #1's plain version (on the card), from the same pages:
+    logits within STEP_TOL_ULPS bf16 ulps of the largest, equal argmax
+    wherever the plain step's pick leads by more than PICK_TIE_ULPS, every
+    layer's visits equal to the plain version's and a local layer's walk
+    of the rows past the window shorter than a global layer's; #1's
+    calls at a local and at a global layer held against their plain
+    versions and timed (:func:`time_walk`)."""
+    from repro_torch.kernels import mx_attention as mxa
+    from repro_torch.nn import attention, model
+    from repro_torch.serve import sampling
+
+    args = _step8_inputs(engine, cfg, STEP8_ROWS,
+                         torch.Generator().manual_seed(8))
+    params, cache = engine.params, engine.cache
+    pages = torch.unique(torch.cat([args[1][args[1] >= 0],
+                                    torch.tensor([engine.num_pages],
+                                                 device=engine.device)]))
+    saved = [{k: t[pages].clone() for k, t in pool.items()} for pool in cache]
+    real = attention.mx_attention_ragged_fused
+    calls, visits = {}, {"kernel": [], "plain": []}
+
+    def kernel(*a, **kw):
+        layer = len(visits["kernel"])
+        if layer < 2:  # a local and a global layer's inputs, pools copied
+            calls[layer] = ([t.clone() for t in a], kw)
+        out, pools, vis = real(*a, debug_visits=True, **kw)
+        visits["kernel"].append(vis)
+        return out, pools
+
+    def plain(q, k, v, ke, ks, ve, vs, table, start, lens, **kw):
+        t, s, n = mxa.normalize_rows(table, start, lens, ke.shape[0],
+                                     q.shape[2])
+        out, vis = mxa.mx_attention_ragged_fused_plain(
+            q, k, v, ke, ks, ve, vs, t, s, n, **kw)
+        visits["plain"].append(vis)
+        return out, (ke, ks, ve, vs)
+
+    logits = {}
+    for name, fn in (("kernel", kernel), ("plain", plain)):
+        for pool, keep in zip(cache, saved):
+            for key, t in pool.items():
+                t[pages] = keep[key]
+        attention.mx_attention_ragged_fused = fn
+        try:
+            logits[name] = model.ragged_step_paged(params, cfg, cache, *args)
+        finally:
+            attention.mx_attention_ragged_fused = real
+        torch.cuda.synchronize()
+    want, got = logits["plain"].float(), logits["kernel"].float()
+    ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    err = float((got - want).abs().max())
+    leads = sampling.top2_gap_ulps(want)
+    clear = leads > PICK_TIE_ULPS
+    same = bool(torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear]))
+    for li, (a, b) in enumerate(zip(visits["kernel"], visits["plain"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"8a step: layer {li} visits {a.flatten()} "
+                                 f"against the plain version's {b.flatten()}")
+    local, glob = (visits["plain"][i][:, 0, 0].tolist() for i in (0, 1))
+    long_rows = [i for i, (s, _) in enumerate(STEP8_ROWS) if s > 4096]
+    short = [local[i] < glob[i] for i in long_rows]
+    log(f"8a full-width step over STEP8_ROWS (rows past the window: "
+        f"{long_rows}), #1 against its plain version on the card: largest "
+        f"|logit difference| {err:.4g} ({err / ulp:.2f} bf16 ulps of the "
+        f"largest logit), argmax equal in {int(clear.sum())} rows whose "
+        f"pick leads by more than {PICK_TIE_ULPS} ulps: {same} (leads "
+        f"{[round(x, 2) for x in leads.tolist()]}); pages walked a row, "
+        f"local layer {local}, global layer {glob}; every layer's visits "
+        "equal the plain version's")
+    if not (err <= STEP_TOL_ULPS * ulp and same and all(short)
+            and torch.isfinite(got).all()):
+        raise AssertionError(
+            f"8a step: {err / ulp:.2f} ulps (bar {STEP_TOL_ULPS}), argmax "
+            f"equal {same}, local walks shorter past the window {short}")
+    out = {"max_abs_err": err, "ulps": err / ulp}
+    for layer, label in ((0, "local"), (1, "global")):
+        out.update({f"{k}_{label}": v for k, v in time_walk(
+            *calls[layer], STEP8_ROWS, f"gemma2-9b's {label} layer, "
+            "STEP8_ROWS").items()})
+    return out
+
+
+def time_walk(a, kw, rows, label: str) -> dict:
+    """#1 on the inputs ``a`` of one captured call (its pools copied) over
+    ``rows``: held against its plain version on the same inputs (pool
+    bytes equal but the trash page, the last; visits exact; the live
+    rows' output within OUT_TOL), then timed beside it and its bound."""
+    from repro_torch.kernels import mx_attention as mxa
+
+    q, table = a[0], a[7]
+    t, s, n = mxa.normalize_rows(table, a[8], a[9], a[3].shape[0],
+                                 q.shape[2])
+    kernel_pools = [p.clone() for p in a[3:7]]
+    got, _, got_visits = mxa.mx_attention_ragged_fused(
+        *a[:3], *kernel_pools, *a[7:], debug_visits=True, **kw)
+    plain_pools = [p.clone() for p in a[3:7]]
+    want, want_visits = mxa.mx_attention_ragged_fused_plain(
+        *a[:3], *plain_pools, t, s, n, **kw)
+    torch.cuda.synchronize()
+    live = [i for i, (_, n_new) in enumerate(rows) if n_new]
+    err = float((got[live] - want[live]).abs().max())
+    if not (err <= OUT_TOL and torch.equal(got_visits, want_visits)
+            and all(torch.equal(g.view(torch.uint8)[:-1],
+                                w.view(torch.uint8)[:-1])
+                    for g, w in zip(kernel_pools, plain_pools))):
+        raise AssertionError(f"#1 at {label}: out {err} (bar {OUT_TOL}), "
+                             "visits or pool bytes differ from the plain "
+                             "version's")
+    del kernel_pools, plain_pools
+    run = lambda: mxa.mx_attention_ragged_fused(*a, **kw)  # noqa: E731
+    plain = lambda: mxa.mx_attention_ragged_fused_plain(  # noqa: E731
+        *a[:7], t, s, n, **kw)
+    for _ in range(3):
+        run()
+    ms = cuda_ms(run, 25)
+    plain_ms = cuda_ms(plain, 1)
+    bound_ms, bound_by = ragged_bound(
+        kw["fmt_name"], kw["block_size"], rows=rows, shape=tuple(q.shape),
+        window=kw["window"], table_len=table.numel())
+    log(f"#1 at {label} (q {tuple(q.shape)}, window {kw['window']}, softcap "
+        f"{kw['softcap']}, W*G = {q.shape[2] * q.shape[3]} query rows a "
+        f"cell): within {err:.3g} of its plain version on the same inputs "
+        f"(bar {OUT_TOL}), pool bytes and visits equal; {ms:.4f} ms (median "
+        f"of 25), plain version {plain_ms:.1f} ms (one run), bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def serve_gemma2_full_width() -> dict:
+    """8a: gemma2-9b at full width (42 layers, d_model 3584, 16/8 heads of
+    256, d_ff 14336, vocab 256,000; random seeded weights) with the
+    ServeConfig defaults: phase 4's eight prompt shapes and a ninth
+    request of LONG_PROMPT tokens, 32 new tokens each; #1 exactly 42
+    launches a step; then :func:`gemma2_step_check`; then
+    ``--step-mode megakernel``, which logs the reference's fallback reason
+    and serves through the ragged step: streams equal to the ragged
+    run's; then :func:`gemma2_split_tiered`."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(GEMMA_ARGV)
+    # the engine has a ninth slot and room for the long request
+    build = GEMMA_ARGV + ["--batch", "9", "--prompt-len", str(LONG_PROMPT)]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, engine = serve.build_engine(serve.parse_args(build))
+    log(f"gemma2-9b built in {time.perf_counter() - t0:.1f} s: "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{sum(t.numel() for t in _weights(engine.params)) / 1e9:.2f} B "
+        f"params, {engine.num_pages} pages of {PS}")
+    prompts = serve.make_prompts(cfg, args, sharing=2) + [
+        np.random.default_rng(8).integers(0, cfg.vocab_size, LONG_PROMPT)
+        .astype(np.int32)]
+    report, leads, n = _serve_counted(engine, cfg, args, prompts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    on_card = engine.device.type == "cuda"  # else a CPU rehearsal
+    if report["step_mode"] != "ragged":
+        raise AssertionError(f"gemma2-9b run: {report['step_mode']}")
+    if on_card:
+        _only_launched(n, {"mx_attention_ragged_fused":
+                           report["ragged_steps"] * cfg.num_layers},
+                       "gemma2-9b ragged run")
+    _check_streams(report, cfg, 32, "gemma2-9b")
+    log(f"8a gemma2-9b: {report['requests']} requests (prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens), "
+        f"{report['generated_tokens']} tokens in {report['seconds']:.2f} s = "
+        f"{report['tokens_per_s']:.1f} tok/s; {report['ragged_steps']} ragged "
+        f"steps, median {report['median_step_ms']:.2f} ms; "
+        f"{n['mx_attention_ragged_fused']} #1 launches = steps x "
+        f"{cfg.num_layers}; smallest lead of any pick "
+        f"{report['min_top2_gap_ulps']:.2f} bf16 ulps; peak memory "
+        f"{peak_gb:.2f} GB")
+    step = gemma2_step_check(engine, cfg)
+    params = engine.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _LogLines("repro_torch.serve.engine") as lines:
+        mcfg, mengine = serve.build_engine(
+            serve.parse_args(build + ["--step-mode", "megakernel"]), params)
+    reason = mengine.cache_stats()["megakernel_fallback_reason"]
+    mreport, _, mn = _serve_counted(mengine, mcfg, args, prompts)
+    logged = [s for s in lines.lines if "megakernel step disabled" in s]
+    equal = all(np.array_equal(mreport["results"][i], report["results"][i])
+                for i in report["ids"])
+    log(f"8a gemma2-9b --step-mode megakernel: logged {logged}; step mode "
+        f"{mreport['step_mode']}, {mn} over {mreport['ragged_steps']} steps; "
+        f"streams equal the ragged run's: {equal}")
+    if not (reason and reason.startswith("non-uniform block pattern")
+            and any(reason in s for s in logged) and equal
+            and mreport["step_mode"] == "ragged"):
+        raise AssertionError(f"gemma2-9b megakernel mode: {reason!r}, "
+                             f"{logged}, streams equal {equal}")
+    if on_card:
+        _only_launched(mn, {"mx_attention_ragged_fused":
+                            mreport["ragged_steps"] * cfg.num_layers},
+                       "gemma2-9b megakernel mode")
+    del mengine
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = gemma2_split_tiered(params, prompts)
+    return {"launches": n["mx_attention_ragged_fused"], "report": report,
+            "peak_gb": peak_gb, "split": split, **step}
+
+
+class _Capture:
+    """Wraps ``module.name`` while entered: each call whose arguments make
+    ``key(args, kw)`` a new non-None key is kept (tensors copied, before
+    the call) under that key, then the real function runs."""
+
+    def __init__(self, module, name: str, key):
+        self.module, self.name, self.key = module, name, key
+        self.calls = {}
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            k = self.key(a, kw)
+            if k is not None and k not in self.calls:
+                self.calls[k] = ([t.clone() if torch.is_tensor(t) else t
+                                  for t in a], dict(kw))
+            return real(*a, **kw)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.real)
+
+
+def _past_window(lens_or_starts) -> bool:
+    """A row there lies a page or more past gemma2-9b's window of 4,096,
+    so its local layers' walks skip pages."""
+    return int(lens_or_starts.max()) >= 4096 + PS
+
+
+def gemma2_split_tiered(params, prompts) -> dict:
+    """8a's split step on the tiered cache at full width (SPLIT8_ARGV: the
+    long request and two short ones on gemma2-9b's per-layer pools): #2
+    once per layer of every decode dispatch, #3 once per layer of every
+    prefill dispatch, #7 once per layer of every repack dispatch, no #1
+    or #8; #2 and #3 at the first local and the first global layer call
+    that walks the long row past the window, and the first #7 call, each
+    held against its plain version on the same inputs (pool bytes equal,
+    visits exact, output within OUT_TOL)."""
+    from repro_torch.kernels import mx_attention as mxa
+    from repro_torch.kernels.mx_repack import mx_repack_pages_plain
+    from repro_torch.launch import serve
+    from repro_torch.nn import attention
+    from repro_torch.serve import engine as engine_mod
+
+    build = GEMMA_ARGV + SPLIT8_ARGV
+    args = serve.parse_args(build)
+    cfg, engine = serve.build_engine(args, params)
+    subset = [prompts[-1]] + prompts[:2]
+    verify = _Capture(attention, "mx_attention_verify_fused", lambda a, kw: (
+        kw["window"] is not None) if _past_window(a[6]) else None)
+    prefill = _Capture(attention, "mx_attention_prefill_fused",
+                       lambda a, kw: (kw["window"] is not None)
+                       if _past_window(a[8]) else None)
+    repack = _Capture(engine_mod, "mx_repack_pages", lambda a, kw: 0)
+    with verify, prefill, repack:
+        report, _, n = _serve_counted(engine, cfg, args, subset)
+    stats = engine.cache_stats()
+    on_card = engine.device.type == "cuda"  # else a CPU rehearsal
+    if report["step_mode"] != "split" or not stats["repack_dispatches"]:
+        raise AssertionError(f"gemma2-9b split tiered run: "
+                             f"{report['step_mode']}, {stats}")
+    layers = cfg.num_layers
+    if on_card:
+        _only_launched(n, {
+            "mx_attention_verify_fused": stats["dispatches_decode"] * layers,
+            "mx_attention_prefill_fused": stats["prefill_dispatches"]
+            * layers,
+            "mx_repack_pages": stats["repack_dispatches"] * layers},
+            "gemma2-9b split tiered run")
+    _check_streams(report, cfg, SPLIT8_NEW, "gemma2-9b split tiered")
+    errs = {}
+    for kind, cap in (("verify", verify), ("prefill", prefill)):
+        if sorted(cap.calls) != [False, True]:
+            raise AssertionError(f"gemma2-9b split: no {kind} call past the "
+                                 f"window on both layer kinds: "
+                                 f"{sorted(cap.calls)}")
+        for local, (a, kw) in cap.calls.items():
+            inp = (dict(kind="verify", q=a[0], pools=a[1:5], table=a[5],
+                        lens=a[6], tq=a[0].shape[2], kw=kw)
+                   if kind == "verify" else
+                   dict(kind="prefill", q=a[0], k=a[1], v=a[2],
+                        pools=a[3:7], table=a[7], starts=a[8], lens=a[9],
+                        kw=kw))
+            errs[kind, local] = check_paged_case(
+                mxa, inp, f"gemma2-9b {kind}, "
+                f"{'local' if local else 'global'} layer")
+    a, kw = repack.calls[0]
+    got = [t.clone() for t in a[:4]]
+    engine_mod.mx_repack_pages(*got, *a[4:], **kw)
+    want = mx_repack_pages_plain(*[t.clone() for t in a[:4]], *a[4:], **kw)
+    if not all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+               for g, w in zip(got, want)):
+        raise AssertionError("gemma2-9b: #7 differs from its plain version")
+    tiers = report["tiered"]
+    log(f"8a gemma2-9b split step, tiered (aggressive policy): "
+        f"{report['generated_tokens']} tokens of {len(subset)} requests "
+        f"(prompts {sorted(map(len, subset))}) in {report['seconds']:.2f} s, "
+        f"{report['steps']} steps; launches #2 "
+        f"{n['mx_attention_verify_fused']} = {stats['dispatches_decode']} "
+        f"decode dispatches x {layers}, #3 {n['mx_attention_prefill_fused']}"
+        f" = {stats['prefill_dispatches']} prefill dispatches x {layers}, "
+        f"#7 {n['mx_repack_pages']} = {stats['repack_dispatches']} repack "
+        f"dispatches x {layers} ({tiers['repacked_pages']} pages; live fp8 "
+        f"{tiers['pages_fp8_e4m3']}, fp6 {tiers['pages_fp6_e3m2']}, fp4 "
+        f"{tiers['pages_fp4_e2m1']}); #2 and #3 on the long row past the "
+        f"window, local / global layer, within "
+        f"{errs['verify', True]:.3g} / {errs['verify', False]:.3g} and "
+        f"{errs['prefill', True]:.3g} / {errs['prefill', False]:.3g} of "
+        f"their plain versions (bar {OUT_TOL}), pool bytes and visits equal;"
+        f" #7 ({a[4].numel()} listed pages to {kw['dst_fmt_name']}, D "
+        f"{cfg.head_dim}) byte-equal to its plain version")
+    return {"verify": n["mx_attention_verify_fused"],
+            "prefill": n["mx_attention_prefill_fused"],
+            "repack": n["mx_repack_pages"],
+            "verify_err": max(errs["verify", True], errs["verify", False]),
+            "prefill_err": max(errs["prefill", True],
+                               errs["prefill", False])}
+
+
+def serve_phi4_full_width() -> dict:
+    """8b: phi4-mini-3.8b at full width (32 layers, d_model 3072, 24/8
+    heads of 128, d_ff 8192, vocab 200,064; random seeded weights) on phase
+    4's workload, ragged (#1 32 launches a step) then ``--step-mode
+    megakernel`` on the same weights (#8 one launch a step, no #1): the
+    streams part only where :func:`_tie_parting` allows; one step of ROWS
+    on the run's pages through the ragged step, the megakernel and its
+    plain version (:func:`megakernel_drift`); #8's layer stack timed
+    beside its plain version and its bound, its visits equal to the plain
+    version's."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(PHI4_ARGV)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, engine = serve.build_engine(args)
+    log(f"phi4-mini-3.8b built in {time.perf_counter() - t0:.1f} s: "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{sum(t.numel() for t in _weights(engine.params)) / 1e9:.2f} B "
+        "params")
+    prompts = serve.make_prompts(cfg, args, sharing=2)
+    report, leads, n = _serve_counted(engine, cfg, args, prompts)
+    on_card = engine.device.type == "cuda"  # else a CPU rehearsal
+    if on_card:
+        _only_launched(n, {"mx_attention_ragged_fused":
+                           report["ragged_steps"] * cfg.num_layers},
+                       "phi4-mini ragged run")
+    _check_streams(report, cfg, 32, "phi4-mini")
+    walk = phi4_walk_time(engine, cfg)
+    params = engine.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg, mengine = serve.build_engine(
+        serve.parse_args(PHI4_ARGV + ["--step-mode", "megakernel"]), params)
+    mreport, mleads, mn = _serve_counted(mengine, mcfg, args, prompts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = mengine.cache_stats()
+    if mreport["step_mode"] != "megakernel" \
+            or on_card and stats["launches_per_step"] != 1:
+        raise AssertionError(f"phi4-mini megakernel run: "
+                             f"{mreport['step_mode']}, {stats}")
+    if on_card:
+        _only_launched(mn, {"mx_megakernel_step": mreport["ragged_steps"]},
+                       "phi4-mini megakernel run")
+    _check_streams(mreport, cfg, 32, "phi4-mini megakernel")
+    parts = []
+    for i, prompt in zip(report["ids"], report["prompts"]):
+        k = len(prompt)
+        part = _tie_parting(mreport["results"][i][k:],
+                            report["results"][i][k:], mleads[i], leads[i])
+        if part is not None:
+            parts.append((i, *part))
+    log(f"8b phi4-mini: ragged {report['tokens_per_s']:.1f} tok/s, median "
+        f"step {report['median_step_ms']:.2f} ms, "
+        f"{n['mx_attention_ragged_fused']} #1 launches = "
+        f"{report['ragged_steps']} steps x {cfg.num_layers}; megakernel "
+        f"{mreport['tokens_per_s']:.1f} tok/s, median "
+        f"{mreport['median_step_ms']:.2f} ms, {mn['mx_megakernel_step']} #8 "
+        f"launches = steps x 1; {len(prompts) - len(parts)} of "
+        f"{len(prompts)} streams equal (partings at (request, generated "
+        f"token, lead megakernel, lead ragged) {parts}, each at a pick "
+        f"leading by at most {TIE_ULPS} ulps in both runs); peak memory "
+        f"{peak_gb:.2f} GB")
+    gen = torch.Generator().manual_seed(9)
+    table, starts, lens, _ = ragged_rows(gen)
+    dev = mengine.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    step_args = (torch.randint(0, cfg.vocab_size, (R, W), generator=gen)
+                 .to(dev), table.to(dev), torch.tensor(starts, **i32),
+                 torch.tensor(lens, **i32),
+                 torch.tensor([max(n - 1, 0) for _, n in ROWS], **i32))
+    drift = megakernel_drift(params, cfg, mengine.cache, step_args,
+                             "phi4-mini")
+    kernel = megakernel_layers(params, cfg, mengine.cache, *step_args[:4])
+    plain = megakernel_layers(params, cfg, mengine.cache, *step_args[:4],
+                              plain=True)
+    check_megakernel_visits(kernel, plain, f"phi4-mini, {cfg.num_layers} "
+                            "layers")
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, 1)
+    bound_ms, bound_by = megakernel_bound(cfg)
+    log(f"#8 at phi4-mini's widths ({cfg.num_layers} layers, ROWS, G "
+        f"{cfg.num_heads // cfg.num_kv_heads}): {ms:.3f} ms (median of 5), "
+        f"plain version {plain_ms:.1f} ms (one run), bound {bound_ms:.4f} ms "
+        f"({bound_by}); visits equal the plain version's")
+    return {"launches": n["mx_attention_ragged_fused"],
+            "mega_launches": mn["mx_megakernel_step"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "equal": len(prompts) - len(parts), "walk": walk,
+            "max_abs_err": drift["megakernel vs plain"]["max_abs_err"]}
+
+
+def phi4_walk_time(engine, cfg) -> dict:
+    """#1 at phi4-mini's shapes: the first layer's call of one ragged step
+    over ROWS on the run's pages, captured, checked and timed
+    (:func:`time_walk`)."""
+    from repro_torch.nn import attention, model
+
+    gen = torch.Generator().manual_seed(10)
+    table, starts, lens, _ = ragged_rows(gen)
+    dev = engine.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (torch.randint(0, cfg.vocab_size, (R, W), generator=gen).to(dev),
+            table.to(dev), torch.tensor(starts, **i32),
+            torch.tensor(lens, **i32),
+            torch.tensor([max(n - 1, 0) for _, n in ROWS], **i32))
+    with _Capture(attention, "mx_attention_ragged_fused",
+                  lambda a, kw: 0) as first:
+        model.ragged_step_paged(engine.params, cfg, engine.cache, *args)
+    return time_walk(*first.calls[0], ROWS, "phi4-mini's layer 0, ROWS")
+
+
+def check_reduced_archs(card: str = "cuda") -> None:
+    """8c: reduced gemma2-2b, gemma2-9b and phi4-mini (seeded port
+    weights, ARCH_SEEDS) serve ARCH_PROMPTS of phase 3's prompts, which
+    pass gemma2's window of 8, through the ragged, split and monolithic
+    steps and, cut to the shortest, through the fixed-slot engine, on the
+    card and on the CPU: equal streams, every CPU pick leading by more
+    than GAP_TOL_ULPS."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.nn import model
+    from repro_torch.serve import FixedSlotEngine, ServeConfig
+
+    for arch, seed in ARCH_SEEDS.items():
+        cfg = get_reduced(arch)
+        cfg = cfg.replace(quant=cfg.quant.replace(quantize_acts=False,
+                                                  quantize_kv_cache=True))
+        params = model.init(cfg, torch.Generator().manual_seed(seed), "cpu")
+        on_card = _to_device(params, card)
+        prompts = reduced_prompts(cfg)[:ARCH_PROMPTS]
+        leads = {}
+        for mode, kw in (("ragged", {}), ("split", dict(step_mode="split")),
+                         ("monolithic", dict(prefill_mode="monolithic"))):
+            want, cpu_stats = reduced_streams("cpu", params, cfg, prompts,
+                                              **kw)
+            got, stats = reduced_streams(card, on_card, cfg, prompts, **kw)
+            if not cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
+                raise AssertionError(
+                    f"reduced {arch} {mode}: a near-tie pick "
+                    f"({cpu_stats['min_top2_gap_ulps']} ulps)")
+            _same_streams(got, want, f"reduced {arch} {mode}, card vs CPU")
+            leads[mode] = cpu_stats["min_top2_gap_ulps"]
+        cut = min(map(len, prompts))
+        batch = np.stack([p[:cut] for p in prompts]).astype(np.int32)
+        fcfg = ServeConfig(max_seq=cut + MONO_NEW)
+        want, cpu_leads = fixed_slot_leads(lambda: FixedSlotEngine(
+            params, cfg, fcfg, device="cpu").generate(batch, MONO_NEW))
+        got, _ = fixed_slot_leads(lambda: FixedSlotEngine(
+            on_card, cfg, fcfg, device=card).generate(batch, MONO_NEW))
+        if not cpu_leads.min() > GAP_TOL_ULPS:
+            raise AssertionError(f"reduced {arch} fixed-slot: a near-tie "
+                                 f"pick ({cpu_leads.min()} ulps)")
+        _same_streams(list(got), list(want),
+                      f"reduced {arch} fixed-slot, card vs CPU")
+        leads["fixed"] = float(cpu_leads.min())
+        log(f"8c reduced {arch} (seed {seed}): {len(prompts)} requests "
+            f"through 3 slots in the ragged, split and monolithic steps and "
+            f"a ({len(prompts)}, {cut}) fixed-slot batch; streams equal on "
+            f"card and CPU (smallest CPU leads in bf16 ulps: "
+            f"{ {k: round(v, 2) for k, v in leads.items()} })")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the MX dot products at granite-8b widths
 # ---------------------------------------------------------------------------
 
@@ -4438,6 +5112,35 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_reduced_monolithic()
     log(f"monolithic phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gemma = serve_gemma2_full_width()
+    kernel["launches_gemma2_9b"] = gemma["launches"]
+    for key in ("ms", "plain_ms", "bound_ms"):
+        for layer in ("local", "global"):
+            kernel[f"{key}_{layer}_gemma2_9b"] = gemma[f"{key}_{layer}"]
+    kernel["step_ulps_gemma2_9b"] = gemma["ulps"]
+    kernel["max_abs_err_gemma2_9b"] = max(gemma["max_abs_err_local"],
+                                          gemma["max_abs_err_global"])
+    verify["launches_gemma2_9b"] = gemma["split"]["verify"]
+    verify["max_abs_err_gemma2_9b"] = gemma["split"]["verify_err"]
+    prefill["launches_gemma2_9b"] = gemma["split"]["prefill"]
+    prefill["max_abs_err_gemma2_9b"] = gemma["split"]["prefill_err"]
+    repack["launches_gemma2_9b"] = gemma["split"]["repack"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phi4 = serve_phi4_full_width()
+    kernel["launches_phi4_mini"] = phi4["launches"]
+    for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
+        kernel[f"{key}_phi4_mini"] = phi4["walk"][key]
+    mega["launches_phi4_mini"] = phi4["mega_launches"]
+    for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
+        mega[f"{key}_phi4_mini"] = phi4[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_reduced_archs()
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     kernels = [kernel, verify, prefill] + pair + [repack, mega] \

@@ -1,13 +1,19 @@
 """Architecture registry (port of ``repro.configs``): the attention-only
 configs ported so far. ``get_config(name)`` is the full ModelConfig,
-``get_reduced(name)`` a CPU-sized config of the same family."""
+``get_reduced(name)`` a CPU-sized config of the same family;
+``--arch <id>`` in the launcher resolves through :data:`ARCHS`."""
 from __future__ import annotations
 
 import importlib
 
 ARCHS = {
+    "gemma2-2b": "gemma2_2b",
+    "gemma2-9b": "gemma2_9b",
+    "phi4-mini-3.8b": "phi4_mini",
     "granite-8b": "granite_8b",
 }
+
+from .shapes import SHAPES, ShapeSpec, shape_applicable  # noqa: E402
 
 
 def _module(name: str):
@@ -24,3 +30,6 @@ def get_config(name: str):
 def get_reduced(name: str):
     return _module(name).reduced()
 
+
+def list_archs():
+    return sorted(ARCHS)

@@ -1,0 +1,33 @@
+"""gemma2-9b [dense]: local/global alternating attention, logit softcaps
+(port of ``repro.configs.gemma2_9b``).
+
+42L d_model=3584 16H (GQA kv=8, head_dim 256) d_ff=14336 (GeGLU)
+vocab=256000 [arXiv:2408.00118; hf].
+"""
+from repro_torch.core import MXFP8
+from repro_torch.nn import BlockDef, ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="gemma2-9b", family="dense",
+        d_model=3584, vocab_size=256000,
+        pattern=(BlockDef("attn", window=4096), BlockDef("attn")),
+        num_groups=21,
+        num_heads=16, num_kv_heads=8, head_dim=256,
+        d_ff=14336, ffn_kind="geglu",
+        attn_softcap=50.0, logit_softcap=30.0, post_norms=True,
+        scale_embeds_by_sqrt_dim=True,
+        quant=MXFP8,
+        source="arXiv:2408.00118; hf",
+        sub_quadratic=False,
+    )
+
+
+def reduced() -> ModelConfig:
+    return config().replace(
+        d_model=64, vocab_size=512, num_groups=1,
+        num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+        pattern=(BlockDef("attn", window=8), BlockDef("attn")),
+        quant=MXFP8.replace(block_size=16),
+    )

@@ -15,6 +15,11 @@ helper that cannot be built raises: nothing falls back to torch's math.
   host CPU's, so the bits match the reference run on the same host; a
   host that is not x86 raises ``RuntimeError``. Differentiable: its
   gradient is ``-0.5 * scale * r**3`` times the incoming one.
+* :func:`tanh` -- XLA:CPU's f32 ``tanh``, a rational approximation of its
+  own that neither libm nor torch reproduces (C5), and :func:`gelu_tanh`,
+  ``jax.nn.gelu(approximate=True)`` as XLA fuses it around that tanh.
+  :func:`softcap` applies the tanh to CPU tensors as the jitted reference
+  does and keeps torch's on the card.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "host_math.c"
@@ -48,7 +54,7 @@ def _library() -> ctypes.CDLL:
     if not path.exists():
         cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
         if cc is None:
-            raise RuntimeError("no C compiler (set CC): the RoPE and RMSNorm "
+            raise RuntimeError("no C compiler (set CC): the host math "
                                "helpers are built from csrc/host_math.c")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -64,6 +70,9 @@ def _library() -> ctypes.CDLL:
     lib.rope_cos_sin.restype = None
     lib.xla_rsqrt.argtypes = [ptr, ptr, n, ctypes.c_float, ctypes.c_float]
     lib.xla_rsqrt.restype = ctypes.c_int
+    for fn in (lib.xla_tanh, lib.xla_gelu_tanh):
+        fn.argtypes = [ptr, ptr, n]
+        fn.restype = None
     _lib = lib
     return lib
 
@@ -122,3 +131,40 @@ def rsqrt(x: torch.Tensor, scale: float = 1.0,
     subnormals give +-inf, +inf gives 0, negatives and NaN give NaN.
     Gradients flow through it (``_Rsqrt``)."""
     return _Rsqrt.apply(x, scale, add)
+
+
+def _elementwise(fn, x: torch.Tensor) -> torch.Tensor:
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the host tanh helpers have no gradient")
+    x = _host_f32(x)
+    out = torch.empty_like(x)
+    fn(x.data_ptr(), out.data_ptr(), x.numel())
+    return out
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``tanh`` of every element of an f32 CPU tensor: ``x``
+    itself below 0.0004 in magnitude, +-1 from 20, else its rational
+    approximation on ``x`` clamped to +-7.99881172 (fused multiply-adds,
+    one IEEE divide). Bit-equal to ``jax.jit(jnp.tanh)`` on the CPU."""
+    return _elementwise(_library().xla_tanh, x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` of an f32 CPU tensor as the
+    jitted reference computes it: ``x * ((tanh(u) + 1) * 0.5)`` with ``u =
+    fma(x**3, 0.044715, x) * f32(sqrt(2 / pi))`` (XLA contracts the
+    multiply-add), :func:`tanh`, and subnormal operands and results
+    flushed to signed zeros."""
+    return _elementwise(_library().xla_gelu_tanh, x)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``tanh(x / cap) * cap`` of f32 ``x``. On CPU tensors as the jitted
+    reference computes it: XLA folds the divide into a multiply by
+    ``f32(1 / cap)``, and its tanh is :func:`tanh`. On the card torch's
+    divide and ``tanh``, as the CUDA kernels' ``tanhf(s / cap) * cap``."""
+    if x.device.type != "cpu":
+        return torch.tanh(x / cap) * cap
+    recip = float(np.float32(1.0) / np.float32(cap))
+    return tanh(x * recip) * cap

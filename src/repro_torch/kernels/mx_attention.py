@@ -44,6 +44,7 @@ import ctypes
 import torch
 
 from repro_torch.core import formats as F
+from repro_torch.core import host_math
 
 from . import build
 from .mx_quantize import quantize_rows
@@ -189,7 +190,7 @@ def _flash_update(state, q, k, v, mask, softcap, scale: float):
     m, l, acc = state
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     if softcap:
-        s = torch.tanh(s / softcap) * softcap
+        s = host_math.softcap(s, softcap)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
     alpha = torch.exp(m - m_new)
@@ -838,7 +839,7 @@ def mx_attention_decode_plain(q, k_elems, k_scales, v_elems, v_scales, kpos,
         logits = torch.matmul(q[i].to(torch.float32), k.transpose(-1, -2)) \
             * d ** -0.5
         if softcap:
-            logits = torch.tanh(logits / softcap) * softcap
+            logits = host_math.softcap(logits, softcap)
         mask = (kpos[i] <= pos[i]) & (kpos[i] >= 0)
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
         p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))

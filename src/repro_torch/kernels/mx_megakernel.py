@@ -247,7 +247,8 @@ def mx_megakernel_step_plain(x0, weights, norms, pools, table, start, lens,
         tail = {"norm_ffn": {"scale": norms[1][li]},
                 "ffn": {name: {"w": t[li]} for name, t in
                         (("gate", gate), ("up", up), ("down", down))}}
-        x = blocks._decode_tail(tail, x, h, norm_eps, compute_dtype)
+        x = blocks._decode_tail(tail, x, h, norm_eps, compute_dtype).to(
+            compute_dtype)
     return x, torch.stack(visits)
 
 
@@ -288,8 +289,9 @@ def mx_megakernel_step(x0, norm_mixer, wq, wk, wv, wo, norm_ffn, gate, up,
             "ladder")
     if gate is None or ffn_kind != "swiglu":
         raise NotImplementedError(
-            f"ffn_kind {ffn_kind!r}: only the gated (swiglu) MLP is ported "
-            "(ROADMAP A6)")
+            f"ffn_kind {ffn_kind!r}: the fused layer tail runs the gated "
+            "SwiGLU MLP only (the engine serves other kinds through the "
+            "per-layer ragged step)")
     r, w, dm = x0.shape
     layers, d = wq.shape[0], head_dim
     pools = (ke_pool, ks_pool, ve_pool, vs_pool)

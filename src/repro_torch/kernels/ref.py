@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import formats as F
+from repro_torch.core import host_math
 
 
 def decode_scaled(elems, scales, fmt, block_size: int):
@@ -82,7 +83,7 @@ def mx_attention_decode_ref(q, k_elems, k_scales, v_elems, v_scales, kpos,
     logits = torch.einsum("bhgd,bhtd->bhgt", q.to(torch.float32), k) \
         * d ** -0.5
     if softcap:
-        logits = torch.tanh(logits / softcap) * softcap
+        logits = host_math.softcap(logits, softcap)
     kpos = torch.as_tensor(kpos, device=q.device)
     mask = (kpos <= pos) & (kpos >= 0)
     logits = torch.where(mask[None, None, None, :], logits,

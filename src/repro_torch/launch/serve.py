@@ -4,6 +4,18 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --batch 8 --prompt-len 236 --shared-prefix 64 --ragged --new-tokens 32
 
+``--arch`` is any of ``configs.list_archs()``: granite-8b, gemma2-2b,
+gemma2-9b (local/global windows, softcaps, GeGLU, post-norms; the
+megakernel mode falls back to the ragged step) and phi4-mini-3.8b, at
+full width or ``--reduced``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --reduced --batch 4 --prompt-len 20 --shared-prefix 8 --ragged \
+      --new-tokens 12 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
+      --batch 8 --prompt-len 236 --shared-prefix 64 --ragged \
+      --new-tokens 32 --step-mode megakernel
+
 Weights are random (a seeded ``torch.Generator``) and weight-only MX. By
 default they are MXFP8 with an MX fp8 KV cache, the reference launcher's
 ``--quant mxfp8 --quantize-kv`` serving path; ``--quant mxfp4
@@ -70,7 +82,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.core import MXFP4, MXFP8, WIDE
 from repro_torch.nn import model
 from repro_torch.serve import (AsyncServeEngine, FixedSlotEngine,
@@ -278,7 +290,7 @@ def _run_server(engine, args, until=None) -> None:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4,
                     help="requests, and decode slots")

@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import QuantConfig, quantize
+from repro_torch.core import QuantConfig, host_math, quantize
 from repro_torch.core import formats as F
 from repro_torch.kernels import (mx_attention_prefill_fused,
                                  mx_attention_ragged_fused,
@@ -181,7 +181,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
     logits = logits * (d ** -0.5)
     if cfg.softcap:
-        logits = torch.tanh(logits / cfg.softcap) * cfg.softcap
+        logits = host_math.softcap(logits, cfg.softcap)
     mask = _mask(qpos, kpos, cfg.window)[:, None, None]  # (B, 1, 1, S, T)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))

@@ -1,7 +1,9 @@
 """Decoder block wiring (port of ``repro.nn.blocks``), attention only.
 
-Pre-norm residual blocks: attention then a dense gated FFN. MoE, MLA and
-recurrent mixers (ROADMAP A8) and gemma2's post-norms (A6) raise here.
+Pre-norm residual blocks: attention then a dense gated FFN (SwiGLU or
+GeGLU), with gemma2's sandwich post-norms on the mixer's and the FFN's
+outputs where the config asks for them. MoE, MLA and recurrent mixers
+and the no-gate ``gelu`` FFN (ROADMAP A8) raise here.
 """
 from __future__ import annotations
 
@@ -25,35 +27,63 @@ def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
     if bd.mixer != "attn":
         raise NotImplementedError(
             f"mixer {bd.mixer!r} is not ported to repro_torch (ROADMAP A8)")
-    if bd.ffn != "dense" or cfg.ffn_kind != "swiglu":
+    if bd.ffn != "dense" or cfg.ffn_kind not in ffn.ACTIVATIONS:
         raise NotImplementedError(
-            f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A6, "
-            "A8)")
+            f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A8)")
 
 
 def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
          device) -> dict:
     _require_ported(bd, cfg)
-    return {"norm_mixer": rmsnorm_init(cfg.d_model, device),
-            "mixer": attention.init(gen, _attn_cfg(cfg, bd), cfg.quant,
-                                    device),
-            "norm_ffn": rmsnorm_init(cfg.d_model, device),
-            "ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.quant, device)}
+    params = {"norm_mixer": rmsnorm_init(cfg.d_model, device),
+              "mixer": attention.init(gen, _attn_cfg(cfg, bd), cfg.quant,
+                                      device),
+              "norm_ffn": rmsnorm_init(cfg.d_model, device),
+              "ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.quant,
+                              device)}
+    if cfg.post_norms:
+        params["postnorm_mixer"] = rmsnorm_init(cfg.d_model, device)
+        params["postnorm_ffn"] = rmsnorm_init(cfg.d_model, device)
+    return params
 
 
 def _decode_tail(params, x: torch.Tensor, h: torch.Tensor, norm_eps: float,
-                 dt: torch.dtype) -> torch.Tensor:
-    """Residual add + channel mixer.
+                 dt: torch.dtype, ffn_kind: str = "swiglu",
+                 post_norms: bool = False) -> torch.Tensor:
+    """Residual add + channel mixer, with ``post_norms`` gemma2's
+    RMSNorms of the mixer's output ``h`` and of the FFN's output.
 
-    The reference's jitted step fuses the residual add into the RMSNorm
+    The reference's jitted step fuses a residual add into the RMSNorm
     that follows it, and XLA's excess-precision rule then hands the norm
     the unrounded f32 sum, while the residual stream itself is stored
-    rounded to bf16. The port computes the same two values.
+    rounded to bf16. The port computes the same values: the FFN's norm
+    takes the unrounded first sum, and the block returns its own output
+    sum unrounded in f32, as the next block of the same scanned pattern
+    iteration receives it; the model rounds it to ``dt`` where the scan
+    stores it (``model.layer_carries``). ``x`` may be such a sum: the
+    residual reads it rounded. The post-norms' outputs reach the adds
+    rounded to bf16 (measured against the jitted reference).
     """
-    x_sum = x.to(torch.float32) + h.to(torch.float32)
+    if post_norms:
+        h = rmsnorm_apply(params["postnorm_mixer"], h, norm_eps)
+    x_sum = x.to(dt).to(torch.float32) + h.to(torch.float32)
     h = rmsnorm_apply(params["norm_ffn"], x_sum, norm_eps, dtype=dt)
-    h = ffn.apply(params["ffn"], h, dt)
-    return x_sum.to(dt) + h
+    h = ffn.apply(params["ffn"], h, ffn_kind, dt)
+    if post_norms:
+        h = rmsnorm_apply(params["postnorm_ffn"], h, norm_eps)
+    return x_sum.to(dt).to(torch.float32) + h.to(torch.float32)
+
+
+def _tail(params, x: torch.Tensor, h: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype,
+                        cfg.ffn_kind, cfg.post_norms)
+
+
+def _norm_in(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The mixer's pre-norm of ``x`` (bf16, or a carried f32 sum)."""
+    return rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps,
+                         dtype=cfg.compute_dtype)
 
 
 def init_cache(batch: int, max_seq: int, bd: BlockDef, cfg: ModelConfig,
@@ -67,13 +97,15 @@ def init_cache(batch: int, max_seq: int, bd: BlockDef, cfg: ModelConfig,
 def apply_decode(params, x: torch.Tensor, cache: dict, pos: int,
                  bd: BlockDef, cfg: ModelConfig) -> torch.Tensor:
     """One-token decode of one block against its contiguous cache: x (B,
-    1, d_model) at the shared position ``pos``; ``cache`` in place."""
+    1, d_model) at the shared position ``pos``; ``cache`` in place. Like
+    every step function here it returns the block's output sum unrounded
+    in f32 (:func:`_decode_tail`)."""
     _require_ported(bd, cfg)
-    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    h = _norm_in(params, x, cfg)
     h = attention.apply_decode(params["mixer"], h, cache, pos,
                                _attn_cfg(cfg, bd), cfg.quant,
                                cfg.compute_dtype)
-    return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype)
+    return _tail(params, x, h, cfg)
 
 
 def _attn_prefill(params, x: torch.Tensor, positions: torch.Tensor,
@@ -87,7 +119,7 @@ def _attn_prefill(params, x: torch.Tensor, positions: torch.Tensor,
     _require_ported(bd, cfg)
     acfg, dt = _attn_cfg(cfg, bd), cfg.compute_dtype
     b, s, _ = x.shape
-    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    h = _norm_in(params, x, cfg)
     q, k, v = attention._project_decode_qkv(
         params["mixer"], h, positions, acfg, dt,
         attention.rope_len(int(positions.max()) + 1))
@@ -99,7 +131,7 @@ def _attn_prefill(params, x: torch.Tensor, positions: torch.Tensor,
         kpos = torch.cat([pref_pos, positions[0]])
     out = attention._attend_chunked(q, ks, vs, positions, kpos, acfg)
     h = linear.apply(params["mixer"]["wo"], out.reshape(b, s, -1), dt)
-    return _decode_tail(params, x, h, cfg.norm_eps, dt), k, v
+    return _tail(params, x, h, cfg), k, v
 
 
 def prefill_block(params, x: torch.Tensor, positions: torch.Tensor,
@@ -151,12 +183,12 @@ def apply_ragged_step(params, x: torch.Tensor, cache: dict,
     block's page pool ``cache`` is updated in place (a tiered pool with
     its ``page_fmts`` / ``mixed_fmts``)."""
     _require_ported(bd, cfg)
-    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    h = _norm_in(params, x, cfg)
     h = attention.apply_ragged(params["mixer"], h, cache, page_rows,
                                row_start, seq_lens, _attn_cfg(cfg, bd),
                                cfg.quant, cfg.compute_dtype,
                                page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype)
+    return _tail(params, x, h, cfg)
 
 
 def apply_verify_paged(params, x: torch.Tensor, cache: dict,
@@ -166,12 +198,12 @@ def apply_verify_paged(params, x: torch.Tensor, cache: dict,
     """Multi-token paged verify of one block: x (B, Tq, d_model), pos (B,)
     each slot's first position; ``cache`` is updated in place."""
     _require_ported(bd, cfg)
-    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    h = _norm_in(params, x, cfg)
     h = attention.apply_verify_paged(params["mixer"], h, cache, page_rows,
                                      pos, _attn_cfg(cfg, bd), cfg.quant,
                                      cfg.compute_dtype, page_fmts=page_fmts,
                                      mixed_fmts=mixed_fmts)
-    return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype)
+    return _tail(params, x, h, cfg)
 
 
 def apply_decode_paged(params, x: torch.Tensor, cache: dict,
@@ -191,12 +223,12 @@ def apply_prefill_chunked(params, x: torch.Tensor, cache: dict,
     """One chunk of paged prefill of one block: x (B, C, d_model), pos
     (B,) chunk starts, num_valid (B,) real tokens in the chunk."""
     _require_ported(bd, cfg)
-    h = rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps)
+    h = _norm_in(params, x, cfg)
     h = attention.apply_prefill_chunked(
         params["mixer"], h, cache, page_rows, pos, num_valid,
         _attn_cfg(cfg, bd), cfg.quant, cfg.compute_dtype,
         page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype)
+    return _tail(params, x, h, cfg)
 
 
 def megakernel_reject_reason(cfg: ModelConfig):
@@ -204,9 +236,9 @@ def megakernel_reject_reason(cfg: ModelConfig):
 
     The reference's static rungs of the serve engine's ladder for
     ``step_mode="megakernel"``, string for string, for every rung this
-    package's ``ModelConfig`` can express (it has no sandwich post-norms;
-    the engine adds the runtime rungs). Each string names why the engine
-    falls back to the per-layer ragged step.
+    package's ``ModelConfig`` can express (the engine adds the runtime
+    rungs). Each string names why the engine falls back to the per-layer
+    ragged step.
     """
     all_blocks = cfg.all_blocks()
     if not all_blocks:
@@ -224,6 +256,8 @@ def megakernel_reject_reason(cfg: ModelConfig):
     if all_blocks[0].ffn != "dense":
         return (f"ffn kind {all_blocks[0].ffn!r} (the fused layer tail "
                 "implements the dense gated MLP only)")
+    if cfg.post_norms:
+        return "sandwich post-norms (not folded into the fused layer tail)"
     if cfg.quant.enabled and cfg.quant.quantize_acts:
         return ("activation quantization (qat_matmul's custom-vjp pallas "
                 "path cannot nest inside the megakernel)")

@@ -1,9 +1,9 @@
 """Model configuration schema (port of ``repro.nn.config``).
 
-Only the fields the attention-only serving path reads are carried over;
-gemma2's embedding scale, logit softcap and post-norms wait for its
-config (ROADMAP A6), MoE, MLA, recurrent and training fields for their
-modules (A8, A9).
+Only the fields the attention-only serving path reads are carried over,
+gemma2's embedding scale, logit softcap and sandwich post-norms among
+them; MoE, MLA, recurrent and training fields wait for their modules
+(ROADMAP A8, A9).
 """
 from __future__ import annotations
 
@@ -43,6 +43,9 @@ class ModelConfig:
     d_ff: int = 0
     ffn_kind: str = "swiglu"
     tied_embeddings: bool = True
+    scale_embeds_by_sqrt_dim: bool = False
+    logit_softcap: Optional[float] = None
+    post_norms: bool = False  # gemma2 sandwich norms
     norm_eps: float = 1e-6
     quant: QuantConfig = QuantConfig()
     compute_dtype: torch.dtype = torch.bfloat16
@@ -54,6 +57,7 @@ class ModelConfig:
     # serve engine sets it from ServeConfig.decode_kernel
     decode_kernel: str = "einsum"
     source: str = ""
+    sub_quadratic: bool = False  # eligible for long_500k
 
     @property
     def num_layers(self) -> int:

@@ -1,9 +1,10 @@
-"""Gated feed-forward block (port of ``repro.nn.ffn``): SwiGLU."""
+"""Gated feed-forward blocks (port of ``repro.nn.ffn``): SwiGLU and
+GeGLU. The no-gate ``gelu`` kind (musicgen) waits for ROADMAP A8."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import QuantConfig
+from repro_torch.core import QuantConfig, host_math
 from repro_torch.core.formats import flush_subnormals
 
 from . import common as C
@@ -24,11 +25,25 @@ def silu(g: torch.Tensor) -> torch.Tensor:
     return flush_subnormals(g * flush_subnormals(torch.sigmoid(g)))
 
 
-def apply(params, x: torch.Tensor,
+def gelu_tanh(g: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(g, approximate=True)`` of f32 ``g``: on CPU tensors
+    XLA:CPU's bits (``host_math.gelu_tanh``); on the card the same formula
+    in torch's f32 ops and ``tanh``, subnormals flushed."""
+    if g.device.type == "cpu":
+        return host_math.gelu_tanh(g)
+    g = flush_subnormals(g)
+    u = (g + g * g * g * 0.044715) * 0.7978845834732056
+    return flush_subnormals(g * ((torch.tanh(u) + 1.0) * 0.5))
+
+
+ACTIVATIONS = {"swiglu": silu, "geglu": gelu_tanh}
+
+
+def apply(params, x: torch.Tensor, kind: str = "swiglu",
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     up = linear.apply(params["up"], x, compute_dtype)
     gate = linear.apply(params["gate"], x, compute_dtype)
-    act = silu(gate.to(torch.float32))
+    act = ACTIVATIONS[kind](gate.to(torch.float32))
     # the product of two bf16 values is exact in f32, so one rounding
     # gives the reference's narrow-multiply semantics
     h = C.round_to(C.round_to(act, compute_dtype).to(torch.float32)

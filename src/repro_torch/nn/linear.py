@@ -38,7 +38,7 @@ def prepare_weight(w: torch.Tensor, quant: QuantConfig,
     """f32 master ``(d_in, d_out)`` -> the bf16 weight ``apply`` multiplies."""
     if not quant.enabled or quant.quantize_acts:
         raise NotImplementedError(
-            "only weight-only MX linears are ported (ROADMAP A6, A9); set "
+            "only weight-only MX linears are ported (ROADMAP A9); set "
             "quantize_acts=False")
     wq = fake_quant(w.to(torch.float32), quant.fmt, quant.block_size, 0)
     return wq.to(compute_dtype)

@@ -183,16 +183,40 @@ def reference_cache_leaves(cfg: ModelConfig, cache: list) -> list:
             for key in sorted(cache[layers[0]])]
 
 
+def layer_carries(cfg: ModelConfig) -> list:
+    """Per layer, in :func:`iter_layer_blocks` order: whether its output
+    sum reaches the next layer unrounded, in f32. The reference scans the
+    pattern, and XLA fuses the residual add that ends a block into the
+    next block's RMSNorm when both lie in one iteration of the scan
+    (``blocks._decode_tail``); across iterations the scan carries
+    bf16."""
+    return [g is not None and int(key[len("block"):]) < len(cfg.pattern) - 1
+            for key, g, _ in iter_layer_blocks(cfg)]
+
+
+def _carried(x: torch.Tensor, carry: bool, cfg: ModelConfig):
+    """A block's f32 output sum as the next layer receives it: unrounded
+    where ``carry`` (:func:`layer_carries`), else stored in bf16."""
+    return x if carry else x.to(cfg.compute_dtype)
+
+
 def _walk_blocks(apply_fn, params, cfg: ModelConfig, cache: list, x):
-    for bp, pool, (_, _, bd) in zip(params["layers"], cache,
-                                    iter_layer_blocks(cfg)):
-        x = apply_fn(bp, x, pool, bd)
+    for bp, pool, (_, _, bd), carry in zip(params["layers"], cache,
+                                           iter_layer_blocks(cfg),
+                                           layer_carries(cfg)):
+        x = _carried(apply_fn(bp, x, pool, bd), carry, cfg)
     return x
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return embedding.embed(params["embedding"], tokens, cfg.compute_dtype,
+                           scale_by_sqrt_dim=cfg.scale_embeds_by_sqrt_dim)
 
 
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return embedding.logits(params["embedding"], x, cfg.compute_dtype)
+    return embedding.logits(params["embedding"], x, cfg.compute_dtype,
+                            softcap=cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -244,14 +268,15 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     """Dense prefill of tokens (B, S) at positions 0..S-1. Returns (the
     last token's logits (B, 1, V) f32, the contiguous cache of
     ``max_seq`` positions, default S)."""
-    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    x = _embed(params, cfg, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     layers = []
-    for bp, (_, _, bd) in zip(params["layers"], iter_layer_blocks(cfg)):
-        x, c = blocks.prefill_block(bp, x, positions, bd, cfg,
-                                    max_seq or s)
+    for bp, (_, _, bd), carry in zip(params["layers"], iter_layer_blocks(cfg),
+                                     layer_carries(cfg)):
+        x, c = blocks.prefill_block(bp, x, positions, bd, cfg, max_seq or s)
+        x = _carried(x, carry, cfg)
         layers.append(c)
     return _head(params, cfg, x[:, -1:]), _stack_layers(cfg, layers)
 
@@ -267,15 +292,17 @@ def prefill_with_prefix(params, cfg: ModelConfig, cache: list,
     cache at relative slots 0.. of ``max_seq`` positions, which
     ``kv_cache.install_prefill`` or ``install_prefill_offset`` writes
     into the sequence's tail pages)."""
-    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    x = _embed(params, cfg, tokens)
     b, s = tokens.shape
     positions = (pos0 + torch.arange(s, dtype=torch.int32,
                                      device=x.device))[None].expand(b, s)
     layers = []
-    for bp, pool, (_, _, bd) in zip(params["layers"], cache,
-                                    iter_layer_blocks(cfg)):
+    for bp, pool, (_, _, bd), carry in zip(params["layers"], cache,
+                                           iter_layer_blocks(cfg),
+                                           layer_carries(cfg)):
         x, c = blocks.prefill_block_tail(bp, x, positions, pool,
                                          prefix_pages, bd, cfg, max_seq)
+        x = _carried(x, carry, cfg)
         layers.append(c)
     return _head(params, cfg, x[:, -1:]), _stack_layers(cfg, layers)
 
@@ -285,10 +312,13 @@ def decode_step(params, cfg: ModelConfig, cache: dict,
     """One-token decode, tokens (B, 1), every row at position ``pos``,
     against the contiguous ``cache`` (updated in place). Returns (logits
     (B, 1, V) f32, cache)."""
-    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
-    for bp, c, (_, _, bd) in zip(params["layers"], cache_layers(cfg, cache),
-                                 iter_layer_blocks(cfg)):
-        x = blocks.apply_decode(bp, x, c, int(pos), bd, cfg)
+    x = _embed(params, cfg, tokens)
+    for bp, c, (_, _, bd), carry in zip(params["layers"],
+                                        cache_layers(cfg, cache),
+                                        iter_layer_blocks(cfg),
+                                        layer_carries(cfg)):
+        x = _carried(blocks.apply_decode(bp, x, c, int(pos), bd, cfg),
+                     carry, cfg)
     return _head(params, cfg, x), cache
 
 
@@ -314,7 +344,7 @@ def verify_step_paged(params, cfg: ModelConfig, cache: list,
     - 1``, every token's K/V written before the per-row causal page walk
     (``Tq == 1`` is :func:`decode_step_paged`). Returns logits (B, Tq, V)
     f32; ``cache`` is updated in place."""
-    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    x = _embed(params, cfg, tokens)
     x = _walk_blocks(lambda bp, x, pool, bd: blocks.apply_verify_paged(
         bp, x, pool, page_rows, pos, bd, cfg, page_fmts=page_fmts,
         mixed_fmts=mixed_fmts), params, cfg, cache, x)
@@ -331,10 +361,10 @@ def prefill_chunk_paged(params, cfg: ModelConfig, cache: list,
     tokens, logit_idx (B,) the row whose logits to return. Returns logits
     (B, 1, V) f32, gathered before the final norm as the reference does;
     ``cache`` is updated in place."""
-    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    x = _embed(params, cfg, tokens)
     x = _walk_blocks(lambda bp, x, pool, bd: blocks.apply_prefill_chunked(
-        bp, x, pool, page_rows, pos, num_valid, bd, cfg,
-        page_fmts=page_fmts, mixed_fmts=mixed_fmts), params, cfg, cache, x)
+        bp, x, pool, page_rows, pos, num_valid, bd, cfg, page_fmts=page_fmts,
+        mixed_fmts=mixed_fmts), params, cfg, cache, x)
     x = x[torch.arange(x.shape[0], device=x.device), logit_idx.long()]
     return _head(params, cfg, x[:, None])
 
@@ -359,7 +389,7 @@ def ragged_step_paged(params, cfg: ModelConfig, cache: list,
     ``page_fmts``, one (NP,) int32 tensor of format ids shared by every
     layer like the page table, and its candidate formats ``mixed_fmts``.
     """
-    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    x = _embed(params, cfg, tokens)
     x = _walk_blocks(lambda bp, x, pool, bd: blocks.apply_ragged_step(
         bp, x, pool, page_rows, row_start, seq_lens, bd, cfg,
         page_fmts=page_fmts, mixed_fmts=mixed_fmts), params, cfg, cache, x)
@@ -417,7 +447,7 @@ def megakernel_step_paged(params, cfg: ModelConfig, cache: list,
     from repro_torch.kernels import mx_megakernel
 
     lay, pools = megakernel_stacks(params, cache)
-    x = embedding.embed(params["embedding"], tokens, cfg.compute_dtype)
+    x = _embed(params, cfg, tokens)
     d = cfg.head_dim
     x, _ = mx_megakernel.mx_megakernel_step(
         x, lay["norm_mixer"]["scale"], *(lay["mixer"][k]["w"] for k in

@@ -194,6 +194,7 @@ def test_prefill_and_decode_equal_the_jitted_reference(kind):
         tx, tc = tblocks.prefill_block(
             tparams["layers"][li], tx, torch.from_numpy(positions.copy()),
             tcfg.all_blocks()[li], tcfg, max_seq)
+        tx = tx.to(tcfg.compute_dtype)  # as the model stores it
         np.testing.assert_array_equal(_np(tx), _jnp(jx), err_msg=f"block {li}")
         _assert_same_tree(jc, tc)
     jl, jcache = jax.jit(lambda p, t: jmodel.prefill(

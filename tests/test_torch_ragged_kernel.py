@@ -257,10 +257,12 @@ def test_cuda_launch_checks_raise_value_error(ps, d, block):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,ps,w,g", [(64, 8, 8, 2), (16, 16, 8, 2),
                                       (32, 32, 5, 3), (128, 16, 8, 3),
-                                      (256, 8, 4, 3)])
+                                      (256, 8, 4, 3), (256, 16, 64, 2),
+                                      (128, 16, 64, 3)])
 def test_cuda_kernel_matches_plain_version(d, ps, w, g):
     """The walk's tile at head_dim 16-256 and pages of 8-32 rows,
-    W * G a multiple of 16 or not."""
+    W * G a multiple of 16 or not, up to gemma2's 128 query rows of 256
+    and phi4-mini's 192 of 128 a cell."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     for fmt, block_size, softcap, mixed in (
