@@ -149,7 +149,27 @@ code is not 0 and no result line is printed:
      beside their plain versions and bounds; (c) reduced gemma2-2b, gemma2-9b and phi4-mini
      through the ragged, split and monolithic steps and the fixed-slot
      engine, streams equal on card and CPU;
-  9. print the kernels line, then the device line last.
+  9. several prompt chunks a ragged row (``prefill_max_chunks`` 4, W 256):
+     (a) granite-8b at full width, max_seq 2,048 in eight slots, two
+     documents of 1,536 tokens beside phase 4's prompts of 119 and 283,
+     32 new tokens each, with one chunk and with four a step, in the
+     ragged and the megakernel step, every kernel count reset just before
+     each run and read just after: the four-chunk streams equal the
+     one-chunk ones but where a pick leads by at most two bf16 ulps in
+     both runs, fewer prefill dispatches and more than a chunk of prompt
+     rows a prefill-carrying dispatch; tokens/s, the median step, the
+     documents' steps and seconds to first token, the peak memory; a
+     W 256 decode step profiled; (b) #1 at W 256 (decode, verify and
+     four-chunk prefill rows) at granite-8b's, gemma2-9b's and
+     phi4-mini's layer-0 shapes, in query tiles of 64, 64 and 80 tokens,
+     held to its plain version and timed beside it and its bound; (c) #1
+     forced to tiles of 16 tokens at phase 2's rows, bit-equal to the
+     one-tile call; (d) #8's 36-layer stack at W 256 against its plain
+     version (visits, phase 4's drift rule), timed beside its bound; (e)
+     reduced granite-8b, gemma2-2b and phi4-mini at four chunks of 16,
+     one request arriving a step, ragged, megakernel, tiered and
+     speculative, streams equal on card and CPU;
+  10. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -364,12 +384,12 @@ def check_rope_and_silu(card: str = "cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def ragged_rows(gen: torch.Generator, rows=ROWS) -> tuple:
-    """(table, starts, lens, written pages) of ``rows`` over R * P pool
-    pages and the trash page R * P: each live row owns pages of a
+def ragged_rows(gen: torch.Generator, rows=ROWS, pmax: int = P) -> tuple:
+    """(table, starts, lens, written pages) of ``rows`` over R * pmax
+    pool pages and the trash page R * pmax: each live row owns pages of a
     permutation."""
-    table = torch.full((R, P), -1, dtype=torch.int32)
-    perm = torch.randperm(R * P, generator=gen)
+    table = torch.full((R, pmax), -1, dtype=torch.int32)
+    perm = torch.randperm(R * pmax, generator=gen)
     starts, lens, off = [], [], 0
     writes = set()
     for i, (start, n_new) in enumerate(rows):
@@ -380,19 +400,19 @@ def ragged_rows(gen: torch.Generator, rows=ROWS) -> tuple:
             off += pages
         starts.append(start)
         lens.append(start + max(n_new, 1))
-    writes.add(R * P)  # inactive rows write the trash page
+    writes.add(R * pmax)  # inactive rows write the trash page
     return table, starts, lens, writes
 
 
-def ragged_pool(gen: torch.Generator, fmt: str, block: int) -> tuple:
-    """(elements, scales) of one K or V pool of R * P + 1 pages holding
-    quantized normal values."""
+def ragged_pool(gen: torch.Generator, fmt: str, block: int,
+                npages: int = R * P + 1, d: int = D) -> tuple:
+    """(elements, scales) of one K or V pool of ``npages`` pages (KVH
+    heads of ``d``) holding quantized normal values."""
     from repro_torch.core import quantize
 
-    npages = R * P + 1
-    x = quantize(torch.randn(npages * PS * KVH, D, generator=gen), fmt, block)
+    x = quantize(torch.randn(npages * PS * KVH, d, generator=gen), fmt, block)
     return (x.elements.reshape(npages, PS, KVH, -1),
-            x.scales.reshape(npages, PS, KVH, D // block))
+            x.scales.reshape(npages, PS, KVH, d // block))
 
 
 def ragged_inputs(fmt: str, gen: torch.Generator, block: int = BLOCK,
@@ -1589,13 +1609,14 @@ def run_with_pools(fn, params, cfg, cache, args, pools0) -> tuple:
     return logits, [t.clone() for t in stacked]
 
 
-def megakernel_bound(cfg, rows=ROWS) -> tuple:
-    """(bound_ms, bound_by) of the layer stack over ``rows`` (W columns
-    a row): the products' FLOPs at the bf16 peak plus each layer's walk
-    (q.k and P.V of the kept pairs, as :func:`ragged_bound` counts them),
-    against the bytes of the weights, the norm scales, the residual in
-    and out and each layer's pool rows read and written."""
-    m = len(rows) * W
+def megakernel_bound(cfg, rows=ROWS, w: int = W, pmax: int = P) -> tuple:
+    """(bound_ms, bound_by) of the layer stack over ``rows`` (``w``
+    columns a row, ``pmax``-entry tables): the products' FLOPs at the
+    bf16 peak plus each layer's walk (q.k and P.V of the kept pairs, as
+    :func:`ragged_bound` counts them), against the bytes of the weights,
+    the norm scales, the residual in and out and each layer's pool rows
+    read and written."""
+    m = len(rows) * w
     dm, dff, d = cfg.d_model, cfg.d_ff, cfg.head_dim
     kvh = cfg.num_kv_heads
     hd, kvd = cfg.num_heads * d, kvh * d
@@ -1603,11 +1624,11 @@ def megakernel_bound(cfg, rows=ROWS) -> tuple:
     layers = cfg.num_layers
     pool_bytes, pairs = ragged_pool_traffic(
         cfg.quant.fmt, min(cfg.quant.block_size, d), rows=rows,
-        shape=(len(rows), kvh, W, cfg.num_heads // kvh, d))
+        shape=(len(rows), kvh, w, cfg.num_heads // kvh, d))
     ops_ms = (1e3 * 2.0 * m * per_layer * layers / BF16_FLOPS
               + layers * ragged_walk_ops_ms(pairs, d))
     nbytes = (layers * (2 * per_layer + 2 * 4 * dm + pool_bytes)
-              + 2 * 2 * m * dm + 4 * len(rows) * (P + 2))
+              + 2 * 2 * m * dm + 4 * len(rows) * (pmax + 2))
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations")
@@ -2316,8 +2337,9 @@ def serve_full_width_split(ragged_report: dict, ragged_leads: dict) -> dict:
             "report": report}
 
 
-def megakernel_drift(params, cfg, cache, step_args, label: str) -> dict:
-    """One step of ROWS (``step_args``) over ``cache``'s pages through the
+def megakernel_drift(params, cfg, cache, step_args, label: str,
+                     rows=ROWS) -> dict:
+    """One step of ``rows`` (``step_args``) over ``cache``'s pages through the
     per-layer CUDA ragged step, the megakernel and the megakernel's plain
     version (cuBLAS products, the plain walk), each from the same pools:
     every pair's largest logit difference, argmax and differing pool
@@ -2329,7 +2351,7 @@ def megakernel_drift(params, cfg, cache, step_args, label: str) -> dict:
 
     stacked = stacked_pools(cache)
     pools0 = [t.clone() for t in stacked]
-    live = [i for i, (_, n) in enumerate(ROWS) if n]
+    live = [i for i, (_, n) in enumerate(rows) if n]
     runs = {name: run_with_pools(fn, params, cfg, cache, step_args, pools0)
             for name, fn in (("ragged", model.ragged_step_paged),
                              ("megakernel", model.megakernel_step_paged),
@@ -2342,7 +2364,7 @@ def megakernel_drift(params, cfg, cache, step_args, label: str) -> dict:
         c = compare_steps(runs[a][0], runs[b][0], runs[a][1], runs[b][1],
                           live)
         pairs[f"{b} vs {a}"] = c
-        log(f"{label} of ROWS over the run's pages ({cfg.num_layers} "
+        log(f"{label} over the run's pages ({cfg.num_layers} "
             f"layers), {b} against {a}: largest |logit difference| "
             f"{c['max_abs_err']:.4g} ({c['max_abs_err'] / c['ulp']:.1f} bf16 "
             f"ulps of the largest logit), argmax equal in "
@@ -2457,7 +2479,7 @@ def serve_full_width_megakernel(ragged: dict) -> dict:
         f"(one run), bound {bound_ms:.4f} ms ({bound_by}); visits equal the "
         "plain version's; no single PyTorch call computes this function")
     pairs = megakernel_drift(params, cfg, engine.cache, step_args,
-                             "full-width step")
+                             "full-width step of ROWS")
     # a greedy pick can flip between two steps only where its lead is
     # below twice their largest logit difference
     near = 2 * np.ceil(pairs["megakernel vs ragged"]["max_abs_err"]
@@ -4200,7 +4222,7 @@ def serve_phi4_full_width() -> dict:
                  torch.tensor(lens, **i32),
                  torch.tensor([max(n - 1, 0) for _, n in ROWS], **i32))
     drift = megakernel_drift(params, cfg, mengine.cache, step_args,
-                             "phi4-mini")
+                             "phi4-mini, a step of ROWS")
     kernel = megakernel_layers(params, cfg, mengine.cache, *step_args[:4])
     plain = megakernel_layers(params, cfg, mengine.cache, *step_args[:4],
                               plain=True)
@@ -4288,6 +4310,409 @@ def check_reduced_archs(card: str = "cuda") -> None:
             f"a ({len(prompts)}, {cut}) fixed-slot batch; streams equal on "
             f"card and CPU (smallest CPU leads in bf16 ulps: "
             f"{ {k: round(v, 2) for k, v in leads.items()} })")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: several prompt chunks per ragged row (prefill_max_chunks)
+# ---------------------------------------------------------------------------
+
+#: phase 9's budget: chunks a prefilling row takes in one step while the
+#: batch is undersubscribed; the ragged width W9 = 4 x 64 = 256
+MULTI_CHUNKS = 4
+W9 = CHUNK * MULTI_CHUNKS
+#: 9a: granite-8b at full width, eight slots of 2,048 positions (max_seq =
+#: prompt-len + new tokens); the prompts are MULTI_PROMPTS' below
+MULTI_ARGV = ["--arch", "granite-8b", "--batch", "4", "--max-slots", "8",
+              "--prompt-len", "2016", "--new-tokens", "32", "--ragged"]
+#: 9a's long documents (24 chunks of 64 each) beside phase 4's shortest
+#: and longest prompts: four active sequences in eight slots
+LONG_DOC = 1536
+#: 9b/9d: (row_start, n_new) of one W 256 step: a decode row, a verify
+#: window of 1 + K, four chunks from position 0 and four from 512, two
+#: more decode rows and two inactive rows
+ROWS9 = [(300, 1), (46, 1 + SPEC_K), (0, W9), (512, W9), (0, 0), (250, 1),
+         (0, 0), (150, 1)]
+P9 = 48  # table entries: the longest row ends at position 768
+#: 9b: the configs whose layer-0 attention #1 is held at W 256, and the
+#: query tile (tokens) each cell is walked in: 1,024 rows of 128, 512 of
+#: 256 and 768 of 128 fit no block, so four tiles of 64, 64 and 80 tokens
+#: (80, 80, 80 and 16)
+WIDE_TILES = {"granite-8b": 64, "gemma2-9b": 64, "phi4-mini-3.8b": 80}
+#: 9c: the forced tile at W 64, where one tile holds the cell
+FORCED_TILE = 16
+#: 9e: reduced configs serve ARCH_PROMPTS of phase 3's prompts (40-72
+#: tokens) through eight slots, one request arriving a step, in chunks of
+#: 16 (W 64: a prompt streams in one or two bites of up to four chunks);
+#: their port-init seeds: the smallest from phase 3's (granite) or 8c's
+#: seed up whose every greedy pick of the four CPU runs leads by more than
+#: GAP_TOL_ULPS (asserted; granite's is phase 3's tiered seed)
+MULTI_REDUCED = {"granite-8b": TIERED_SEED, "gemma2-2b": 17,
+                 "phi4-mini-3.8b": 9}
+REDUCED_CHUNK = 16
+
+
+def multichunk_prompts(cfg) -> list:
+    """9a's four prompts: two documents of LONG_DOC tokens, then phase 4's
+    shortest and longest prompts (119 and 283 tokens)."""
+    from repro_torch.launch import serve
+
+    rng = np.random.default_rng(9)
+    short = serve.make_prompts(cfg, serve.parse_args(
+        FULL_ARGV + ["--new-tokens", "32"]), sharing=2)
+    short = sorted(short, key=len)
+    return [rng.integers(0, cfg.vocab_size, LONG_DOC).astype(np.int32)
+            for _ in range(2)] + [short[0], short[-1]]
+
+
+def first_tokens(engine) -> dict:
+    """Have ``engine`` note, for each request, the engine steps (ragged or
+    megakernel dispatches) and the seconds from its submission to its
+    first token, in the returned dict."""
+    got = {}
+    record = engine._record_first_token
+
+    def traced(req_id):
+        t0 = engine._submit_time.get(req_id)
+        record(req_id)
+        got[req_id] = (engine.dispatch_counts["ragged"],
+                       None if t0 is None else time.perf_counter() - t0)
+
+    engine._record_first_token = traced
+    return got
+
+
+def serve_multichunk_full_width() -> dict:
+    """9a: MULTI_ARGV's engine (granite-8b at full width, ServeConfig
+    defaults otherwise) serves multichunk_prompts with prefill_max_chunks
+    1 and MULTI_CHUNKS, in the ragged and the megakernel step, every
+    kernel count reset just before each run and read just after (#1 36
+    launches a step, or #8 one). Within each step mode the four-chunk
+    streams equal the one-chunk ones but where a pick leads by at most
+    TIE_ULPS in both runs; four chunks take fewer prefill dispatches and
+    retire more than a chunk of prompt rows a prefill-carrying dispatch.
+    Tokens/s, the median step, the long documents' steps and seconds to
+    first token and the peak memory logged; a decode step at W 256
+    profiled; then 9d on the four-chunk megakernel engine."""
+    from repro_torch.launch import serve
+
+    params, runs, engine = None, {}, None
+    for mode in ("ragged", "megakernel"):
+        for chunks in (1, MULTI_CHUNKS):
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            args = serve.parse_args(MULTI_ARGV + [
+                "--step-mode", mode, "--prefill-max-chunks", str(chunks)])
+            t0 = time.perf_counter()
+            cfg, engine = serve.build_engine(args, params)
+            if params is None:
+                params = engine.params
+                log(f"9a granite-8b built in {time.perf_counter() - t0:.1f} "
+                    f"s, max_seq {engine.serve_cfg.max_seq}, "
+                    f"{engine.serve_cfg.max_slots} slots")
+            if engine._width != CHUNK * chunks:
+                raise AssertionError(f"9a: ragged width {engine._width}")
+            prompts = multichunk_prompts(cfg)
+            firsts = first_tokens(engine)
+            report, leads, n = _serve_counted(engine, cfg, args, prompts)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            what = f"9a {mode}, {chunks} chunk(s)"
+            _check_streams(report, cfg, 32, what)
+            kernel = ("mx_megakernel_step" if mode == "megakernel"
+                      else "mx_attention_ragged_fused")
+            per_step = 1 if mode == "megakernel" else cfg.num_layers
+            _only_launched(n, {kernel: report["ragged_steps"] * per_step},
+                           what)
+            long_ids = report["ids"][:2]
+            runs[mode, chunks] = dict(
+                report=report, leads=leads, launches=n[kernel],
+                peak_gb=peak_gb,
+                first=[firsts[i] for i in long_ids])
+            log(f"{what}: {report['generated_tokens']} tokens in "
+                f"{report['seconds']:.2f} s = {report['tokens_per_s']:.1f} "
+                f"tok/s; {report['ragged_steps']} steps, median "
+                f"{report['median_step_ms']:.2f} ms; "
+                f"{report['prefill_dispatches']} prefill dispatches, "
+                f"{report['prefill_rows_per_step']:.1f} prompt rows a "
+                f"prefill-carrying dispatch; the {LONG_DOC}-token documents' "
+                "first tokens at step / seconds "
+                f"{[(k, round(t, 3)) for k, t in runs[mode, chunks]['first']]}"
+                f"; {n[kernel]} {kernel} launches; peak memory "
+                f"{peak_gb:.2f} GB")
+            if mode == "ragged" and chunks == MULTI_CHUNKS:
+                decode_step_breakdown(engine, cfg)
+        one, many = runs[mode, 1], runs[mode, MULTI_CHUNKS]
+        parts = []
+        for i, prompt in zip(one["report"]["ids"], prompts):
+            k = len(prompt)
+            part = _tie_parting(many["report"]["results"][i][k:],
+                                one["report"]["results"][i][k:],
+                                many["leads"][i], one["leads"][i])
+            if part is not None:
+                parts.append((i, *part))
+        r1, r4 = one["report"], many["report"]
+        if not (r4["prefill_dispatches"] < r1["prefill_dispatches"]
+                and r4["prefill_rows_per_step"] > CHUNK):
+            raise AssertionError(
+                f"9a {mode}: prefill dispatches {r1['prefill_dispatches']} "
+                f"-> {r4['prefill_dispatches']}, prompt rows a dispatch "
+                f"{r4['prefill_rows_per_step']}")
+        many["parts"] = parts
+        log(f"9a {mode}: {MULTI_CHUNKS} chunks against 1: "
+            f"{len(prompts) - len(parts)} of {len(prompts)} streams equal "
+            f"(partings at (request, generated token, lead {MULTI_CHUNKS} "
+            f"chunks, lead 1 chunk) {parts}, each at a pick leading by at "
+            f"most {TIE_ULPS} ulps in both runs); prefill dispatches "
+            f"{r1['prefill_dispatches']} -> {r4['prefill_dispatches']}; "
+            f"long documents' steps to first token "
+            f"{[k for k, _ in one['first']]} -> "
+            f"{[k for k, _ in many['first']]}; tok/s "
+            f"{r1['tokens_per_s']:.1f} -> {r4['tokens_per_s']:.1f}; median "
+            f"step {r1['median_step_ms']:.2f} -> {r4['median_step_ms']:.2f} "
+            "ms")
+    mega = megakernel_wide_step(engine)
+    del engine
+    return {"runs": runs, "mega": mega}
+
+
+def _wide_step_args(cfg, gen, dev):
+    """(tokens, table, starts, lens, logit rows) of one W9-wide step over
+    ROWS9 on a pool of at least R * P9 + 1 pages."""
+    table, starts, lens, _ = ragged_rows(gen, ROWS9, P9)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (torch.randint(0, cfg.vocab_size, (R, W9), generator=gen).to(dev),
+            table.to(dev), torch.tensor(starts, **i32),
+            torch.tensor(lens, **i32),
+            torch.tensor([max(n - 1, 0) for _, n in ROWS9], **i32))
+
+
+def megakernel_wide_step(engine) -> dict:
+    """9d: one W 256 step of ROWS9 (four-chunk prefill rows beside decode
+    and verify rows) on the four-chunk megakernel engine's weights and
+    pages: #8's layer stack against its plain version (visits equal; the
+    plain version timed once), the step through the per-layer ragged
+    step, #8 and #8's plain version held to MEGA_DRIFT_FACTOR
+    (:func:`megakernel_drift`), #8 timed beside its bound."""
+    from repro_torch.kernels import mx_megakernel as mk
+
+    cfg, params = engine.cfg, engine.params
+    step_args = _wide_step_args(cfg, torch.Generator().manual_seed(19),
+                                engine.device)
+    kernel = megakernel_layers(params, cfg, engine.cache, *step_args[:4])
+    plain = megakernel_layers(params, cfg, engine.cache, *step_args[:4],
+                              plain=True)
+    _, got = kernel()
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(plain()[1]), 1)
+    if not torch.equal(got, want[0]) or not int(got.sum()):
+        raise AssertionError(f"9d: #8 visits {int(got.sum())} against the "
+                             f"plain version's {int(want[0].sum())}")
+    ms = cuda_ms(kernel, 5)
+    bound_ms, bound_by = megakernel_bound(cfg, ROWS9, W9, P9)
+    pairs = megakernel_drift(params, cfg, engine.cache, step_args,
+                             f"9d, a W {W9} step of ROWS9", rows=ROWS9)
+    tile = mk.walk_tile(W9, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim,
+                        PS)
+    log(f"9d #8 at W {W9} ({cfg.num_layers} layers, ROWS9, {R * W9} "
+        f"activation rows, query tiles of {tile} tokens): {ms:.3f} ms "
+        f"(median of 5), plain version "
+        f"{plain_ms:.1f} ms (one run), bound {bound_ms:.4f} ms "
+        f"({bound_by}); visits equal the plain version's")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "max_abs_err": pairs["megakernel vs plain"]["max_abs_err"],
+            "pairs": pairs}
+
+
+def wide_walk_inputs(cfg, gen, dev: str = "cuda") -> tuple:
+    """(call arguments, keywords) of #1 at ``cfg``'s layer 0 over ROWS9
+    (W 256): random bf16 q / k / v and pools of quantized normal values
+    over R * P9 + 1 pages (the last the trash page), the layer's window
+    and softcap."""
+    d, kvh = cfg.head_dim, cfg.num_kv_heads
+    g = cfg.num_heads // kvh
+    block = min(cfg.quant.block_size, d)
+    if kvh != KVH:
+        raise AssertionError(f"{cfg.name}: {kvh} kv heads")
+    table, starts, lens, _ = ragged_rows(gen, ROWS9, P9)
+    pools = []
+    for _ in range(2):
+        pools += ragged_pool(gen, cfg.quant.fmt, block, R * P9 + 1, d)
+    a = (torch.randn(R, kvh, W9, g, d, generator=gen).bfloat16(),
+         torch.randn(R, W9, kvh, d, generator=gen).bfloat16(),
+         torch.randn(R, W9, kvh, d, generator=gen).bfloat16(),
+         *pools, table, torch.tensor(starts), torch.tensor(lens))
+    kw = dict(fmt_name=cfg.quant.fmt, block_size=block,
+              window=cfg.all_blocks()[0].window, softcap=cfg.attn_softcap)
+    return [t.contiguous().to(dev) for t in a], kw
+
+
+def check_wide_walks() -> dict:
+    """9b: #1 at W 256 on ROWS9 at granite-8b's, gemma2-9b's (window 4096,
+    softcap 50) and phi4-mini's layer-0 shapes: the query tile the
+    wrapper picks from the library's shared-memory size (WIDE_TILES), then
+    the call held to its plain version (pool bytes and visits equal, out
+    within OUT_TOL) and timed beside it and its bound
+    (:func:`time_walk`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mx_attention as mxa
+
+    lib = mxa._library("mx_attention_ragged")
+    out = {}
+    for arch, want in WIDE_TILES.items():
+        cfg = get_config(arch)
+        g = cfg.num_heads // cfg.num_kv_heads
+        tile = mxa.query_tile(W9, g, cfg.head_dim, PS,
+                              lib.mx_attention_ragged_smem_bytes)
+        if tile != want:
+            raise AssertionError(f"9b {arch}: a tile of {tile} tokens, "
+                                 f"expected {want}")
+        a, kw = wide_walk_inputs(cfg, torch.Generator().manual_seed(29))
+        out[arch] = time_walk(a, kw, ROWS9, (
+            f"9b {arch}'s layer 0, W {W9} ({W9 * g} query rows a cell in "
+            f"tiles of {tile} tokens, "
+            f"{lib.mx_attention_ragged_smem_bytes(tile, g, cfg.head_dim, PS)}"
+            " bytes of shared memory)"))
+        out[arch]["tile"] = tile
+        del a
+    return out
+
+
+def check_forced_tiles() -> None:
+    """9c: phase 2's rows at W 64 (granite-8b's attention, one tile holds
+    the cell): the kernel forced to tiles of FORCED_TILE tokens gives the
+    one-tile call's outputs (the live rows': the two inactive rows read
+    the trash page that both write), pool bytes (all but the trash page)
+    and visits bit for bit, on an fp8 and on a mixed pool."""
+    from repro_torch.kernels import mx_attention as mxa
+
+    lib = mxa._library("mx_attention_ragged")
+    if mxa.query_tile(W, G, D, PS, lib.mx_attention_ragged_smem_bytes) != W:
+        raise AssertionError("9c: the W 64 cell does not fit one tile")
+    gen = torch.Generator().manual_seed(39)
+    live = [i for i, (_, n) in enumerate(ROWS) if n]
+    for fmt, mixed in (("fp8_e4m3", False), ("fp8_e4m3", True)):
+        inp = ragged_inputs(fmt, gen, mixed=mixed)
+        runs = []
+        for tile in (None, FORCED_TILE):
+            pools = [t.clone() for t in inp["pools"]]
+            got, _, visits = mxa.mx_attention_ragged_fused(
+                *_call_args(inp, pools), **_kw(inp, fmt), debug_visits=True,
+                tile_tokens=tile)
+            runs.append((got[live],
+                         [t.view(torch.uint8)[:R * P] for t in pools],
+                         visits))
+        torch.cuda.synchronize()
+        (a, ap, av), (b, bp, bv) = runs
+        if not (torch.equal(a, b) and torch.equal(av, bv)
+                and all(torch.equal(x, y) for x, y in zip(ap, bp))):
+            raise AssertionError(
+                f"9c {fmt}{' mixed' if mixed else ''}: tiles of "
+                f"{FORCED_TILE} tokens part from one tile: out "
+                f"{float((a - b).abs().max())}")
+    log(f"9c: #1 forced to tiles of {FORCED_TILE} tokens at phase 2's rows "
+        f"(W {W}, one tile of {W} otherwise): outputs, pool bytes and visits "
+        "bit-equal to the one-tile call (fp8 and mixed pools)")
+
+
+def staggered_streams(device: str, params, cfg, prompts, **serve) -> tuple:
+    """9e: ``prompts`` through eight slots in chunks of REDUCED_CHUNK
+    with prefill_max_chunks MULTI_CHUNKS, one request submitted before
+    each step, so a prompt streams in bites of up to four chunks beside
+    decode rows: (streams, stats, the page formats after every step of a
+    tiered engine)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    eng = ServeEngine(params, cfg, ServeConfig(
+        max_seq=96, max_slots=8, prefill_chunk=REDUCED_CHUNK,
+        prefill_max_chunks=MULTI_CHUNKS, **serve), device=device)
+    pending, ids, history = list(prompts), [], []
+    more = True
+    while pending or more:
+        if pending:
+            ids.append(eng.submit(pending.pop(0), 6))
+        more = eng.step()
+        if eng.tiered:
+            history.append(eng.page_fmts.copy())
+    out = eng.run()
+    return [out[i] for i in ids], eng.cache_stats(), history
+
+
+def multichunk_reduced(card: str = "cuda") -> dict:
+    """9e: reduced granite-8b, gemma2-2b and phi4-mini (seeded port
+    weights, MULTI_REDUCED) serve ARCH_PROMPTS of phase 3's prompts, one
+    arriving a step,
+    through the ragged step, the megakernel (gemma2: the fallback reason
+    logged, the ragged step served), the tiered cache under phase 3's
+    aggressive policy and greedy speculation (K 4), with prefill_max_chunks
+    MULTI_CHUNKS, on the card and on the CPU: equal streams (tiered: every
+    step's page formats too), every CPU pick leading by more than
+    GAP_TOL_ULPS, more than a chunk of prompt rows a prefill-carrying
+    dispatch. Returns the card's kernel launches by mode."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import (mx_attention_ragged_fused,
+                                     mx_megakernel_step)
+    from repro_torch.nn import model
+    from repro_torch.serve import TierPolicy
+
+    modes = {"ragged": {}, "megakernel": dict(step_mode="megakernel"),
+             "tiered": dict(tiered=True,
+                            tier_policy=TierPolicy(**AGGRESSIVE_TIERS)),
+             "spec": dict(spec_decode=True, num_draft_tokens=SPEC_K)}
+    launches = {}
+    for arch, seed in MULTI_REDUCED.items():
+        cfg = get_reduced(arch)
+        cfg = cfg.replace(quant=cfg.quant.replace(quantize_acts=False,
+                                                  quantize_kv_cache=True))
+        prompts = reduced_prompts(cfg)[:ARCH_PROMPTS]
+        params = model.init(cfg, torch.Generator().manual_seed(seed), "cpu")
+        on_card = _to_device(params, card)
+        leads = {}
+        for mode, kw in modes.items():
+            want, cpu_stats, cpu_hist = staggered_streams(
+                "cpu", params, cfg, prompts, **kw)
+            counts0 = (mx_attention_ragged_fused.launches,
+                       mx_megakernel_step.launches)
+            got, stats, hist = staggered_streams(card, on_card, cfg,
+                                                 prompts, **kw)
+            launches[arch, mode] = tuple(
+                k.launches - c0 for k, c0 in zip(
+                    (mx_attention_ragged_fused, mx_megakernel_step),
+                    counts0))
+            what = f"9e reduced {arch} {mode}"
+            if not cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
+                raise AssertionError(
+                    f"{what}: a near-tie pick "
+                    f"({cpu_stats['min_top2_gap_ulps']} ulps)")
+            _same_streams(got, want, f"{what}, card vs CPU")
+            if len(hist) != len(cpu_hist) or any(
+                    not np.array_equal(a, b) for a, b in zip(hist, cpu_hist)):
+                raise AssertionError(f"{what}: page formats differ between "
+                                     "card and CPU")
+            if not stats["prefill_rows_per_step"] > REDUCED_CHUNK:
+                raise AssertionError(
+                    f"{what}: {stats['prefill_rows_per_step']} prompt rows "
+                    "a prefill-carrying dispatch")
+            mega = stats["step_mode"] == "megakernel"
+            if card == "cuda" and (
+                    launches[arch, mode][mega] != stats["ragged_steps"]
+                    * (1 if mega else cfg.num_layers)
+                    or launches[arch, mode][not mega]):
+                raise AssertionError(f"{what}: launches {launches[arch, mode]}"
+                                     f" over {stats['ragged_steps']} steps")
+            if mode == "megakernel" and not mega:
+                log(f"{what}: {stats['megakernel_fallback_reason']}; the "
+                    "per-layer ragged step served")
+            leads[mode] = (round(cpu_stats["min_top2_gap_ulps"], 2),
+                           round(stats["prefill_rows_per_step"], 1))
+        log(f"9e reduced {arch} (seed {seed}): {len(prompts)} "
+            f"requests, one arriving a step, through 8 slots at "
+            f"{MULTI_CHUNKS} chunks of {REDUCED_CHUNK}, ragged, megakernel, "
+            f"tiered and speculative (K {SPEC_K}): streams equal on card and "
+            "CPU (tiered: page formats too); by mode, the smallest CPU lead "
+            f"and the prompt rows a prefill-carrying dispatch: {leads}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5141,6 +5566,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_reduced_archs()
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multi = serve_multichunk_full_width()
+    kernel["launches_w256"] = multi["runs"]["ragged", MULTI_CHUNKS][
+        "launches"]
+    mega["launches_w256"] = multi["runs"]["megakernel", MULTI_CHUNKS][
+        "launches"]
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err"):
+        mega[f"{key}_w256"] = multi["mega"][key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide = check_wide_walks()
+    for arch, short in (("granite-8b", "granite"), ("gemma2-9b", "gemma2_9b"),
+                        ("phi4-mini-3.8b", "phi4_mini")):
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "tile"):
+            kernel[f"{key}_w256_{short}"] = wide[arch][key]
+    check_forced_tiles()
+    kernel["forced_tiles_bit_equal"] = True
+    multichunk_reduced()
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     kernels = [kernel, verify, prefill] + pair + [repack, mega] \

@@ -32,6 +32,17 @@
 // chunked-prefill kernels (mx_attention_paged.cu) run too, so a row gives
 // the same bits in all three. The cell body is mx_attention_ragged_cell.cuh,
 // which the layer-fused megakernel (mx_megakernel.cu) runs as its phase B.
+// The walk keeps its queries, their f32 accumulators and a decoded page in
+// shared memory, so a cell's W * G query rows fit a block only up to a few
+// hundred (granite-8b's 256 at W 64, 215,296 bytes): a wider step (several
+// prompt chunks a row, W = prefill_chunk * prefill_max_chunks) walks them
+// in tiles of T tokens, every tile over the same pages, one after the
+// other in the same CTA. The caller picks T (mx_attention.query_tile: W
+// when the cell fits, else the largest multiple of 16 tokens that does)
+// and may pass a smaller one; a row's bits do not depend on it. A split of
+// the tiles over CTAs would let a later tile read pages that another CTA
+// of the same launch is still writing; it would need a write pass of its
+// own first.
 //
 // What bounds it on an H100 SXM (data-sheet peaks). At the main path's
 // shapes (R=8, KVH=8, W=64, G=4, D=128, PS=16, 21-page tables) one call
@@ -44,9 +55,11 @@
 // and P.V as f32 FMAs in key order, one CTA per cell: only R * KVH = 64
 // of the 132 SMs work, each walking its pages in order, so the P.V
 // multiply-adds and each page's dependent steps set the time
-// (tools/profile_mx_walk.py). Splitting a cell's pages over CTAs is the
-// next lever; chip_smoke.py computes the bound and times the kernel
-// (PERF.md).
+// (tools/profile_mx_walk.py). A step of four chunks a row (W 256) walks
+// a cell's pages once a tile: four times at granite-8b's 1,024 rows, the
+// padding tiles of a decode row included. Splitting a cell's pages over
+// CTAs is the next lever; chip_smoke.py computes the bound and times the
+// kernel (PERF.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -78,8 +91,9 @@ __global__ void __launch_bounds__(mxwalk::kThreads)
 
 }  // namespace
 
-extern "C" size_t mx_attention_ragged_smem_bytes(int W, int G, int D, int PS) {
-  return mxwalk::smem_bytes(W * G, D, PS);
+// shared memory of a cell walked in tiles of T tokens (T * G query rows)
+extern "C" size_t mx_attention_ragged_smem_bytes(int T, int G, int D, int PS) {
+  return mxwalk::smem_bytes(T * G, D, PS);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
@@ -88,18 +102,20 @@ extern "C" size_t mx_attention_ragged_smem_bytes(int W, int G, int D, int PS) {
 // are the bits of mixed_mask, mixed_default the first of them. The table
 // and lengths are as the caller holds them: the cell maps entries < 0 to
 // the trash page NP - 1, clamps the rest into the pool and the lengths
-// into [row_start + 1, row_start + W].
+// into [row_start + 1, row_start + W]. A cell's queries are walked in tiles
+// of T tokens (T >= W: one tile).
 extern "C" int mx_attention_ragged_launch(
     const void* q, const void* k_new, const void* v_new, void* ke, void* ks,
     void* ve, void* vs, const void* table, const void* row_start,
     const void* seq_lens, const void* page_fmts, void* out, void* visits,
     int R, int KVH, int W, int G, int D, int ED, int PS, int P, int NP,
-    int block_size, int fmt, int window, int mixed_mask, int mixed_default,
-    float softcap, float scale, void* stream) {
+    int T, int block_size, int fmt, int window, int mixed_mask,
+    int mixed_default, float softcap, float scale, void* stream) {
   if (!mxwalk::pools_ok(page_fmts, D, ED, PS, block_size, fmt) ||
-      R * KVH == 0 || NP < 1) {
+      R * KVH == 0 || NP < 1 || T < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  T = T < W ? T : W;
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   mxcell::Cell& c = a.cell;
@@ -116,11 +132,12 @@ extern "C" int mx_attention_ragged_launch(
   c.P = P;
   c.NP = NP;
   c.window = window;
+  c.T = T;
   c.softcap = softcap;
   c.scale = scale;
   a.out = static_cast<float*>(out);
   a.visits = static_cast<int*>(visits);
-  const size_t smem = mxwalk::smem_bytes(W * G, D, PS);
+  const size_t smem = mxwalk::smem_bytes(T * G, D, PS);
   cudaError_t err = cudaFuncSetAttribute(
       ragged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -6,20 +6,33 @@
 // _mx_megakernel) runs the ragged kernel's page walk "verbatim" inside its
 // (layer, row, kv-head) cells by importing the same helpers; this header is
 // that sharing for Hopper. Per cell, one CTA of mxwalk::kThreads threads:
-//   1. stage the cell's bf16 queries (rows = W * G) and reset the softmax
-//      state (mxwalk::walk_begin);
-//   2. quantize-merge the row's new wide K/V rows into the write-window
+//   1. quantize-merge the row's new wide K/V rows into the write-window
 //      pages [row_start / PS, ceil(seq_len / PS)), touching only the bytes
 //      of rows row_start <= kpos < seq_len (the trash-page rule: a -1
 //      table entry names page NP - 1, so an inactive row's writes land
 //      there and nowhere else), one warp a block;
-//   3. __syncthreads (which also orders the CTA's global writes before its
-//      reads), then walk pages [first_window_page, ceil(seq_len / PS)) in
-//      order (mxwalk::walk_pages);
-//   4. hand acc / l of every query row to `store` and return the number of
-//      pages walked.
+//   2. __syncthreads (which also orders the CTA's global writes before its
+//      reads);
+//   3. walk the cell's W * G query rows a tile at a time: tokens [t0, t0 +
+//      T) (T * G rows, the last tile shorter when T does not divide W) are
+//      staged and their softmax state reset (mxwalk::walk_begin), pages
+//      [first_window_page, ceil(seq_len / PS)) folded in order
+//      (mxwalk::walk_pages), and acc / l of every row of the tile handed to
+//      `store` (mxwalk::walk_finish); then a sync before the next tile
+//      reuses shared memory;
+//   4. return the number of pages walked (a cell's, whatever its tiles).
+// The walk's shared memory grows with its query rows (mxwalk::smem_bytes),
+// so the host picks T to fit a block's 232,448 bytes: W tokens when the
+// whole cell fits (one tile, the one-chunk step), else the largest multiple
+// of 16 that does (mx_attention.query_tile). A tile starts on a token, so
+// each query row keeps its own position; a tile of padding tokens alone
+// (t >= n_new) walks the same pages as the others, its queries clamped onto
+// the last real position, as an untiled walk would. A row's bits depend on
+// its own position and the keys alone (mx_attention_walk.cuh), so they do
+// not depend on T either.
 // The reference guarantees that write-window pages belong to one row alone,
-// so cells never synchronise with each other.
+// and one CTA runs all the tiles of a cell after all its writes, so cells
+// never synchronise with each other.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,21 +51,21 @@ struct Cell {
   const int* row_start;  // (R,)
   const int* seq_lens;   // (R,), clamped here to [start + 1, start + W]
   int R, W, G, P, NP, window;
+  int T;  // tokens of a query tile, 1 <= T <= W (T == W: one tile)
   float softcap, scale;
 };
 
 // Run cell `cell` = r * KVH + h over the queries qg (W * G, D) bf16, rows
 // ordered (token, group member). store(i, v) receives elements i to i + 3
-// (i = row * D + d) of the f32 output acc / l as a float4. Returns the
-// pages walked. Every thread of
-// the CTA calls it; `smem` holds mxwalk::smem_bytes(W * G, D, PS) bytes.
+// (i = row * D + d, row of the cell) of the f32 output acc / l as a float4.
+// Returns the pages walked. Every thread of the CTA calls it; `smem` holds
+// mxwalk::smem_bytes(T * G, D, PS) bytes.
 template <class Store>
 __device__ inline int ragged_cell(const Cell& a, void* smem,
                                   const __nv_bfloat16* qg, int cell,
                                   Store store) {
   const mxwalk::Pools& P = a.pools;
   const int r = cell / P.KVH, h = cell % P.KVH;
-  const int rows = a.W * a.G;
 
   // the wrapper's normalisation (mx_attention.normalize_rows), idempotent
   const int start = a.row_start[r];
@@ -66,8 +79,6 @@ __device__ inline int ragged_cell(const Cell& a, void* smem,
     return static_cast<size_t>(e < 0 ? a.NP - 1 : min(e, a.NP - 1));
   };
   const mx::FmtSpec f = mx::fmt_spec(P.fmt);
-
-  const mxwalk::Walk w = mxwalk::walk_begin(smem, qg, rows, P.D, P.PS);
 
   // quantize-merge this step's new rows into the write window, one warp a
   // block: job (t, K or V, block) of new row t at kpos = start + t (rows
@@ -115,11 +126,21 @@ __device__ inline int ragged_cell(const Cell& a, void* smem,
   }
   __syncthreads();
 
-  // online-softmax page walk; padding queries (t >= n_new) clamp onto the
-  // last real position
-  mxwalk::walk_pages(w, P, page_at, h, first, valid, a.P, a.G, start,
-                     n_new - 1, a.window, a.softcap, a.scale);
-  mxwalk::walk_finish(w, store);
+  // online-softmax page walk, a query tile at a time; padding queries
+  // (t >= n_new) clamp onto the last real position: qlast counts from the
+  // tile's first token and is negative in a tile of padding alone
+  for (int tile = 0; tile < a.W; tile += a.T) {
+    const int rows = min(a.T, a.W - tile) * a.G;
+    const int off = tile * a.G * P.D;  // the tile's first element of qg
+    const mxwalk::Walk w = mxwalk::walk_begin(smem, qg + off, rows, P.D,
+                                              P.PS);
+    __syncthreads();
+    mxwalk::walk_pages(w, P, page_at, h, first, valid, a.P, a.G,
+                       start + tile, n_new - 1 - tile, a.window, a.softcap,
+                       a.scale);
+    mxwalk::walk_finish(w, [&](int i, float4 v) { store(off + i, v); });
+    __syncthreads();  // the next tile reuses shared memory
+  }
   return max(0, valid - first);
 }
 

@@ -13,8 +13,9 @@
 //       host-made f32 table (cos/sin rounded to bf16, then bf16 op by op,
 //       as nn/rotary.py::apply_rope), then the ragged kernel's cell body
 //       (mx_attention_ragged_cell.cuh: quantize-write of the window pages
-//       into layer l's pool, the tensor-core page walk), its f32 output
-//       merged over heads and rounded to bf16;
+//       into layer l's pool, then the tensor-core page walk of the cell's
+//       queries in tiles of T tokens), its f32 output merged over heads and
+//       rounded to bf16;
 //   C   the wo product (rounded to bf16) and the residual sum, kept in f32
 //       for the FFN norm (XLA hands that norm the unrounded sum,
 //       nn/blocks.py::_decode_tail);
@@ -37,7 +38,10 @@
 // cells, 64 at granite's shapes, for 132 CTAs). The residual, q/k/v, the
 // attention output, the f32 residual sum and the FFN hidden live in global
 // scratch tensors that the wrapper allocates; one dynamic shared-memory
-// buffer serves every phase (the walk's, or the product ring). A cell
+// buffer serves every phase (the walk's, or the product ring): the walk's
+// part holds one query tile of a cell (T tokens, the host's choice,
+// mx_megakernel.py), so a step of several prompt chunks a row (W 256,
+// 1,024 query rows a cell at granite's shapes) fits beside the ring. A cell
 // writes pool pages of its own row only (the reference's window and
 // trash-page rules), so no two cells race on a page.
 //
@@ -577,9 +581,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // bytes of dynamic shared memory: 1024-byte alignment slack, the stages'
-// mbarriers, then the walk's state or the product ring and gate exchange
-size_t smem_for(int W, int G, int D, int PS) {
-  const size_t walk = mxwalk::smem_bytes(W * G, D, PS);
+// mbarriers, then the walk's state for a query tile of T tokens or the
+// product ring and gate exchange
+size_t smem_for(int T, int G, int D, int PS) {
+  const size_t walk = mxwalk::smem_bytes(T * G, D, PS);
   const size_t gemm = static_cast<size_t>(kGemmSmem);
   return 1024 + kHead + (walk > gemm ? walk : gemm);
 }
@@ -619,14 +624,15 @@ bool weight_map(CUtensorMap* map, const void* base, int L, int K, int N) {
 
 }  // namespace
 
-extern "C" size_t mx_megakernel_smem_bytes(int W, int G, int D, int PS) {
-  return smem_for(W, G, D, PS);
+extern "C" size_t mx_megakernel_smem_bytes(int T, int G, int D, int PS) {
+  return smem_for(T, G, D, PS);
 }
 
-// CTAs of the persistent grid at this shared memory (CTAs per SM that fit,
-// times the SMs), or the negated cudaError_t when the query fails.
-extern "C" int mx_megakernel_grid(int W, int G, int D, int PS) {
-  const size_t smem = smem_for(W, G, D, PS);
+// CTAs of the persistent grid at the shared memory of query tiles of T
+// tokens (CTAs per SM that fit, times the SMs), or the negated cudaError_t
+// when the query fails.
+extern "C" int mx_megakernel_grid(int T, int G, int D, int PS) {
+  const size_t smem = smem_for(T, G, D, PS);
   if (smem > static_cast<size_t>(kMaxSmem)) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
@@ -652,8 +658,9 @@ extern "C" int mx_megakernel_grid(int W, int G, int D, int PS) {
 // Launch the whole step on `stream`; returns the cudaError_t (0 = success).
 // Weights are (L, K, N) bf16 stacks, pools (L, NP, PS, KVH, ED / NB) with
 // the ragged kernel's geometry; table / row_start / seq_lens are already
-// normalised (entries in [0, NP), lengths clamped). `grid` and each
-// phase's tile rows (256 or 128) are mx_megakernel.megakernel_plan's. No
+// normalised (entries in [0, NP), lengths clamped). A cell's queries are
+// walked in tiles of T tokens (T >= W: one tile). `grid` (for this T) and
+// each phase's tile rows (256 or 128) are mx_megakernel.megakernel_plan's. No
 // fallback: a shape the products or the walk cannot take, a grid that
 // cannot be co-resident, or any launch error, is returned.
 extern "C" int mx_megakernel_launch(
@@ -665,18 +672,20 @@ extern "C" int mx_megakernel_launch(
     const void* rope_sin, void* h, void* q, void* k, void* v, void* q_rot,
     void* attn, void* x_sum, void* hidden, void* visits, int L, int R,
     int W, int H, int KVH, int D, int DM, int DFF, int NP, int PS, int ED,
-    int P, int npos, int block_size, int fmt, int window, int mixed_mask,
-    int mixed_default, int grid, int rows_qkv, int rows_wo, int rows_gu,
-    int rows_down, float eps, float softcap, float scale, void* stream) {
+    int P, int npos, int T, int block_size, int fmt, int window,
+    int mixed_mask, int mixed_default, int grid, int rows_qkv, int rows_wo,
+    int rows_gu, int rows_down, float eps, float softcap, float scale,
+    void* stream) {
   const int M = R * W;
   auto rows_ok = [](int r) { return r == 256 || r == 128; };
   if (!mxwalk::pools_ok(page_fmts, D, ED, PS, block_size, fmt) ||
-      R * KVH == 0 || L < 1 || H % KVH || D % 2 || DM % 8 || DFF % 8 ||
-      (H * D) % 8 || (KVH * D) % 8 || !rows_ok(rows_qkv) ||
+      R * KVH == 0 || L < 1 || T < 1 || H % KVH || D % 2 || DM % 8 ||
+      DFF % 8 || (H * D) % 8 || (KVH * D) % 8 || !rows_ok(rows_qkv) ||
       !rows_ok(rows_wo) || !rows_ok(rows_gu) || !rows_ok(rows_down)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int fit = mx_megakernel_grid(W, H / KVH, D, PS);
+  T = T < W ? T : W;
+  const int fit = mx_megakernel_grid(T, H / KVH, D, PS);
   if (fit <= 0) return -fit;
   if (grid < 1 || grid > fit) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -716,6 +725,7 @@ extern "C" int mx_megakernel_launch(
   c.P = P;
   c.NP = NP;
   c.window = window;
+  c.T = T;
   c.softcap = softcap;
   c.scale = scale;
   a.L = L;
@@ -744,7 +754,7 @@ extern "C" int mx_megakernel_launch(
   void* params[] = {&a, &maps};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(megakernel), dim3(grid), dim3(kThreads),
-      params, smem_for(W, H / KVH, D, PS), static_cast<cudaStream_t>(stream));
+      params, smem_for(T, H / KVH, D, PS), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

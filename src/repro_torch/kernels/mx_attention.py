@@ -66,7 +66,7 @@ def _library(name: str):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "mx_attention_ragged":
             lib.mx_attention_ragged_launch.argtypes = (
-                [ptr] * 13 + [i32] * 14 + [f32, f32, ptr])
+                [ptr] * 13 + [i32] * 15 + [f32, f32, ptr])
             lib.mx_attention_ragged_launch.restype = i32
             lib.mx_attention_ragged_smem_bytes.argtypes = [i32] * 4
             lib.mx_attention_ragged_smem_bytes.restype = ctypes.c_size_t
@@ -508,11 +508,37 @@ def _on_one_device(dev, *tensors):
 # ---------------------------------------------------------------------------
 
 
+def query_tile(w: int, g: int, d: int, ps: int, smem_bytes,
+               budget: int = _MAX_SMEM) -> int:
+    """Tokens of the query tile in which the ragged cell (#1's, and #8's
+    phase B) walks its ``w * g`` query rows: ``w`` when the whole cell's
+    walk fits ``budget`` bytes of shared memory, else the largest multiple
+    of 16 tokens whose walk does. ``smem_bytes(t, g, d, ps)`` is the
+    library's size of a tile of ``t`` tokens (the ragged library's
+    ``mx_attention_ragged_smem_bytes``, the megakernel's
+    ``mx_megakernel_smem_bytes``). At W 256 that is 64 tokens at
+    granite-8b (G 4, D 128) and gemma2-9b (G 2, D 256), 80 at phi4-mini
+    (G 3, D 128). Raises ``NotImplementedError`` when not even 16 tokens
+    fit."""
+    if smem_bytes(w, g, d, ps) <= budget:
+        return w
+    t = (w - 1) // 16 * 16
+    while t >= 16 and smem_bytes(t, g, d, ps) > budget:
+        t -= 16
+    if t < 16:
+        raise NotImplementedError(
+            f"16 tokens x {g} query rows of head_dim {d} need "
+            f"{smem_bytes(16, g, d, ps)} bytes of shared memory per CTA; an "
+            f"H100 block has {budget}")
+    return t
+
+
 def _launch_common(wide, pools, ps: int, d: int, block: int, smem: int,
                    rows: int):
     """Checks every launch shares; raises on what the kernels do not take.
     ``wide`` and ``pools`` are (name, tensor) pairs: the bf16 operands and
-    the rest."""
+    the rest; ``smem`` the bytes a CTA's walk of ``rows`` query rows (a
+    query tile's, for the ragged cell) needs."""
     for name, t in wide:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA attention kernels take bf16 {name}, "
@@ -561,14 +587,17 @@ def _ptr(t):
 
 
 def _launch(q, k_new, v_new, ke, ks, ve, vs, table, start, lens, *,
-            fmt_name, block_size, softcap, window, page_fmts, mixed_fmts):
+            fmt_name, block_size, softcap, window, page_fmts, mixed_fmts,
+            tile_tokens):
     r, kvh, w, g, d = q.shape
     ps, ed = ke.shape[1], ke.shape[-1]
     lib = _library("mx_attention_ragged")
+    smem_bytes = lib.mx_attention_ragged_smem_bytes
+    tile = min(tile_tokens or query_tile(w, g, d, ps, smem_bytes), w)
     _launch_common([("q", q), ("k_new", k_new), ("v_new", v_new)],
                    [("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs),
                     ("page_fmts", page_fmts)], ps, d, block_size,
-                   lib.mx_attention_ragged_smem_bytes(w, g, d, ps), w * g)
+                   smem_bytes(tile, g, d, ps), tile * g)
     out = torch.empty((r, kvh, w, g, d), dtype=torch.float32,
                       device=q.device)
     visits = torch.empty((r, kvh, 1), dtype=torch.int32, device=q.device)
@@ -577,7 +606,7 @@ def _launch(q, k_new, v_new, ke, ks, ve, vs, table, start, lens, *,
         ks.data_ptr(), ve.data_ptr(), vs.data_ptr(), table.data_ptr(),
         start.data_ptr(), lens.data_ptr(), _ptr(page_fmts), out.data_ptr(),
         visits.data_ptr(), r, kvh, w, g, d, ed, ps, table.shape[1],
-        ke.shape[0],
+        ke.shape[0], tile,
         *_tail_args(fmt_name, block_size, window, page_fmts, mixed_fmts,
                     softcap, d, q.device))
     if err != 0:
@@ -650,7 +679,8 @@ def mx_attention_ragged_fused(q, k_new, v_new, ke, ks, ve, vs, page_table,
                               fmt_name: str = "fp8_e4m3",
                               block_size: int = 32, softcap=None,
                               window=None, page_fmts=None, mixed_fmts=None,
-                              debug_visits: bool = False):
+                              debug_visits: bool = False,
+                              tile_tokens=None):
     """One ragged engine step over the MX page pool (layouts above).
 
     Returns ``(out, (ke, ks, ve, vs))``, plus ``visits`` with
@@ -667,7 +697,17 @@ def mx_attention_ragged_fused(q, k_new, v_new, ke, ks, ve, vs, page_table,
     the plain version. Negative table entries map to the trash page
     NP - 1, live entries clamp into the pool, and ``seq_lens`` clamps to
     ``[row_start + 1, row_start + W]``, as in the reference's wrapper.
+    The kernel walks a cell's ``W * G`` query rows in tiles of
+    ``tile_tokens`` tokens (None: :func:`query_tile`'s choice, the whole
+    cell where it fits); a smaller tile gives the same bits, so a check
+    can force several tiles where one fits. The plain version has no
+    tiles and only checks it.
     """
+    if tile_tokens is not None and (isinstance(tile_tokens, bool)
+                                    or not isinstance(tile_tokens, int)
+                                    or tile_tokens < 1):
+        raise ValueError(f"tile_tokens must be a positive int, got "
+                         f"{tile_tokens!r}")
     fmt, mixed_fmts = _check_pools(q, ke, ks, ve, vs, fmt_name, block_size,
                                    page_fmts, mixed_fmts, "ragged steps")
     r, kvh, w, g, d = q.shape
@@ -683,7 +723,8 @@ def mx_attention_ragged_fused(q, k_new, v_new, ke, ks, ve, vs, page_table,
         # the kernel's cell applies normalize_rows' map itself
         out, visits = _launch(q, k_new, v_new, ke, ks, ve, vs, *(
             t.to(torch.int32).contiguous()
-            for t in (page_table, row_start, seq_lens)), **kw)
+            for t in (page_table, row_start, seq_lens)),
+            tile_tokens=tile_tokens, **kw)
     else:
         table, start, lens = normalize_rows(page_table, row_start, seq_lens,
                                             ke.shape[0], w)

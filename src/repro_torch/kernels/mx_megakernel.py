@@ -45,7 +45,8 @@ from . import build
 from .mx_attention import (MIXED_FMTS_DEFAULT, _check_fmt, _check_meta,
                            _check_pool_shapes, _launch_common, _mixed_ids,
                            _on_one_device, _ptr,
-                           mx_attention_ragged_fused_plain, normalize_rows)
+                           mx_attention_ragged_fused_plain, normalize_rows,
+                           query_tile)
 
 _lib = None
 #: global scratch of the kernel's phases, one set per shape and device
@@ -57,7 +58,7 @@ def _library():
     if _lib is None:
         lib = build.load("mx_megakernel")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mx_megakernel_launch.argtypes = ([ptr] * 30 + [i32] * 23
+        lib.mx_megakernel_launch.argtypes = ([ptr] * 30 + [i32] * 24
                                              + [f32] * 3 + [ptr])
         lib.mx_megakernel_launch.restype = i32
         lib.mx_megakernel_smem_bytes.argtypes = [i32] * 4
@@ -68,10 +69,18 @@ def _library():
     return _lib
 
 
+def walk_tile(w: int, g: int, d: int, ps: int) -> int:
+    """Tokens of the query tile phase B walks a cell's ``w * g`` rows in
+    (:func:`mx_attention.query_tile` under this kernel's shared memory:
+    ``w`` where the whole cell fits beside the product ring)."""
+    return query_tile(w, g, d, ps, _library().mx_megakernel_smem_bytes)
+
+
 def grid_size(w: int, g: int, d: int, ps: int) -> int:
     """CTAs of the persistent grid on the current card at these shapes
-    (one per SM when the shared memory allows one)."""
-    n = _library().mx_megakernel_grid(w, g, d, ps)
+    (one per SM when the shared memory allows one), with phase B's walk in
+    :func:`walk_tile`'s tiles."""
+    n = _library().mx_megakernel_grid(walk_tile(w, g, d, ps), g, d, ps)
     if n <= 0:
         raise RuntimeError(f"mx_megakernel_grid failed: cudaError {-n}")
     return n
@@ -102,9 +111,11 @@ def megakernel_plan(m: int, dm: int, hd: int, kvd: int, dff: int,
     activation rows (256 B a row) from L2 for each of its tiles in turn,
     so a phase's time goes as its waves times that; the plan takes the
     tile rows with the least, the larger on a tie. At granite's 512 rows
-    on 132 SMs that is 256 rows for q/k/v (96 tiles) and gate/up (448),
-    and 128 for wo and down (128 tiles where 256 rows leave 64). Returns
-    ``{name: {"jobs", "pair", "rows", "tm", "tiles"}}``.
+    (8 rows of one 64-token chunk) on 132 SMs that is 256 rows for q/k/v
+    (96 tiles) and gate/up (448), and 128 for wo and down (128 tiles where
+    256 rows leave 64). At 2,048 rows (four chunks a row, W 256) every
+    phase takes 256: q/k/v 384 tiles, wo and down 256, gate/up 1,792.
+    Returns ``{name: {"jobs", "pair", "rows", "tm", "tiles"}}``.
     """
     if min(m, dm, hd, kvd, dff, ctas) < 1:
         raise ValueError("megakernel_plan takes positive sizes")
@@ -165,14 +176,15 @@ def _launch(x0, weights, norms, pools, table, start, lens, *, head_dim,
     h = wq.shape[-1] // d
     dff = gate.shape[-1]
     lib = _library()
-    smem = lib.mx_megakernel_smem_bytes(w, h // kvh, d, ps)
+    tile = walk_tile(w, h // kvh, d, ps)
+    smem = lib.mx_megakernel_smem_bytes(tile, h // kvh, d, ps)
     _launch_common(
         [("x0", x0)] + list(zip(("wq", "wk", "wv", "wo", "gate", "up",
                                  "down"), weights)),
         list(zip(("ke", "ks", "ve", "vs"), pools))
         + [("norm_mixer", norms[0]), ("norm_ffn", norms[1]),
            ("page_fmts", page_fmts)], ps, d, block_size, smem,
-        w * h // kvh)
+        tile * h // kvh)
     if any(t.dtype != torch.float32 for t in norms):
         raise TypeError("the CUDA megakernel takes f32 norm scales")
     for name, t in zip(("wq", "wk", "wv", "wo", "gate", "up", "down"),
@@ -194,7 +206,8 @@ def _launch(x0, weights, norms, pools, table, start, lens, *, head_dim,
         table.data_ptr(), start.data_ptr(), lens.data_ptr(), _ptr(page_fmts),
         cos.data_ptr(), sin.data_ptr(), *(t.data_ptr() for t in scratch),
         visits.data_ptr(), layers, r, w, h, kvh, d, dm, dff, npages, ps, ed,
-        table.shape[1], num_positions, block_size, F.FORMAT_IDS[fmt_name],
+        table.shape[1], num_positions, tile, block_size,
+        F.FORMAT_IDS[fmt_name],
         -1 if window is None else int(window), mask, default, grid,
         *(plan[k]["rows"] for k in PHASES), float(norm_eps),
         float(softcap or 0.0), float(d ** -0.5),

@@ -65,9 +65,19 @@ file exists and writes it back after the drain on the way out:
       --reduced --batch 4 --prompt-len 24 --shared-prefix 16 \
       --new-tokens 8 --engine fixed --device cpu
 
-Runs on the card unless ``--device cpu``. The reference's other flags
-(the mesh, several chunks a row) are not ported yet and exit with an
-error naming ROADMAP.md.
+``--prefill-max-chunks N`` lets a prefilling row take up to N chunks in
+one ragged or megakernel step while fewer requests are active than slots
+(a full batch takes one), so a long prompt beside a few short ones
+reaches its first token in fewer steps; the report's
+``prefill_rows_per_step`` is the prompt rows a prefill-carrying dispatch
+retired:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+      --reduced --batch 2 --max-slots 4 --prompt-len 200 --ragged \
+      --new-tokens 8 --prefill-max-chunks 4 --device cpu
+
+Runs on the card unless ``--device cpu``. The reference's mesh flag is
+not ported yet and exits with an error naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -92,7 +102,7 @@ from repro_torch.serve import (AsyncServeEngine, FixedSlotEngine,
 log = logging.getLogger("repro_torch.serve")
 
 #: flags of the reference launcher that this port does not take yet
-UNPORTED_FLAGS = ("--prefill-max-chunks", "--mesh")
+UNPORTED_FLAGS = ("--mesh",)
 
 TIER_FMTS = ["fp6_e3m2", "fp6_e2m3", "fp4_e2m1"]
 
@@ -128,6 +138,7 @@ def build_engine(args, params=None) -> tuple:
         spec_decode=args.spec_decode,
         num_draft_tokens=args.num_draft_tokens,
         prefill_token_budget=args.prefill_token_budget or None,
+        prefill_max_chunks=args.prefill_max_chunks,
         tier_policy=TierPolicy(
             mid_fmt=args.tier_mid_fmt, cold_fmt=args.tier_cold_fmt,
             hot_steps=args.tier_hot_steps, cold_steps=args.tier_cold_steps,
@@ -202,6 +213,8 @@ def run_batch(engine, cfg, args, prompts=None) -> dict:
         "median_step_ms": 1e3 * float(np.median(engine.step_seconds)),
         "ragged_steps": stats["ragged_steps"],
         "dispatches": dispatches,
+        "prefill_dispatches": stats["prefill_dispatches"],
+        "prefill_rows_per_step": stats["prefill_rows_per_step"],
         "kernel_launches": stats["kernel_launches"],
         "launches_per_step": stats["launches_per_step"],
         "preemptions": stats["preemptions"],
@@ -224,9 +237,7 @@ def run_batch(engine, cfg, args, prompts=None) -> dict:
         log.info("step audit: %d kernel launch(es) per engine step (%s "
                  "step; %.1f prefill tokens retired per prefill-carrying "
                  "dispatch)", stats["launches_per_step"],
-                 report["step_mode"],
-                 stats["prefill_tokens_computed"]
-                 / max(stats["prefill_dispatches"], 1))
+                 report["step_mode"], stats["prefill_rows_per_step"])
     if engine.spec_enabled:
         report["spec"] = {k: stats[k] for k in (
             "spec_steps", "drafted_tokens", "accepted_tokens",
@@ -382,6 +393,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="max prefill tokens per engine step, spent "
                          "round-robin across admitted prompts "
                          "(default: one chunk)")
+    ap.add_argument("--prefill-max-chunks", type=int, default=1,
+                    help="ragged-aware prefill budgeting: chunks one "
+                         "prefilling sequence may stream in a single "
+                         "ragged step while the batch is undersubscribed "
+                         "(fewer active sequences than slots); a full "
+                         "batch always drops back to 1 chunk/step so "
+                         "decode rows are never starved")
     ap.add_argument("--step-mode", default="ragged",
                     choices=["ragged", "split", "megakernel"],
                     help="engine step dispatch shape: 'ragged' (default) "

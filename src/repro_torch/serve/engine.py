@@ -72,9 +72,14 @@ cache pytree and return a new one instead. The reference bounds its
 per-length jitted prefill traces with an LRU (``prefill_trace_cache``);
 PyTorch runs eagerly, so the port has no traces to bound and no knob.
 
-Options of the reference's ``ServeConfig`` that this port does not run
-yet (the mesh, several prompt chunks per ragged row) raise
-``NotImplementedError`` at construction; none falls back silently.
+The reference's ragged-aware prefill budgeting runs as it does there:
+with ``prefill_max_chunks`` above 1 a prefilling row takes up to that many
+chunks in one ragged or megakernel step while fewer sequences are active
+than slots (``Scheduler.prefill_allowed_chunks``), the ragged width being
+``prefill_chunk * prefill_max_chunks``; the split step and monolithic
+admission ignore it. The one option of the reference's ``ServeConfig``
+that this port does not run yet (the mesh) raises ``NotImplementedError``
+at construction; none falls back silently.
 """
 from __future__ import annotations
 
@@ -193,8 +198,14 @@ class ServeConfig:
     # max_queue requests; None for either leaves it off
     slo_ms: Optional[float] = None
     max_queue: Optional[int] = None
+    # ragged-aware prefill budgeting: how many chunks one prefilling
+    # sequence may advance in a single ragged step while the batch is
+    # undersubscribed (fewer active sequences than slots); the ragged width
+    # grows to prefill_chunk * prefill_max_chunks, and a full batch drops
+    # back to one chunk a step, so resident decoders are never starved.
+    # The split step and monolithic admission ignore it. 1: one chunk
+    prefill_max_chunks: int = 1
     # ---- not ported yet
-    prefill_max_chunks: int = 1  # one prompt chunk per row and step
     mesh_shape: Optional[tuple] = None
 
 
@@ -236,9 +247,6 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
         raise _unported("sharded serving (mesh_shape)", "A7")
     if any(bd.mixer != "attn" for bd in cfg.all_blocks()):
         raise _unported("non-attention mixers", "A8")
-    if scfg.prefill_max_chunks != 1:
-        raise _unported("prefill_max_chunks > 1 (several prompt chunks per "
-                        "ragged row)", "A5")
 
 
 def _validate_tiering(cfg: ModelConfig, scfg: ServeConfig,
@@ -449,6 +457,7 @@ class ContinuousBatchingEngine:
             max_slots=serve_cfg.max_slots, num_pages=self.num_pages,
             page_size=ps, max_seq=serve_cfg.max_seq,
             prefill_chunk=serve_cfg.prefill_chunk if self.chunked else 0,
+            prefill_max_chunks=serve_cfg.prefill_max_chunks,
             prefix_cache=serve_cfg.prefix_cache,
             admit_window=serve_cfg.admit_window,
             max_deferrals=serve_cfg.max_deferrals,
@@ -463,8 +472,11 @@ class ContinuousBatchingEngine:
             model.megakernel_stacks(params, self.cache)
         self._step_model = (model.megakernel_step_paged if self.megakernel
                             else model.ragged_step_paged)
-        # the ragged rows: one prompt chunk, or one verify window
-        self._width = max(1 + self._k, serve_cfg.prefill_chunk)
+        # the ragged rows: up to prefill_max_chunks prompt chunks, or one
+        # verify window (the split step and monolithic admission read
+        # neither)
+        self._width = max(1 + self._k, serve_cfg.prefill_chunk
+                          * serve_cfg.prefill_max_chunks)
         self.steps = 0  # steps that decoded at least one token
         # attention kernel launches on the card over all steps / last step,
         # and those of one ragged or megakernel dispatch (the reference's
@@ -1466,6 +1478,11 @@ class ContinuousBatchingEngine:
                 if self.prompt_tokens else 0.0),
             "prefill_chunks": self.prefill_chunks,
             "prefill_dispatches": self.prefill_dispatches,
+            # prompt rows retired per prefill-carrying dispatch (above the
+            # chunk size: multi-chunk bites on undersubscribed steps)
+            "prefill_rows_per_step": (
+                self.prefill_tokens / self.prefill_dispatches
+                if self.prefill_dispatches else 0.0),
             "step_mode": ("megakernel" if self.megakernel
                           else "ragged" if self.ragged else "split"),
             "megakernel": self.megakernel,

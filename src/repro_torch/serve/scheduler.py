@@ -106,6 +106,7 @@ class ActiveSeq:
 class Scheduler:
     def __init__(self, *, max_slots: int, num_pages: int, page_size: int,
                  max_seq: int, prefill_chunk: int = 0,
+                 prefill_max_chunks: int = 1,
                  prefix_cache: bool = False,
                  admit_window: int = 4, max_deferrals: int = 8,
                  num_draft_tokens: int = 0,
@@ -121,6 +122,11 @@ class Scheduler:
                 f"page_size={page_size}: chunk starts must stay "
                 "page-aligned so no page blends two chunks")
         self.prefill_chunk = prefill_chunk
+        # chunks one prefilling sequence may take in one ragged step while
+        # the batch is undersubscribed (prefill_allowed_chunks)
+        if prefill_max_chunks < 1:
+            raise ValueError("prefill_max_chunks must be >= 1")
+        self.prefill_max_chunks = prefill_max_chunks
         self.pages_per_slot = pages_for(max_seq, page_size)
         if num_pages < self.pages_per_slot:
             raise ValueError(
@@ -403,11 +409,27 @@ class Scheduler:
 
     # -- per-step batch assembly -------------------------------------------
 
+    def prefill_allowed_chunks(self) -> int:
+        """Prefill chunks one sequence may take this step: up to
+        ``prefill_max_chunks`` while the batch is undersubscribed (fewer
+        active sequences than slots), exactly one once every slot is
+        taken. That is the starvation bound: decode rows are never
+        displaced, and a prefilling sequence advances at least one chunk a
+        step."""
+        if len(self.active()) < self.max_slots:
+            return self.prefill_max_chunks
+        return 1
+
     def planned_prefill_real(self, seq: ActiveSeq, width: int) -> int:
-        """Valid prompt tokens ``seq``'s next ragged chunk will carry:
-        one chunk per step."""
+        """Valid prompt tokens ``seq``'s next ragged bite will carry:
+        ``min(min(chunk, width) * allowed, width)``, ``allowed`` from
+        :meth:`prefill_allowed_chunks`, capped at the prompt's remainder.
+        The one source of the formula for ``assemble_ragged`` and for the
+        tiered engine's write-marking pre-pass, which must mark exactly the
+        pages the step writes."""
         chunk = min(self.prefill_chunk, width)
-        return min(chunk, len(seq.req.prompt) - seq.prefill_pos)
+        bite = min(chunk * self.prefill_allowed_chunks(), width)
+        return min(bite, len(seq.req.prompt) - seq.prefill_pos)
 
     def assemble_ragged(self, width: int, extra_tokens: int = 0):
         """One packed (max_slots, width) row batch for the ragged step.

@@ -142,9 +142,7 @@ def test_prefix_preemption_scenario_is_a_near_tie_not_a_paging_fault(
     assert hi - lo == 2.0 ** (math.floor(math.log2(hi)) - 7)  # one ulp
 
 
-@pytest.mark.parametrize("override", [
-    dict(step_mode="megakernel", prefill_max_chunks=2),
-    dict(mesh_shape=(1, 2)), dict(prefill_max_chunks=2)])
+@pytest.mark.parametrize("override", [dict(mesh_shape=(1, 2))])
 def test_unported_serve_options_raise(override):
     _, tcfg = _configs()
     with pytest.raises(NotImplementedError):
@@ -175,8 +173,8 @@ def test_launcher_batch_workload_on_cpu():
     assert report["requests"] == 3 and report["generated_tokens"] == 12
     assert report["kernel_launches"] == 0  # CPU tensors: the plain version
     assert report["prefix_hit_rate"] > 0
-    with pytest.raises(SystemExit):  # still unported: names ROADMAP A5
-        serve.main(["--arch", "granite-8b", "--prefill-max-chunks", "2"])
+    with pytest.raises(SystemExit):  # still unported: names ROADMAP A7
+        serve.main(["--arch", "granite-8b", "--mesh", "2"])
 
 
 def test_launcher_fixed_engine_and_monolithic_prefill_on_cpu():

@@ -149,7 +149,7 @@ def run_reference(c):
     return np.asarray(out), pools, np.asarray(visits)
 
 
-def run_port(c, device="cpu"):
+def run_port(c, device="cpu", **kw):
     fmt = c["fmt"]
 
     def t(x, dtype=None):
@@ -166,8 +166,8 @@ def run_port(c, device="cpu"):
         t(c["v_new"], torch.bfloat16), *pools, t(c["table"]),
         t(c["starts"]), t(c["lens"]), fmt_name=fmt,
         block_size=c["block_size"], window=c["window"], softcap=c["softcap"],
-        debug_visits=True, **_mixed_kw(c, None if c["page_fmts"] is None
-                                        else t(c["page_fmts"])))
+        debug_visits=True, **kw, **_mixed_kw(
+            c, None if c["page_fmts"] is None else t(c["page_fmts"])))
     pools = [p.view(torch.uint8).cpu().numpy() for p in pools]
     return out.cpu().numpy(), pools, visits.cpu().numpy()
 
@@ -280,3 +280,56 @@ def test_cuda_kernel_matches_plain_version(d, ps, w, g):
         live = slice(0, len(case["starts"]) - 1)
         np.testing.assert_allclose(out[live], want_out[live], rtol=0,
                                    atol=OUT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g,tile", [(128, 4, 64), (256, 2, 64),
+                                      (128, 3, 80)],
+                         ids=["granite", "gemma2_9b", "phi4_mini"])
+def test_cuda_kernel_walks_four_chunks_in_tiles(d, g, tile):
+    """W 256 (four 64-token chunks a row): granite-8b's 1,024 query rows
+    a cell, gemma2-9b's 512 of head_dim 256 (window, softcap) and
+    phi4-mini's 768 (tiles of 80, 80, 80 and 16 tokens) do not fit one
+    block's shared memory, so the cell walks them in query tiles; held to
+    the plain version as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    lib = tk._library("mx_attention_ragged")
+    assert tk.query_tile(256, g, d, 16,
+                         lib.mx_attention_ragged_smem_bytes) == tile
+    window, softcap = (48, 50.0) if d == 256 else (None, None)
+    for fmt, mixed in (("fp8_e4m3", False), ("fp8_e4m3", True)):
+        case = make_case(fmt, 32, d=d, g=g, ps=16, w=256, window=window,
+                         softcap=softcap, mixed=mixed)
+        want_out, want_pools, want_visits = run_port(case, "cpu")
+        out, pools, visits = run_port(case, "cuda")
+        trash = case["ke"].shape[0] - 1
+        for got, want in zip(pools, want_pools):
+            np.testing.assert_array_equal(got[:trash], want[:trash])
+        np.testing.assert_array_equal(visits, want_visits)
+        live = slice(0, len(case["starts"]) - 1)
+        np.testing.assert_allclose(out[live], want_out[live], rtol=0,
+                                   atol=OUT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,mixed", [("fp8_e4m3", False),
+                                       ("fp4_e2m1", False),
+                                       ("fp8_e4m3", True)])
+def test_cuda_forced_small_tiles_equal_one_tile_bit_for_bit(fmt, mixed):
+    """At W 64, G 4, head_dim 128 one tile holds the cell; forced tiles of
+    16 (and of 48: an uneven last tile) give its outputs, pool bytes and
+    visits bit for bit: a query row's sums do not depend on the rows
+    walked beside it, nor on how the head dim is sliced over warps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    case = make_case(fmt, 32, d=128, g=4, ps=16, w=64, softcap=5.0,
+                     mixed=mixed)
+    out, pools, visits = run_port(case, "cuda")
+    trash = case["ke"].shape[0] - 1
+    for tile in (16, 48):
+        got = run_port(case, "cuda", tile_tokens=tile)
+        np.testing.assert_array_equal(got[0], out)
+        for a, b in zip(got[1], pools):
+            np.testing.assert_array_equal(a[:trash], b[:trash])
+        np.testing.assert_array_equal(got[2], visits)

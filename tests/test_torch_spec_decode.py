@@ -662,7 +662,8 @@ def test_launcher_serves_sampled_speculative_requests_on_cpu():
     args = serve.parse_args(["--arch", "granite-8b", "--spec-decode",
                              "--num-draft-tokens", "2"])
     assert (args.spec_decode, args.num_draft_tokens) == (True, 2)
-    for flag in ("--prefill-mode", "--mesh", "--engine",
-                 "--prefill-max-chunks"):
+    for flag in ("--prefill-mode", "--mesh", "--engine"):
         with pytest.raises(SystemExit):
             serve.parse_args(["--arch", "granite-8b", flag, "1"])
+    assert serve.parse_args(["--arch", "granite-8b", "--prefill-max-chunks",
+                             "1"]).prefill_max_chunks == 1

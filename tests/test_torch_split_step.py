@@ -286,6 +286,6 @@ def test_launcher_serves_the_split_step_on_cpu(argv, mode):
     assert report["dispatches"]["decode"] > 0
     assert report["dispatches"]["ragged"] == 0
     assert report["kernel_launches"] == 0  # CPU tensors: the plain versions
-    with pytest.raises(SystemExit):  # still unported: names ROADMAP A5
-        serve.parse_args(["--arch", "granite-8b", "--step-mode",
-                          "megakernel", "--prefill-max-chunks", "2"])
+    args = serve.parse_args(["--arch", "granite-8b", "--step-mode",
+                             "megakernel", "--prefill-max-chunks", "2"])
+    assert (args.step_mode, args.prefill_max_chunks) == ("megakernel", 2)

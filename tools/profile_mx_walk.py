@@ -39,8 +39,9 @@ VARIANTS = [
         _ONE_PAGE, ("const int njobs = max(0, t1 - t0) * 2 * P.NB;",
                     "const int njobs = P.D < 0 ? max(0, t1 - t0) : 0;")]),
     ("last page only, without the output stores", [
-        _ONE_PAGE, ("  mxwalk::walk_finish(w, store);",
-                    "  if (P.D < 0) mxwalk::walk_finish(w, store);")]),
+        _ONE_PAGE, ("    mxwalk::walk_finish(w, [&](int i, float4 v) {",
+                    "    if (P.D < 0) mxwalk::walk_finish(w, [&](int i, "
+                    "float4 v) {")]),
     ("without folding the pages (decode and loads stay)", [
         ("  auto fold = [&](int p) {\n",
          "  auto fold = [&](int p) {\n    if (P.D > 0) return;\n")]),
