@@ -169,7 +169,30 @@ code is not 0 and no result line is printed:
      reduced granite-8b, gemma2-2b and phi4-mini at four chunks of 16,
      one request arriving a step, ragged, megakernel, tiered and
      speculative, streams equal on card and CPU;
-  10. print the kernels line, then the device line last.
+  10. mixtral-8x22b, the MoE FFN: (a) at its published widths (d_model
+     6144, 48/8 heads of 128, 8 experts top-2 of d_ff 16,384, vocab
+     32,768, window 4,096), its layer stack cut to 8 of 56 layers (random
+     seeded weights, ~41 GB), phase 8a's workload in 8 slots through the
+     ragged step with the dense dispatch, the ragged step with the sorted
+     dispatch, the split step and the tiered cache, every kernel count
+     reset just before each run and read just after (#1 steps x 8; #2 and
+     #3 dispatches x 8; #7 once a repack dispatch); tokens/s, median step
+     and peak memory of each; the sorted and split streams held to the
+     dense run's (partings only at picks one of the two runs leads by at
+     most twice the paths' step distance, measured on the run's pages:
+     dense against sorted dispatch, ragged against split decode); the
+     megakernel
+     request falls back with the reference's reason; a decode step at
+     position 300 profiled with each dispatch (#1, the MoE layers and
+     their expert products, the rest, idle); (b) #1 (W 64, G 6: 384 query
+     rows a cell in tiles of 32 tokens, rows past the window) and #3 (C
+     64, G 6, tiles of 32: over resident pages, past the window, and on a
+     mixed pool) held to their plain versions and timed beside them and
+     their bounds; #3 forced to smaller tiles bit-equal (G 6, and G 4
+     where one tile holds the chunk); (c) reduced mixtral through the
+     ragged (dense and sorted), split and tiered steps, streams equal on
+     card and CPU;
+  11. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -940,7 +963,10 @@ def verify_inputs(label: str, tq: int, gen, dev: str = "cuda") -> dict:
                 .to(dev))
 
 
-def prefill_inputs(label: str, rows: list, gen, dev: str = "cuda") -> dict:
+def prefill_inputs(label: str, rows: list, gen, dev: str = "cuda",
+                   g: int = G) -> dict:
+    """A prefill batch of ``rows`` at granite-8b's KV shapes, ``g`` query
+    heads a KV head (phase 10b: mixtral-8x22b's 6)."""
     fmt, block, mixed = PAGED_POOLS[label]
     table = _tables([st + real for st, real in rows], gen)
     hot = {int(table[i, p]) for i, (st, real) in enumerate(rows)
@@ -953,7 +979,7 @@ def prefill_inputs(label: str, rows: list, gen, dev: str = "cuda") -> dict:
                                     device=dev),
                 lens=torch.tensor([st + real for st, real in rows],
                                   dtype=torch.int32, device=dev),
-                q=torch.randn(b, KVH, CHUNK, G, D, generator=gen).bfloat16()
+                q=torch.randn(b, KVH, CHUNK, g, D, generator=gen).bfloat16()
                 .to(dev),
                 k=torch.randn(b, CHUNK, KVH, D, generator=gen).bfloat16()
                 .to(dev),
@@ -1017,49 +1043,61 @@ def check_paged_case(mxa, inp, label: str) -> float:
 
 
 def paged_bound(inp) -> tuple:
-    """(bound_ms, bound_by) of one call: each input read once, each output
-    written once; pool rows read are those below the length (verify) or
-    the chunk's start (prefill), a mixed page's at the row prefix its
-    format fills; a prefill writes its chunk pages whole. q.k and P.V
-    (ragged_walk_ops_ms: bf16 tensor cores, P.V as three terms) count the
-    (query, key) pairs the causal mask keeps: a verify query at seq_len -
-    Tq + i, a chunk query at start + i over the pages walked (padding
-    queries included, as the kernel computes them)."""
+    """(bound_ms, bound_by) of one call, its shapes read off ``inp``: each
+    input read once, each output written once; pool rows read are those
+    below the length (verify) or the chunk's start (prefill) that the
+    queries can see under the call's window, a mixed page's at the row
+    prefix its format fills; a prefill writes its chunk pages whole. q.k
+    and P.V (ragged_walk_ops_ms: bf16 tensor cores, P.V as three terms)
+    count the (query, key) pairs the causal mask and the window keep: a
+    verify query at seq_len - Tq + i, a chunk query at start + i over the
+    pages walked (padding queries included, as the kernel computes
+    them)."""
     from repro_torch.core import formats as F
 
-    nb = D // inp["block"]
+    q = inp["q"]
+    b, kvh, n_q, g, d = q.shape
+    nb = d // inp["block"]
+    window = (inp.get("kw") or {}).get("window")
     fmts = None if inp["page_fmts"] is None else inp["page_fmts"].tolist()
     table = inp["table"].tolist()
+    pmax = len(table[0])
 
     def row_bytes(page, hot=False):
         fmt = inp["fmt"]
         if fmts is not None and not hot:
             fmt = F.FORMAT_BY_ID[fmts[page]]
-        return KVH * (F.get_format(fmt).storage_len(D) + nb)
+        return kvh * (F.get_format(fmt).storage_len(d) + nb)
+
+    def seen(i, lo, end):
+        """K and V bytes of row i's positions [lo, end) in its pages."""
+        return 2 * sum((_rows_below(p, end) - _rows_below(p, lo))
+                       * row_bytes(max(table[i][p], 0))
+                       for p in range(lo // PS, min(-(-end // PS), pmax)))
 
     read = written = pairs = 0
     if inp["kind"] == "verify":
-        tq = inp["tq"]
-        for i, n in enumerate(DECODE_LENS):
-            n = max(n, tq)  # an inactive slot walks page 0
-            read += 2 * sum(_rows_below(p, n) * row_bytes(max(table[i][p], 0))
-                            for p in range(min(-(-n // PS), P)))
-            pairs += KVH * G * _causal_keys(n - tq, tq, n - 1)
-        read += 2 * inp["q"].numel() + 4 * (R * P + R)
-        written += 4 * inp["q"].numel() + 4 * R * KVH
+        for i, n in enumerate(inp["lens"].tolist()):
+            n = max(n, n_q)  # an inactive slot walks page 0
+            first = n - n_q
+            read += seen(i, 0 if window is None
+                         else max(first - window + 1, 0), n)
+            pairs += kvh * g * _causal_keys(first, n_q, n - 1, window)
+        read += 2 * q.numel() + 4 * (b * pmax + b)
     else:
-        b = len(inp["rows"])
-        for i, (st, real) in enumerate(inp["rows"]):
-            c0, pages = st // PS, min(-(-(st + real) // PS), P)
-            read += 2 * sum(PS * row_bytes(table[i][p]) for p in range(c0))
+        for i, (st, end) in enumerate(zip(inp["starts"].tolist(),
+                                          inp["lens"].tolist())):
+            c0, pages = st // PS, min(-(-end // PS), pmax)
+            read += seen(i, 0 if window is None
+                         else max(st - window + 1, 0), st)
             written += 2 * sum(PS * row_bytes(table[i][p], hot=True)
                                for p in range(c0, pages))
-            pairs += KVH * G * _causal_keys(st, CHUNK, pages * PS - 1)
-        read += 2 * (inp["q"].numel() + 2 * inp["k"].numel()) \
-            + 4 * (b * P + 2 * b)
-        written += 4 * inp["q"].numel() + 4 * b * KVH
+            pairs += kvh * g * _causal_keys(st, n_q, pages * PS - 1, window)
+        read += 2 * (q.numel() + 2 * inp["k"].numel()) \
+            + 4 * (b * pmax + 2 * b)
+    written += 4 * q.numel() + 4 * b * kvh
     bytes_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
-    ops_ms = ragged_walk_ops_ms(pairs)
+    ops_ms = ragged_walk_ops_ms(pairs, d)
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -2493,9 +2531,20 @@ def serve_full_width_megakernel(ragged: dict) -> dict:
         "the two steps' largest logit difference)")
     step = lambda: model.megakernel_step_paged(  # noqa: E731
         params, cfg, engine.cache, *step_args).argmax(-1)
-    busy, names = profile_breakdown({"megakernel step": (
-        step, "ROWS, embedding to argmax")}, ("megakernel",),
-        label="megakernel", names=True)
+    # the profiler can drop a kernel's record: trace again (twice at most)
+    # while it saw fewer megakernel launches than the wrapper counted in
+    # the traced calls (all but profile_breakdown's untimed first one)
+    for _ in range(3):
+        before = mx_megakernel_step.launches
+        busy, names, _ = profile_breakdown({"megakernel step": (
+            step, "ROWS, embedding to argmax")}, ("megakernel",),
+            label="megakernel", names=True)
+        launched = mx_megakernel_step.launches - before - 1
+        seen = round(busy["megakernel"][0] * 3)
+        if seen >= launched:
+            break
+        log(f"megakernel step profile: the profiler recorded {seen} of the "
+            f"{launched} megakernel launches it traced; tracing again")
     # one launch of the megakernel, one GEMM (the LM head) and no per-layer
     # attention kernel a step, where the profiler saw the device
     if on_card and names and (busy["megakernel"][0] != 1
@@ -2819,14 +2868,17 @@ def serve_full_width_spec_and_sampling(ragged: dict) -> dict:
 
 def profile_breakdown(runs: dict, walk: tuple, steps: int = 3,
                       label: str = "page-walk kernel",
-                      names: bool = False) -> dict:
+                      names: bool = False, ranges: tuple = ()) -> dict:
     """Where full-width time goes: for each ``runs`` entry (title ->
     (call, what it runs)), one untimed call, then ``steps`` calls traced
     by torch.profiler; logs device time by kernel class (``label``: names
     containing a ``walk`` entry; GEMMs; the rest) against the host clock
-    of the same window, and with ``names`` every kernel by name with its
-    calls and time a call. Returns the last entry's ({class: (launches a
-    call, ms a call)}, {kernel name: launches in the traced calls})."""
+    of the same window, the device time of the kernels launched inside
+    each ``torch.profiler.record_function`` range named in ``ranges``,
+    and with ``names`` every kernel by name with its calls and time a
+    call. Returns the last entry's ({class: (launches a call, ms a
+    call)}, {kernel name: launches in the traced calls}, {range: ms a
+    call})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2845,7 +2897,8 @@ def profile_breakdown(runs: dict, walk: tuple, steps: int = 3,
         launches = dict.fromkeys(busy, 0)
         by_name = {}
         for evt in prof.events():
-            if evt.device_type != DeviceType.CUDA:
+            # a range also appears on the device timeline: not a kernel
+            if evt.device_type != DeviceType.CUDA or evt.name in ranges:
                 continue
             name = evt.name
             kind = (label if any(k in name for k in walk)
@@ -2872,8 +2925,17 @@ def profile_breakdown(runs: dict, walk: tuple, steps: int = 3,
             log(f"{title}: every kernel, (calls, ms) per call: " + "; ".join(
                 f"{name[:80]} ({n // steps}, {ms:.4f})" for name, (n, ms)
                 in sorted(by_name.items(), key=lambda kv: -kv[1][1])))
+        # a range's CPU event counts the kernels its ops launched
+        in_range = {name: sum(
+            evt.device_time_total for evt in prof.events()
+            if evt.name == name and evt.device_type == DeviceType.CPU)
+            / 1e3 / steps for name in ranges}
+        if ranges:
+            log(f"{title}: device time of the kernels inside each range, ms "
+                "a call: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       in_range.items()))
     return ({k: (launches[k] / steps, v) for k, v in busy.items()},
-            {name: n for name, (n, _) in by_name.items()})
+            {name: n for name, (n, _) in by_name.items()}, in_range)
 
 
 def _breakdown_inputs(engine, cfg, pos: int, width: int):
@@ -4716,6 +4778,636 @@ def multichunk_reduced(card: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: mixtral-8x22b, the MoE FFN, at full width
+# ---------------------------------------------------------------------------
+
+#: 10a's one cut, of depth: 8 of mixtral-8x22b's 56 layers, each whole (8
+#: experts of gate/up/down at 6144 x 16384: ~5.0 GB of prepared bf16
+#: weights a layer; the whole stack would be ~280 GB, beyond one card)
+MIXTRAL_LAYERS = 8
+#: 10a's workload: phase 8a's (phase 4's eight prompt shapes and a ninth
+#: request of LONG_PROMPT tokens, past the window of 4,096), 8 slots
+MIXTRAL_ARGV = ["--arch", "mixtral-8x22b"] + GEMMA_ARGV[2:]
+MIXTRAL_BUILD = MIXTRAL_ARGV + ["--prompt-len", str(LONG_PROMPT)]
+#: 10a's runs: (config changes, launcher flags); the sorted dispatch has
+#: no launcher flag, as the reference's launcher has none
+MIXTRAL_RUNS = {"ragged": ({}, []),
+                "sorted": ({"moe_dispatch": "sorted"}, []),
+                "split": ({}, ["--step-mode", "split"]),
+                "tiered": ({}, ["--tiered"])}
+#: the reference's megakernel rung for MoE blocks
+MOE_REASON = ("ffn kind 'moe' (the fused layer tail implements the dense "
+              "gated MLP only)")
+#: 10b: #1's and #3's query tile at mixtral's W = C = 64 and G 6: a cell's
+#: 384 query rows of head_dim 128 do not fit one block
+MIXTRAL_TILE = 32
+#: 10c: port-init seed of reduced mixtral: every greedy pick of its CPU
+#: runs leads its runner-up by more than GAP_TOL_ULPS (asserted); the
+#: smallest such seed from 0
+MIXTRAL_SEED = 4
+
+
+def _mixtral_engine(build: list, flags: list, params, over: dict) -> tuple:
+    """(config, engine) of the launcher's ``build + flags`` at
+    MIXTRAL_LAYERS layers, on ``params`` (None: new random weights), the
+    config changed by ``over``."""
+    from repro_torch.launch import serve
+
+    return serve.build_engine(serve.parse_args(build + flags), params,
+                              num_groups=MIXTRAL_LAYERS, **over)
+
+
+def _mixtral_launches(mode: str, report, stats, layers: int) -> dict:
+    """The launches each 10a run must count, by kernel."""
+    if mode == "split":
+        return {"mx_attention_verify_fused":
+                stats["dispatches_decode"] * layers,
+                "mx_attention_prefill_fused":
+                stats["prefill_dispatches"] * layers}
+    want = {"mx_attention_ragged_fused": report["ragged_steps"] * layers}
+    if mode == "tiered":  # one launch a dispatch on the layer stack
+        want["mx_repack_pages"] = report["tiered"]["repack_dispatches"]
+    return want
+
+
+def serve_mixtral_full_width(argv=MIXTRAL_ARGV,
+                             build=MIXTRAL_BUILD) -> dict:
+    """10a: mixtral-8x22b at its published widths (d_model 6144, 48/8
+    heads of 128, 8 experts top-2 of d_ff 16,384, vocab 32,768, window
+    4,096), MIXTRAL_LAYERS layers, random seeded weights, the ServeConfig
+    defaults in 8 slots, on phase 8a's workload, through the ragged step
+    with the config's dense dispatch, the ragged step with the sorted
+    dispatch, the split step and the tiered cache: every kernel count
+    reset just before each run and read just after (#1 steps x layers;
+    split: #2 and #3 dispatches x layers; tiered: #7 once a repack
+    dispatch). After the dense run, on its pages: the step gates
+    (:func:`step_distances`), 10b's #1 (:func:`mixtral_walk`), the
+    profiled decode step (:func:`moe_step_breakdown`) and the megakernel
+    request, which falls back with the reference's reason. The sorted and
+    split streams equal the dense ragged run's but at picks where the two
+    runs' leads sum to at most twice the step gate's fixed bound (two steps
+    that far apart can swap a pick only there). The tiered run's first #7 call
+    and its first #1 call over demoted pages are held to their plain
+    versions (:func:`mixtral_tiered_checks`); its streams read other page
+    values and are logged. The split run's #3 calls are captured for 10b
+    (:func:`mixtral_prefill_checks`)."""
+    from repro_torch.launch import serve
+    from repro_torch.nn import attention, model
+    from repro_torch.serve import engine as engine_mod
+
+    args = serve.parse_args(argv)
+    t0 = time.perf_counter()
+    cfg, engine = _mixtral_engine(build, [], None, {})
+    params = engine.params
+    on_card = engine.device.type == "cuda"  # else a CPU rehearsal
+    weights = list(_weights(params))
+    log(f"10a mixtral-8x22b built in {time.perf_counter() - t0:.1f} s: "
+        f"{cfg.num_layers} of 56 layers, d_model {cfg.d_model}, "
+        f"{cfg.num_experts} experts top-{cfg.top_k} of d_ff "
+        f"{cfg.d_ff_expert}, "
+        f"{sum(t.numel() for t in weights) / 1e9:.2f} B params "
+        f"({sum(t.numel() * t.element_size() for t in weights) / 1e9:.1f} "
+        f"GB), {engine.num_pages} pages of {PS}")
+    del weights
+    prompts = serve.make_prompts(cfg, args, sharing=2) + [
+        np.random.default_rng(8).integers(0, cfg.vocab_size, LONG_PROMPT)
+        .astype(np.int32)]
+    runs, out = {}, {}
+    for mode, (over, flags) in MIXTRAL_RUNS.items():
+        if mode != "ragged":
+            del engine
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            mcfg, engine = _mixtral_engine(build, flags, params, over)
+        else:
+            mcfg = cfg
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        prefill = _Capture(
+            attention, "mx_attention_prefill_fused", lambda a, kw:
+            "window" if _past_window(a[8]) else
+            "resident" if int(a[8].max()) > 0 else None)
+        # tiered: the first repack, and the first walk after it (no sync)
+        repack = _Capture(engine_mod, "mx_repack_pages", lambda a, kw: 0)
+        walk = _Capture(attention, "mx_attention_ragged_fused",
+                        lambda a, kw: 0 if repack.calls else None)
+        with prefill, repack, walk:
+            report, leads, n = _serve_counted(engine, mcfg, args, prompts)
+        stats = engine.cache_stats()
+        peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                   else float("nan"))
+        want_mode = "split" if mode == "split" else "ragged"
+        if report["step_mode"] != want_mode or (
+                mode == "tiered" and not report["tiered"]["repack_dispatches"]):
+            raise AssertionError(f"10a mixtral {mode}: {report['step_mode']}"
+                                 f", {stats}")
+        if on_card:
+            _only_launched(n, _mixtral_launches(mode, report, stats,
+                                                mcfg.num_layers),
+                           f"10a mixtral {mode} run")
+        _check_streams(report, mcfg, 32, f"10a mixtral {mode}")
+        runs[mode] = dict(report=report, leads=leads, n=n, peak_gb=peak_gb,
+                          stats=stats)
+        log(f"10a mixtral {mode}: {report['requests']} requests (prompts "
+            f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens), "
+            f"{report['generated_tokens']} tokens in "
+            f"{report['seconds']:.2f} s = {report['tokens_per_s']:.1f} "
+            f"tok/s; {report['steps']} steps, median "
+            f"{report['median_step_ms']:.2f} ms; launches "
+            f"{ {k: v for k, v in n.items() if v} }; smallest lead of any "
+            f"pick {report['min_top2_gap_ulps']:.2f} bf16 ulps; peak memory "
+            f"{peak_gb:.2f} GB")
+        if mode == "ragged":
+            out["steps"] = step_distances(engine, mcfg)
+            if on_card:
+                out["walk"] = mixtral_walk(engine, mcfg)
+                moe_step_breakdown(engine, mcfg)
+            with _LogLines("repro_torch.serve.engine") as lines:
+                _, mengine = _mixtral_engine(
+                    build, ["--step-mode", "megakernel"], params, {})
+            mstats = mengine.cache_stats()
+            logged = [s for s in lines.lines
+                      if f"megakernel step disabled: {MOE_REASON}" in s]
+            if not (mstats["megakernel_fallback_reason"] == MOE_REASON
+                    and logged and mstats["step_mode"] == "ragged"
+                    and mengine._step_model is model.ragged_step_paged):
+                raise AssertionError(f"10a mixtral megakernel request: "
+                                     f"{mstats}, {lines.lines}")
+            del mengine
+            log(f"10a mixtral --step-mode megakernel: falls back to the "
+                f"per-layer ragged step, logged {logged}")
+        if mode == "split":
+            out["prefill_calls"] = prefill.calls
+        if mode == "tiered" and on_card:
+            out["tiered_walk"] = mixtral_tiered_checks(walk, repack)
+    base = runs["ragged"]
+    for mode in ("sorted", "split", "tiered"):
+        parts = []
+        for i, prompt in zip(base["report"]["ids"],
+                             base["report"]["prompts"]):
+            k = len(prompt)
+            got = runs[mode]["report"]["results"][i][k:]
+            diff = np.flatnonzero(got != base["report"]["results"][i][k:])
+            if len(diff):
+                j = int(diff[0])
+                parts.append((i, j, runs[mode]["leads"][i][j],
+                              base["leads"][i][j]))
+        runs[mode]["equal"] = len(prompts) - len(parts)
+        # two steps whose logits lie at most D apart can pick a and b only
+        # where lead(a) in one plus lead(b) in the other is at most 2D; D
+        # is the step gate's fixed bound (sorted: another rounding of the
+        # MoE's sums; split: products at 8 rows, not 512). Tiered: pages
+        # re-encoded at fp6 and fp4 hold other values, another function,
+        # gated by mixtral_tiered_checks instead
+        bound = {"sorted": SORTED_STEP_ULPS, "split": SPLIT_STEP_ULPS}
+        if mode in bound:
+            near = 2 * bound[mode]
+            bad = [p for p in parts if p[2] + p[3] > near]
+            rule = (f"the two leads sum to at most {near} ulps (twice "
+                    "the step gate's bound)")
+        else:
+            bad, rule = [], "logged: demoted pages hold other values"
+        log(f"10a mixtral {mode} against the dense ragged run: "
+            f"{len(prompts) - len(parts)} of {len(prompts)} streams equal; "
+            f"partings at (request, generated token, lead {mode}, lead "
+            f"ragged) {parts}; rule: {rule}")
+        if bad:
+            raise AssertionError(f"10a mixtral {mode}: streams part at "
+                                 f"{bad}; rule: {rule}")
+    same = sum(np.array_equal(runs["sorted"]["report"]["results"][i],
+                              runs["split"]["report"]["results"][i])
+               for i in base["report"]["ids"])
+    log(f"10a mixtral: the sorted and split runs' streams equal each other "
+        f"in {same} of {len(prompts)}")
+    out["runs"] = runs
+    out["cfg"] = cfg
+    return out
+
+
+#: 10a's split-step rows: one decode row each, at positions the run's
+#: pages hold (two past the window)
+DRIFT_ROWS = [(150, 1), (46, 1), (131, 1), (250, 1), (300, 1), (4136, 1),
+              (4200, 1), (64, 1)]
+#: 10a's step gates (:func:`step_distances`): one full-width step's
+#: largest logit difference, in bf16 ulps of the largest logit, between
+#: the sorted and the dense dispatch (STEP8_ROWS) and between the split
+#: decode step and the ragged step (DRIFT_ROWS), from the same pools:
+#: 1.5x the readings (7.50 and 14.09 in every card run; PERF.md), rounded
+#: up. Both are rounding alone: the sorted dispatch's bf16 roundings, and
+#: cuBLAS's products at 8 rows (the split step at 512 is bit-equal)
+SORTED_STEP_ULPS = 12
+SPLIT_STEP_ULPS = 22
+#: one layer's products in the order a mixtral step calls them
+MOE_LAYER_PRODUCTS = ("wq", "wk", "wv", "wo", "router", "expert gate",
+                      "expert up", "expert down")
+
+
+def _product_rows(a, b) -> int:
+    """A product's rows: ``a``'s batch folded in where ``b`` is one
+    matrix, as ``torch.matmul`` folds it."""
+    return a.shape[-2] if b.ndim > 2 else a.numel() // a.shape[-1]
+
+
+class _Products:
+    """While entered, every ``torch.matmul`` and ``torch.bmm`` call whose
+    (K, N) is one of ``kn`` (a model step's products: the projections, the
+    router, the experts, the head; not the plain walk's, on the CPU) runs
+    as ``how(real, a, b, kw, i)``, ``i`` its index in the step (None: as
+    it is); ``shapes`` lists those calls' (rows, K, N)."""
+
+    def __init__(self, kn, how=None):
+        self.kn, self.how, self.shapes = set(kn), how, []
+
+    def __enter__(self):
+        self.real = {name: getattr(torch, name) for name in ("matmul", "bmm")}
+        for name, real in self.real.items():
+            def wrapped(a, b, *, _real=real, **kw):
+                if (a.shape[-1], b.shape[-1]) not in self.kn:
+                    return _real(a, b, **kw)
+                i = len(self.shapes)
+                self.shapes.append((_product_rows(a, b), a.shape[-1],
+                                    b.shape[-1]))
+                return (self.how(_real, a, b, kw, i) if self.how
+                        else _real(a, b, **kw))
+            setattr(torch, name, wrapped)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for name, real in self.real.items():
+            setattr(torch, name, real)
+
+
+def _exact_product(real, a, b, kw, i):
+    """The operands' product in f64 (each bf16 product exact, the sums over
+    K <= 16,384 within ~1e-12 relative), rounded once to the dtype the
+    path's product gives."""
+    out = kw.get("out_dtype") or torch.promote_types(a.dtype, b.dtype)
+    return real(a.double(), b.double()).to(out)
+
+
+def _padded_product(real, a, b, kw, m: int):
+    """``real(a, b, **kw)`` on ``a``'s rows padded with zeros to ``m`` rows,
+    cut back: the same function through the kernel cuBLAS picks at ``m``
+    rows (an output element reads only its own row)."""
+    rows = _product_rows(a, b)
+    if b.ndim > 2:
+        pad = torch.nn.functional.pad(a, (0, 0, 0, m - rows))
+        return real(pad, b, **kw)[..., :rows, :]
+    pad = torch.nn.functional.pad(a.reshape(rows, a.shape[-1]),
+                                  (0, 0, 0, m - rows))
+    out = real(pad, b, **kw)[:rows]
+    return out.reshape(*a.shape[:-1], out.shape[-1])
+
+
+def step_distances(engine, cfg) -> dict:
+    """10a's step gates, on the dense run's pages, every step from the same
+    pools: the sorted dispatch's ragged step over STEP8_ROWS within
+    SORTED_STEP_ULPS of the dense one's, and the split decode step over
+    DRIFT_ROWS within SPLIT_STEP_ULPS of the ragged step's (largest logit
+    difference, finite). The split step with each product computed at
+    the ragged step's rows (:func:`_padded_product`) gives the ragged
+    step's logits and pool bytes bit for bit, so the two part only where
+    cuBLAS's product at 8 rows rounds otherwise than at 512; each
+    product's share of outputs that does is logged. Logged too, not gated:
+    each path's distance from itself with every product exact
+    (:func:`_exact_product`), which at full width exceeds the paths'
+    distances from each other (PERF.md). Returns the distances in bf16
+    ulps of the largest logit."""
+    from repro_torch.nn import model
+
+    params, cache = engine.params, engine.cache
+    sorted_cfg = cfg.replace(moe_dispatch="sorted")
+    split_cfg = cfg.replace(decode_kernel="fused")
+    stacked = stacked_pools(cache)
+    pools0 = [t.clone() for t in stacked]
+
+    def ragged(c):
+        return lambda *a: model.ragged_step_paged(params, c, cache, *a)
+
+    def split(tok, table, start, *_):
+        return model.decode_step_paged(params, split_cfg, cache,
+                                       tok[:, :1].contiguous(), table, start)
+
+    dm, d, f = cfg.d_model, cfg.head_dim, cfg.d_ff_expert
+    want = [(dm, cfg.num_heads * d), (dm, cfg.num_kv_heads * d),
+            (dm, cfg.num_kv_heads * d), (cfg.num_heads * d, dm),
+            (dm, cfg.num_experts), (dm, f), (dm, f), (f, dm)] \
+        * cfg.num_layers + [(dm, cfg.vocab_size)]
+
+    def run(fn, args, how=None) -> tuple:
+        for t, t0 in zip(stacked, pools0):
+            t.copy_(t0)
+        with _Products(want, how) as products:
+            logits = fn(*args).float().reshape(args[0].shape[0], -1)
+        torch.cuda.synchronize()
+        return logits, [t.clone() for t in stacked], products.shapes
+
+    a8 = _step8_inputs(engine, cfg, STEP8_ROWS,
+                       torch.Generator().manual_seed(11))
+    ad = _step8_inputs(engine, cfg, DRIFT_ROWS,
+                       torch.Generator().manual_seed(11))
+    runs = {"dense": run(ragged(cfg), a8),
+            "dense exact": run(ragged(cfg), a8, _exact_product),
+            "sorted": run(ragged(sorted_cfg), a8),
+            "sorted exact": run(ragged(sorted_cfg), a8, _exact_product),
+            "ragged": run(ragged(cfg), ad),
+            "ragged exact": run(ragged(cfg), ad, _exact_product)}
+    rows = [m for m, _, _ in runs["ragged"][2]]
+    moved = []
+
+    def pinned(real, a, b, kw, i):
+        return _padded_product(real, a, b, kw, rows[i])
+
+    def tally(real, a, b, kw, i):
+        got = real(a, b, **kw)
+        moved.append((got != pinned(real, a, b, kw, i)).float().mean())
+        return got
+
+    runs["split"] = run(split, ad)
+    runs["split exact"] = run(split, ad, _exact_product)
+    runs["split at 512 rows"] = run(split, ad, pinned)
+    run(split, ad, tally)
+    for t, t0 in zip(stacked, pools0):
+        t.copy_(t0)
+    del pools0
+    for name in ("ragged", "split"):
+        got = [(k, n) for _, k, n in runs[name][2]]
+        if got != want:
+            raise AssertionError(f"10a {name} step's products (K, N) {got}, "
+                                 f"expected {want}")
+    c = {}
+    for ref, name, live in (("dense", "sorted", STEP8_ROWS),
+                            ("ragged", "split", DRIFT_ROWS),
+                            ("ragged", "split at 512 rows", DRIFT_ROWS),
+                            ("dense exact", "dense", STEP8_ROWS),
+                            ("sorted exact", "sorted", STEP8_ROWS),
+                            ("dense exact", "sorted exact", STEP8_ROWS),
+                            ("ragged exact", "ragged", DRIFT_ROWS),
+                            ("split exact", "split", DRIFT_ROWS)):
+        c[f"{name} vs {ref}"] = pair = compare_steps(
+            runs[ref][0], runs[name][0], runs[ref][1], runs[name][1],
+            list(range(len(live))))
+        log(f"10a one step, {name} against {ref}: largest |logit "
+            f"difference| {pair['max_abs_err']:.4g} "
+            f"({pair['max_abs_err'] / pair['ulp']:.2f} bf16 ulps of the "
+            f"largest logit), argmax equal in {pair['argmax_equal']} of "
+            f"{pair['rows']} rows, {pair['codes_differing']} of "
+            f"{pair['codes']} pool bytes differ")
+    shares = torch.stack(moved).tolist()
+    per_layer = len(MOE_LAYER_PRODUCTS)
+    by_product = {name: max(shares[p:-1:per_layer])
+                  for p, name in enumerate(MOE_LAYER_PRODUCTS)}
+    by_product["head"] = shares[-1]
+    log(f"10a split step: share of each product's outputs whose bits differ "
+        f"between the split step's {len(DRIFT_ROWS)} rows and the ragged "
+        f"step's {rows[0]}, largest over the {cfg.num_layers} layers: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in by_product.items()))
+    ulps = {k: v["max_abs_err"] / v["ulp"] for k, v in c.items()}
+    pin = c["split at 512 rows vs ragged"]
+    if not (all(v["finite"] for v in c.values())
+            and ulps["sorted vs dense"] <= SORTED_STEP_ULPS
+            and ulps["split vs ragged"] <= SPLIT_STEP_ULPS
+            and pin["max_abs_err"] == 0 and pin["codes_differing"] == 0):
+        raise AssertionError(
+            f"10a step gates: {c} (bars: finite; sorted within "
+            f"{SORTED_STEP_ULPS} and split within {SPLIT_STEP_ULPS} bf16 "
+            "ulps; the split step at the ragged step's product rows "
+            "bit-equal to it)")
+    return {"ulps": ulps, "moved": by_product}
+
+
+def mixtral_tiered_checks(walk, repack) -> dict:
+    """10a's tiered gates: the run's first #7 call (captured) byte-equal to
+    its plain version, and the first #1 call after it, whose table reaches
+    pages repacked to narrower formats, held to its plain version and
+    timed (:func:`time_walk`)."""
+    from repro_torch.core.formats import FORMAT_IDS
+    from repro_torch.kernels.mx_repack import mx_repack_pages_plain
+    from repro_torch.serve import engine as engine_mod
+
+    a, kw = repack.calls[0]
+    got = [t.clone() for t in a[:4]]
+    engine_mod.mx_repack_pages(*got, *a[4:], **kw)
+    want = mx_repack_pages_plain(*[t.clone() for t in a[:4]], *a[4:], **kw)
+    if not all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+               for g, w in zip(got, want)):
+        raise AssertionError("10a mixtral tiered: #7 differs from its plain "
+                             "version")
+    del got, want
+    a, kw = walk.calls[0]
+    table = a[7]
+    fmts = kw["page_fmts"][table[table >= 0].long()]
+    pages = {name: int((fmts == i).sum()) for name, i in FORMAT_IDS.items()}
+    pages = {name: n for name, n in pages.items() if n}
+    if set(pages) <= {"fp8_e4m3"}:
+        raise AssertionError(f"10a mixtral tiered: the walk after the first "
+                             f"repack reads no demoted page: {pages}")
+    rows = [(s, max(0, n - s)) for s, n in zip(a[8].tolist(),
+                                               a[9].tolist())]
+    return time_walk(a, kw, rows, (
+        f"10a mixtral-8x22b's tiered run, layer 0 of the step after the "
+        f"first repack (table entries by page format {pages})"))
+
+
+def mixtral_walk(engine, cfg) -> dict:
+    """10b, #1: one full-width ragged step over STEP8_ROWS (phase 2's
+    rows with a chunk and a decode row past the window of 4,096) on the
+    dense run's pages; layer 0's call captured, held to its plain version
+    and timed beside it and its bound (:func:`time_walk`), in query tiles
+    of MIXTRAL_TILE tokens."""
+    from repro_torch.kernels import mx_attention as mxa
+    from repro_torch.nn import attention, model
+
+    g = cfg.num_heads // cfg.num_kv_heads
+    lib = mxa._library("mx_attention_ragged")
+    tile = mxa.query_tile(W, g, cfg.head_dim, PS,
+                          lib.mx_attention_ragged_smem_bytes)
+    if tile != MIXTRAL_TILE:
+        raise AssertionError(f"10b #1: a tile of {tile} tokens, expected "
+                             f"{MIXTRAL_TILE}")
+    args = _step8_inputs(engine, cfg, STEP8_ROWS,
+                         torch.Generator().manual_seed(10))
+    cap = _Capture(attention, "mx_attention_ragged_fused", lambda a, kw: 0)
+    with cap:
+        logits = model.ragged_step_paged(engine.params, cfg, engine.cache,
+                                         *args)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("10b: the STEP8_ROWS step gave non-finite "
+                             "logits")
+    a, kw = cap.calls[0]
+    out = time_walk(a, kw, STEP8_ROWS, (
+        f"10b mixtral-8x22b's layer 0, STEP8_ROWS ({W * g} query rows a "
+        f"cell in tiles of {tile} tokens, "
+        f"{lib.mx_attention_ragged_smem_bytes(tile, g, cfg.head_dim, PS)} "
+        "bytes of shared memory)"))
+    out["tile"] = tile
+    return out
+
+
+def moe_step_breakdown(engine, cfg, pos: int = 300) -> None:
+    """10a's profiled step: ragged steps with every slot decoding at
+    ``pos`` (as :func:`decode_step_breakdown`), with the dense and the
+    sorted dispatch; the device time of the kernels inside each MoE layer
+    (router, expert products, combine) and, dense, inside the expert
+    products alone, beside #1, the GEMMs, the rest and the idle time."""
+    from repro_torch.nn import model, moe
+
+    table, start, tokens = _breakdown_inputs(engine, cfg, pos,
+                                             engine._width)
+    real = {name: getattr(moe, name) for name in ("apply", "_expert_ffn")}
+
+    def annotated(name, fn):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return wrapped
+
+    def step(mcfg):
+        return lambda: model.ragged_step_paged(
+            engine.params, mcfg, engine.cache, tokens, table, start,
+            start + 1, torch.zeros_like(start))
+
+    for name, fn in real.items():
+        setattr(moe, name, annotated(name, fn))
+    try:
+        profile_breakdown(
+            {f"ragged decode step, {d} dispatch": (
+                step(cfg.replace(moe_dispatch=d)),
+                f"{len(start)} rows of W {engine._width} at position {pos}, "
+                f"{cfg.num_layers} layers")
+             for d in ("dense", "sorted")},
+            ("ragged_kernel",), ranges=tuple(f"moe.{n}" for n in real))
+    finally:
+        for name, fn in real.items():
+            setattr(moe, name, fn)
+
+
+def _captured_prefill(a, kw) -> dict:
+    """A captured #3 call as :func:`run_paged`'s input."""
+    return dict(kind="prefill", q=a[0], k=a[1], v=a[2], pools=a[3:7],
+                table=a[7], starts=a[8], lens=a[9], kw=kw,
+                fmt=kw["fmt_name"], block=kw["block_size"],
+                page_fmts=kw.get("page_fmts"))
+
+
+def _prefill_tiles_equal(mxa, inp, tiles: tuple, what: str) -> None:
+    """#3 on ``inp`` at each of ``tiles`` (None: the wrapper's choice):
+    outputs, visits and pool bytes bit-equal across them."""
+    runs = []
+    for tile in tiles:
+        pools = [t.clone() for t in inp["pools"]]
+        kw = dict(inp.get("kw") or dict(fmt_name=inp["fmt"],
+                                        block_size=inp["block"]))
+        if inp["page_fmts"] is not None:
+            kw.update(page_fmts=inp["page_fmts"], mixed_fmts=MIXED)
+        got, _, visits = mxa.mx_attention_prefill_fused(
+            inp["q"], inp["k"], inp["v"], *pools, inp["table"],
+            inp["starts"], inp["lens"], debug_visits=True, tile_tokens=tile,
+            **kw)
+        runs.append((got, visits, [t.view(torch.uint8) for t in pools]))
+    torch.cuda.synchronize()
+    (a, av, ap) = runs[0]
+    for tile, (b, bv, bp) in zip(tiles[1:], runs[1:]):
+        if not (torch.equal(a, b) and torch.equal(av, bv)
+                and all(torch.equal(x, y) for x, y in zip(ap, bp))):
+            raise AssertionError(
+                f"{what}: tiles of {tile} tokens part from tiles of "
+                f"{tiles[0]}: out {float((a - b).abs().max())}")
+
+
+def mixtral_prefill_checks(calls: dict, cfg) -> dict:
+    """10b, #3 at C 64, G 6 (query tiles of MIXTRAL_TILE tokens): the split
+    run's first call over resident pages (layer 0) and its first call past
+    the window, captured, and phase 2c's resident chunk on a repacked
+    mixed pool at G 6, each held to its plain version (pool bytes equal,
+    visits exact, out within OUT_TOL) and timed beside it and its bound;
+    then tiles of FORCED_TILE tokens bit-equal to the chosen ones, at G 6
+    and at granite-8b's G 4 (where one tile holds the chunk)."""
+    from repro_torch.kernels import mx_attention as mxa
+
+    g = cfg.num_heads // cfg.num_kv_heads
+    lib = mxa._library("mx_attention_paged")
+    tile = mxa.query_tile(CHUNK, g, cfg.head_dim, PS,
+                          mxa._paged_tile_bytes(lib))
+    if tile != MIXTRAL_TILE or lib.mx_attention_paged_smem_bytes(
+            CHUNK * g, cfg.head_dim, PS) <= mxa._MAX_SMEM:
+        raise AssertionError(f"10b #3: a tile of {tile} tokens")
+    if sorted(calls) != ["resident", "window"]:
+        raise AssertionError(f"10b #3: captured {sorted(calls)}")
+    cases = {key: _captured_prefill(*calls[key]) for key in calls}
+    cases["mixed"] = prefill_inputs("mixed", PREFILL_ROWS["b1_resident"],
+                                    torch.Generator().manual_seed(31), g=g)
+    out = {}
+    for key, inp in cases.items():
+        label = f"10b #3 at mixtral-8x22b's shapes, {key}"
+        err = check_paged_case(mxa, inp, label)
+        ms, plain_ms = time_paged(mxa, inp)
+        bound_ms, bound_by = paged_bound(inp)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, max_abs_err=err)
+        log(f"{label} (q {tuple(inp['q'].shape)}, chunk starts "
+            f"{inp['starts'].tolist()}, lengths {inp['lens'].tolist()}, "
+            f"window {(inp.get('kw') or {}).get('window')}): within "
+            f"{err:.3g} of its plain version (bar {OUT_TOL}), pool bytes "
+            f"and visits equal; {ms:.4f} ms (median of 25), plain version "
+            f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    _prefill_tiles_equal(mxa, cases["resident"], (None, FORCED_TILE),
+                         "10b #3 at G 6")
+    granite = prefill_inputs("fp8_e4m3", PREFILL_ROWS["b2"],
+                             torch.Generator().manual_seed(32))
+    if mxa.query_tile(CHUNK, G, D, PS, mxa._paged_tile_bytes(lib)) != CHUNK:
+        raise AssertionError("10b: granite-8b's chunk does not fit a tile")
+    _prefill_tiles_equal(mxa, granite, (None, FORCED_TILE, 48),
+                         "10b #3 at G 4")
+    log(f"10b #3: tiles of {FORCED_TILE} tokens bit-equal to tiles of "
+        f"{tile} at G 6, and tiles of {FORCED_TILE} and 48 to one tile of "
+        f"{CHUNK} at G 4 (outputs, visits, pool bytes)")
+    return out
+
+
+def check_reduced_mixtral(card: str = "cuda") -> None:
+    """10c: reduced mixtral-8x22b (seeded port weights, MIXTRAL_SEED)
+    serves ARCH_PROMPTS of phase 3's prompts, which pass its window of 8,
+    through the ragged step with the dense and the sorted dispatch, the
+    split step and the tiered cache under phase 3's aggressive policy, on
+    the card and on the CPU: equal streams, every CPU pick leading by
+    more than GAP_TOL_ULPS."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.nn import model
+    from repro_torch.serve import TierPolicy
+
+    cfg = get_reduced("mixtral-8x22b")
+    cfg = cfg.replace(quant=cfg.quant.replace(quantize_acts=False,
+                                              quantize_kv_cache=True))
+    params = model.init(cfg, torch.Generator().manual_seed(MIXTRAL_SEED),
+                        "cpu")
+    on_card = _to_device(params, card)
+    prompts = reduced_prompts(cfg)[:ARCH_PROMPTS]
+    modes = {"ragged": ({}, {}), "sorted": ({"moe_dispatch": "sorted"}, {}),
+             "split": ({}, dict(step_mode="split")),
+             "tiered": ({}, dict(tiered=True, tier_policy=TierPolicy(
+                 **AGGRESSIVE_TIERS)))}
+    leads = {}
+    for mode, (over, kw) in modes.items():
+        mcfg = cfg.replace(**over)
+        want, cpu_stats = reduced_streams("cpu", params, mcfg, prompts, **kw)
+        got, stats = reduced_streams(card, on_card, mcfg, prompts, **kw)
+        what = f"10c reduced mixtral {mode}"
+        if not cpu_stats["min_top2_gap_ulps"] > GAP_TOL_ULPS:
+            raise AssertionError(f"{what}: a near-tie pick "
+                                 f"({cpu_stats['min_top2_gap_ulps']} ulps)")
+        if stats["step_mode"] != ("split" if mode == "split" else "ragged"):
+            raise AssertionError(f"{what}: {stats['step_mode']}")
+        _same_streams(got, want, f"{what}, card vs CPU")
+        leads[mode] = round(cpu_stats["min_top2_gap_ulps"], 2)
+    log(f"10c reduced mixtral-8x22b (seed {MIXTRAL_SEED}): {len(prompts)} "
+        "requests through 3 slots, ragged (dense and sorted dispatch), "
+        "split and tiered: streams equal on card and CPU (smallest CPU "
+        f"leads in bf16 ulps: {leads})")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the MX dot products at granite-8b widths
 # ---------------------------------------------------------------------------
 
@@ -5590,6 +6282,42 @@ def main() -> int:
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mix = serve_mixtral_full_width()
+    runs = mix.pop("runs")
+    kernel["launches_mixtral"] = runs["ragged"]["n"][
+        "mx_attention_ragged_fused"]
+    kernel["launches_mixtral_sorted"] = runs["sorted"]["n"][
+        "mx_attention_ragged_fused"]
+    kernel["launches_mixtral_tiered"] = runs["tiered"]["n"][
+        "mx_attention_ragged_fused"]
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "tile"):
+        kernel[f"{key}_mixtral"] = mix["walk"][key]
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err"):
+        kernel[f"{key}_mixtral_tiered"] = mix["tiered_walk"][key]
+    for path in ("sorted vs dense", "split vs ragged"):
+        kernel[f"step_ulps_mixtral_{path.split()[0]}"] = mix["steps"]["ulps"][
+            path]
+    verify["launches_mixtral"] = runs["split"]["n"][
+        "mx_attention_verify_fused"]
+    prefill["launches_mixtral"] = runs["split"]["n"][
+        "mx_attention_prefill_fused"]
+    repack["launches_mixtral"] = runs["tiered"]["n"]["mx_repack_pages"]
+    cfg = mix["cfg"]
+    checks = mixtral_prefill_checks(mix.pop("prefill_calls"), cfg)
+    for case, suffix in (("resident", ""), ("window", "_window"),
+                         ("mixed", "_mixed")):
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err"):
+            prefill[f"{key}_mixtral{suffix}"] = checks[case][key]
+    prefill["tile_mixtral"] = MIXTRAL_TILE
+    prefill["forced_tiles_bit_equal"] = True
+    del mix, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_reduced_mixtral()
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
     kernels = [kernel, verify, prefill] + pair + [repack, mega] \
         + check_mx_dot_products()
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-"""Architecture registry (port of ``repro.configs``): the attention-only
-configs ported so far. ``get_config(name)`` is the full ModelConfig,
+"""Architecture registry (port of ``repro.configs``): the configs ported
+so far, attention mixers with dense or MoE channel mixers.
+``get_config(name)`` is the full ModelConfig,
 ``get_reduced(name)`` a CPU-sized config of the same family;
 ``--arch <id>`` in the launcher resolves through :data:`ARCHS`."""
 from __future__ import annotations
@@ -11,6 +12,7 @@ ARCHS = {
     "gemma2-9b": "gemma2_9b",
     "phi4-mini-3.8b": "phi4_mini",
     "granite-8b": "granite_8b",
+    "mixtral-8x22b": "mixtral_8x22b",
 }
 
 from .shapes import SHAPES, ShapeSpec, shape_applicable  # noqa: E402

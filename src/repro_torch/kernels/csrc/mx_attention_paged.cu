@@ -29,6 +29,17 @@
 // of a mixed (tiered) pool is written and read in the hot fp8 format; its
 // resident pages decode under their own format ids.
 //
+// The walk's shared memory grows with its query rows (mxwalk::smem_bytes),
+// and a chunk's C * G rows can outgrow a block's 232,448 bytes
+// (mixtral-8x22b: C 64, G 6, 384 rows of head_dim 128 need 316,672). So
+// the prefill cell walks its queries in tiles of T tokens, as the ragged
+// cell does (mx_attention_ragged_cell.cuh): every tile walks the same pages
+// in the same CTA after all the chunk's writes, and a query row's bits
+// depend on its own position and the keys alone, so any T gives the bits
+// of one tile (T == C). The host picks T (mx_attention.query_tile): C where
+// the whole chunk fits, else the largest multiple of 16 that does. A
+// verify cell's Tq * G rows are few (30 at Tq 5, G 6) and walk in one.
+//
 // What bounds them on an H100 SXM (data-sheet peaks). Decode at granite
 // shapes (B=8, KVH=8, G=4, D=128, PS=16, ~20 resident pages a slot) reads
 // ~2.6 MB of compact pages: under a microsecond at 3.35 TB/s. Its time is
@@ -95,6 +106,7 @@ struct PrefillArgs {
   float* out;              // (B, KVH, C*G, D)
   int* visits;             // (B, KVH)
   int C, G, P, window;
+  int T;  // tokens of a query tile, 1 <= T <= C (T == C: one tile)
   float softcap, scale;
 };
 
@@ -113,9 +125,6 @@ __global__ void __launch_bounds__(mxwalk::kThreads)
   const int* trow = a.table + static_cast<size_t>(b) * a.P;
   auto page_of = [&](int p) { return static_cast<size_t>(trow[p]); };
   const mx::FmtSpec f = mx::fmt_spec(P.fmt);
-
-  const mxwalk::Walk w = mxwalk::walk_begin(
-      smem, a.q + static_cast<size_t>(cell) * rows * P.D, rows, P.D, P.PS);
 
   // phase 1: quantize the chunk's pages, every row of each (the reference
   // quantizes the whole (PS, D) tile, padding rows included), one warp a
@@ -145,14 +154,24 @@ __global__ void __launch_bounds__(mxwalk::kThreads)
   }
   __syncthreads();
 
-  // phase 2: resident pages under their formats, then the chunk's pages
-  // in the hot format
-  mxwalk::walk_pages(w, P, page_of, h, first, valid, c0, a.G, start,
-                     a.C - 1, a.window, a.softcap, a.scale);
+  // phase 2, a query tile at a time: resident pages under their formats,
+  // then the chunk's pages in the hot format; qlast counts from the tile's
+  // first token
+  const __nv_bfloat16* qg = a.q + static_cast<size_t>(cell) * rows * P.D;
   float* og = a.out + static_cast<size_t>(cell) * rows * P.D;
-  mxwalk::walk_finish(w, [&](int i, float4 v) {
-    *reinterpret_cast<float4*>(og + i) = v;
-  });
+  for (int tile = 0; tile < a.C; tile += a.T) {
+    const int off = tile * a.G * P.D;  // the tile's first element
+    const mxwalk::Walk w = mxwalk::walk_begin(
+        smem, qg + off, min(a.T, a.C - tile) * a.G, P.D, P.PS);
+    __syncthreads();
+    mxwalk::walk_pages(w, P, page_of, h, first, valid, c0, a.G,
+                       start + tile, a.C - 1 - tile, a.window, a.softcap,
+                       a.scale);
+    mxwalk::walk_finish(w, [&](int i, float4 v) {
+      *reinterpret_cast<float4*>(og + off + i) = v;
+    });
+    __syncthreads();  // the next tile reuses shared memory
+  }
   if (threadIdx.x == 0) {
     a.visits[cell] = max(0, min(c0, valid) - first) + max(0, valid - c0);
   }
@@ -216,11 +235,11 @@ extern "C" int mx_attention_prefill_launch(
     const void* q, const void* k_chunk, const void* v_chunk, void* ke,
     void* ks, void* ve, void* vs, const void* table, const void* chunk_start,
     const void* seq_lens, const void* page_fmts, void* out, void* visits,
-    int B, int KVH, int C, int G, int D, int ED, int PS, int P,
+    int B, int KVH, int C, int G, int D, int ED, int PS, int P, int T,
     int block_size, int fmt, int window, int mixed_mask, int mixed_default,
     float softcap, float scale, void* stream) {
   if (!mxwalk::pools_ok(page_fmts, D, ED, PS, block_size, fmt) ||
-      B * KVH == 0 || C % PS != 0 || C < 1) {
+      B * KVH == 0 || C % PS != 0 || C < 1 || T < 1 || T > C) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PrefillArgs a;
@@ -237,8 +256,9 @@ extern "C" int mx_attention_prefill_launch(
   a.C = C;
   a.G = G;
   a.P = P;
+  a.T = T;
   a.window = window;
   a.softcap = softcap;
   a.scale = scale;
-  return launch(prefill_kernel, a, B * KVH, C * G, D, PS, stream);
+  return launch(prefill_kernel, a, B * KVH, T * G, D, PS, stream);
 }

@@ -83,7 +83,7 @@ def _library(name: str):
                 [ptr] * 10 + [i32] * 13 + [f32, f32, ptr])
             lib.mx_attention_verify_launch.restype = i32
             lib.mx_attention_prefill_launch.argtypes = (
-                [ptr] * 13 + [i32] * 13 + [f32, f32, ptr])
+                [ptr] * 13 + [i32] * 14 + [f32, f32, ptr])
             lib.mx_attention_prefill_launch.restype = i32
             lib.mx_attention_paged_smem_bytes.argtypes = [i32] * 3
             lib.mx_attention_paged_smem_bytes.restype = ctypes.c_size_t
@@ -510,15 +510,17 @@ def _on_one_device(dev, *tensors):
 
 def query_tile(w: int, g: int, d: int, ps: int, smem_bytes,
                budget: int = _MAX_SMEM) -> int:
-    """Tokens of the query tile in which the ragged cell (#1's, and #8's
-    phase B) walks its ``w * g`` query rows: ``w`` when the whole cell's
-    walk fits ``budget`` bytes of shared memory, else the largest multiple
-    of 16 tokens whose walk does. ``smem_bytes(t, g, d, ps)`` is the
-    library's size of a tile of ``t`` tokens (the ragged library's
+    """Tokens of the query tile in which a cell walks its ``w * g`` query
+    rows (the ragged cell of #1 and #8's phase B over ``w`` tokens, #3's
+    cell over a chunk of ``w``): ``w`` when the whole cell's walk fits
+    ``budget`` bytes of shared memory, else the largest multiple of 16
+    tokens whose walk does. ``smem_bytes(t, g, d, ps)`` is the library's
+    size of a tile of ``t`` tokens (the ragged library's
     ``mx_attention_ragged_smem_bytes``, the megakernel's
-    ``mx_megakernel_smem_bytes``). At W 256 that is 64 tokens at
-    granite-8b (G 4, D 128) and gemma2-9b (G 2, D 256), 80 at phi4-mini
-    (G 3, D 128). Raises ``NotImplementedError`` when not even 16 tokens
+    ``mx_megakernel_smem_bytes``, :func:`_paged_tile_bytes`). At W 256
+    that is 64 tokens at granite-8b (G 4, D 128) and gemma2-9b (G 2, D
+    256), 80 at phi4-mini (G 3, D 128); at W or C 64, 32 at mixtral-8x22b
+    (G 6, D 128). Raises ``NotImplementedError`` when not even 16 tokens
     fit."""
     if smem_bytes(w, g, d, ps) <= budget:
         return w
@@ -531,6 +533,20 @@ def query_tile(w: int, g: int, d: int, ps: int, smem_bytes,
             f"{smem_bytes(16, g, d, ps)} bytes of shared memory per CTA; an "
             f"H100 block has {budget}")
     return t
+
+
+def _paged_tile_bytes(lib):
+    """The paged library's walk size as ``query_tile`` asks for it."""
+    return lambda t, g, d, ps: lib.mx_attention_paged_smem_bytes(
+        t * g, d, ps)
+
+
+def _check_tile(tile_tokens) -> None:
+    if tile_tokens is not None and (isinstance(tile_tokens, bool)
+                                    or not isinstance(tile_tokens, int)
+                                    or tile_tokens < 1):
+        raise ValueError(f"tile_tokens must be a positive int, got "
+                         f"{tile_tokens!r}")
 
 
 def _launch_common(wide, pools, ps: int, d: int, block: int, smem: int,
@@ -644,14 +660,16 @@ def _launch_verify(q, ke, ks, ve, vs, table, lens, *, fmt_name, block_size,
 
 def _launch_prefill(q, k_chunk, v_chunk, ke, ks, ve, vs, table, start, lens,
                     *, fmt_name, block_size, softcap, window, page_fmts,
-                    mixed_fmts):
+                    mixed_fmts, tile_tokens):
     b, kvh, c, g, d = q.shape
     ps, ed = ke.shape[1], ke.shape[-1]
     lib = _library("mx_attention_paged")
+    smem_bytes = _paged_tile_bytes(lib)
+    tile = min(tile_tokens or query_tile(c, g, d, ps, smem_bytes), c)
     _launch_common([("q", q), ("k_chunk", k_chunk), ("v_chunk", v_chunk)],
                    [("ke", ke), ("ks", ks), ("ve", ve), ("vs", vs),
                     ("page_fmts", page_fmts)], ps, d, block_size,
-                   lib.mx_attention_paged_smem_bytes(c * g, d, ps), c * g)
+                   smem_bytes(tile, g, d, ps), tile * g)
     out = torch.empty((b, kvh, c, g, d), dtype=torch.float32,
                       device=q.device)
     visits = torch.empty((b, kvh, 1), dtype=torch.int32, device=q.device)
@@ -659,7 +677,7 @@ def _launch_prefill(q, k_chunk, v_chunk, ke, ks, ve, vs, table, start, lens,
         q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(), ke.data_ptr(),
         ks.data_ptr(), ve.data_ptr(), vs.data_ptr(), table.data_ptr(),
         start.data_ptr(), lens.data_ptr(), _ptr(page_fmts), out.data_ptr(),
-        visits.data_ptr(), b, kvh, c, g, d, ed, ps, table.shape[1],
+        visits.data_ptr(), b, kvh, c, g, d, ed, ps, table.shape[1], tile,
         *_tail_args(fmt_name, block_size, window, page_fmts, mixed_fmts,
                     softcap, d, q.device))
     if err != 0:
@@ -703,11 +721,7 @@ def mx_attention_ragged_fused(q, k_new, v_new, ke, ks, ve, vs, page_table,
     can force several tiles where one fits. The plain version has no
     tiles and only checks it.
     """
-    if tile_tokens is not None and (isinstance(tile_tokens, bool)
-                                    or not isinstance(tile_tokens, int)
-                                    or tile_tokens < 1):
-        raise ValueError(f"tile_tokens must be a positive int, got "
-                         f"{tile_tokens!r}")
+    _check_tile(tile_tokens)
     fmt, mixed_fmts = _check_pools(q, ke, ks, ve, vs, fmt_name, block_size,
                                    page_fmts, mixed_fmts, "ragged steps")
     r, kvh, w, g, d = q.shape
@@ -793,7 +807,7 @@ def mx_attention_prefill_fused(q, k_chunk, v_chunk, ke, ks, ve, vs,
                                fmt_name: str = "fp8_e4m3",
                                block_size: int = 32, softcap=None,
                                window=None, page_fmts=None, mixed_fmts=None,
-                               debug_visits: bool = False):
+                               debug_visits: bool = False, tile_tokens=None):
     """One page-aligned prompt chunk of ``C`` tokens per row (layouts
     above, ``q`` (B, KVH, C, G, D), ``k_chunk``/``v_chunk`` (B, C, KVH,
     D)): attend the resident pages below ``chunk_start``, quantize the
@@ -812,8 +826,13 @@ def mx_attention_prefill_fused(q, k_chunk, v_chunk, ke, ks, ve, vs,
     ``visits`` with ``debug_visits=True``; the pools update in place.
     CUDA tensors launch the CUDA kernel (counted in
     ``mx_attention_prefill_fused.launches``); CPU tensors run
-    :func:`mx_attention_prefill_fused_plain`.
+    :func:`mx_attention_prefill_fused_plain`. The kernel walks a cell's
+    ``C * G`` query rows in tiles of ``tile_tokens`` tokens, as
+    :func:`mx_attention_ragged_fused` does (None: :func:`query_tile`'s
+    choice); any tile gives the same bits, and the plain version only
+    checks it.
     """
+    _check_tile(tile_tokens)
     fmt, mixed_fmts = _check_pools(q, ke, ks, ve, vs, fmt_name, block_size,
                                    page_fmts, mixed_fmts, "prefills")
     b, kvh, c, g, d = q.shape
@@ -833,10 +852,13 @@ def mx_attention_prefill_fused(q, k_chunk, v_chunk, ke, ks, ve, vs,
                                            ke.shape[0], c)
     kw = dict(fmt_name=fmt.name, block_size=block_size, softcap=softcap,
               window=window, page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    run = (_launch_prefill if dev.type == "cuda"
-           else mx_attention_prefill_fused_plain)
-    out, visits = run(q, k_chunk, v_chunk, ke, ks, ve, vs, table, start,
-                      lens, **kw)
+    if dev.type == "cuda":
+        out, visits = _launch_prefill(q, k_chunk, v_chunk, ke, ks, ve, vs,
+                                      table, start, lens,
+                                      tile_tokens=tile_tokens, **kw)
+    else:
+        out, visits = mx_attention_prefill_fused_plain(
+            q, k_chunk, v_chunk, ke, ks, ve, vs, table, start, lens, **kw)
     pools = (ke, ks, ve, vs)
     return (out, pools, visits) if debug_visits else (out, pools)
 

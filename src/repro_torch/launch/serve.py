@@ -6,15 +6,24 @@
 
 ``--arch`` is any of ``configs.list_archs()``: granite-8b, gemma2-2b,
 gemma2-9b (local/global windows, softcaps, GeGLU, post-norms; the
-megakernel mode falls back to the ragged step) and phi4-mini-3.8b, at
-full width or ``--reduced``:
+megakernel mode falls back to the ragged step), phi4-mini-3.8b and
+mixtral-8x22b (8 experts top-2 behind every layer, window 4096; the
+megakernel mode falls back to the ragged step), at full width or
+``--reduced``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --reduced --batch 4 --prompt-len 20 --shared-prefix 8 --ragged \
+      --new-tokens 12 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
       --reduced --batch 4 --prompt-len 20 --shared-prefix 8 --ragged \
       --new-tokens 12 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --batch 8 --prompt-len 236 --shared-prefix 64 --ragged \
       --new-tokens 32 --step-mode megakernel
+
+mixtral-8x22b's 56 layers (~280 GB of prepared weights) do not fit one
+card; ``build_engine(args, num_groups=8)`` serves its first 8 at full
+width.
 
 Weights are random (a seeded ``torch.Generator``) and weight-only MX. By
 default they are MXFP8 with an MX fp8 KV cache, the reference launcher's
@@ -107,11 +116,14 @@ UNPORTED_FLAGS = ("--mesh",)
 TIER_FMTS = ["fp6_e3m2", "fp6_e2m3", "fp4_e2m1"]
 
 
-def build_engine(args, params=None) -> tuple:
+def build_engine(args, params=None, **changes) -> tuple:
     """(model config, engine) of ``args`` (``--engine``: the continuous
     engine, or the fixed-slot one); ``params`` (of the same config) are
-    reused, else random weights are made from seed 0."""
+    reused, else random weights are made from seed 0. ``changes`` replace
+    fields of the arch's config (``num_groups=8``: a depth cut that keeps
+    every width; ``moe_dispatch="sorted"``)."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    cfg = cfg.replace(**changes)
     quant = {"": cfg.quant, "wide": WIDE, "mxfp8": MXFP8,
              "mxfp4": MXFP4}[args.quant]
     cfg = cfg.replace(quant=quant.replace(

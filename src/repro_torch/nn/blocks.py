@@ -1,15 +1,16 @@
-"""Decoder block wiring (port of ``repro.nn.blocks``), attention only.
+"""Decoder block wiring (port of ``repro.nn.blocks``), attention mixers.
 
-Pre-norm residual blocks: attention then a dense gated FFN (SwiGLU or
-GeGLU), with gemma2's sandwich post-norms on the mixer's and the FFN's
-outputs where the config asks for them. MoE, MLA and recurrent mixers
+Pre-norm residual blocks: attention then a channel mixer, a dense gated
+FFN (SwiGLU or GeGLU) or a mixture of experts (``ffn="moe"``,
+``nn.moe``), with gemma2's sandwich post-norms on the mixer's and the
+FFN's outputs where the config asks for them. MLA and recurrent mixers
 and the no-gate ``gelu`` FFN (ROADMAP A8) raise here.
 """
 from __future__ import annotations
 
 import torch
 
-from . import attention, ffn, linear
+from . import attention, ffn, linear, moe
 from .config import BlockDef, ModelConfig
 from .norms import rmsnorm_apply, rmsnorm_init
 
@@ -23,11 +24,24 @@ def _attn_cfg(cfg: ModelConfig, bd: BlockDef) -> attention.AttnConfig:
         no_ring=cfg.serve_full_cache, decode_kernel=cfg.decode_kernel)
 
 
+def _moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
+    return moe.MoEConfig(
+        d_model=cfg.d_model, d_ff_expert=cfg.d_ff_expert,
+        num_experts=cfg.num_experts, top_k=cfg.top_k,
+        num_shared=cfg.num_shared,
+        d_ff_shared=cfg.num_shared * cfg.d_ff_expert,
+        ffn_kind=cfg.ffn_kind, aux_loss_weight=cfg.aux_loss_weight,
+        dispatch=cfg.moe_dispatch)
+
+
 def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
     if bd.mixer != "attn":
         raise NotImplementedError(
             f"mixer {bd.mixer!r} is not ported to repro_torch (ROADMAP A8)")
-    if bd.ffn != "dense" or cfg.ffn_kind not in ffn.ACTIVATIONS:
+    # the experts take silu or the tanh GELU for every kind; a dense FFN
+    # only the gated kinds
+    if not (bd.ffn == "moe" or (bd.ffn == "dense"
+                                and cfg.ffn_kind in ffn.ACTIVATIONS)):
         raise NotImplementedError(
             f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A8)")
 
@@ -39,8 +53,10 @@ def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
               "mixer": attention.init(gen, _attn_cfg(cfg, bd), cfg.quant,
                                       device),
               "norm_ffn": rmsnorm_init(cfg.d_model, device),
-              "ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.quant,
-                              device)}
+              "ffn": (moe.init(gen, _moe_cfg(cfg), cfg.quant, device,
+                               cfg.compute_dtype) if bd.ffn == "moe" else
+                      ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.quant,
+                               device))}
     if cfg.post_norms:
         params["postnorm_mixer"] = rmsnorm_init(cfg.d_model, device)
         params["postnorm_ffn"] = rmsnorm_init(cfg.d_model, device)
@@ -49,9 +65,12 @@ def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
 
 def _decode_tail(params, x: torch.Tensor, h: torch.Tensor, norm_eps: float,
                  dt: torch.dtype, ffn_kind: str = "swiglu",
-                 post_norms: bool = False) -> torch.Tensor:
-    """Residual add + channel mixer, with ``post_norms`` gemma2's
-    RMSNorms of the mixer's output ``h`` and of the FFN's output.
+                 post_norms: bool = False, moe_cfg=None) -> torch.Tensor:
+    """Residual add + channel mixer (the dense FFN, or with ``moe_cfg``
+    the mixture of experts, without the auxiliary loss that the reference's
+    serving paths drop), with
+    ``post_norms`` gemma2's RMSNorms of the mixer's output ``h`` and of
+    the FFN's output.
 
     The reference's jitted step fuses a residual add into the RMSNorm
     that follows it, and XLA's excess-precision rule then hands the norm
@@ -68,16 +87,20 @@ def _decode_tail(params, x: torch.Tensor, h: torch.Tensor, norm_eps: float,
         h = rmsnorm_apply(params["postnorm_mixer"], h, norm_eps)
     x_sum = x.to(dt).to(torch.float32) + h.to(torch.float32)
     h = rmsnorm_apply(params["norm_ffn"], x_sum, norm_eps, dtype=dt)
-    h = ffn.apply(params["ffn"], h, ffn_kind, dt)
+    if moe_cfg is None:
+        h = ffn.apply(params["ffn"], h, ffn_kind, dt)
+    else:
+        h = moe.apply(params["ffn"], h, moe_cfg, dt)
     if post_norms:
         h = rmsnorm_apply(params["postnorm_ffn"], h, norm_eps)
     return x_sum.to(dt).to(torch.float32) + h.to(torch.float32)
 
 
-def _tail(params, x: torch.Tensor, h: torch.Tensor,
+def _tail(params, x: torch.Tensor, h: torch.Tensor, bd: BlockDef,
           cfg: ModelConfig) -> torch.Tensor:
     return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype,
-                        cfg.ffn_kind, cfg.post_norms)
+                        cfg.ffn_kind, cfg.post_norms,
+                        _moe_cfg(cfg) if bd.ffn == "moe" else None)
 
 
 def _norm_in(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -105,7 +128,7 @@ def apply_decode(params, x: torch.Tensor, cache: dict, pos: int,
     h = attention.apply_decode(params["mixer"], h, cache, pos,
                                _attn_cfg(cfg, bd), cfg.quant,
                                cfg.compute_dtype)
-    return _tail(params, x, h, cfg)
+    return _tail(params, x, h, bd, cfg)
 
 
 def _attn_prefill(params, x: torch.Tensor, positions: torch.Tensor,
@@ -131,7 +154,7 @@ def _attn_prefill(params, x: torch.Tensor, positions: torch.Tensor,
         kpos = torch.cat([pref_pos, positions[0]])
     out = attention._attend_chunked(q, ks, vs, positions, kpos, acfg)
     h = linear.apply(params["mixer"]["wo"], out.reshape(b, s, -1), dt)
-    return _tail(params, x, h, cfg), k, v
+    return _tail(params, x, h, bd, cfg), k, v
 
 
 def prefill_block(params, x: torch.Tensor, positions: torch.Tensor,
@@ -188,7 +211,7 @@ def apply_ragged_step(params, x: torch.Tensor, cache: dict,
                                row_start, seq_lens, _attn_cfg(cfg, bd),
                                cfg.quant, cfg.compute_dtype,
                                page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    return _tail(params, x, h, cfg)
+    return _tail(params, x, h, bd, cfg)
 
 
 def apply_verify_paged(params, x: torch.Tensor, cache: dict,
@@ -203,7 +226,7 @@ def apply_verify_paged(params, x: torch.Tensor, cache: dict,
                                      pos, _attn_cfg(cfg, bd), cfg.quant,
                                      cfg.compute_dtype, page_fmts=page_fmts,
                                      mixed_fmts=mixed_fmts)
-    return _tail(params, x, h, cfg)
+    return _tail(params, x, h, bd, cfg)
 
 
 def apply_decode_paged(params, x: torch.Tensor, cache: dict,
@@ -228,7 +251,7 @@ def apply_prefill_chunked(params, x: torch.Tensor, cache: dict,
         params["mixer"], h, cache, page_rows, pos, num_valid,
         _attn_cfg(cfg, bd), cfg.quant, cfg.compute_dtype,
         page_fmts=page_fmts, mixed_fmts=mixed_fmts)
-    return _tail(params, x, h, cfg)
+    return _tail(params, x, h, bd, cfg)
 
 
 def megakernel_reject_reason(cfg: ModelConfig):

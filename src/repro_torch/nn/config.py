@@ -1,9 +1,10 @@
 """Model configuration schema (port of ``repro.nn.config``).
 
-Only the fields the attention-only serving path reads are carried over,
-gemma2's embedding scale, logit softcap and sandwich post-norms among
-them; MoE, MLA, recurrent and training fields wait for their modules
-(ROADMAP A8, A9).
+Only the fields the serving path reads are carried over: attention
+blocks, gemma2's embedding scale, logit softcap and sandwich post-norms,
+and the MoE channel mixer (mixtral's ``ffn="moe"`` blocks). MLA,
+recurrent, codebook and training fields wait for their modules (ROADMAP
+A8, A9).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ class BlockDef:
 
     mixer: str  # only "attn" is ported
     window: Optional[int] = None  # sliding window for attn mixers
-    ffn: str = "dense"  # only "dense" is ported
+    ffn: str = "dense"  # "dense" | "moe"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +43,13 @@ class ModelConfig:
     query_chunk: int = 1024
     d_ff: int = 0
     ffn_kind: str = "swiglu"
+    # moe
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared: int = 0
+    d_ff_expert: int = 0
+    aux_loss_weight: float = 0.01
+    moe_dispatch: str = "dense"  # "dense" | "sorted" (grouped products)
     tied_embeddings: bool = True
     scale_embeds_by_sqrt_dim: bool = False
     logit_softcap: Optional[float] = None

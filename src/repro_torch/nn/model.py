@@ -1,5 +1,5 @@
 """LM assembly for serving (port of ``repro.nn.model``): embedding ->
-attention blocks -> final norm -> LM head, one engine step at a time: the
+attention blocks (dense or MoE channel mixers) -> final norm -> LM head, one engine step at a time: the
 ragged step, its layer-fused megakernel form, or the split step's decode /
 verify and prefill chunk; and the contiguous-cache path of dense prefill
 (``prefill``, ``prefill_with_prefix``) and one-token ``decode_step``.
@@ -102,12 +102,21 @@ def params_from_jax(params_np, cfg: ModelConfig, device) -> dict:
     Stacked ``params["groups"]["block{i}"]`` leaves carry a leading layer
     axis; each layer's slice is taken in :func:`iter_layer_blocks` order.
     Linear weights are fake-quantized here exactly as the reference does
-    at every use, so both packages compute with the same weights.
+    at every use, so both packages compute with the same weights: an MoE
+    block's ``experts`` stacks (E, d_in, d_out) expert by expert along
+    d_in; its router stays f32.
     """
     def tensor(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
     def convert(tree):
+        if "experts" in tree:
+            return {"router": {"w": tensor(tree["router"]["w"])},
+                    "experts": {k: torch.stack([linear.prepare_weight(
+                        tensor(e), cfg.quant, cfg.compute_dtype) for e in v])
+                        for k, v in tree["experts"].items()},
+                    **{k: convert(v) for k, v in tree.items()
+                       if k not in ("router", "experts")}}
         if "w" in tree and not isinstance(tree["w"], dict):
             return {"w": linear.prepare_weight(tensor(tree["w"]), cfg.quant,
                                                cfg.compute_dtype)}

@@ -245,8 +245,11 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
                    top_k=scfg.top_k).validate()
     if scfg.mesh_shape is not None:
         raise _unported("sharded serving (mesh_shape)", "A7")
-    if any(bd.mixer != "attn" for bd in cfg.all_blocks()):
-        raise _unported("non-attention mixers", "A8")
+    # attention blocks serve with either channel mixer (dense or MoE);
+    # MLA and the recurrent mixers wait for their modules
+    mixers = sorted({bd.mixer for bd in cfg.all_blocks()} - {"attn"})
+    if mixers:
+        raise _unported(f"non-attention mixers {mixers}", "A8")
 
 
 def _validate_tiering(cfg: ModelConfig, scfg: ServeConfig,

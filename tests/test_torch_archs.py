@@ -1,5 +1,7 @@
 """The port's architecture registry and its three newer configs against the
 reference: gemma2-2b, gemma2-9b and phi4-mini-3.8b, reduced, on the CPU.
+The registry, config and model-step tests also run reduced mixtral-8x22b
+(its MoE layer and engines: ``tests/test_torch_moe.py``).
 
 The configs and the registry are compared field for field. The models
 run on the reference's own weights (``model.params_from_jax``), with
@@ -53,6 +55,9 @@ from repro_torch.serve import (ContinuousBatchingEngine,  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 
 NEW_ARCHS = ("gemma2-2b", "gemma2-9b", "phi4-mini-3.8b")
+#: the model-step tests also run mixtral-8x22b (its MoE behind every
+#: prefill, decode and ragged step; tests/test_torch_moe.py has the rest)
+STEP_ARCHS = NEW_ARCHS + ("mixtral-8x22b",)
 RAGGED_TOL_ULPS = 1
 CODE_FRACTION = 1e-3
 GAP_TOL_ULPS = 1
@@ -106,7 +111,8 @@ def test_configs_equal_the_reference_field_for_field(arch):
 def test_registry_shapes_and_applicability():
     assert set(tconfigs.list_archs()) <= set(jconfigs.list_archs())
     assert tconfigs.list_archs() == sorted(
-        ["gemma2-2b", "gemma2-9b", "granite-8b", "phi4-mini-3.8b"])
+        ["gemma2-2b", "gemma2-9b", "granite-8b", "mixtral-8x22b",
+         "phi4-mini-3.8b"])
     assert {k: dataclasses.astuple(v) for k, v in tconfigs.SHAPES.items()} \
         == {k: dataclasses.astuple(v) for k, v in jconfigs.SHAPES.items()}
     for arch in tconfigs.list_archs():
@@ -137,6 +143,8 @@ def test_megakernel_reject_reasons_equal_the_reference(arch):
             assert tblocks.megakernel_reject_reason(tcfg) == want
             if arch.startswith("gemma2"):
                 assert want.startswith("non-uniform block pattern")
+            elif arch == "mixtral-8x22b":
+                assert want.startswith("ffn kind 'moe'")
             elif kv:
                 assert want is None
 
@@ -223,7 +231,7 @@ def _assert_decode_close(jl, tl, jcache, tcache):
     assert differing <= DECODE_BYTE_FRACTION * total, (differing, total)
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_prefill_and_decode_steps_equal_the_reference(arch):
     """Dense prefill bit for bit (logits and cache); then five decode
     steps, each from the reference's cache of the step before, held to
@@ -264,7 +272,7 @@ def _ragged_steps():
     return table, [first, second]
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_ragged_steps_match_the_reference_kernel(arch):
     """The reference's ragged step runs its Pallas kernel in interpret
     mode; the port's runs the kernel's plain version."""

@@ -132,6 +132,34 @@ def prefill_case(fmt, block_size, *, mixed=False, window=None,
                 page_fmts=page_fmts)
 
 
+def wide_prefill_case(fmt, block_size, *, mixed=False, c=64, resident=10,
+                      window=None, softcap=None, seed=13):
+    """Two rows of one C-token chunk at the module's geometry: row 0 fresh
+    at position 0, row 1 a padded final chunk (C - 5 real tokens) over
+    ``resident`` resident pages; -1 table tails."""
+    rng = np.random.default_rng(seed)
+    own = c // PS
+    npages = 2 * own + resident
+    perm = rng.permutation(npages)
+    table = np.full((2, resident + own + 1), -1, np.int32)
+    table[0, :own] = perm[:own]
+    table[1, :resident + own] = perm[own:]
+    page_fmts = None
+    if mixed:
+        page_fmts = _cycle_fmts(npages)
+        page_fmts[np.concatenate([perm[:own], perm[own + resident:]])] = \
+            F.FORMAT_IDS[fmt]
+    start = resident * PS
+    return dict(q=_bf16(rng, (2, KVH, c, G, D)),
+                k_chunk=_bf16(rng, (2, c, KVH, D)),
+                v_chunk=_bf16(rng, (2, c, KVH, D)),
+                **_pools(rng, npages, fmt, block_size, page_fmts),
+                table=table, starts=np.asarray([0, start], np.int32),
+                lens=np.asarray([c, start + c - 5], np.int32), fmt=fmt,
+                block_size=block_size, window=window, softcap=softcap,
+                page_fmts=page_fmts)
+
+
 # ---------------------------------------------------------------------------
 # running both packages
 # ---------------------------------------------------------------------------
@@ -203,7 +231,7 @@ def run_prefill_reference(c):
     return np.asarray(out), np.asarray(visits), _bytes(pools)
 
 
-def run_prefill_port(c, device="cpu"):
+def run_prefill_port(c, device="cpu", **kw):
     pools = _torch_pools(c, device)
     out, pools, visits = tk.mx_attention_prefill_fused(
         _t(c["q"], device, torch.bfloat16),
@@ -211,7 +239,8 @@ def run_prefill_port(c, device="cpu"):
         _t(c["v_chunk"], device, torch.bfloat16), *pools,
         _t(c["table"], device), _t(c["starts"], device),
         _t(c["lens"], device), **_kw(c, None if c["page_fmts"] is None
-                                     else _t(c["page_fmts"], device)))
+                                     else _t(c["page_fmts"], device)),
+        **kw)
     return out.cpu().numpy(), visits.cpu().numpy(), _bytes(pools)
 
 
@@ -389,3 +418,49 @@ def test_cuda_ragged_decode_rows_bit_equal_verify_kernel(geometry):
             q[i:i + 1, :, :n].contiguous(), *pools, table[i:i + 1],
             lens[i:i + 1], block_size=16)
         assert torch.equal(ver[0], out[i, :, :n])
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_walks_g6_chunks_in_tiles(monkeypatch):
+    """mixtral-8x22b's chunk (C 64, G 6, head_dim 128, pages of 16): 384
+    query rows a cell need 316,672 bytes of shared memory, more than a
+    block has, so the cell walks them in tiles of 32 tokens; held to the
+    plain version (pool bytes, visits, out within OUT_TOL) on fp8 and
+    mixed pools, the second chunk crossing a window of 100."""
+    _need_card()
+    for name, value in dict(D=128, G=6, PS=16).items():
+        monkeypatch.setitem(globals(), name, value)
+    lib = tk._library("mx_attention_paged")
+    assert lib.mx_attention_paged_smem_bytes(64 * 6, 128, 16) > tk._MAX_SMEM
+    assert tk.query_tile(64, 6, 128, 16, tk._paged_tile_bytes(lib)) == 32
+    for mixed in (False, True):
+        c = wide_prefill_case("fp8_e4m3", 32, mixed=mixed, window=100,
+                              softcap=5.0)
+        want_out, want_visits, want_pools = run_prefill_port(c, "cpu")
+        out, visits, pools = run_prefill_port(c, "cuda")
+        for got, want in zip(pools, want_pools):
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(visits, want_visits)
+        np.testing.assert_allclose(out, want_out, rtol=0, atol=OUT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,mixed", [("fp8_e4m3", False),
+                                       ("fp4_e2m1", False),
+                                       ("fp8_e4m3", True)])
+def test_cuda_prefill_forced_tiles_equal_one_tile_bit_for_bit(monkeypatch,
+                                                              fmt, mixed):
+    """At C 64, G 4, head_dim 128 one tile holds the cell; forced tiles of
+    16 (and of 48: an uneven last tile) give its outputs, pool bytes and
+    visits bit for bit."""
+    _need_card()
+    for name, value in dict(D=128, G=4, PS=16).items():
+        monkeypatch.setitem(globals(), name, value)
+    c = wide_prefill_case(fmt, 32, mixed=mixed, softcap=5.0)
+    out, visits, pools = run_prefill_port(c, "cuda")
+    for tile in (16, 48):
+        got = run_prefill_port(c, "cuda", tile_tokens=tile)
+        np.testing.assert_array_equal(got[0], out)
+        np.testing.assert_array_equal(got[1], visits)
+        for a, b in zip(got[2], pools):
+            np.testing.assert_array_equal(a, b)
