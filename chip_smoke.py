@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -192,7 +193,26 @@ code is not 0 and no result line is printed:
      where one tile holds the chunk); (c) reduced mixtral through the
      ragged (dense and sorted), split and tiered steps, streams equal on
      card and CPU;
-  11. print the kernels line, then the device line last.
+  11. training (MX quantization-aware training): (a) phi4-mini-3.8b at
+     full width and depth (32 layers, d_model 3072, vocab 200,064; seeded
+     f32 masters) through ``repro_torch.launch.train`` for 4 steps at its
+     defaults (seq 128, global batch 8, MXFP8 QAT, remat full), #6's count
+     reset just before and read just after: 2 x 224 linears x 2 (remat)
+     launches a step, finite losses, layer 0's 14 #6 calls (a weight and
+     an activation a linear) byte-equal to the plain version, their
+     largest dequantized difference reported; before it, one step's loss
+     and every gradient with #6 and with its plain version forced on the
+     same tensors, bit-equal; loss, grad norm and lr by step, the median
+     step, tokens/s over steps 1-3, the peak memory, the launcher step's
+     forward / backward / optimizer split (CUDA events at
+     ``loop.PART_MARKS``), and #6 at every training shape beside its
+     bound; (b) reduced phi4-mini and
+     granite-8b train 3 steps on the card and on the CPU from the same
+     seeded masters and batches (losses and params within
+     tests/test_torch_train.py's bounds); the card's step-1 checkpoint
+     restores on the CPU with the card's bytes, and the card resumed from
+     it replays the last steps bit for bit;
+  12. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -5408,6 +5428,440 @@ def check_reduced_mixtral(card: str = "cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: MX quantization-aware training
+# ---------------------------------------------------------------------------
+
+#: 11a: phi4-mini-3.8b at full width and depth through the launcher at
+#: its defaults (seq 128, global batch 8, MXFP8 QAT, remat full)
+TRAIN_ARGV = ["--arch", "phi4-mini-3.8b", "--steps", "4"]
+#: the linears whose two operands a phi4-mini forward quantizes: 32 x 7
+TRAIN_LINEARS = 32 * 7
+#: #6 calls of layer 0 in 11a's first forward (an x and a w a linear),
+#: captured and held to the plain version
+TRAIN_CAPTURE = 2 * 7
+#: 11b: reduced steps on card and CPU, held to tests/test_torch_train.py's
+#: bounds: each loss within TRAIN_LOSS_RTOL of the CPU's, each param leaf's
+#: distance from the CPU's within TRAIN_PARAM_TOL of the CPU run's own
+#: movement (Frobenius norms)
+TRAIN_REDUCED_STEPS = 3
+TRAIN_LOSS_RTOL = 5e-3
+TRAIN_PARAM_TOL = 0.15
+
+
+class _QuantizeSpy:
+    """Swaps #6's launch (``kernels.mx_quantize._launch``) while active:
+    ``plain=True`` runs the plain version on the CUDA tensor instead (no
+    launch, none counted); otherwise the kernel runs and the first
+    ``capture`` calls' inputs and outputs are kept in ``calls``."""
+
+    def __init__(self, plain: bool = False, capture: int = 0):
+        self.plain, self.capture, self.calls = plain, capture, []
+
+    def __enter__(self):
+        from repro_torch.kernels import mx_quantize as mq
+
+        self.mq, self.orig = mq, mq._launch
+
+        def launch(x, fmt, block):
+            if self.plain:
+                return mq.mx_quantize_plain(x, fmt_name=fmt.name,
+                                            block_size=block)
+            out = self.orig(x, fmt, block)
+            if len(self.calls) < self.capture:
+                self.calls.append((x.clone(), fmt.name, block,
+                                   *(t.clone() for t in out)))
+            return out
+
+        mq._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.mq._launch = self.orig
+
+
+def _grads_equal(a, b, what: str) -> int:
+    from repro_torch.train import optim
+
+    la, lb = optim.leaves(a), optim.leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{what}: {len(la)} vs {len(lb)} leaves")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: gradient leaf {i} {tuple(x.shape)}"
+                                 f" differs in {int((x != y).sum())} places")
+    return len(la)
+
+
+def _launcher_batches(cfg, args, steps, dev: str) -> list:
+    """The launcher's batches of steps ``0..steps-1`` on ``dev``."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+
+    ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=args.seq_len,
+                                       global_batch=args.global_batch))
+    return [{k: torch.from_numpy(v).to(dev) for k, v in
+             ds.batch_at(s).items()} for s in range(steps)]
+
+
+def train_forced_plain(cfg, opt_cfg, args, dev: str = "cuda") -> dict:
+    """11a: one step's loss and gradients (phi4-mini, the launcher's
+    weights and its step-0 batch) with #6, then with its plain version
+    forced on the same CUDA tensors: bit-equal; #6 launches 2 x
+    TRAIN_LINEARS x 2 (remat recomputes the forward) in the first, none
+    in the second."""
+    from repro_torch.kernels import mx_quantize as mq
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import loop
+
+    state, _ = launch_train.build(cfg, opt_cfg, torch.device(dev), 1)
+    params = state["params"]
+    del state
+    batch = _launcher_batches(cfg, args, 1, dev)[0]
+    mq.mx_quantize.launches = 0
+    loss, _, grads = loop.loss_and_grads(params, cfg, batch)
+    launches = mq.mx_quantize.launches
+    want = 2 * TRAIN_LINEARS * (2 if cfg.remat == "full" else 1)
+    if dev == "cuda" and launches != want:
+        raise AssertionError(f"11a one step: {launches} #6 launches, want "
+                             f"{want}")
+    with _QuantizeSpy(plain=True):
+        mq.mx_quantize.launches = 0
+        loss_p, _, grads_p = loop.loss_and_grads(params, cfg, batch)
+        if mq.mx_quantize.launches:
+            raise AssertionError("11a: the forced plain step launched #6")
+    if not torch.equal(loss, loss_p):
+        raise AssertionError(f"11a: loss {float(loss)} with #6, "
+                             f"{float(loss_p)} with the plain quantizer")
+    n = _grads_equal(grads, grads_p, "11a #6 vs plain quantizer")
+    log(f"11a one step with #6 ({launches} launches) and with its plain "
+        f"version forced: loss {float(loss):.6f} and all {n} gradient "
+        "leaves bit-equal")
+    del params, grads, grads_p
+    return {"launches_step": launches, "loss": float(loss)}
+
+
+def _timed_parts(step_fn, state, batch) -> tuple:
+    """One launcher step with a CUDA event at each mark of its parts
+    (``loop.PART_MARKS``): (state, ms by part, summed over microbatches)."""
+    from repro_torch.train import loop
+
+    marks = []
+
+    def mark(part):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((part, ev))
+
+    loop.PART_MARKS.append(mark)
+    try:
+        state, _ = step_fn(state, batch)
+    finally:
+        loop.PART_MARKS.remove(mark)
+    torch.cuda.synchronize()
+    parts = {}
+    for (part, a), (_, b) in zip(marks, marks[1:]):
+        parts[f"{part}_ms"] = parts.get(f"{part}_ms", 0.0) + a.elapsed_time(b)
+    return state, parts
+
+
+def train_step_breakdown(cfg, opt_cfg, args, dev: str = "cuda",
+                         top: int = 12) -> dict:
+    """11a: where a full-width train step's time goes, on a fresh
+    launcher state and the launcher's own step (``launch.train.build``):
+    step 0 warms; step 1 split into its parts (forward, backward,
+    optimizer) by CUDA events at ``loop.PART_MARKS``; step 2 traced by
+    torch.profiler: the device's busy time against the host clock, its
+    kernel launches, the busy time by kernel class (GEMMs, #6, the rest)
+    and the operators with the most device time of their own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as launch_train
+
+    state, step_fn = launch_train.build(cfg, opt_cfg, torch.device(dev),
+                                        args.microbatches)
+    batches = _launcher_batches(cfg, args, 3, dev)
+    state, _ = step_fn(state, batches[0])
+    state, split = _timed_parts(step_fn, state, batches[1])
+    log("11a step split (CUDA events at the launcher step's part marks, "
+        "step 1): " + ", ".join(f"{k[:-3]} {v:.2f} ms" for k, v in
+                                split.items())
+        + " (remat recomputes the forward in the backward)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batches[2])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    del state, step_fn
+    busy = {"GEMMs": 0.0, "#6": 0.0, "other kernels": 0.0}
+    launches = 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.name
+        kind = ("#6" if "mx_quantize" in name else "GEMMs"
+                if name.startswith(("nvjet", "sm90", "cutlass"))
+                or "gemm" in name.lower() else "other kernels")
+        busy[kind] += evt.time_range.elapsed_us() / 1e3
+        launches += 1
+    total = sum(busy.values())
+    if total == 0:
+        log("11a step profile: not measured (the profiler recorded no "
+            "device time)")
+        return split
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)
+    log(f"11a step profile (torch.profiler, step 2): device busy "
+        f"{total:.1f} ms of {wall_ms:.1f} ms host wall clock (idle "
+        f"{100 * (1 - total / wall_ms):.0f}%) in {launches} kernel "
+        "launches; " + ", ".join(f"{k} {v:.1f} ms" for k, v in busy.items())
+        + "; operators with the most device time of their own: " + "; ".join(
+            f"{e.key} {e.self_device_time_total / 1e3:.1f} ms ({e.count} "
+            "calls)" for e in ops[:top]))
+    return {**split, "busy_ms": total, "wall_ms": wall_ms,
+            "launches": launches, **busy}
+
+
+def train_quantize_shapes(cfg, m: int = 1024) -> dict:
+    """#6's calls in one 11a step, by shape: (rows, K, dtype, calls a
+    step). Activations (M, K) bf16 along K; each master weight (d_in,
+    d_out) f32 along d_in, so its transpose (d_out, d_in). Each linear
+    quantizes both operands once in the forward and once in remat's
+    recompute."""
+    d, f, kv = cfg.d_model, cfg.d_ff, cfg.num_kv_heads * cfg.head_dim
+    q = cfg.num_heads * cfg.head_dim
+    per_layer = 2 if cfg.remat == "full" else 1
+    n = cfg.num_layers * per_layer
+    return {"x d_model": (m, d, torch.bfloat16, 5 * n),
+            "x attention out": (m, q, torch.bfloat16, n),
+            "x d_ff": (m, f, torch.bfloat16, n),
+            "w wq": (q, d, torch.float32, n), "w wk/wv": (kv, d,
+                                                          torch.float32,
+                                                          2 * n),
+            "w wo": (d, q, torch.float32, n), "w gate/up": (f, d,
+                                                            torch.float32,
+                                                            2 * n),
+            "w down": (d, f, torch.float32, n)}
+
+
+def time_train_quantize(cfg) -> dict:
+    """#6 at 11a's training shapes: each shape's kernel time (median of
+    25, L2 flushed before each, as phase 5 times it), its plain version's
+    and its bound (each input read once, codes and scales written once;
+    one compare and one divide an element at the f32 rate), and the
+    step's sum over its 896 calls."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import mx_quantize as mq
+
+    fmt, block = cfg.quant.fmt, cfg.quant.block_size
+    out_fmt = F.get_format(fmt)
+    gen = torch.Generator("cuda").manual_seed(11)
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows, total, total_bound, calls = {}, 0.0, 0.0, 0
+    for name, (m, k, dtype, n) in train_quantize_shapes(cfg).items():
+        x = _gauss((m, k), gen).to(dtype)
+        run = functools.partial(mq.mx_quantize, x, fmt_name=fmt,
+                                block_size=block)
+        plain = functools.partial(mq.mx_quantize_plain, x, fmt_name=fmt,
+                                  block_size=block)
+        run(), plain()
+        ms = cuda_ms(run, 25, scratch.zero_)
+        plain_ms = cuda_ms(plain, 5, scratch.zero_)
+        nbytes = m * k * x.element_size() + m * out_fmt.storage_len(k) \
+            + m * k // block
+        bound_ms, bound_by = _bound(nbytes, 2.0 * m * k, F32_FLOPS)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, calls=n)
+        total += n * ms
+        total_bound += n * bound_ms
+        calls += n
+        log(f"11a #6 {name} ({m}, {k}) {str(dtype)[6:]}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{n} calls a step")
+    del scratch
+    log(f"11a #6 over one step's {calls} calls: {total:.2f} ms against a "
+        f"bound of {total_bound:.2f} ms")
+    return {"shapes": rows, "ms_step": total, "bound_ms_step": total_bound,
+            "calls_step": calls}
+
+
+def train_full_width(argv=TRAIN_ARGV, dev: str = "cuda") -> dict:
+    """11a (see the module docstring)."""
+    from repro_torch.core import MXTensor
+    from repro_torch.kernels import mx_quantize as mq
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    args = launch_train.parse_args(argv + ["--device", dev])
+    cfg, opt_cfg = launch_train.configure(args)
+    plain = train_forced_plain(cfg, opt_cfg, args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _QuantizeSpy(capture=TRAIN_CAPTURE) as spy:
+        mq.mx_quantize.launches = 0
+        report = launch_train.run(args)
+        launches = mq.mx_quantize.launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = 2 * TRAIN_LINEARS * (2 if cfg.remat == "full" else 1) \
+        * args.microbatches * args.steps
+    if launches != want:
+        raise AssertionError(f"11a: {launches} #6 launches in {args.steps} "
+                             f"steps, want {want}")
+    if report["final_step"] != args.steps or not all(
+            np.isfinite(report["loss"])):
+        raise AssertionError(f"11a: losses {report['loss']}")
+    if report["loss"][0] != plain["loss"]:
+        raise AssertionError(f"11a: the launcher's step-0 loss "
+                             f"{report['loss'][0]} is not the checked "
+                             f"step's {plain['loss']}")
+    if len(spy.calls) != TRAIN_CAPTURE:
+        raise AssertionError(f"11a: {len(spy.calls)} #6 calls captured, "
+                             f"want {TRAIN_CAPTURE}")
+    max_err = 0.0
+    for x, fmt, block, elems, scales in spy.calls:
+        want_e, want_s = mq.mx_quantize_plain(x, fmt_name=fmt,
+                                              block_size=block)
+        if not (torch.equal(elems.view(torch.uint8),
+                            want_e.view(torch.uint8))
+                and torch.equal(scales, want_s)):
+            raise AssertionError(f"11a: a captured #6 call {tuple(x.shape)} "
+                                 f"{x.dtype} differs from its plain version")
+        got, want = (MXTensor(elements=e, scales=sc, fmt_name=fmt,
+                              block_size=block, axis=1,
+                              shape=tuple(x.shape)).dequantize(torch.float32)
+                     for e, sc in ((elems, scales), (want_e, want_s)))
+        max_err = max(max_err, float((got - want).abs().max()))
+    shapes = sorted({f"{tuple(c[0].shape)} {str(c[0].dtype)[6:]}"
+                     for c in spy.calls})
+    ms = report["median_step_ms"]
+    timed = report["step_ms"][1:]
+    tok_s = report["tokens_per_step"] * len(timed) / (sum(timed) / 1e3)
+    log(f"11a phi4-mini-3.8b at full width ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}), {args.steps} steps of "
+        f"{report['tokens_per_step']} tokens: losses {report['loss']}, grad "
+        f"norms {report['grad_norm']}, lr {report['lr']}; step ms "
+        f"{[round(t, 2) for t in report['step_ms']]} (median {ms:.2f}), "
+        f"{tok_s:.1f} tokens/s, peak {report['peak_gb']:.2f} GB; #6 "
+        f"{launches} launches ({launches // args.steps} a step); layer 0's "
+        f"{len(spy.calls)} #6 calls {shapes} byte-equal to the plain "
+        f"version (max abs error of the dequantized values {max_err})")
+    del spy
+    split = train_step_breakdown(cfg, opt_cfg, args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant = time_train_quantize(cfg)
+    log(f"phase 11a: {time.perf_counter() - t0:.1f} s")
+    return {"report": report, "launches": launches, "split": split,
+            "quantize": quant, "tokens_per_s": tok_s,
+            "max_abs_err": max_err}
+
+
+def _train_reduced(dev: str, params0, cfg, steps, ckpt=None, start=0,
+                   state=None) -> tuple:
+    """Steps ``start..steps-1`` of reduced training on ``dev`` from
+    ``params0`` (or ``state``), saving a checkpoint after each step into
+    ``ckpt`` if given. Returns (state, losses)."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.train import OptimConfig, checkpoint, loop, optim
+
+    if state is None:
+        params = optim.tree_like(
+            lambda t: t.detach().to(dev, copy=True), params0)
+        loop.trainable(params)
+        state = {"params": params, "opt": optim.init(params)}
+    step = loop.make_train_step(cfg, OptimConfig(
+        lr=3e-3, warmup_steps=1, total_steps=steps))
+    ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=16, global_batch=4))
+    losses = []
+    for s in range(start, steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 ds.batch_at(s).items()}
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if ckpt:
+            checkpoint.save(ckpt, s + 1, state, cfg)
+    return state, losses
+
+
+def check_reduced_training(card: str = "cuda") -> dict:
+    """11b: reduced phi4-mini and granite-8b (seeded f32 masters) train
+    TRAIN_REDUCED_STEPS steps on the card and on the CPU from the same
+    params and batches: losses within TRAIN_LOSS_RTOL, each param leaf
+    within TRAIN_PARAM_TOL of the CPU run's movement. The card run saves
+    a checkpoint each step; the one after step 1 restores on the CPU
+    with the card's bytes, and the card resumed from it replays the
+    remaining steps bit for bit."""
+    import tempfile
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.train import WEIGHTS_SEED
+    from repro_torch.nn import model
+    from repro_torch.train import checkpoint, optim
+
+    out = {}
+    for arch in ("phi4-mini-3.8b", "granite-8b"):
+        cfg = get_reduced(arch)
+        params0 = model.init_train(cfg, torch.Generator().manual_seed(
+            WEIGHTS_SEED), "cpu")
+        with torch.no_grad():
+            start = [p.clone() for p in optim.leaves(params0)]
+        cpu, cpu_losses = _train_reduced("cpu", params0, cfg,
+                                         TRAIN_REDUCED_STEPS)
+        with tempfile.TemporaryDirectory() as ckpt:
+            got, losses = _train_reduced(card, params0, cfg,
+                                         TRAIN_REDUCED_STEPS, ckpt=ckpt)
+            what = f"11b reduced {arch}"
+            for a, b in zip(losses, cpu_losses):
+                if not abs(a - b) <= TRAIN_LOSS_RTOL * abs(b):
+                    raise AssertionError(f"{what}: losses {losses} on the "
+                                         f"card, {cpu_losses} on the CPU")
+            worst = 0.0
+            for p, q, p0 in zip(optim.leaves(got["params"]),
+                                optim.leaves(cpu["params"]), start):
+                moved = float(torch.linalg.vector_norm(q.detach() - p0))
+                dist = float(torch.linalg.vector_norm(
+                    p.detach().cpu() - q.detach()))
+                worst = max(worst, dist / moved)
+            if not worst <= TRAIN_PARAM_TOL:
+                raise AssertionError(f"{what}: a param leaf lies {worst:.4f}"
+                                     " of its movement from the CPU's")
+            # the step-1 checkpoint on the CPU, then resumed on the card
+            ref = model.init_train(cfg, torch.Generator().manual_seed(1),
+                                   "cpu")
+            on_cpu = {"params": ref, "opt": optim.init(ref)}
+            checkpoint.restore(ckpt, on_cpu, cfg, step=1)
+            card1 = optim.tree_like(
+                lambda t: t.detach().to(card, copy=True), params0)
+            resumed = {"params": card1, "opt": optim.init(card1)}
+            checkpoint.restore(ckpt, resumed, cfg, step=1)
+            for a, b in zip(optim.leaves(on_cpu), optim.leaves(resumed)):
+                if not torch.equal(a, b.detach().cpu()):
+                    raise AssertionError(f"{what}: the step-1 checkpoint "
+                                         "restores other bytes on the CPU")
+            replay, replay_losses = _train_reduced(
+                card, None, cfg, TRAIN_REDUCED_STEPS, start=1,
+                state=resumed)
+            if replay_losses != losses[1:]:
+                raise AssertionError(f"{what}: resumed losses "
+                                     f"{replay_losses}, want {losses[1:]}")
+            for a, b in zip(optim.leaves(replay), optim.leaves(got)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{what}: the resumed run parts "
+                                         "from the uninterrupted one")
+        log(f"{what}: losses card {losses}, CPU {cpu_losses}; worst param "
+            f"leaf {worst:.4f} of its movement from the CPU's (bound "
+            f"{TRAIN_PARAM_TOL}); step-1 checkpoint restored on the CPU with "
+            "the card's bytes, the resumed card run bit-equal")
+        out[arch] = {"losses": losses, "cpu_losses": cpu_losses,
+                     "param_dist": worst}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the MX dot products at granite-8b widths
 # ---------------------------------------------------------------------------
 
@@ -6318,8 +6772,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_reduced_mixtral()
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
-    kernels = [kernel, verify, prefill] + pair + [repack, mega] \
-        + check_mx_dot_products()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = train_full_width()
+    check_reduced_training()
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    mx = check_mx_dot_products()
+    quant = next(e for e in mx if e["name"] == "mx_quantize")
+    quant["launches_train"] = train["launches"]
+    quant["max_abs_err_train"] = train["max_abs_err"]
+    quant["ms_train_step"] = train["quantize"]["ms_step"]
+    quant["bound_ms_train_step"] = train["quantize"]["bound_ms_step"]
+    for name, key in (("x d_model", "x"), ("w gate/up", "w")):
+        row = train["quantize"]["shapes"][name]
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            quant[f"{k}_train_{key}"] = row[k]
+    kernels = [kernel, verify, prefill] + pair + [repack, mega] + mx
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Quantization policy: the MX config threaded through every layer.
 
-Port of ``repro.core.policy``. The reference's training switches
-(``quantize_grads``, ``mx_weight_gather``) wait for the training slice.
+Port of ``repro.core.policy``. The reference's ``mx_weight_gather`` (the
+FSDP all-gather of MX bytes) belongs to the mesh rules and waits for
+ROADMAP A9b.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ class QuantConfig:
         "pallas"; "pallas" names the hand-written-kernel tier).
       acc_dtype: accumulator precision (f32 per the spec, bf16 compact).
       quantize_kv_cache: store the serving KV cache in MX format.
+      quantize_grads: fake-quantize the gradients to MXFP8-E5M2 blocks
+        of 32 before the optimizer (training).
     """
 
     enabled: bool = True
@@ -37,6 +40,7 @@ class QuantConfig:
     mode: str = "fused"
     acc_dtype: torch.dtype = torch.float32
     quantize_kv_cache: bool = False
+    quantize_grads: bool = False
 
     @property
     def activation_format(self) -> str:

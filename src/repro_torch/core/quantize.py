@@ -40,6 +40,10 @@ def quantize(x: torch.Tensor, fmt="fp8_e4m3", block_size: int = 32,
                     block_size=block_size, axis=axis, shape=logical_shape)
 
 
+def dequantize(t: MXTensor, dtype=torch.float32) -> torch.Tensor:
+    return t.dequantize(dtype)
+
+
 def quantize_value(x: torch.Tensor, fmt="fp8_e4m3", block_size: int = 32,
                    axis: int = -1) -> torch.Tensor:
     """Fake-quantize: quantize then dequantize, back in ``x``'s dtype."""

@@ -168,6 +168,25 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, window) -> torch.Tensor:
     return m
 
 
+class _Softmax(torch.autograd.Function):
+    """Softmax over the last axis with ``jax.nn.softmax``'s gradient: its
+    custom JVP ``y * (t - sum(y * t))`` transposed, ``y * g + y * -sum(y *
+    g)``, rather than autograd's path through the exp and the divide."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        y = e / e.sum(dim=-1, keepdim=True)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yg = y * g
+        return yg + y * -yg.sum(dim=-1, keepdim=True)
+
+
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qpos: torch.Tensor, kpos: torch.Tensor,
             cfg: AttnConfig) -> torch.Tensor:
@@ -184,8 +203,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = host_math.softcap(logits, cfg.softcap)
     mask = _mask(qpos, kpos, cfg.window)[:, None, None]  # (B, 1, 1, S, T)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    probs = _Softmax.apply(logits).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v.float())
     return out.to(q.dtype).reshape(b, s, h, d)
 
@@ -201,6 +219,42 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _attend(q, k, v, qpos, kpos, cfg)
     return torch.cat([_attend(q[:, i:i + cs], k, v, qpos[:, i:i + cs],
                               kpos, cfg) for i in range(0, s, cs)], dim=1)
+
+
+def init_train(gen: torch.Generator, cfg: AttnConfig, device) -> dict:
+    """f32 master projections (the training path)."""
+    h, kvh, d, dm = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    return {"wq": linear.init_master(gen, dm, h * d, device),
+            "wk": linear.init_master(gen, dm, kvh * d, device),
+            "wv": linear.init_master(gen, dm, kvh * d, device),
+            "wo": linear.init_master(gen, h * d, dm, device)}
+
+
+def apply_train(params, x: torch.Tensor, positions: torch.Tensor,
+                cfg: AttnConfig, quant: QuantConfig,
+                compute_dtype=torch.bfloat16,
+                x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence causal self-attention over f32 masters (training):
+    x (B, S, d_model), positions (B, S) below ``rope_len(S)`` (the RoPE
+    table's length; a position past it raises). The projections go
+    through ``linear.apply`` under ``quant`` (QAT: #6 on CUDA tensors).
+    ``x_kv`` (default ``x``), the same values, feeds the K and V
+    projections: a caller may give it a node of its own, where their
+    input gradients meet before the query's (``blocks.apply_train``)."""
+    b, s, _ = x.shape
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def proj(name, heads):
+        src = x if name == "wq" or x_kv is None else x_kv
+        return linear.apply(params[name], src, compute_dtype, quant).reshape(
+            b, s, heads, d)
+
+    n = rope_len(s)
+    q = apply_rope(proj("wq", h), positions, cfg.rope_theta, n)
+    k = apply_rope(proj("wk", kvh), positions, cfg.rope_theta, n)
+    out = _attend_chunked(q, k, proj("wv", kvh), positions, positions, cfg)
+    return linear.apply(params["wo"], out.reshape(b, s, h * d),
+                        compute_dtype, quant)
 
 
 def rope_len(n: int) -> int:

@@ -63,6 +63,86 @@ def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
     return params
 
 
+class _RoundGrad(torch.autograd.Function):
+    """Identity forward; the backward rounds the gradient to ``dtype``
+    and back. The reference differentiates a bf16 residual sum, whose
+    gradient is bf16, where the port's FFN norm reads that sum in f32."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
+class _Rounded(torch.autograd.Function):
+    """``x`` rounded to ``dtype``, kept in x's (wider) dtype, with the
+    gradient passed through unrounded: an RMSNorm output that several
+    projections read, whose gradients XLA sums in f32 (it drops the
+    rounding of their bf16 sum)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def require_trainable(bd: BlockDef, cfg: ModelConfig) -> None:
+    """Training is ported for attention-only SwiGLU blocks; the rest
+    waits for ROADMAP A9b."""
+    _require_ported(bd, cfg)
+    if bd.ffn == "moe":
+        raise NotImplementedError(
+            "training MoE blocks (the router, the Switch loss and grads "
+            "through both dispatches) is not ported (ROADMAP A9b)")
+    if (cfg.ffn_kind != "swiglu" or cfg.post_norms or cfg.attn_softcap
+            or cfg.logit_softcap):
+        raise NotImplementedError(
+            "training gemma2-style blocks (GeGLU, post-norms, softcaps: "
+            "gradients of XLA:CPU's tanh) is not ported (ROADMAP A9b)")
+
+
+def init_train(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
+               device) -> dict:
+    """One block's f32 masters (the training path)."""
+    require_trainable(bd, cfg)
+    return {"norm_mixer": rmsnorm_init(cfg.d_model, device),
+            "mixer": attention.init_train(gen, _attn_cfg(cfg, bd), device),
+            "norm_ffn": rmsnorm_init(cfg.d_model, device),
+            "ffn": ffn.init_train(gen, cfg.d_model, cfg.d_ff, device)}
+
+
+def apply_train(params, x: torch.Tensor, positions: torch.Tensor,
+                bd: BlockDef, cfg: ModelConfig) -> tuple:
+    """One block over the full sequence x (B, S, d_model) bf16 (training
+    / prefill compute): pre-norm attention and SwiGLU FFN under the
+    config's quantization policy, each residual add rounded to bf16.
+    Returns (x, aux), aux the f32 zero of a dense block."""
+    require_trainable(bd, cfg)
+    quant, dt = cfg.quant, cfg.compute_dtype
+    h = _Rounded.apply(rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps,
+                                     dtype=torch.float32), dt)
+    # XLA sums the V and K projections' input gradients rounded to bf16,
+    # then adds the query's in f32
+    h = attention.apply_train(params["mixer"], h, positions,
+                              _attn_cfg(cfg, bd), quant, dt,
+                              x_kv=_RoundGrad.apply(h, dt))
+    # XLA fuses the residual add into the FFN's norm, which reads the
+    # unrounded f32 sum (as in _decode_tail); the residual stores it bf16
+    x_sum = x.to(torch.float32) + h.to(torch.float32)
+    h = _Rounded.apply(rmsnorm_apply(params["norm_ffn"],
+                                     _RoundGrad.apply(x_sum, dt),
+                                     cfg.norm_eps, dtype=torch.float32), dt)
+    x = x_sum.to(dt) + ffn.apply(params["ffn"], h, cfg.ffn_kind, dt, quant)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _decode_tail(params, x: torch.Tensor, h: torch.Tensor, norm_eps: float,
                  dt: torch.dtype, ffn_kind: str = "swiglu",
                  post_norms: bool = False, moe_cfg=None) -> torch.Tensor:

@@ -25,6 +25,17 @@ def truncated_normal_init(gen: torch.Generator, shape, scale: float,
     return t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(stddev)
 
 
+def exact_cuda_products(device) -> None:
+    """On a card, turn off the two cuBLAS switches that move the bf16
+    rounding points of the dense products (``nn.linear._dot_rounded``,
+    the tied head) and the f32 attention sums away from the reference's:
+    the bf16 reduction in reduced precision, and TF32."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Round ``x`` to ``dtype``. PyTorch runs eagerly and every op rounds
     its result to its output dtype, so the reference's

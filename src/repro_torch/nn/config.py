@@ -1,10 +1,10 @@
 """Model configuration schema (port of ``repro.nn.config``).
 
-Only the fields the serving path reads are carried over: attention
+Only the fields the ported paths read are carried over: attention
 blocks, gemma2's embedding scale, logit softcap and sandwich post-norms,
-and the MoE channel mixer (mixtral's ``ffn="moe"`` blocks). MLA,
-recurrent, codebook and training fields wait for their modules (ROADMAP
-A8, A9).
+the MoE channel mixer (mixtral's ``ffn="moe"`` blocks) and training's
+``remat``. MLA, recurrent and codebook fields wait for their modules
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -57,6 +57,9 @@ class ModelConfig:
     norm_eps: float = 1e-6
     quant: QuantConfig = QuantConfig()
     compute_dtype: torch.dtype = torch.bfloat16
+    # training: "full" recomputes each layer group's forward in the
+    # backward (torch.utils.checkpoint), "none" keeps its activations
+    remat: str = "full"
     # paged serving: full-length (non-ring) prefill caches, so a prompt's
     # cache reshapes 1:1 into its pages (window masking still applies)
     serve_full_cache: bool = False

@@ -23,6 +23,64 @@ def init(gen: torch.Generator, vocab: int, d_model: int, tied: bool,
     return params
 
 
+def init_train(gen: torch.Generator, vocab: int, d_model: int, tied: bool,
+               device) -> dict:
+    """f32 master tables (the training path), as the reference's init:
+    ``normal * 0.01``, and an untied head ``truncated_normal``."""
+    embed = torch.randn((vocab, d_model), generator=gen, device=device)
+    params = {"embed": embed.mul_(0.01)}
+    if not tied:
+        params["head"] = C.truncated_normal_init(gen, (d_model, vocab), 1.0,
+                                                 device)
+    return params
+
+
+def scatter_add_rows(rows: torch.Tensor, index: torch.Tensor,
+                     num_rows: int) -> torch.Tensor:
+    """A zero ``(num_rows, D)`` table in ``rows``' dtype with each row
+    ``rows[i]`` added at ``index[i]``, one at a time in the order of i,
+    each add rounded to that dtype: the reference's scatter-add, the
+    transpose of its gather. Deterministic on every device: the adds go
+    in passes, pass r adding every index's r-th occurrence, and the rows
+    of one pass are distinct (no atomics)."""
+    out = torch.zeros((num_rows, rows.shape[-1]), dtype=rows.dtype,
+                      device=rows.device)
+    order = torch.argsort(index, stable=True)
+    ids = index[order]
+    rank = (torch.arange(ids.numel(), device=ids.device)
+            - torch.searchsorted(ids, ids))
+    for r in range(int(rank.max()) + 1 if ids.numel() else 0):
+        sel = rank == r
+        at = ids[sel]
+        out[at] = out[at] + rows[order[sel]]
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """``table[tokens]`` whose backward is :func:`scatter_add_rows` in the
+    table's dtype (PyTorch's own index backward accumulates with atomics
+    on the card, in no fixed order)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.num_rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        return scatter_add_rows(g.reshape(-1, g.shape[-1]),
+                                tokens.reshape(-1), ctx.num_rows), None
+
+
+def embed_train(params, tokens: torch.Tensor,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Rows of the f32 master table cast to the compute dtype, with the
+    deterministic scatter-add backward (:class:`_Gather`)."""
+    return _Gather.apply(params["embed"].to(compute_dtype), tokens.long())
+
+
 def embed(params, tokens: torch.Tensor, compute_dtype=torch.bfloat16, *,
           scale_by_sqrt_dim: bool = False) -> torch.Tensor:
     """Table rows of ``tokens``; with ``scale_by_sqrt_dim`` times

@@ -18,6 +18,14 @@ def init(gen: torch.Generator, d_model: int, d_ff: int, quant: QuantConfig,
             "down": linear.init(gen, d_ff, d_model, quant, device)}
 
 
+def init_train(gen: torch.Generator, d_model: int, d_ff: int,
+               device) -> dict:
+    """f32 master projections (the training path)."""
+    return {"gate": linear.init_master(gen, d_model, d_ff, device),
+            "up": linear.init_master(gen, d_model, d_ff, device),
+            "down": linear.init_master(gen, d_ff, d_model, device)}
+
+
 def silu(g: torch.Tensor) -> torch.Tensor:
     """``g * sigmoid(g)`` in f32 with the reference's flush of subnormals
     written out: sigmoid underflows to subnormals below about -87, and the
@@ -40,12 +48,14 @@ ACTIVATIONS = {"swiglu": silu, "geglu": gelu_tanh}
 
 
 def apply(params, x: torch.Tensor, kind: str = "swiglu",
-          compute_dtype=torch.bfloat16) -> torch.Tensor:
-    up = linear.apply(params["up"], x, compute_dtype)
-    gate = linear.apply(params["gate"], x, compute_dtype)
+          compute_dtype=torch.bfloat16, quant=None) -> torch.Tensor:
+    """The gated FFN; ``quant`` as in ``linear.apply`` (None for prepared
+    serving weights, the config's policy for f32 training masters)."""
+    up = linear.apply(params["up"], x, compute_dtype, quant)
+    gate = linear.apply(params["gate"], x, compute_dtype, quant)
     act = ACTIVATIONS[kind](gate.to(torch.float32))
     # the product of two bf16 values is exact in f32, so one rounding
     # gives the reference's narrow-multiply semantics
     h = C.round_to(C.round_to(act, compute_dtype).to(torch.float32)
                    * up.to(torch.float32), compute_dtype)
-    return linear.apply(params["down"], h, compute_dtype)
+    return linear.apply(params["down"], h, compute_dtype, quant)

@@ -1,6 +1,6 @@
 """MX-aware linear layers (port of ``repro.nn.linear``).
 
-Three kinds of weight reach :func:`apply`:
+Four kinds of weight reach :func:`apply`:
 
   * a prepared weight (the serving path): the reference keeps f32 master
     weights and fake-quantizes them inside every step
@@ -10,10 +10,12 @@ Three kinds of weight reach :func:`apply`:
     initialised (:func:`prepare_weight`), into bf16: the same values the
     reference recomputes per step, at half the memory of f32 masters;
   * a wide weight under ``quant.enabled=False``: the same bf16 product;
-  * a wide f32 master under an enabled weight-only ``quant``:
-    fake-quantized at use, as the reference does, then that product.
-    With ``quant.quantize_acts`` the reference runs ``qat_matmul``, which
-    waits for the training slice: the port raises ``NotImplementedError``;
+  * an f32 master (the training path, :func:`init_master`) under an
+    enabled ``quant``: with ``quant.quantize_acts``, the reference's
+    ``qat_matmul`` (both operands block-quantized at every call, #6 on
+    CUDA tensors, straight-through backward); without it, the
+    straight-through ``fake_quant`` of the weight along d_in, then that
+    product;
   * an ``MXTensor`` from :func:`quantize_weights`: ``core.dot.mx_dot`` in
     ``quant.mode``, with wide bf16 activations (weight-only) or, under
     ``quant.quantize_acts``, activations block-quantized to
@@ -28,18 +30,21 @@ from typing import Optional
 import torch
 
 from repro_torch.core import (MXTensor, QuantConfig, fake_quant, mx_dot,
-                              quantize)
+                              qat_matmul, quantize)
 
 from . import common as C
 
 
 def prepare_weight(w: torch.Tensor, quant: QuantConfig,
                    compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """f32 master ``(d_in, d_out)`` -> the bf16 weight ``apply`` multiplies."""
+    """f32 master ``(d_in, d_out)`` -> the bf16 weight ``apply`` multiplies
+    when serving. Serving is weight-only (the reference's launcher sets
+    ``quantize_acts=False``); a QAT policy trains f32 masters instead
+    (:func:`init_master`)."""
     if not quant.enabled or quant.quantize_acts:
         raise NotImplementedError(
-            "only weight-only MX linears are ported (ROADMAP A9); set "
-            "quantize_acts=False")
+            "prepared weights are weight-only MX; quantize_acts=True "
+            "trains f32 masters (init_master)")
     wq = fake_quant(w.to(torch.float32), quant.fmt, quant.block_size, 0)
     return wq.to(compute_dtype)
 
@@ -48,6 +53,12 @@ def init(gen: torch.Generator, d_in: int, d_out: int, quant: QuantConfig,
          device, scale: float = 1.0, compute_dtype=torch.bfloat16) -> dict:
     w = C.truncated_normal_init(gen, (d_in, d_out), scale, device)
     return {"w": prepare_weight(w, quant, compute_dtype)}
+
+
+def init_master(gen: torch.Generator, d_in: int, d_out: int, device,
+                scale: float = 1.0) -> dict:
+    """An f32 master weight for training, as the reference's init."""
+    return {"w": C.truncated_normal_init(gen, (d_in, d_out), scale, device)}
 
 
 def apply(params, x: torch.Tensor, compute_dtype=torch.bfloat16,
@@ -63,9 +74,11 @@ def apply(params, x: torch.Tensor, compute_dtype=torch.bfloat16,
         return y.to(compute_dtype)
     if quant is not None and quant.enabled:
         if quant.quantize_acts:
-            raise NotImplementedError(
-                "wide weights with quantized activations take the "
-                "reference's qat_matmul, not ported yet (ROADMAP A9)")
+            y = qat_matmul(x.to(compute_dtype), w.to(torch.float32),
+                           quant.fmt, quant.block_size, True,
+                           "fused" if quant.mode == "pallas" else quant.mode,
+                           quant.acc_dtype)
+            return y.to(compute_dtype)
         w = fake_quant(w.to(torch.float32), quant.fmt, quant.block_size, 0)
     return _dot_rounded(x.to(compute_dtype), w.to(compute_dtype),
                         compute_dtype)
@@ -86,7 +99,8 @@ def _dot_rounded(x: torch.Tensor, w: torch.Tensor,
 
     On the card this holds only with cuBLAS's reduced-precision bf16
     reduction and TF32 off, which the serving engine sets at
-    construction.
+    construction and ``model.forward`` at each call
+    (``common.exact_cuda_products``).
     """
     return torch.matmul(x, w).to(compute_dtype)
 

@@ -1,8 +1,9 @@
-"""LM assembly for serving (port of ``repro.nn.model``): embedding ->
-attention blocks (dense or MoE channel mixers) -> final norm -> LM head, one engine step at a time: the
-ragged step, its layer-fused megakernel form, or the split step's decode /
-verify and prefill chunk; and the contiguous-cache path of dense prefill
-(``prefill``, ``prefill_with_prefix``) and one-token ``decode_step``.
+"""LM assembly (port of ``repro.nn.model``): embedding -> attention
+blocks (dense or MoE channel mixers) -> final norm -> LM head. Serving
+runs one engine step at a time: the ragged step, its layer-fused
+megakernel form, or the split step's decode / verify and prefill chunk;
+and the contiguous-cache path of dense prefill (``prefill``,
+``prefill_with_prefix``) and one-token ``decode_step``.
 
 Parameters are a plain dict::
 
@@ -19,6 +20,14 @@ tensor (``params["layer_stack"]``, ``PagedCache.stack``) and the
 per-layer entries are its slices: the per-layer steps read the slices,
 the megakernel the stacks, one copy of each.
 
+Training (:func:`init_train`, :func:`forward`, :func:`loss_fn`) keeps f32
+masters in the same per-layer layout, without stacks: autograd would
+write a full-size gradient of a stacked leaf for every layer that indexes
+it. :func:`reference_layout` arranges any such tree (params, gradients,
+optimizer moments) in the reference's structure, its stacked leaves as
+lists of the layers' tensors, for checkpoints and reductions in the
+reference's leaf order.
+
 The contiguous cache has the reference's pytree structure, so the two
 packages' caches compare leaf by leaf::
 
@@ -34,8 +43,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import blocks, embedding, linear
+from . import common as C
 from .config import ModelConfig
 from .norms import rmsnorm_apply, rmsnorm_init
 
@@ -471,3 +482,155 @@ def megakernel_step_paged(params, cfg: ModelConfig, cache: list,
         page_fmts=page_fmts, mixed_fmts=mixed_fmts)
     return _ragged_head(params, cfg, x, row_start, seq_lens, logit_idx,
                         num_logits)
+
+
+# ---------------------------------------------------------------------------
+# training: f32 masters, forward and loss
+# ---------------------------------------------------------------------------
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP A9b) unless every
+    block of ``cfg`` trains here: attention-only SwiGLU blocks."""
+    for _, _, bd in iter_layer_blocks(cfg):
+        blocks.require_trainable(bd, cfg)
+
+
+def init_train(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    """Random f32 masters from ``gen`` (a generator on ``device``) in the
+    per-layer layout: ``{"embedding", "layers": [...], "final_norm"}``."""
+    return {
+        "embedding": embedding.init_train(gen, cfg.vocab_size, cfg.d_model,
+                                          cfg.tied_embeddings, device),
+        "layers": [blocks.init_train(gen, bd, cfg, device)
+                   for _, _, bd in iter_layer_blocks(cfg)],
+        "final_norm": rmsnorm_init(cfg.d_model, device),
+    }
+
+
+def train_params_from_jax(params_np, cfg: ModelConfig, device) -> dict:
+    """The reference's param tree (numpy leaves) -> f32 training masters,
+    each layer's slice of the stacked ``groups`` leaves in
+    :func:`iter_layer_blocks` order, nothing fake-quantized."""
+    def tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {k: convert(v) for k, v in tree.items()}
+        return tensor(tree)
+
+    layers = [convert(params_np[key] if g is None else
+                      _slice_tree(params_np["groups"][key], g))
+              for key, g, _ in iter_layer_blocks(cfg)]
+    return {"embedding": convert(params_np["embedding"]), "layers": layers,
+            "final_norm": convert(params_np["final_norm"])}
+
+
+class Stacked(list):
+    """The layers' tensors of one stacked leaf of the reference's tree, in
+    group order: the leaf is ``torch.stack(self)``."""
+
+
+def reference_layout(cfg: ModelConfig, tree) -> dict:
+    """A per-layer tree (params, gradients, optimizer moments) arranged
+    as the reference's param tree: ``groups/block{i}`` leaves are
+    :class:`Stacked` lists over the groups, prologue and epilogue blocks
+    keep their keys. Leaves are the tree's own tensors."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    groups = {}
+    for (key, g, _), layer in zip(iter_layer_blocks(cfg), tree["layers"]):
+        if g is None:
+            out[key] = layer
+        else:
+            groups.setdefault(key, []).append(layer)
+    if groups:
+        out["groups"] = {key: _tree_map(lambda *ls: Stacked(ls), *layers)
+                         for key, layers in groups.items()}
+    return out
+
+
+def reference_leaves(cfg: ModelConfig, tree) -> list:
+    """The leaves of :func:`reference_layout` in ``jax.tree_util`` order
+    (dict keys sorted), each a tensor or a :class:`Stacked` list."""
+    return leaves(reference_layout(cfg, tree), stacked=True)
+
+
+def leaves(tree, stacked: bool = False) -> list:
+    """Tensor leaves of a nested dict / list tree in ``jax.tree_util``
+    order: dict keys sorted, list entries in order. With ``stacked``, a
+    :class:`Stacked` list is one leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k], stacked)]
+    if isinstance(tree, (list, tuple)) and not (
+            stacked and isinstance(tree, Stacked)):
+        return [x for t in tree for x in leaves(t, stacked)]
+    return [tree]
+
+
+def _group_train(cfg: ModelConfig, layers: list, x: torch.Tensor,
+                 positions: torch.Tensor) -> tuple:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp, bd in zip(layers, cfg.pattern):
+        x, a = blocks.apply_train(bp, x, positions, bd, cfg)
+        aux = aux + a
+    return x, aux
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> tuple:
+    """Full-sequence forward of ``tokens`` (B, S) over the training
+    masters. Returns (logits (B, S, V) f32, aux loss). With
+    ``cfg.remat == "full"`` each pattern group's forward is recomputed in
+    the backward (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` around its scan body); prologue and epilogue blocks
+    run outside it, as in the reference. On a card it first turns off
+    cuBLAS's reduced-precision bf16 reduction and TF32
+    (``common.exact_cuda_products``), as the serving engine does."""
+    C.exact_cuda_products(tokens.device)
+    x = embedding.embed_train(params["embedding"], tokens, cfg.compute_dtype)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers, n_pro, n_pat = params["layers"], len(cfg.prologue), len(
+        cfg.pattern)
+    for j, bd in enumerate(cfg.prologue):
+        x, a = blocks.apply_train(layers[j], x, positions, bd, cfg)
+        aux = aux + a
+    for g in range(cfg.num_groups):
+        group = layers[n_pro + g * n_pat:n_pro + (g + 1) * n_pat]
+        if cfg.remat == "full":
+            x, a = torch.utils.checkpoint.checkpoint(
+                _group_train, cfg, group, x, positions, use_reentrant=False)
+        else:
+            x, a = _group_train(cfg, group, x, positions)
+        aux = aux + a
+    first_epi = n_pro + cfg.num_groups * n_pat
+    for j, bd in enumerate(cfg.epilogue):
+        x, a = blocks.apply_train(layers[first_epi + j], x, positions, bd,
+                                  cfg)
+        aux = aux + a
+    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return embedding.logits(params["embedding"], x, cfg.compute_dtype), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict) -> tuple:
+    """Cross-entropy LM loss over the labels >= 0, plus the z-loss
+    (1e-4 mean squared log-normalizer) and ``aux_loss_weight`` times the
+    aux loss. ``batch``: {"tokens", "labels"} (B, S). Returns (total,
+    {"ce", "zloss", "aux"})."""
+    logits, aux = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"].long()
+    mask = (labels >= 0).to(torch.float32)
+    lf = logits.to(torch.float32)
+    logp = torch.log_softmax(lf, dim=-1)
+    ll = torch.take_along_dim(logp, labels.clamp_min(0)[..., None],
+                              dim=-1)[..., 0]
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = -(ll * mask).sum() / denom
+    z = torch.logsumexp(lf, dim=-1)
+    zloss = 1e-4 * ((z * z) * mask).sum() / denom
+    total = ce + zloss + cfg.aux_loss_weight * aux
+    return total, {"ce": ce, "zloss": zloss, "aux": aux}

@@ -19,10 +19,10 @@ loss. Two dispatches compute the same function:
 Expert weights are ``(E, d_in, d_out)`` stacks, stored prepared: each
 expert's slice fake-quantized along ``d_in`` (axis 1 of the stack, the
 reference's ``_mx_expert_weight`` without a mesh) into bf16, once, by
-``nn.linear.prepare_weight``, so weight-only MX alone is ported here as
-for every linear (ROADMAP A9). Activations entering the experts stay
-wide, as in the reference; the shared experts go through ``nn.ffn`` like
-any dense FFN. The
+``nn.linear.prepare_weight``, so weight-only MX alone is served here as
+by every linear (MoE training waits for ROADMAP A9b). Activations
+entering the experts stay wide, as in the reference; the shared experts
+go through ``nn.ffn`` like any dense FFN. The
 reference's products here are XLA dots, not Pallas kernels, so the port's
 are ``torch.matmul``. Its mesh branches (the FSDP gather of MX expert
 bytes, the data-parallel sorted dispatch, the expert-parallel layout
@@ -35,6 +35,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import QuantConfig
+from repro_torch.core.dot import matmul
 
 from . import common as C
 from . import ffn, linear
@@ -132,15 +133,6 @@ def _gated(gate: torch.Tensor, up: torch.Tensor, kind: str,
                       compute_dtype)
 
 
-def _wide_products(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``h @ w`` of bf16 (E, N, K) and (E, K, F), summed in f32 and left
-    in f32: on the card cuBLAS's bf16 product with an f32 output, on the
-    CPU the f32 product of the (exact) widened operands."""
-    if h.device.type == "cuda":
-        return torch.bmm(h, w, out_dtype=torch.float32)
-    return torch.matmul(h.to(torch.float32), w.to(torch.float32))
-
-
 def _expert_ffn(w: dict, h_in: torch.Tensor, kind: str,
                 compute_dtype) -> torch.Tensor:
     """Every expert's gated FFN on its rows h_in (E, N, d_model) bf16, at
@@ -148,7 +140,7 @@ def _expert_ffn(w: dict, h_in: torch.Tensor, kind: str,
     bf16 gate product to f32 into the product, so the activation reads
     the unrounded f32 sums; ``up`` and ``down`` are bf16 products
     accumulated in f32 and rounded once."""
-    gate = _wide_products(h_in, w["gate"])
+    gate = matmul(h_in, w["gate"], torch.float32)
     up = torch.matmul(h_in, w["up"])
     return torch.matmul(_gated(gate, up, kind, compute_dtype), w["down"])
 

@@ -100,6 +100,7 @@ from repro_torch.kernels import (mx_attention_prefill_fused,
                                  mx_attention_verify_fused,
                                  mx_megakernel_step, mx_repack_pages)
 from repro_torch.nn import blocks, model
+from repro_torch.nn import common as C
 from repro_torch.nn.config import ModelConfig
 
 from . import kv_cache, sampling, spec_decode
@@ -289,16 +290,6 @@ def _validate_tiering(cfg: ModelConfig, scfg: ServeConfig,
             "repack_list_len >= 1")
 
 
-def _exact_cuda_products(device: torch.device) -> None:
-    """On a card, turn off the two cuBLAS switches that move the bf16
-    rounding points of the dense products (``nn.linear._dot_rounded``)
-    and the f32 attention sums away from the reference's."""
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
-            = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def _sample(logits: torch.Tensor, key, temperature: float) -> torch.Tensor:
     """The fixed-slot engine's pick from the last logits row of (B, S, V)
     ``logits``: the exact f32 argmax at temperature <= 0, else a
@@ -324,7 +315,7 @@ class FixedSlotEngine:
         self.cfg = cfg
         self.serve_cfg = serve_cfg
         self.device = torch.device(device)
-        _exact_cuda_products(self.device)
+        C.exact_cuda_products(self.device)
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
@@ -368,7 +359,7 @@ class ContinuousBatchingEngine:
             _validate_tiering(cfg, serve_cfg, self.tier)
         _check_supported(cfg, serve_cfg)
         self.device = torch.device(device)
-        _exact_cuda_products(self.device)
+        C.exact_cuda_products(self.device)
         self.params = params
         self.cfg = cfg
         # monolithic prefill builds full-length (non-ring) caches: slot ==

@@ -29,7 +29,7 @@ from repro.core import WIDE as JWIDE  # noqa: E402
 from repro.core import mx_dot as jmx_dot  # noqa: E402
 from repro.core import quantize as jquantize  # noqa: E402
 from repro.nn import linear as jlinear  # noqa: E402
-from repro_torch.core import MXFP8, WIDE, mx_dot  # noqa: E402
+from repro_torch.core import MXFP8, WIDE, mx_dot, qat_matmul  # noqa: E402
 from repro_torch.core import quantize as tquantize  # noqa: E402
 from repro_torch.core.mx_tensor import from_jax  # noqa: E402
 from repro_torch.nn import linear  # noqa: E402
@@ -162,8 +162,18 @@ def test_linear_apply_wide_master_fake_quantized(data, fmt):
 
 
 def test_linear_apply_wide_master_with_mx_acts_raises(data):
-    # the reference's qat_matmul path is not ported: no silent wide product
+    # a wide f32 master under quantize_acts takes the reference's QAT
+    # product (both operands block-quantized), bit-equal, never a silent
+    # wide product; qat_matmul itself raises for the "pallas" mode, which
+    # linear.apply maps to "fused" as the reference does
     x, w, _ = data
-    with pytest.raises(NotImplementedError, match="qat_matmul"):
-        linear.apply({"w": torch.from_numpy(w)}, torch.from_numpy(x),
-                      quant=MXFP8)
+    for mode in ("fused", "pallas"):
+        want = jlinear.apply({"w": jnp.asarray(w)}, jnp.asarray(x),
+                             JMXFP8.replace(mode=mode))
+        got = linear.apply({"w": torch.from_numpy(w)}, torch.from_numpy(x),
+                           quant=MXFP8.replace(mode=mode))
+        assert got.dtype == torch.bfloat16 and got.shape == (2, 8, D_OUT)
+        np.testing.assert_array_equal(
+            got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    with pytest.raises(ValueError, match="mode"):
+        qat_matmul(torch.from_numpy(x), torch.from_numpy(w), mode="pallas")
