@@ -212,7 +212,32 @@ code is not 0 and no result line is printed:
      tests/test_torch_train.py's bounds); the card's step-1 checkpoint
      restores on the CPU with the card's bytes, and the card resumed from
      it replays the last steps bit for bit;
-  12. print the kernels line, then the device line last.
+  12. multi-head latent attention and deepseek-v2-lite-16b, after phase
+     11's training state is freed (no hand-written kernel lies on this
+     path: the latent cache is bf16 and the fixed-slot engine serves it):
+     (a) at its published widths and all 27 layers (a dense-FFN prologue
+     block, then 26 MoE blocks of 64 experts top-6 and 2 shared; random
+     seeded weights, ~31 GB of bf16 prepared weights) through the
+     launcher's ``FixedSlotEngine``, greedy, with the config's dense
+     dispatch: (i) batch 8 of 256-token prompts, 64 new tokens, (ii) one
+     2,048-token prompt (the MLA forward's two query chunks of 1,024), 16
+     new tokens; prefill ms, median decode step ms, tokens/s, peak memory
+     from a reset counter; one decode step profiled (launches, device
+     busy against the host clock); (i) again with the sorted dispatch,
+     its decode step on the dense run's cache within DEEPSEEK_SORTED_ULPS
+     bf16 ulps of the dense step's, and the step with each token's last
+     routed expert dropped beyond them; (b) on inputs captured in (i): the
+     prologue block and the first MoE block, card against the port's CPU
+     path, within the CPU tests' one-row bar (rows whose routed experts
+     differ on the two devices must be near ties); layer 0's absorbed
+     decode (``mla.apply_decode``) in bf16, card against CPU within the
+     one-row bar, its cache write in place; run in f32, against K and V
+     re-expanded from the latent cache in f32 within ABSORB_RTOL; in
+     bf16, against the same within ABSORB_BF16_ULPS; (c) reduced
+     deepseek-v2-lite on card and CPU: prefill logits and caches within
+     the one-row bar, fixed-slot streams (dense and sorted) parting only
+     at picks that lead by at most two bf16 ulps in both runs;
+  13. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -2902,6 +2927,7 @@ def profile_breakdown(runs: dict, walk: tuple, steps: int = 3,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    in_range = {}
     for title, (run, what) in runs.items():
         with torch.inference_mode():
             run()
@@ -5862,6 +5888,503 @@ def check_reduced_training(card: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: multi-head latent attention and deepseek-v2-lite-16b
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+#: 12a's fixed-slot runs, (batch, prompt tokens, new tokens): (i) a batch
+#: of chats; (ii) one long prompt, whose 2,048 rows take the MLA forward's
+#: query-chunk split (two chunks of 1,024)
+DEEPSEEK_RUNS = {"i": (8, 256, 64), "ii": (1, 2048, 16)}
+#: 12a: the sorted dispatch's decode step on the dense run's cache lies at
+#: most this many bf16 ulps of the largest logit from the dense step's
+#: (about twice the 5.75 that two runs read; PERF.md); the same step with
+#: each token's last routed expert dropped must lie beyond it
+DEEPSEEK_SORTED_ULPS = 12
+#: 12b: card against CPU, the one-row bar of the CPU tests (bf16 ulps of
+#: the largest |value|); rows whose routed experts differ between the two
+#: devices are held instead to be near ties: the CPU's k-th and (k+1)-th
+#: probabilities within this fraction of the k-th
+DEEPSEEK_BLOCK_ULPS = 2
+DEEPSEEK_TIE_FRACTION = 1e-2
+#: 12b: the rows of one captured prompt that the CPU reruns
+DEEPSEEK_CPU_ROWS = 64
+#: 12b: the port's absorbed decode run in f32 against the expanded form
+#: in f32: the largest difference over the largest |output|
+ABSORB_RTOL = 1e-4
+#: 12b: the port's absorbed decode in bf16 against the same f32 form, in
+#: bf16 ulps of the largest |output| (its bf16 roundings of q, q_eff, the
+#: probabilities, the latent and head outputs and the output itself)
+ABSORB_BF16_ULPS = 4
+#: 12c: reduced deepseek, port-init seed and fixed-slot batch
+DEEPSEEK_REDUCED_SEED = 0
+DEEPSEEK_REDUCED_BATCH = (3, 19, 8)
+
+
+def _deepseek_argv(batch: int, prompt: int, new: int) -> list:
+    return ["--arch", DEEPSEEK, "--engine", "fixed", "--batch", str(batch),
+            "--prompt-len", str(prompt), "--new-tokens", str(new)]
+
+
+def _clone_cache(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_cache(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_cache(v) for v in tree)
+    return tree.clone()
+
+
+def _ulps_apart(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in bf16 ulps of the largest |want|."""
+    want = want.float()
+    ulp = 2.0 ** (float(torch.floor(torch.log2(want.abs().max()))) - 7)
+    return float((got.float() - want).abs().max()) / ulp
+
+
+class _FixedTimer:
+    """Each ``model.prefill`` / ``model.decode_step`` call that
+    ``FixedSlotEngine.generate`` makes, timed on the host clock between
+    device syncs; keeps the cache the last call returned, and with
+    ``capture`` the first two prefill blocks' inputs (x, positions)."""
+
+    def __init__(self, capture: bool = False):
+        self.capture = capture
+
+    def __enter__(self):
+        from repro_torch.nn import blocks
+        from repro_torch.serve import engine as engine_mod
+
+        self.mod, self.blocks = engine_mod.model, blocks
+        self.real = (self.mod.prefill, self.mod.decode_step,
+                     blocks.prefill_block)
+        self.prefill_ms, self.step_ms, self.inputs = [], [], []
+
+        def timed(fn, out):
+            def wrapped(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*a, **kw)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+                self.cache = res[1]
+                return res
+            return wrapped
+
+        def captured(bp, x, positions, *a, **kw):
+            if len(self.inputs) < 2:
+                self.inputs.append((x, positions))
+            return self.real[2](bp, x, positions, *a, **kw)
+
+        self.mod.prefill = timed(self.real[0], self.prefill_ms)
+        self.mod.decode_step = timed(self.real[1], self.step_ms)
+        if self.capture:
+            blocks.prefill_block = captured
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.prefill, self.mod.decode_step = self.real[:2]
+        self.blocks.prefill_block = self.real[2]
+
+
+def _deepseek_fixed_run(params, run: str, capture: bool = False,
+                        **changes) -> dict:
+    """12a's run ``run`` (DEEPSEEK_RUNS) through the launcher's fixed-slot
+    engine on ``params``, greedy: prefill and decode step ms, tokens/s
+    over the whole ``generate``, the picks' leads, the peak memory."""
+    from repro_torch.launch import serve as launch_serve
+
+    b, s, new = DEEPSEEK_RUNS[run]
+    args = launch_serve.parse_args(_deepseek_argv(b, s, new))
+    cfg, engine = launch_serve.build_engine(args, params=params, **changes)
+    torch.cuda.reset_peak_memory_stats()
+    with _FixedTimer(capture) as timer:
+        report, leads = fixed_slot_leads(
+            lambda: launch_serve.run_fixed(engine, cfg, args))
+    out = report["out"]
+    if out.shape != (b, s + new) or not (out[:, :s] == report["prompts"]).all():
+        raise AssertionError(f"12a ({run}): output {out.shape}")
+    if len(timer.prefill_ms) != 1 or len(timer.step_ms) != new - 1:
+        raise AssertionError(f"12a ({run}): {len(timer.prefill_ms)} "
+                             f"prefills, {len(timer.step_ms)} decode steps")
+    step = statistics.median(timer.step_ms)
+    res = {"cfg": cfg, "args": args, "out": out, "leads": leads,
+           "cache": timer.cache, "inputs": timer.inputs,
+           "prefill_ms": timer.prefill_ms[0], "step_ms": step,
+           "tokens_per_s": report["tokens_per_s"],
+           "decode_tokens_per_s": b / (step / 1e3),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"12a ({run}) {cfg.moe_dispatch} dispatch, batch {b} x {s} prompt "
+        f"tokens, {new} new: prefill {res['prefill_ms']:.2f} ms, decode "
+        f"step median {step:.2f} ms ({res['decode_tokens_per_s']:.1f} "
+        f"tokens/s a step; {res['tokens_per_s']:.1f} tokens/s over "
+        f"generate), peak {res['peak_gb']:.2f} GB, smallest pick lead "
+        f"{float(leads.min()):.2f} bf16 ulps")
+    return res
+
+
+def _deepseek_step(params, cfg, cache, out, dispatch: str):
+    """One greedy decode step after ``out`` on a copy of ``cache``: the
+    token at the last column, at its position. Returns (logits, call)."""
+    from repro_torch.nn import model
+
+    tok = torch.as_tensor(out[:, -1:], device="cuda").long()
+    pos = out.shape[1] - 1
+    scfg = cfg.replace(moe_dispatch=dispatch)
+    with torch.inference_mode():
+        c = _clone_cache(cache)
+
+        def call():
+            return model.decode_step(params, scfg, c, tok, pos)[0]
+
+        return call(), call
+
+
+def _profile_deepseek_step(call, cfg) -> dict:
+    """One decode step traced (torch.profiler): launches, the device time
+    inside the MLA mixers and the MoE layers, beside the host clock."""
+    from repro_torch.nn import mla, moe
+
+    real = {(mla, "apply_decode"): mla.apply_decode,
+            (moe, "apply"): moe.apply}
+
+    def annotated(name, fn):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+
+    for (mod, name), fn in real.items():
+        setattr(mod, name, annotated(f"{mod.__name__[12:]}.{name}", fn))
+    try:
+        # the profiler can drop a trace's device records: trace again once
+        for _ in range(2):
+            classes, _, ranges = profile_breakdown(
+                {"deepseek-v2-lite decode step": (
+                    call, f"{cfg.num_layers} layers, dense dispatch")},
+                (), label="(no hand-written kernel)",
+                ranges=("nn.mla.apply_decode", "nn.moe.apply"))
+            res = {"launches": sum(n for n, _ in classes.values()),
+                   "busy_ms": sum(ms for _, ms in classes.values()),
+                   "ranges": ranges}
+            if res["launches"] and res["busy_ms"]:
+                return res
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    raise AssertionError("12a: the profiler recorded no device time in two "
+                         "traces of the decode step")
+
+
+def serve_deepseek_full_width() -> dict:
+    """12a (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.nn import model
+
+    t0 = time.perf_counter()
+    cfg0 = get_config(DEEPSEEK)
+    if cfg0.num_layers != 27 or cfg0.d_model != 2048:
+        raise AssertionError(f"12a: {cfg0.num_layers} layers")
+    args = launch_serve.parse_args(_deepseek_argv(*DEEPSEEK_RUNS["i"]))
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cfg, engine = launch_serve.build_engine(args)
+    params = engine.params
+    resident_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    n_params = sum(t.numel() for path, t in _weight_paths(params)
+                   if path[-1] != "raw")
+    log(f"12a {DEEPSEEK} at full width: {cfg.num_layers} layers (a dense "
+        f"prologue, {cfg.num_groups} MoE blocks of {cfg.num_experts} experts "
+        f"top-{cfg.top_k} + {cfg.num_shared} shared), {n_params:,} "
+        f"parameters, {resident_gb:.2f} GB resident (bf16 prepared weights, "
+        f"the absorbed decode's bf16 wk_b / wv_b casts, f32 routers and "
+        f"norms), made in {time.perf_counter() - t0:.1f} s")
+    # a short warm-up through the same entry point (cuBLAS handles, tables)
+    launch_serve.run_fixed(engine, cfg, launch_serve.parse_args(
+        _deepseek_argv(8, 16, 2)))
+    runs = {"i": _deepseek_fixed_run(params, "i", capture=True),
+            "ii": _deepseek_fixed_run(params, "ii")}
+    dense = runs["i"]
+    logits, call = _deepseek_step(params, cfg, dense["cache"], dense["out"],
+                                  "dense")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("12a: non-finite logits")
+    prof = _profile_deepseek_step(call, cfg)
+    sorted_run = _deepseek_fixed_run(params, "i", moe_dispatch="sorted")
+    sorted_logits, _ = _deepseek_step(params, cfg, dense["cache"],
+                                      dense["out"], "sorted")
+    ulps = _ulps_apart(sorted_logits, logits)
+    dropped, _ = _deepseek_step(params, cfg.replace(top_k=cfg.top_k - 1),
+                                dense["cache"], dense["out"], "sorted")
+    dropped_ulps = _ulps_apart(dropped, logits)
+    parted = np.flatnonzero((sorted_run["out"] != dense["out"]).any(0))
+    log(f"12a sorted dispatch: {sorted_run['tokens_per_s']:.1f} tokens/s "
+        f"over generate (dense {dense['tokens_per_s']:.1f}); its decode "
+        f"step on the dense run's cache lies {ulps:.2f} bf16 ulps from the "
+        f"dense step's (bound {DEEPSEEK_SORTED_ULPS}), with each token's "
+        f"last routed expert dropped {dropped_ulps:.2f}; streams "
+        + (f"first part at position {int(parted[0])}" if len(parted)
+           else "equal"))
+    if not ulps <= DEEPSEEK_SORTED_ULPS:
+        raise AssertionError(f"12a: sorted step {ulps:.2f} ulps from dense")
+    if not dropped_ulps > DEEPSEEK_SORTED_ULPS:
+        raise AssertionError(f"12a: a dropped expert reads {dropped_ulps:.2f}"
+                             " ulps, inside the sorted step's bound")
+    for run in ("i", "ii"):
+        if not np.isfinite(runs[run]["leads"]).all():
+            raise AssertionError(f"12a ({run}): non-finite logits")
+    log(f"12a one decode step (batch {len(dense['out'])} at position "
+        f"{dense['out'].shape[1] - 1}): {prof['launches']:.0f} kernel "
+        f"launches, device busy {prof['busy_ms']:.2f} ms against a "
+        f"{dense['step_ms']:.2f} ms median step; phase 12a "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"params": params, "cfg": cfg, "runs": runs, "sorted": sorted_run,
+            "sorted_ulps": ulps, "dropped_expert_ulps": dropped_ulps,
+            "profile": prof, "n_params": n_params,
+            "resident_gb": resident_gb}
+
+
+def _weight_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k != "layer_stack":
+                yield from _weight_paths(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _weight_paths(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _block_on(device: str, bp, x, positions, bd, cfg) -> tuple:
+    """One prefill block on ``device``: (output, cache, the MoE layer's
+    router choices and probabilities, or None)."""
+    from repro_torch.nn import blocks, moe
+
+    seen = []
+    real = moe.apply
+
+    def spy(params, h, mcfg, *a, **kw):
+        seen.append(moe.router(params, h, mcfg))
+        return real(params, h, mcfg, *a, **kw)
+
+    moe.apply = spy
+    try:
+        with torch.inference_mode():
+            y, cache = blocks.prefill_block(
+                bp, x.to(device), positions.to(device), bd, cfg,
+                positions.shape[1])
+    finally:
+        moe.apply = real
+    return y.to(cfg.compute_dtype), cache, (seen[0] if seen else None)
+
+
+def deepseek_layer_checks(full: dict) -> dict:
+    """12b (see the module docstring)."""
+    from repro_torch.nn import blocks, model
+
+    t0 = time.perf_counter()
+    params, cfg = full["params"], full["cfg"]
+    n = DEEPSEEK_CPU_ROWS
+    worst = {}
+    for li, (x, positions) in enumerate(full["runs"]["i"]["inputs"]):
+        bd = cfg.all_blocks()[li]
+        x, positions = x[:1, :n], positions[:1, :n]
+        on_cpu = _to_device(params["layers"][li], "cpu")
+        got, gcache, groute = _block_on("cuda", params["layers"][li], x,
+                                        positions, bd, cfg)
+        want, wcache, wroute = _block_on("cpu", on_cpu, x, positions, bd,
+                                         cfg)
+        del on_cpu
+        keep = torch.ones(n, dtype=torch.bool)
+        if bd.ffn == "moe":
+            gsel = groute[1][0].sort(-1).values.cpu()
+            wprobs, wsel = wroute[2][0], wroute[1][0].sort(-1).values
+            keep = (gsel == wsel).all(-1)
+            ranked = wprobs.sort(-1, descending=True).values
+            k = cfg.top_k
+            gap = (ranked[:, k - 1] - ranked[:, k]) / ranked[:, k - 1]
+            if (gap[~keep] > DEEPSEEK_TIE_FRACTION).any():
+                raise AssertionError(
+                    f"12b layer {li}: a row routed to other experts on the "
+                    f"card is no near tie (gaps {gap[~keep].tolist()})")
+        ulps = {"x": _ulps_apart(got[0, keep.cuda()].cpu(), want[0, keep])}
+        for key in ("c_kv", "k_rope"):
+            ulps[key] = _ulps_apart(gcache[key].cpu(), wcache[key])
+        if not torch.equal(gcache["kpos"].cpu(), wcache["kpos"]):
+            raise AssertionError(f"12b layer {li}: kpos")
+        if max(ulps.values()) > DEEPSEEK_BLOCK_ULPS:
+            raise AssertionError(f"12b layer {li}: card vs CPU {ulps}")
+        worst[li] = dict(ulps, rerouted=int((~keep).sum()))
+        log(f"12b layer {li} ({bd.ffn} FFN) prefill block, {n} rows of "
+            f"12a (i)'s first prompt, card vs CPU: output, c_kv, k_rope "
+            f"{ulps['x']:.2f}, {ulps['c_kv']:.2f}, {ulps['k_rope']:.2f} "
+            f"bf16 ulps of their largest (bar {DEEPSEEK_BLOCK_ULPS}); "
+            f"{worst[li]['rerouted']} rows routed to other experts (near "
+            f"ties, excluded)")
+    dense = full["runs"]["i"]
+    absorbed = check_absorbed_decode(
+        params["layers"][0]["mixer"],
+        blocks._norm_in(params["layers"][0], model._embed(
+            params, cfg, torch.as_tensor(dense["out"][:, -1:],
+                                         device="cuda").long()), cfg),
+        model.cache_layers(cfg, dense["cache"])[0],
+        dense["out"].shape[1] - 1, blocks._mla_cfg(cfg))
+    log(f"phase 12b {time.perf_counter() - t0:.1f} s")
+    return {"blocks": worst, **absorbed}
+
+
+def _expanded_decode(mixer, h, cache, pos: int, mcfg) -> torch.Tensor:
+    """The MLA decode in its expanded form, all in f32, written apart from
+    ``mla.apply_decode``: the new token's latent and rotated key (rounded
+    to the cache's bf16) join a copy of ``cache`` at slot ``pos``, K and
+    V are re-expanded from every latent through ``wk_b`` / ``wv_b``'s
+    ``"raw"`` casts, and attention runs per head over them."""
+    from repro_torch.nn import mla
+    from repro_torch.nn.attention import _mask, rope_len
+    from repro_torch.nn.rotary import apply_rope
+
+    f = torch.float32
+    b, hh, lora = h.shape[0], mcfg.num_heads, mcfg.kv_lora
+    nope, rope_d = mcfg.qk_nope_dim, mcfg.qk_rope_dim
+    h = h.to(f)
+    q = (h @ mixer["wq"]["w"].to(f)).reshape(b, 1, hh, nope + rope_d)
+    kv = h @ mixer["wkv_a"]["w"].to(f)
+    lat = kv[..., :lora]
+    lat = lat * torch.rsqrt((lat * lat).mean(-1, keepdim=True) + 1e-6) \
+        * (1 + mixer["kv_norm"]["scale"].to(f))
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
+    n = rope_len(pos + 1)
+    q_rope = apply_rope(q[..., nope:], posv, mcfg.rope_theta, n)
+    kr_new = apply_rope(kv[..., None, lora:], posv, mcfg.rope_theta, n)
+    c_kv, k_rope = cache["c_kv"].clone(), cache["k_rope"].clone()
+    kpos = cache["kpos"].clone()
+    c_kv[:, pos], k_rope[:, pos], kpos[pos] = lat[:, 0], kr_new[:, 0, 0], pos
+    c_kv, k_rope = c_kv.to(f), k_rope.to(f)
+    k_nope = torch.einsum("btl,lhd->bthd", c_kv, mixer["wk_b"]["raw"].to(
+        f).reshape(lora, hh, nope))
+    v = torch.einsum("btl,lhd->bthd", c_kv, mixer["wv_b"]["raw"].to(
+        f).reshape(lora, hh, mcfg.v_head_dim))
+    logits = (torch.einsum("bshd,bthd->bhst", q[..., :nope], k_nope)
+              + torch.einsum("bshd,btd->bhst", q_rope, k_rope)) \
+        * mla._scale(mcfg)
+    mask = _mask(posv, kpos[None], None)[:, None]
+    p = torch.softmax(torch.where(mask, logits, torch.full_like(
+        logits, -2.0e38)), dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", p, v).reshape(b, 1, -1)
+    return out @ mixer["wo"]["w"].to(f)
+
+
+def check_absorbed_decode(mixer, h, cache, pos: int, mcfg) -> dict:
+    """12b: the port's absorbed decode (``mla.apply_decode``) of one MLA
+    layer at ``pos`` on its captured input ``h`` (B, 1, d_model) and a
+    copy of its cache: (1) in bf16 on the card against the same call on
+    the CPU, the output within DEEPSEEK_BLOCK_ULPS, the written slot's
+    latent and key too, every other cache row and key position left as
+    they were; (2) run in f32 (``compute_dtype``), against
+    :func:`_expanded_decode` within ABSORB_RTOL of the largest |output|;
+    (3) in bf16, against the same f32 form within ABSORB_BF16_ULPS."""
+    from repro_torch.nn import mla
+
+    cpu_mixer = _to_device(mixer, "cpu")
+    runs = {}
+    with torch.inference_mode():
+        for where, dt in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16),
+                          ("cuda", torch.float32)):
+            c = _clone_cache(cache) if where == "cuda" else \
+                _to_device(cache, "cpu")
+            y = mla.apply_decode(mixer if where == "cuda" else cpu_mixer,
+                                 h.to(where), c, pos, mcfg, dt)
+            runs[where, dt] = (y.cpu(), {k: v.cpu() for k, v in c.items()})
+        want = _expanded_decode(mixer, h, cache, pos, mcfg).cpu()
+    (card, ccache), (cpu, pcache) = (runs["cuda", torch.bfloat16],
+                                     runs["cpu", torch.bfloat16])
+    before = {k: v.cpu() for k, v in cache.items()}
+    slot = min(pos, before["kpos"].shape[0] - 1)
+    others = torch.arange(before["kpos"].shape[0]) != slot
+    ulps = {"output": _ulps_apart(card, cpu)}
+    for key in ("c_kv", "k_rope"):
+        ulps[key] = _ulps_apart(ccache[key][:, slot], pcache[key][:, slot])
+        if not torch.equal(ccache[key][:, others], before[key][:, others]):
+            raise AssertionError(f"12b decode: {key} rows off slot {slot} "
+                                 "changed")
+    if int(ccache["kpos"][slot]) != pos or not torch.equal(
+            ccache["kpos"][others], before["kpos"][others]) \
+            or not torch.equal(ccache["kpos"], pcache["kpos"]):
+        raise AssertionError(f"12b decode: key positions at slot {slot}")
+    f32_err = float((runs["cuda", torch.float32][0] - want).abs().max()
+                    / want.abs().max())
+    bf16_ulps = _ulps_apart(card, want)
+    b = h.shape[0]
+    log(f"12b layer 0's absorbed decode, mla.apply_decode (batch {b} at "
+        f"position {pos}, {int((before['kpos'] >= 0).sum()) + 1} cached "
+        f"tokens, kv_lora {mcfg.kv_lora}, {mcfg.num_heads} heads): card vs "
+        f"CPU in bf16, output / written c_kv / k_rope {ulps['output']:.2f}"
+        f" / {ulps['c_kv']:.2f} / {ulps['k_rope']:.2f} bf16 ulps of their "
+        f"largest (bar {DEEPSEEK_BLOCK_ULPS}), other rows untouched; against "
+        f"the expanded form in f32 (K and V re-expanded through the same "
+        f"bf16 wk_b / wv_b): run in f32 {f32_err:.3e} of the largest "
+        f"|output| (bar {ABSORB_RTOL}), in bf16 {bf16_ulps:.2f} bf16 ulps "
+        f"(bar {ABSORB_BF16_ULPS})")
+    if max(ulps.values()) > DEEPSEEK_BLOCK_ULPS:
+        raise AssertionError(f"12b decode: card vs CPU {ulps}")
+    if not f32_err <= ABSORB_RTOL:
+        raise AssertionError(f"12b: absorbed (f32) vs expanded {f32_err}")
+    if not bf16_ulps <= ABSORB_BF16_ULPS:
+        raise AssertionError(f"12b: absorbed (bf16) vs expanded "
+                             f"{bf16_ulps:.2f} ulps")
+    return {"decode_card_vs_cpu_ulps": ulps, "absorbed_rel_err": f32_err,
+            "absorbed_bf16_ulps": bf16_ulps}
+
+
+def check_reduced_deepseek(card: str = "cuda") -> dict:
+    """12c (see the module docstring)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.nn import model
+    from repro_torch.serve import FixedSlotEngine, ServeConfig
+
+    b, s, new = DEEPSEEK_REDUCED_BATCH
+    cfg = get_reduced(DEEPSEEK)
+    cfg = cfg.replace(quant=cfg.quant.replace(quantize_acts=False))
+    params = model.init(cfg, torch.Generator().manual_seed(
+        DEEPSEEK_REDUCED_SEED), "cpu")
+    on_card = _to_device(params, card)
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    toks = torch.from_numpy(prompts).long()
+    with torch.inference_mode():
+        want, wcache = model.prefill(params, cfg, toks, max_seq=s + new)
+        got, gcache = model.prefill(on_card, cfg, toks.to(card),
+                                    max_seq=s + new)
+    ulps = {"logits": _ulps_apart(got.cpu(), want)}
+    for li, (g, w) in enumerate(zip(model.cache_layers(cfg, gcache),
+                                    model.cache_layers(cfg, wcache))):
+        for key in ("c_kv", "k_rope"):
+            ulps[f"{key} {li}"] = _ulps_apart(g[key].cpu(), w[key])
+        if not torch.equal(g["kpos"].cpu(), w["kpos"]):
+            raise AssertionError(f"12c: layer {li} kpos")
+    if max(ulps.values()) > DEEPSEEK_BLOCK_ULPS:
+        raise AssertionError(f"12c: prefill card vs CPU {ulps}")
+    partings = {}
+    for dispatch in ("dense", "sorted"):
+        dcfg = cfg.replace(moe_dispatch=dispatch)
+        fcfg = ServeConfig(max_seq=s + new)
+        want, wleads = fixed_slot_leads(lambda: FixedSlotEngine(
+            params, dcfg, fcfg, device="cpu").generate(prompts, new))
+        got, gleads = fixed_slot_leads(lambda: FixedSlotEngine(
+            on_card, dcfg, fcfg, device=card).generate(prompts, new))
+        partings[dispatch] = [
+            _tie_parting(g[s:], w[s:], gl, wl)
+            for g, w, gl, wl in zip(got, want, gleads, wleads)]
+    log(f"12c reduced {DEEPSEEK} (seed {DEEPSEEK_REDUCED_SEED}): prefill of "
+        f"({b}, {s}) card vs CPU, bf16 ulps of each leaf's largest: "
+        f"{ {k: round(v, 2) for k, v in ulps.items()} } (bar "
+        f"{DEEPSEEK_BLOCK_ULPS}); fixed-slot streams, {new} new tokens, "
+        f"dense and sorted, partings (position, leads) {partings}")
+    return {"ulps": ulps, "partings": partings}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the MX dot products at granite-8b widths
 # ---------------------------------------------------------------------------
 
@@ -6778,6 +7301,16 @@ def main() -> int:
     train = train_full_width()
     check_reduced_training()
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    deepseek = serve_deepseek_full_width()
+    deepseek_layer_checks(deepseek)
+    del deepseek
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_reduced_deepseek()
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     mx = check_mx_dot_products()
     quant = next(e for e in mx if e["name"] == "mx_quantize")
     quant["launches_train"] = train["launches"]

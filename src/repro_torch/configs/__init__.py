@@ -1,5 +1,5 @@
 """Architecture registry (port of ``repro.configs``): the configs ported
-so far, attention mixers with dense or MoE channel mixers.
+so far: attention and MLA mixers with dense or MoE channel mixers.
 ``get_config(name)`` is the full ModelConfig,
 ``get_reduced(name)`` a CPU-sized config of the same family;
 ``--arch <id>`` in the launcher resolves through :data:`ARCHS`."""
@@ -8,6 +8,7 @@ from __future__ import annotations
 import importlib
 
 ARCHS = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "gemma2-2b": "gemma2_2b",
     "gemma2-9b": "gemma2_9b",
     "phi4-mini-3.8b": "phi4_mini",

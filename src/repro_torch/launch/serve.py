@@ -6,10 +6,11 @@
 
 ``--arch`` is any of ``configs.list_archs()``: granite-8b, gemma2-2b,
 gemma2-9b (local/global windows, softcaps, GeGLU, post-norms; the
-megakernel mode falls back to the ragged step), phi4-mini-3.8b and
+megakernel mode falls back to the ragged step), phi4-mini-3.8b,
 mixtral-8x22b (8 experts top-2 behind every layer, window 4096; the
-megakernel mode falls back to the ragged step), at full width or
-``--reduced``:
+megakernel mode falls back to the ragged step) and deepseek-v2-lite-16b
+(multi-head latent attention, a dense first layer, then 64 experts top-6
+and 2 shared), at full width or ``--reduced``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --reduced --batch 4 --prompt-len 20 --shared-prefix 8 --ragged \
@@ -23,7 +24,17 @@ megakernel mode falls back to the ragged step), at full width or
 
 mixtral-8x22b's 56 layers (~280 GB of prepared weights) do not fit one
 card; ``build_engine(args, num_groups=8)`` serves its first 8 at full
-width.
+width. deepseek-v2-lite-16b's latent cache has no page layout, so it is
+served by the fixed-slot engine alone, as in the reference (the default
+continuous engine raises with the reference's message); all 27 layers
+(~31 GB of bf16 prepared weights) fit one card:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b --reduced --engine fixed --batch 4 \
+      --prompt-len 24 --new-tokens 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b --engine fixed --batch 8 \
+      --prompt-len 256 --new-tokens 64
 
 Weights are random (a seeded ``torch.Generator``) and weight-only MX. By
 default they are MXFP8 with an MX fp8 KV cache, the reference launcher's

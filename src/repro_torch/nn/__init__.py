@@ -1,4 +1,5 @@
-"""Attention-only model zoo layers for serving."""
+"""The model zoo's layers: attention and multi-head latent attention
+mixers, dense and MoE channel mixers."""
 from .config import BlockDef, ModelConfig
 
 __all__ = ["BlockDef", "ModelConfig"]

@@ -40,6 +40,7 @@ from repro_torch.kernels import (mx_attention_prefill_fused,
                                  mx_attention_verify_fused)
 
 from . import linear
+from .norms import window_sum
 from .rotary import apply_rope
 
 NEG_INF = -2.0e38
@@ -171,12 +172,19 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, window) -> torch.Tensor:
 class _Softmax(torch.autograd.Function):
     """Softmax over the last axis with ``jax.nn.softmax``'s gradient: its
     custom JVP ``y * (t - sum(y * t))`` transposed, ``y * g + y * -sum(y *
-    g)``, rather than autograd's path through the exp and the divide."""
+    g)``, rather than autograd's path through the exp and the divide. On
+    CPU tensors the denominator sums as XLA:CPU's reduction does, in
+    windows of 32 keys, each in order (``norms.window_sum``): torch's row
+    sum takes another order, which moves bf16 probabilities (at reduced
+    deepseek-v2-lite's 19-key prompts)."""
 
     @staticmethod
     def forward(ctx, logits):
         e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-        y = e / e.sum(dim=-1, keepdim=True)
+        if e.device.type == "cpu":
+            y = e / window_sum(e)[..., None]
+        else:
+            y = e / e.sum(dim=-1, keepdim=True)
         ctx.save_for_backward(y)
         return y
 

@@ -1,16 +1,20 @@
-"""Decoder block wiring (port of ``repro.nn.blocks``), attention mixers.
+"""Decoder block wiring (port of ``repro.nn.blocks``): attention and
+multi-head latent attention mixers.
 
-Pre-norm residual blocks: attention then a channel mixer, a dense gated
-FFN (SwiGLU or GeGLU) or a mixture of experts (``ffn="moe"``,
-``nn.moe``), with gemma2's sandwich post-norms on the mixer's and the
-FFN's outputs where the config asks for them. MLA and recurrent mixers
-and the no-gate ``gelu`` FFN (ROADMAP A8) raise here.
+Pre-norm residual blocks: attention (or MLA, ``nn.mla``) then a channel
+mixer, a dense gated FFN (SwiGLU or GeGLU) or a mixture of experts
+(``ffn="moe"``, ``nn.moe``), with gemma2's sandwich post-norms on the
+mixer's and the FFN's outputs where the config asks for them. MLA blocks
+run the contiguous-cache paths alone (dense prefill, one-token decode),
+as in the reference: the paged paths raise for them with its messages.
+The recurrent mixers and the no-gate ``gelu`` FFN (ROADMAP A8) raise
+here.
 """
 from __future__ import annotations
 
 import torch
 
-from . import attention, ffn, linear, moe
+from . import attention, ffn, linear, mla, moe
 from .config import BlockDef, ModelConfig
 from .norms import rmsnorm_apply, rmsnorm_init
 
@@ -24,6 +28,14 @@ def _attn_cfg(cfg: ModelConfig, bd: BlockDef) -> attention.AttnConfig:
         no_ring=cfg.serve_full_cache, decode_kernel=cfg.decode_kernel)
 
 
+def _mla_cfg(cfg: ModelConfig) -> mla.MLAConfig:
+    return mla.MLAConfig(
+        d_model=cfg.d_model, num_heads=cfg.num_heads, kv_lora=cfg.kv_lora,
+        qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+        v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
+        query_chunk=cfg.query_chunk)
+
+
 def _moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
     return moe.MoEConfig(
         d_model=cfg.d_model, d_ff_expert=cfg.d_ff_expert,
@@ -35,7 +47,7 @@ def _moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
 
 
 def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
-    if bd.mixer != "attn":
+    if bd.mixer not in ("attn", "mla"):
         raise NotImplementedError(
             f"mixer {bd.mixer!r} is not ported to repro_torch (ROADMAP A8)")
     # the experts take silu or the tanh GELU for every kind; a dense FFN
@@ -46,12 +58,23 @@ def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
             f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A8)")
 
 
+def _require_attn(bd: BlockDef, cfg: ModelConfig, what: str) -> None:
+    """The paged paths take attention mixers alone (MLA is served through
+    the contiguous cache, as in the reference)."""
+    _require_ported(bd, cfg)
+    if bd.mixer != "attn":
+        raise NotImplementedError(
+            f"{what} requires attention mixers, got {bd.mixer!r}")
+
+
 def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
          device) -> dict:
     _require_ported(bd, cfg)
+    mixer = (mla.init(gen, _mla_cfg(cfg), cfg.quant, device,
+                      cfg.compute_dtype) if bd.mixer == "mla" else
+             attention.init(gen, _attn_cfg(cfg, bd), cfg.quant, device))
     params = {"norm_mixer": rmsnorm_init(cfg.d_model, device),
-              "mixer": attention.init(gen, _attn_cfg(cfg, bd), cfg.quant,
-                                      device),
+              "mixer": mixer,
               "norm_ffn": rmsnorm_init(cfg.d_model, device),
               "ffn": (moe.init(gen, _moe_cfg(cfg), cfg.quant, device,
                                cfg.compute_dtype) if bd.ffn == "moe" else
@@ -97,6 +120,10 @@ def require_trainable(bd: BlockDef, cfg: ModelConfig) -> None:
     """Training is ported for attention-only SwiGLU blocks; the rest
     waits for ROADMAP A9b."""
     _require_ported(bd, cfg)
+    if bd.mixer == "mla":
+        raise NotImplementedError(
+            "training MLA blocks (the latent projections' gradients) is "
+            "not ported (ROADMAP A9b)")
     if bd.ffn == "moe":
         raise NotImplementedError(
             "training MoE blocks (the router, the Switch loss and grads "
@@ -191,8 +218,11 @@ def _norm_in(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def init_cache(batch: int, max_seq: int, bd: BlockDef, cfg: ModelConfig,
                device) -> dict:
-    """The block's empty contiguous (ring-buffer) cache."""
+    """The block's empty contiguous cache: ring buffers of K/V for
+    attention, the latent cache for MLA."""
     _require_ported(bd, cfg)
+    if bd.mixer == "mla":
+        return mla.init_cache(batch, max_seq, _mla_cfg(cfg), device)
     return attention.init_cache(batch, max_seq, _attn_cfg(cfg, bd),
                                 cfg.quant, device)
 
@@ -205,9 +235,13 @@ def apply_decode(params, x: torch.Tensor, cache: dict, pos: int,
     in f32 (:func:`_decode_tail`)."""
     _require_ported(bd, cfg)
     h = _norm_in(params, x, cfg)
-    h = attention.apply_decode(params["mixer"], h, cache, pos,
-                               _attn_cfg(cfg, bd), cfg.quant,
-                               cfg.compute_dtype)
+    if bd.mixer == "mla":
+        h = mla.apply_decode(params["mixer"], h, cache, pos, _mla_cfg(cfg),
+                             cfg.compute_dtype)
+    else:
+        h = attention.apply_decode(params["mixer"], h, cache, pos,
+                                   _attn_cfg(cfg, bd), cfg.quant,
+                                   cfg.compute_dtype)
     return _tail(params, x, h, bd, cfg)
 
 
@@ -240,7 +274,16 @@ def _attn_prefill(params, x: torch.Tensor, positions: torch.Tensor,
 def prefill_block(params, x: torch.Tensor, positions: torch.Tensor,
                   bd: BlockDef, cfg: ModelConfig, max_seq: int) -> tuple:
     """Dense prefill of one block that also builds its contiguous cache:
-    x (B, S, d_model) at ``positions`` (B, S). Returns (x, cache)."""
+    x (B, S, d_model) at ``positions`` (B, S). Returns (x, cache). An MLA
+    block runs the mixer's full forward, then builds its latent cache
+    from the same normed input, as the reference's."""
+    if bd.mixer == "mla":
+        xn, mcfg = _norm_in(params, x, cfg), _mla_cfg(cfg)
+        h = mla.apply_train(params["mixer"], xn, positions, mcfg,
+                            cfg.compute_dtype)
+        cache = mla.prefill_cache(params["mixer"], xn, positions, mcfg,
+                                  max_seq, cfg.compute_dtype)
+        return _tail(params, x, h, bd, cfg), cache
     x, k, v = _attn_prefill(params, x, positions, bd, cfg)
     return x, attention.prefill_cache(positions, _attn_cfg(cfg, bd),
                                       cfg.quant, k, v, max_seq)
@@ -256,6 +299,7 @@ def prefill_block_tail(params, x: torch.Tensor, positions: torch.Tensor,
     The gather pulls whole pages, so a hit that ends mid-page leaves rows
     past ``pos0`` that key position -1 masks. Returns (x, the tail's
     cache at relative slots 0.., for installing into its pages)."""
+    _require_attn(bd, cfg, "prefix-cached prefill")
     acfg = _attn_cfg(cfg, bd)
     kp, vp = attention.gather_page_kv(pool, prefix_pages, acfg, cfg.quant,
                                       cfg.compute_dtype)
@@ -272,6 +316,10 @@ def prefill_block_tail(params, x: torch.Tensor, positions: torch.Tensor,
 def init_paged_cache(num_pages: int, page_size: int, bd: BlockDef,
                      cfg: ModelConfig, device, tiered: bool = False) -> dict:
     _require_ported(bd, cfg)
+    if bd.mixer == "mla":
+        raise NotImplementedError(
+            f"paged serving does not support mixer {bd.mixer!r} yet (MLA "
+            "latent caches need their own pool layout — see ROADMAP)")
     return attention.init_paged_pool(num_pages, page_size,
                                      _attn_cfg(cfg, bd), cfg.quant, device,
                                      tiered=tiered)
@@ -285,7 +333,7 @@ def apply_ragged_step(params, x: torch.Tensor, cache: dict,
     """One ragged engine step of one block: x (R, W, d_model); the
     block's page pool ``cache`` is updated in place (a tiered pool with
     its ``page_fmts`` / ``mixed_fmts``)."""
-    _require_ported(bd, cfg)
+    _require_attn(bd, cfg, "the ragged engine step")
     h = _norm_in(params, x, cfg)
     h = attention.apply_ragged(params["mixer"], h, cache, page_rows,
                                row_start, seq_lens, _attn_cfg(cfg, bd),
@@ -300,7 +348,7 @@ def apply_verify_paged(params, x: torch.Tensor, cache: dict,
                        mixed_fmts=None) -> torch.Tensor:
     """Multi-token paged verify of one block: x (B, Tq, d_model), pos (B,)
     each slot's first position; ``cache`` is updated in place."""
-    _require_ported(bd, cfg)
+    _require_attn(bd, cfg, "speculative verify")
     h = _norm_in(params, x, cfg)
     h = attention.apply_verify_paged(params["mixer"], h, cache, page_rows,
                                      pos, _attn_cfg(cfg, bd), cfg.quant,
@@ -325,7 +373,7 @@ def apply_prefill_chunked(params, x: torch.Tensor, cache: dict,
                           mixed_fmts=None) -> torch.Tensor:
     """One chunk of paged prefill of one block: x (B, C, d_model), pos
     (B,) chunk starts, num_valid (B,) real tokens in the chunk."""
-    _require_ported(bd, cfg)
+    _require_attn(bd, cfg, "chunked paged prefill")
     h = _norm_in(params, x, cfg)
     h = attention.apply_prefill_chunked(
         params["mixer"], h, cache, page_rows, pos, num_valid,

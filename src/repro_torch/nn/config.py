@@ -1,9 +1,10 @@
 """Model configuration schema (port of ``repro.nn.config``).
 
-Only the fields the ported paths read are carried over: attention
-blocks, gemma2's embedding scale, logit softcap and sandwich post-norms,
-the MoE channel mixer (mixtral's ``ffn="moe"`` blocks) and training's
-``remat``. MLA, recurrent and codebook fields wait for their modules
+Only the fields the ported paths read are carried over: attention and
+multi-head latent attention (MLA, deepseek-v2-lite) blocks, gemma2's
+embedding scale, logit softcap and sandwich post-norms, the MoE channel
+mixer (mixtral's and deepseek's ``ffn="moe"`` blocks) and training's
+``remat``. Recurrent and codebook fields wait for their modules
 (ROADMAP A8).
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch.core import QuantConfig
 class BlockDef:
     """One decoder block: a sequence mixer + a channel mixer."""
 
-    mixer: str  # only "attn" is ported
+    mixer: str  # "attn" | "mla" (the recurrent mixers are not ported)
     window: Optional[int] = None  # sliding window for attn mixers
     ffn: str = "dense"  # "dense" | "moe"
 
@@ -50,6 +51,11 @@ class ModelConfig:
     d_ff_expert: int = 0
     aux_loss_weight: float = 0.01
     moe_dispatch: str = "dense"  # "dense" | "sorted" (grouped products)
+    # mla
+    kv_lora: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
     tied_embeddings: bool = True
     scale_embeds_by_sqrt_dim: bool = False
     logit_softcap: Optional[float] = None

@@ -1,5 +1,5 @@
-"""LM assembly (port of ``repro.nn.model``): embedding -> attention
-blocks (dense or MoE channel mixers) -> final norm -> LM head. Serving
+"""LM assembly (port of ``repro.nn.model``): embedding -> attention or
+MLA blocks (dense or MoE channel mixers) -> final norm -> LM head. Serving
 runs one engine step at a time: the ragged step, its layer-fused
 megakernel form, or the split step's decode / verify and prefill chunk;
 and the contiguous-cache path of dense prefill (``prefill``,
@@ -34,8 +34,12 @@ packages' caches compare leaf by leaf::
   {"prologue{j}": block cache, "groups": (block cache of pattern block i
    with every leaf stacked over num_groups, ...), "epilogue{j}": ...}
 
-each block cache being ``attention.init_cache``'s dict; :func:`cache_layers`
-gives its per-layer views in execution order.
+each block cache being ``attention.init_cache``'s dict (an MLA block's:
+``mla.init_cache``'s latent cache); :func:`cache_layers` gives its
+per-layer views in execution order. A stack whose blocks differ (a
+prologue block ahead of the pattern, as deepseek-v2-lite's dense-FFN
+first layer before its MoE layers) keeps a list of per-layer params and
+no ``layer_stack``.
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from . import blocks, embedding, linear
+from . import blocks, embedding, linear, mla
 from . import common as C
 from .config import ModelConfig
 from .norms import rmsnorm_apply, rmsnorm_init
@@ -115,7 +119,9 @@ def params_from_jax(params_np, cfg: ModelConfig, device) -> dict:
     Linear weights are fake-quantized here exactly as the reference does
     at every use, so both packages compute with the same weights: an MoE
     block's ``experts`` stacks (E, d_in, d_out) expert by expert along
-    d_in; its router stays f32.
+    d_in; its router stays f32. An MLA mixer's ``wk_b`` and ``wv_b`` also
+    keep their plain bf16 cast (``mla.absorbed_weight``), which the
+    reference's absorbed decode multiplies.
     """
     def tensor(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
@@ -128,6 +134,11 @@ def params_from_jax(params_np, cfg: ModelConfig, device) -> dict:
                         for k, v in tree["experts"].items()},
                     **{k: convert(v) for k, v in tree.items()
                        if k not in ("router", "experts")}}
+        if "wkv_a" in tree:
+            return {k: (mla.absorbed_weight(tensor(v["w"]), cfg.quant,
+                                            cfg.compute_dtype)
+                        if k in ("wk_b", "wv_b") else convert(v))
+                    for k, v in tree.items()}
         if "w" in tree and not isinstance(tree["w"], dict):
             return {"w": linear.prepare_weight(tensor(tree["w"]), cfg.quant,
                                                cfg.compute_dtype)}

@@ -66,6 +66,9 @@ step's dispatches, with a log line. ``FixedSlotEngine``, the reference's
 golden engine, prefills a fixed batch densely and decodes it with one
 shared position over contiguous ring-buffer caches
 (``model.decode_step``); ``generate`` is the batch API of both engines.
+MLA models (deepseek-v2-lite) are served by ``FixedSlotEngine`` alone,
+over their latent caches: the continuous engine refuses them with the
+reference's message, as their caches have no page layout there.
 
 The page pools update in place: the reference's jitted steps donate the
 cache pytree and return a new one instead. The reference bounds its
@@ -215,6 +218,20 @@ def _unported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
+def _check_mixers(cfg: ModelConfig) -> None:
+    """The reference's refusal of mixers that have no paged cache there
+    (MLA: FixedSlotEngine serves it), checked first as there; then the
+    recurrent mixers, which wait for their modules."""
+    mixers = {bd.mixer for bd in cfg.all_blocks()} - {"attn"}
+    unpaged = mixers - {"rglru", "ssd"}
+    if unpaged:
+        raise NotImplementedError(
+            f"continuous batching does not support mixers {unpaged} "
+            "— use FixedSlotEngine (launch/serve.py --engine fixed)")
+    if mixers:
+        raise _unported(f"non-attention mixers {sorted(mixers)}", "A8")
+
+
 def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
     """The reference's ValueErrors for unknown settings, then a
     NotImplementedError naming the ROADMAP item of each unported path."""
@@ -246,11 +263,6 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
                    top_k=scfg.top_k).validate()
     if scfg.mesh_shape is not None:
         raise _unported("sharded serving (mesh_shape)", "A7")
-    # attention blocks serve with either channel mixer (dense or MoE);
-    # MLA and the recurrent mixers wait for their modules
-    mixers = sorted({bd.mixer for bd in cfg.all_blocks()} - {"attn"})
-    if mixers:
-        raise _unported(f"non-attention mixers {mixers}", "A8")
 
 
 def _validate_tiering(cfg: ModelConfig, scfg: ServeConfig,
@@ -350,6 +362,7 @@ class ContinuousBatchingEngine:
 
     def __init__(self, params, cfg: ModelConfig, serve_cfg: ServeConfig,
                  device="cuda"):
+        _check_mixers(cfg)
         self.tiered = bool(serve_cfg.tiered)
         self.tier = None
         if self.tiered:

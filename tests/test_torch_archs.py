@@ -111,8 +111,8 @@ def test_configs_equal_the_reference_field_for_field(arch):
 def test_registry_shapes_and_applicability():
     assert set(tconfigs.list_archs()) <= set(jconfigs.list_archs())
     assert tconfigs.list_archs() == sorted(
-        ["gemma2-2b", "gemma2-9b", "granite-8b", "mixtral-8x22b",
-         "phi4-mini-3.8b"])
+        ["deepseek-v2-lite-16b", "gemma2-2b", "gemma2-9b", "granite-8b",
+         "mixtral-8x22b", "phi4-mini-3.8b"])
     assert {k: dataclasses.astuple(v) for k, v in tconfigs.SHAPES.items()} \
         == {k: dataclasses.astuple(v) for k, v in jconfigs.SHAPES.items()}
     for arch in tconfigs.list_archs():
@@ -145,6 +145,8 @@ def test_megakernel_reject_reasons_equal_the_reference(arch):
                 assert want.startswith("non-uniform block pattern")
             elif arch == "mixtral-8x22b":
                 assert want.startswith("ffn kind 'moe'")
+            elif arch == "deepseek-v2-lite-16b":
+                assert want.startswith("non-attention mixers ['mla']")
             elif kv:
                 assert want is None
 

@@ -24,8 +24,8 @@ Bars, each measured here:
     (ragged and split; dense and sorted) equal the reference engine's, at
     a weight seed whose every pick leads its runner-up by more than
     GAP_TOL_ULPS (asserted); its megakernel mode falls back to the ragged
-    step with the reference's reason; MLA and the recurrent mixers still
-    raise, naming ROADMAP A8.
+    step with the reference's reason; the recurrent mixers still raise,
+    naming ROADMAP A8, and MLA gets the reference's refusal.
 """
 import numpy as np
 import pytest
@@ -35,6 +35,7 @@ jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
 from repro import configs as jconfigs  # noqa: E402
+from repro.nn import BlockDef as JBlockDef  # noqa: E402
 from repro.nn import blocks as jblocks  # noqa: E402
 from repro.nn import model as jmodel  # noqa: E402
 from repro.nn import moe as jmoe  # noqa: E402
@@ -283,7 +284,7 @@ def test_megakernel_falls_back_with_the_reference_reason(caplog):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("mixer", ["mla", "rglru", "ssd"])
+@pytest.mark.parametrize("mixer", ["rglru", "ssd"])
 def test_engine_still_raises_a8_for_other_mixers(mixer):
     _, _, tcfg, tparams = _pair(ENGINE_SEED)
     cfg = tcfg.replace(pattern=(BlockDef(mixer, ffn="moe"),))
@@ -293,6 +294,40 @@ def test_engine_still_raises_a8_for_other_mixers(mixer):
     with pytest.raises(NotImplementedError, match="A8"):
         tblocks.init(torch.Generator().manual_seed(0), cfg.pattern[0], cfg,
                      "cpu")
+
+
+@pytest.mark.parametrize("tiered", [False, True])
+def test_continuous_engine_refuses_mla_with_the_reference_message(tiered):
+    """MLA blocks (here behind mixtral's MoE) get the reference engine's
+    refusal, string for string, before any tiering check, as there."""
+    jcfg, jparams, tcfg, tparams = _pair(ENGINE_SEED)
+    bd = dict(ffn="moe")
+    jcfg = jcfg.replace(pattern=(JBlockDef("mla", **bd),))
+    cfg = tcfg.replace(pattern=(BlockDef("mla", **bd),))
+    with pytest.raises(NotImplementedError) as want:
+        JEngine(jparams, jcfg, JServeConfig(**SERVE, tiered=tiered))
+    with pytest.raises(NotImplementedError) as got:
+        ContinuousBatchingEngine(tparams, cfg,
+                                 ServeConfig(**SERVE, tiered=tiered),
+                                 device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "use FixedSlotEngine" in str(got.value)
+
+
+@pytest.mark.parametrize("what", ["paged cache", "training"])
+def test_paged_cache_and_training_refuse_mla(what):
+    """The paged pool raises with the reference's message (MLA has no page
+    layout); training MLA blocks raises naming ROADMAP A9b."""
+    _, _, tcfg, _ = _pair(ENGINE_SEED)
+    bd = BlockDef("mla", ffn="moe")
+    if what == "paged cache":
+        with pytest.raises(NotImplementedError,
+                           match="paged serving does not support mixer "
+                                 "'mla' yet"):
+            tblocks.init_paged_cache(8, 4, bd, tcfg, "cpu")
+    else:
+        with pytest.raises(NotImplementedError, match=r"MLA.*A9b"):
+            tblocks.require_trainable(bd, tcfg)
 
 
 def router_differences(d: int, experts: int = 8, top_k: int = 2) -> dict:
