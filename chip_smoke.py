@@ -237,7 +237,33 @@ code is not 0 and no result line is printed:
      deepseek-v2-lite on card and CPU: prefill logits and caches within
      the one-row bar, fixed-slot streams (dense and sorted) parting only
      at picks that lead by at most two bf16 ulps in both runs;
-  13. print the kernels line, then the device line last.
+  13. the recurrent mixers, after phase 12's state is freed, each served
+     from per-slot state rows through the launcher's continuous engine
+     with the ``ServeConfig`` defaults, which take the reference's
+     fallbacks (no prefix cache, monolithic admission, the split step;
+     asserted): (a) recurrentgemma-2b at its published widths and all 26
+     layers (18 RG-LRU, 8 local attention of window 2,048; random seeded
+     weights, ~6.3 GB): phase 4's eight prompt shapes and one request of
+     RGEMMA_LONG tokens, 64 new tokens each, #2's count reset just before
+     and read just after (exactly decode dispatches x 8, no other
+     kernel), ``state_bytes`` equal to the reference's shapes (737,280
+     bytes a slot), tokens/s, the median step, peak memory, one split
+     decode dispatch traced (launches, device busy against the host
+     clock); the first #2 call past the window (G 10, D 256, Tq 1) held
+     within OUT_TOL of its plain version (pool bytes and visits equal)
+     and timed beside it and its bound; (b) mamba2-780m at its published
+     widths and all 48 SSD layers (~1.6 GB; 77.4 MB of state a slot):
+     eight prompts of 128-256 tokens and one of MAMBA_LONG (two SSD
+     chunks), 64 new tokens, no kernel launched, the same figures; (c)
+     on inputs captured in (a) and (b): layer 0's prefill and first
+     decode step, card against the port's CPU path, outputs within
+     LAYER_ULPS bf16 ulps of the largest, the written state rows within
+     STATE_REL of theirs; (d) reduced recurrentgemma-2b and mamba2-780m
+     through the continuous and the fixed-slot engines on card and CPU,
+     streams parting only at picks that lead by at most two bf16 ulps in
+     both runs, and with a pool small enough to preempt recurrent
+     sequences, streams equal to the unpressured run's on each device;
+  14. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -6385,6 +6411,410 @@ def check_reduced_deepseek(card: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the recurrent mixers (recurrentgemma-2b, mamba2-780m)
+# ---------------------------------------------------------------------------
+
+RGEMMA = "recurrentgemma-2b"
+MAMBA = "mamba2-780m"
+#: 13a: phase 4's eight prompt shapes, 64 new tokens, then one request of
+#: RGEMMA_LONG tokens whose local layers decode past the 2,048 window
+RGEMMA_ARGV = ["--arch", RGEMMA, "--batch", "8", "--prompt-len", "236",
+               "--shared-prefix", "64", "--ragged", "--new-tokens", "64"]
+RGEMMA_LONG = 2600
+RGEMMA_WINDOW = 2048
+#: 13b: eight prompts of 128-256 tokens (one SSD chunk) and one of two
+MAMBA_ARGV = ["--arch", MAMBA, "--batch", "8", "--prompt-len", "256",
+              "--ragged", "--new-tokens", "64"]
+MAMBA_LONG = 512
+#: 13c: a block's bf16 output, card against the port's CPU path, within
+#: this many bf16 ulps of its largest value; the written f32 state rows
+#: within STATE_REL of their largest value: two bf16 ulps, as the states
+#: carry bf16 projections (a product element that rounds the other way
+#: on the card moves its channel by one), and the card's f32 products and
+#: transcendentals round otherwise than XLA:CPU's
+LAYER_ULPS = 2
+STATE_REL = 2.0 ** -7
+#: 13d: reduced runs
+RECURRENT_REDUCED = {RGEMMA: (5, 11, 3, 9, 14, 7), MAMBA: (8, 16, 5, 8, 3, 8)}
+RECURRENT_NEW = 12
+RECURRENT_PREEMPT_PAGES = 12
+
+
+def _state_bytes_a_slot(cfg) -> int:
+    """The reference's per-slot state: an RG-LRU layer's h (W) and conv
+    (conv_width - 1, W), an SSD layer's h (H, P, N) and conv
+    (conv_width - 1, conv_dim), f32."""
+    total = 0
+    for bd in cfg.all_blocks():
+        if bd.mixer == "rglru":
+            w = cfg.rnn_width or cfg.d_model
+            total += 4 * w * cfg.conv_width
+        elif bd.mixer == "ssd":
+            h = cfg.d_inner // cfg.headdim
+            conv_dim = cfg.d_inner + 2 * cfg.ngroups * cfg.d_state
+            total += 4 * (h * cfg.headdim * cfg.d_state
+                          + (cfg.conv_width - 1) * conv_dim)
+    return total
+
+
+class _FirstCalls:
+    """While entered, keeps copies of the inputs of the first ``n`` calls
+    of the block function ``module.name``, its parameters (the first
+    argument) left out."""
+
+    def __init__(self, module, name: str, n: int = 1):
+        self.module, self.name, self.n = module, name, n
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def clone(t):
+            if torch.is_tensor(t):
+                return t.detach().clone()
+            if isinstance(t, dict):
+                return {k: clone(v) for k, v in t.items()}
+            return t
+
+        def wrapped(*a, **kw):
+            if len(self.calls) < self.n:
+                self.calls.append(([clone(t) for t in a[1:]],
+                                   {k: clone(v) for k, v in kw.items()}))
+            return real(*a, **kw)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.real)
+
+
+def _recurrent_serve(argv, long_len: int, phase: str) -> dict:
+    """13a/13b: the arch of ``argv`` at full width through the launcher's
+    continuous engine with the ServeConfig defaults (the reference's
+    fallbacks pick monolithic admission and the split step): the eight
+    prompts of ``make_prompts`` and one request of ``long_len`` tokens, the
+    kernel counts reset just before and read just after; the first
+    block's prefill and first decode inputs captured for 13c. Returns the
+    figures and the engine."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.nn import attention, blocks
+    from repro_torch.serve import ServeEngine, kv_cache
+
+    t0 = time.perf_counter()
+    args = serve.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cfg, first = serve.build_engine(args)
+    params = first.params
+    resident_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    n_params = sum(t.numel() for t in _weights(params))
+    prompts = serve.make_prompts(cfg, args, sharing=2)
+    long = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, long_len).astype(np.int32)
+    ps = args.page_size
+    scfg = dataclasses.replace(first.serve_cfg, max_seq=kv_cache.pages_for(
+        long_len + args.new_tokens, ps) * ps)
+    del first
+    engine = ServeEngine(params, cfg, scfg, device="cuda")
+    stats0 = engine.cache_stats()
+    if (stats0["step_mode"] != "split" or engine.chunked
+            or engine.prefix_enabled):
+        raise AssertionError(f"{phase}: the engine did not take the "
+                             f"reference's fallbacks: {stats0['step_mode']}")
+    per_slot = _state_bytes_a_slot(cfg)
+    if stats0["state_bytes"] != per_slot * scfg.max_slots:
+        raise AssertionError(f"{phase}: state_bytes {stats0['state_bytes']}"
+                             f", expected {per_slot} x {scfg.max_slots}")
+    first_block = 0  # layer 0 is a recurrent block in both archs
+    prefill_cap = _FirstCalls(blocks, "prefill_block")
+    decode_cap = _FirstCalls(blocks, "apply_decode_paged")
+    engine.warmup()
+    leads = record_leads(engine)
+    counted = {n: getattr(kernels, n) for n in COUNTED8}
+    for k in counted.values():
+        k.launches = 0
+    verify_cap = _Capture(
+        attention, "mx_attention_verify_fused", lambda a, kw: True if int(
+            a[6].max()) >= RGEMMA_WINDOW + 2 * ps else None)
+    with prefill_cap, decode_cap, verify_cap:
+        report = serve.run_batch(engine, cfg, args, prompts + [long])
+    torch.cuda.synchronize()
+    n = {name: k.launches for name, k in counted.items()}
+    stats = engine.cache_stats()
+    _check_streams(report, cfg, args.new_tokens, phase)
+    attn_layers = sum(bd.mixer == "attn" for bd in cfg.all_blocks())
+    decode = stats["dispatches_decode"]
+    if attn_layers:
+        _only_launched(n, {"mx_attention_verify_fused": decode * attn_layers},
+                       f"{phase} {cfg.name}")
+    elif any(n.values()):
+        raise AssertionError(f"{phase}: kernels launched {n}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = {"cfg": cfg, "params": params, "engine": engine,
+           "report": report, "launches": n["mx_attention_verify_fused"],
+           "decode_dispatches": decode, "attn_layers": attn_layers,
+           "state_bytes": stats["state_bytes"], "per_slot": per_slot,
+           "peak_gb": peak_gb, "resident_gb": resident_gb,
+           "n_params": n_params, "leads": leads,
+           "prefill": prefill_cap.calls[first_block],
+           "decode": decode_cap.calls[first_block],
+           "verify_calls": verify_cap.calls}
+    mixers = Counter(bd.mixer for bd in cfg.all_blocks())
+    log(f"{phase} {cfg.name} at full width: {cfg.num_layers} layers "
+        f"({', '.join(f'{m} {c}' for m, c in mixers.items())}), "
+        f"{n_params:,} parameters, {resident_gb:.2f} GB resident; "
+        f"{len(prompts)} requests of {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens and one of {long_len}, "
+        f"{args.new_tokens} new each: {report['generated_tokens']} tokens "
+        f"in {report['seconds']:.2f} s = {report['tokens_per_s']:.1f} tok/s; "
+        f"{report['steps']} split steps, median {report['median_step_ms']:.2f}"
+        f" ms; dispatches {report['dispatches']}; #2 launches "
+        f"{res['launches']} = {decode} decode dispatches x {attn_layers} "
+        f"attention layers, no other kernel; state_bytes "
+        f"{stats['state_bytes']:,} ({per_slot:,} a slot x "
+        f"{scfg.max_slots}); peak memory {peak_gb:.2f} GB; smallest pick "
+        f"lead {min(min(v) for v in leads.values()):.2f} bf16 ulps; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def _recurrent_step_profile(run: dict, phase: str) -> dict:
+    """One traced split decode dispatch over every slot (the live run's
+    state rows copied back afterwards): launches and device busy time
+    against the host clock."""
+    from repro_torch.nn import model
+    from repro_torch.serve import kv_cache
+
+    engine, cfg = run["engine"], run["cfg"]
+    dev = engine.device
+    slots = engine.serve_cfg.max_slots
+    pps = engine.scheduler.pages_per_slot
+    table = torch.arange(slots * pps, dtype=torch.int32,
+                         device=dev).reshape(slots, pps) % engine.num_pages
+    pos = torch.full((slots,), 300, dtype=torch.int32, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (slots, 1), device=dev,
+                        generator=torch.Generator(dev).manual_seed(1))
+    saved = [{k: t.clone() for k, t in e.items()} for e in engine.cache
+             if not kv_cache.is_pool(e)]
+
+    def step():
+        return model.decode_step_paged(engine.params, engine.cfg_decode,
+                                       engine.cache, tok, table, pos)
+
+    try:
+        for _ in range(2):
+            classes, _, _ = profile_breakdown(
+                {f"{phase} {cfg.name} split decode dispatch": (
+                    step, f"{slots} slots, {cfg.num_layers} layers")},
+                ("verify_kernel",), label="#2 (verify_kernel)")
+            res = {"launches": sum(c for c, _ in classes.values()),
+                   "busy_ms": sum(ms for _, ms in classes.values()),
+                   "classes": classes}
+            if res["launches"] and res["busy_ms"]:
+                return res
+    finally:
+        states = (e for e in engine.cache if not kv_cache.is_pool(e))
+        for entry, old in zip(states, saved):
+            for k, t in entry.items():
+                t.copy_(old[k])
+    log(f"{phase}: the profiler recorded no device time (not measured)")
+    return {"launches": float("nan"), "busy_ms": float("nan")}
+
+
+def _verify_past_window(run: dict) -> dict:
+    """13a: the captured #2 call past the window (G 10, D 256, Tq 1) held
+    against its plain version on the same inputs, and timed beside it and
+    its bound."""
+    from repro_torch.kernels import mx_attention as mxa
+
+    if not run["verify_calls"]:
+        raise AssertionError("13a: no #2 call reached past the window")
+    a, kw = run["verify_calls"][True]
+    inp = dict(kind="verify", q=a[0], pools=a[1:5], table=a[5], lens=a[6],
+               tq=a[0].shape[2], kw=kw, fmt=kw["fmt_name"],
+               block=kw["block_size"], page_fmts=kw.get("page_fmts"))
+    b, kvh, tq, g, d = a[0].shape
+    if (kvh, tq, g, d) != (1, 1, 10, 256) or kw.get("window") != RGEMMA_WINDOW:
+        raise AssertionError(f"13a: #2 call q {tuple(a[0].shape)}, window "
+                             f"{kw.get('window')}")
+    err = check_paged_case(mxa, inp, "13a #2 past the window")
+    ms, plain_ms = time_paged(mxa, inp)
+    bound_ms, bound_by = paged_bound(inp)
+    log(f"13a #2 at recurrentgemma-2b's shape (q {tuple(a[0].shape)}: "
+        f"KV heads, Tq, G, D; lengths {a[6].tolist()}, window "
+        f"{kw['window']}): within {err:.3g} of its plain version (bar "
+        f"{OUT_TOL}), pool bytes and visits equal; {ms:.4f} ms (median of "
+        f"25), plain version {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the largest |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def recurrent_layer_checks(run: dict, phase: str) -> dict:
+    """13c: the first recurrent block of ``run`` on its captured prefill
+    input and its first decode input, on the card and on the port's CPU
+    path: the bf16 output within LAYER_ULPS of its largest value, the
+    written state rows within STATE_REL."""
+    from repro_torch.nn import blocks
+
+    cfg = run["cfg"]
+    bp = run["params"]["layers"][0]
+    bp_cpu = _to_device(bp, "cpu")
+    bd = cfg.all_blocks()[0]
+    (x, positions, pbd, pcfg, max_seq), _ = run["prefill"]
+    if not torch.equal(x, x):  # the capture holds the block's input
+        raise AssertionError(f"{phase}: NaN in the captured input")
+    if pbd != bd:
+        raise AssertionError(f"{phase}: captured block {pbd}")
+    out = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        got, gstate = blocks.prefill_block(bp, x, positions, bd, pcfg,
+                                           max_seq)
+        want, wstate = blocks.prefill_block(bp_cpu, x.cpu(), positions.cpu(),
+                                            bd, pcfg, max_seq)
+        out["prefill_ulps"] = _ulps_apart(got.to(cfg.compute_dtype).cpu(),
+                                          want.to(cfg.compute_dtype))
+        for k in ("h", "conv"):
+            out[f"prefill_{k}"] = _rel(gstate[k].cpu(), wstate[k])
+        da, dkw = run["decode"]
+        xd, state = da[0], da[1]
+        gs = {k: t.clone() for k, t in state.items()}
+        ws = {k: t.cpu() for k, t in state.items()}
+        gd = blocks.apply_decode_paged(bp, xd, gs, *da[2:], **dkw)
+        wd = blocks.apply_decode_paged(bp_cpu, xd.cpu(), ws,
+                                       *[t.cpu() if torch.is_tensor(t) else t
+                                         for t in da[2:]], **dkw)
+        out["decode_ulps"] = _ulps_apart(gd.to(cfg.compute_dtype).cpu(),
+                                         wd.to(cfg.compute_dtype))
+        for k in ("h", "conv"):
+            out[f"decode_{k}"] = _rel(gs[k].cpu(), ws[k])
+    bad = {k: v for k, v in out.items()
+           if v > (LAYER_ULPS if k.endswith("ulps") else STATE_REL)}
+    log(f"{phase} {cfg.name} layer 0 ({bd.mixer}) at full width, card vs "
+        f"the CPU path: prefill of {tuple(x.shape)} and one decode step of "
+        f"{tuple(xd.shape)}: outputs {out['prefill_ulps']:.2f} / "
+        f"{out['decode_ulps']:.2f} bf16 ulps of the largest (bar "
+        f"{LAYER_ULPS}); state rows h {out['prefill_h']:.3g} / "
+        f"{out['decode_h']:.3g}, conv {out['prefill_conv']:.3g} / "
+        f"{out['decode_conv']:.3g} of the largest (bar {STATE_REL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"{phase}: layer 0 card vs CPU {bad}")
+    return out
+
+
+def _reduced_recurrent(arch: str, device: str, params, prompts, **over):
+    from repro_torch.configs import get_reduced
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   FixedSlotEngine, ServeConfig)
+
+    cfg = get_reduced(arch)
+    cfg = cfg.replace(quant=cfg.quant.replace(quantize_acts=False,
+                                              quantize_kv_cache=True))
+    scfg = ServeConfig(max_seq=32, max_slots=4, page_size=4, **over)
+    eng = ContinuousBatchingEngine(params, cfg, scfg, device=device)
+    leads = record_leads(eng)
+    ids = [eng.submit(p, RECURRENT_NEW) for p in prompts]
+    res = eng.run()
+    streams = [res[i][len(p):] for i, p in zip(ids, prompts)]
+    s0 = min(len(p) for p in prompts[:4])
+    fixed = np.stack([p[:s0] for p in prompts[:4]])
+    fout, fleads = fixed_slot_leads(lambda: FixedSlotEngine(
+        params, cfg, ServeConfig(max_seq=32), device=device).generate(
+        fixed, RECURRENT_NEW))
+    return dict(cfg=cfg, streams=streams, leads=[leads[i] for i in ids],
+                fixed=fout[:, s0:], fixed_leads=fleads,
+                preemptions=eng.cache_stats()["preemptions"])
+
+
+def check_reduced_recurrent(card: str = "cuda") -> dict:
+    """13d: reduced recurrentgemma-2b and mamba2-780m through the
+    continuous and the fixed-slot engines on the card and on the CPU
+    (streams may part only where both picks lead by at most TIE_ULPS), and
+    with a pool that preempts recurrent sequences (streams equal to the
+    unpressured run's, on each device)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.nn import model
+
+    out = {}
+    for arch, lens in RECURRENT_REDUCED.items():
+        cfg = get_reduced(arch)
+        cfg = cfg.replace(quant=cfg.quant.replace(quantize_acts=False,
+                                                  quantize_kv_cache=True))
+        params = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(21)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+        runs = {}
+        for dev in ("cpu", card):
+            p = params if dev == "cpu" else _to_device(params, dev)
+            runs[dev] = _reduced_recurrent(arch, dev, p, prompts)
+            pressed = _reduced_recurrent(
+                arch, dev, p, prompts, num_pages=RECURRENT_PREEMPT_PAGES)
+            if not pressed["preemptions"]:
+                raise AssertionError(f"13d {arch}: no preemption")
+            _same_streams(pressed["streams"], runs[dev]["streams"],
+                          f"13d {arch} preempted vs unpressured on {dev}")
+        partings = {
+            "continuous": [_tie_parting(g, w, gl, wl) for g, w, gl, wl in zip(
+                runs[card]["streams"], runs["cpu"]["streams"],
+                runs[card]["leads"], runs["cpu"]["leads"])],
+            "fixed": [_tie_parting(g, w, gl, wl) for g, w, gl, wl in zip(
+                runs[card]["fixed"], runs["cpu"]["fixed"],
+                runs[card]["fixed_leads"], runs["cpu"]["fixed_leads"])]}
+        out[arch] = partings
+        log(f"13d reduced {arch}: {len(prompts)} requests through the "
+            f"continuous engine and their first four as one fixed-slot "
+            f"batch, {RECURRENT_NEW} new tokens, card vs CPU; partings "
+            f"(generated token, leads card / CPU in bf16 ulps; None: "
+            f"equal) {partings}; with {RECURRENT_PREEMPT_PAGES} pages "
+            f"({pressed['preemptions']} preemptions) the streams equal the "
+            "unpressured run's on both devices")
+    return out
+
+
+def serve_recurrent_full_width() -> dict:
+    """13a-13c (see the module docstring)."""
+    t0 = time.perf_counter()
+    rg = _recurrent_serve(RGEMMA_ARGV, RGEMMA_LONG, "13a")
+    rg["profile"] = _recurrent_step_profile(rg, "13a")
+    rg["g10"] = _verify_past_window(rg)
+    rg["layer"] = recurrent_layer_checks(rg, "13c")
+    log(f"13a one split decode dispatch: {rg['profile']['launches']:.0f} "
+        f"kernel launches, device busy {rg['profile']['busy_ms']:.2f} ms "
+        f"against a {rg['report']['median_step_ms']:.2f} ms median step")
+    keep = {k: rg[k] for k in ("launches", "g10", "layer", "profile",
+                               "decode_dispatches", "state_bytes")}
+    keep["tokens_per_s"] = rg["report"]["tokens_per_s"]
+    del rg
+    gc.collect()
+    torch.cuda.empty_cache()
+    mb = _recurrent_serve(MAMBA_ARGV, MAMBA_LONG, "13b")
+    mb["profile"] = _recurrent_step_profile(mb, "13b")
+    mb["layer"] = recurrent_layer_checks(mb, "13c")
+    log(f"13b one split decode dispatch: {mb['profile']['launches']:.0f} "
+        f"kernel launches, device busy {mb['profile']['busy_ms']:.2f} ms "
+        f"against a {mb['report']['median_step_ms']:.2f} ms median step; "
+        f"phase 13a-c {time.perf_counter() - t0:.1f} s")
+    del mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return keep
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the MX dot products at granite-8b widths
 # ---------------------------------------------------------------------------
 
@@ -7311,6 +7741,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_reduced_deepseek()
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = serve_recurrent_full_width()
+    check_reduced_recurrent()
+    verify["launches_recurrentgemma_2b"] = rec["launches"]
+    for k, v in rec["g10"].items():
+        verify[f"{k}_recurrentgemma_2b_g10"] = v
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     mx = check_mx_dot_products()
     quant = next(e for e in mx if e["name"] == "mx_quantize")
     quant["launches_train"] = train["launches"]

@@ -1,5 +1,6 @@
 """Architecture registry (port of ``repro.configs``): the configs ported
-so far: attention and MLA mixers with dense or MoE channel mixers.
+so far: attention, MLA and the recurrent mixers (RG-LRU, SSD) with
+dense, MoE or no channel mixers.
 ``get_config(name)`` is the full ModelConfig,
 ``get_reduced(name)`` a CPU-sized config of the same family;
 ``--arch <id>`` in the launcher resolves through :data:`ARCHS`."""
@@ -8,12 +9,14 @@ from __future__ import annotations
 import importlib
 
 ARCHS = {
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "gemma2-2b": "gemma2_2b",
     "gemma2-9b": "gemma2_9b",
     "phi4-mini-3.8b": "phi4_mini",
     "granite-8b": "granite_8b",
     "mixtral-8x22b": "mixtral_8x22b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 from .shapes import SHAPES, ShapeSpec, shape_applicable  # noqa: E402

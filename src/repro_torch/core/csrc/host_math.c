@@ -26,6 +26,23 @@
  *   xla_gelu_tanh: jax.nn.gelu(x, approximate=True) as XLA:CPU fuses it,
  *     x * ((tanh(fma(x * x * x, 0.044715, x) * sqrt(2 / pi)) + 1) * 0.5),
  *     with the reference's flush of subnormal operands and results.
+ *   xla_exp, xla_logistic, xla_softplus: XLA:CPU's f32 exp (the Cephes
+ *     polynomial of its CPU emitter: x clamped to [-87.8, 88.8], n =
+ *     floor(fma(x, log2(e), 0.5)) clamped to +-127, a = x - n ln2 in two
+ *     fused steps, a degree-5 polynomial in fused Horner form, times 2^n),
+ *     logistic(x) = 1 / (exp(-x) + 1), and jax.nn.softplus, max(x, 0) +
+ *     log1p(exp(-|x|)) (NaN passes through), whose log1p is XLA's: a
+ *     Cephes rational function below sqrt(2) - 1 in magnitude, else the
+ *     Cephes log of 1 + x; subnormal operands and results flushed, as
+ *     XLA:CPU runs. Each equals jax.jit of the function on 2^20 f32
+ *     samples.
+ *   xla_fma: fmaf(a, b, c) elementwise, the multiply-add XLA:CPU contracts
+ *     (the RG-LRU scan's a2 * b1 + b2, the causal convolutions' taps).
+ *   xla_dot: batched f32 products out[z, i, j] = sum_k a[z, i, k] b[z, k,
+ *     j] in one of the orders XLA:CPU's dot emitters sum a short
+ *     contraction (measured at K <= 64): term t goes to lane t % lanes, a
+ *     chain of fused multiply-adds in k order, and the lanes are summed in
+ *     pairs, ((l0 + l1) + (l2 + l3)) ... One lane is a single chain.
  *
  * Built with -O2 -fno-fast-math -ffp-contract=off (repro_torch.core.
  * host_math): no contraction of x * e and no vectorised libmvec calls;
@@ -33,6 +50,7 @@
  */
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
 void rope_cos_sin(const float* x, float* c, float* s, long n) {
@@ -76,6 +94,144 @@ void xla_gelu_tanh(const float* x, float* out, long n) {
     const float u = fmaf(v * v * v, 0.044715f, v) * 0.797884583f;
     out[i] = flush(v * ((tanh_one(u) + 1.0f) * 0.5f));
   }
+}
+
+static float from_bits(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+
+static uint32_t to_bits(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+
+static float exp_one(float x) {
+  if (x != x) return x;
+  x = x < -87.8f ? -87.8f : x;
+  x = x > 88.8f ? 88.8f : x;
+  float n = floorf(fmaf(x, 1.44269504088896341f, 0.5f));
+  n = n < -127.0f ? -127.0f : n;
+  n = n > 127.0f ? 127.0f : n;
+  float a = fmaf(-0.693359375f, n, x);
+  a = fmaf(2.12194440e-4f, n, a);
+  float z = fmaf(a, 1.9875691500e-4f, 1.3981999507e-3f);
+  z = fmaf(z, a, 8.3334519073e-3f);
+  z = fmaf(z, a, 4.1665795894e-2f);
+  z = fmaf(z, a, 1.6666665459e-1f);
+  z = fmaf(z, a, 5.0000001201e-1f);
+  z = fmaf(z, a * a, a);
+  z = 1.0f + z;
+  return z * from_bits((uint32_t)((int32_t)n + 127) << 23);
+}
+
+static float log_one(float x) {
+  if (x != x || x < 0.0f) return NAN;
+  if (x == 0.0f) return -INFINITY;
+  if (isinf(x)) return INFINITY;
+  float m = fmaxf(from_bits(0x00800000u), x);
+  const float e0 = (float)((int32_t)(to_bits(m) >> 23) - 0x7f);
+  m = from_bits((to_bits(m) & ~0x7f800000u) | to_bits(0.5f));
+  float e = 1.0f + e0;
+  const int small = m < 0.707106781186547524f;
+  const float keep = small ? m : 0.0f;
+  m = m - 1.0f;
+  e = e - (small ? 1.0f : 0.0f);
+  m = m + keep;
+  const float x2 = m * m;
+  const float x3 = x2 * m;
+  float y = fmaf(m, 7.0376836292e-2f, -1.1514610310e-1f);
+  float y1 = fmaf(m, -1.2420140846e-1f, 1.4249322787e-1f);
+  float y2 = fmaf(m, 2.0000714765e-1f, -2.4999993993e-1f);
+  y = fmaf(y, m, 1.1676998740e-1f);
+  y1 = fmaf(y1, m, -1.6668057665e-1f);
+  y2 = fmaf(y2, m, 3.3333331174e-1f);
+  y = fmaf(y, x3, y1);
+  y = fmaf(y, x3, y2);
+  y = fmaf(y, x3, -2.12194440e-4f * e);
+  m = fmaf(-0.5f, x2, m);
+  m = m + y;
+  return fmaf(0.693359375f, e, m);
+}
+
+static const float LOG1P_NUM[7] = {
+    4.5270000862445199635215e-5f, 4.9854102823193375972212e-1f,
+    6.5787325942061044846969e0f,  2.9911919328553073277375e1f,
+    6.0949667980987787057556e1f,  5.7112963590585538103336e1f,
+    2.0039553499201281259648e1f};
+static const float LOG1P_DEN[7] = {
+    1.0f, 1.5062909083469192043167e1f, 8.3047565967967209469434e1f,
+    2.2176239823732856465394e2f, 3.0909872225312059774938e2f,
+    2.1642788614495947685003e2f, 6.0118660497603843919306e1f};
+
+static float log1p_one(float x) {
+  if (fabsf(x) >= 0.41421356237309504880f) return log_one(x + 1.0f);
+  float num = 0.0f, den = 0.0f;
+  for (int i = 0; i < 7; ++i) {
+    num = fmaf(num, x, LOG1P_NUM[i]);
+    den = fmaf(den, x, LOG1P_DEN[i]);
+  }
+  const float x2 = x * x;
+  float s = (x * x2) * (num / den);
+  s = fmaf(-0.5f, x2, s);
+  return x + s;
+}
+
+void xla_exp(const float* x, float* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = flush(exp_one(flush(x[i])));
+}
+
+void xla_logistic(const float* x, float* out, long n) {
+  for (long i = 0; i < n; ++i)
+    out[i] = flush(1.0f / (flush(exp_one(-flush(x[i]))) + 1.0f));
+}
+
+void xla_softplus(const float* x, float* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    const float v = flush(x[i]);
+    out[i] = v != v ? v
+                    : flush(fmaxf(v, 0.0f) +
+                            log1p_one(flush(exp_one(-fabsf(v)))));
+  }
+}
+
+void xla_fma(const float* a, const float* b, const float* c, float* out,
+             long n) {
+  for (long i = 0; i < n; ++i) out[i] = fmaf(a[i], b[i], c[i]);
+}
+
+void xla_dot(const float* a, const float* b, float* out, long nb, long m,
+             long k, long n, long lanes) {
+  float* acc = malloc(sizeof(float) * (size_t)(lanes * n > 0 ? lanes * n : 1));
+  if (acc == NULL) return;
+  for (long z = 0; z < nb; ++z) {
+    const float* az = a + z * m * k;
+    const float* bz = b + z * k * n;
+    float* oz = out + z * m * n;
+    for (long i = 0; i < m; ++i) {
+      const float* ai = az + i * k;
+      for (long x = 0; x < lanes * n; ++x) acc[x] = 0.0f;
+      for (long t = 0; t < k; ++t) {
+        float* lane = acc + (t % lanes) * n;
+        const float* bt = bz + t * n;
+        if (t < lanes) {
+          for (long j = 0; j < n; ++j) lane[j] = ai[t] * bt[j];
+        } else {
+          for (long j = 0; j < n; ++j) lane[j] = fmaf(ai[t], bt[j], lane[j]);
+        }
+      }
+      for (long w = lanes; w > 1; w /= 2) {
+        for (long q = 0; q < w / 2; ++q) {
+          for (long j = 0; j < n; ++j)
+            acc[q * n + j] = acc[2 * q * n + j] + acc[(2 * q + 1) * n + j];
+        }
+      }
+      for (long j = 0; j < n; ++j) oz[i * n + j] = acc[j];
+    }
+  }
+  free(acc);
 }
 
 #if defined(__x86_64__) || defined(__i386__)

@@ -20,6 +20,15 @@ helper that cannot be built raises: nothing falls back to torch's math.
   ``jax.nn.gelu(approximate=True)`` as XLA fuses it around that tanh.
   :func:`softcap` applies the tanh to CPU tensors as the jitted reference
   does and keeps torch's on the card.
+* :func:`exp`, :func:`logistic`, :func:`softplus` -- XLA:CPU's f32 exp (a
+  Cephes polynomial of its own), ``jax.nn.sigmoid`` and
+  ``jax.nn.softplus`` around it (softplus through XLA's log1p), which the
+  recurrent mixers' gates and step sizes take; torch's exp parts from
+  XLA's in about one value of ten.
+* :func:`fma` and :func:`dot` -- the multiply-adds that XLA:CPU contracts
+  (the RG-LRU scan's combine, the causal convolutions' taps) and its f32
+  dot over a short contraction: one chain of fused multiply-adds in
+  contraction order (the RG-LRU gates, the SSD scan's products).
 """
 from __future__ import annotations
 
@@ -70,9 +79,14 @@ def _library() -> ctypes.CDLL:
     lib.rope_cos_sin.restype = None
     lib.xla_rsqrt.argtypes = [ptr, ptr, n, ctypes.c_float, ctypes.c_float]
     lib.xla_rsqrt.restype = ctypes.c_int
-    for fn in (lib.xla_tanh, lib.xla_gelu_tanh):
+    for fn in (lib.xla_tanh, lib.xla_gelu_tanh, lib.xla_exp,
+               lib.xla_logistic, lib.xla_softplus):
         fn.argtypes = [ptr, ptr, n]
         fn.restype = None
+    lib.xla_fma.argtypes = [ptr, ptr, ptr, ptr, n]
+    lib.xla_fma.restype = None
+    lib.xla_dot.argtypes = [ptr, ptr, ptr, n, n, n, n, n]
+    lib.xla_dot.restype = None
     _lib = lib
     return lib
 
@@ -135,7 +149,7 @@ def rsqrt(x: torch.Tensor, scale: float = 1.0,
 
 def _elementwise(fn, x: torch.Tensor) -> torch.Tensor:
     if x.requires_grad and torch.is_grad_enabled():
-        raise ValueError("the host tanh helpers have no gradient")
+        raise ValueError("the host elementwise helpers have no gradient")
     x = _host_f32(x)
     out = torch.empty_like(x)
     fn(x.data_ptr(), out.data_ptr(), x.numel())
@@ -168,3 +182,72 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
         return torch.tanh(x / cap) * cap
     recip = float(np.float32(1.0) / np.float32(cap))
     return tanh(x * recip) * cap
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``exp`` of every element of an f32 CPU tensor."""
+    return _elementwise(_library().xla_exp, x)
+
+
+def logistic(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA:CPU computes it: ``1 / (exp(-x) + 1)``
+    with :func:`exp`."""
+    return _elementwise(_library().xla_logistic, x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` as XLA:CPU computes it: ``max(x, 0) +
+    log1p(exp(-|x|))`` with :func:`exp` and XLA's log1p; NaN passes."""
+    return _elementwise(_library().xla_softplus, x)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once (``fmaf``), elementwise over f32 CPU
+    tensors broadcast to one shape."""
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    a, b, c = (_host_f32(t) for t in (a, b, c))
+    out = torch.empty_like(a)
+    _library().xla_fma(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                       out.data_ptr(), out.numel())
+    return out
+
+
+def dot(a: torch.Tensor, b: torch.Tensor, lanes: int = 1) -> torch.Tensor:
+    """The batched product ``a @ b`` of f32 CPU tensors (..., M, K) and
+    (..., K, N) (batch axes broadcast) in an order of XLA:CPU's f32 dot
+    over a short contraction: term k goes to lane ``k % lanes``, each lane
+    one chain of fused multiply-adds in k order, the lanes summed in
+    pairs. XLA picks the order by shape (:func:`dot_lanes`)."""
+    if lanes < 1 or lanes & (lanes - 1):
+        raise ValueError(f"lanes must be a power of two, got {lanes}")
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    if b.shape[-2] != k:
+        raise ValueError(f"dot of {tuple(a.shape)} and {tuple(b.shape)}")
+    a = _host_f32(a.expand(*batch, m, k))
+    b = _host_f32(b.expand(*batch, k, n))
+    out = torch.empty((*batch, m, n), dtype=torch.float32)
+    nb = out.numel() // max(m * n, 1)
+    if out.numel():
+        _library().xla_dot(a.data_ptr(), b.data_ptr(), out.data_ptr(), nb, m,
+                           k, n, lanes)
+    return out
+
+
+def dot_lanes(m: int, k: int, n: int) -> int:
+    """The lanes of XLA:CPU's f32 dot of an (M, K) by a (K, N) matrix
+    (batched or not), as measured against ``jax.jit(jnp.einsum)``: a
+    matrix-vector product (N 1, M >= 8) sums in 8 lanes; a product with
+    2 <= N <= 16 columns in 4 over K >= 8 (one chain where M is 1, or M
+    and N are both 2) and over K = 4 from M 8; every other shape with K
+    <= 3 or N >= 17 in one chain. Other shapes (K 5-7, or N 1 below M 8)
+    sum in orders not reproduced here: the result then lies within an
+    f32 ulp or so of XLA's."""
+    if k >= 8 and n == 1 and m >= 8:
+        return 8
+    if k >= 8 and 2 <= n <= 16 and m >= 2 and not (m == 2 and n == 2):
+        return 4
+    if k == 4 and 2 <= n <= 16 and m >= 8:
+        return 4
+    return 1

@@ -8,9 +8,10 @@
 gemma2-9b (local/global windows, softcaps, GeGLU, post-norms; the
 megakernel mode falls back to the ragged step), phi4-mini-3.8b,
 mixtral-8x22b (8 experts top-2 behind every layer, window 4096; the
-megakernel mode falls back to the ragged step) and deepseek-v2-lite-16b
+megakernel mode falls back to the ragged step), deepseek-v2-lite-16b
 (multi-head latent attention, a dense first layer, then 64 experts top-6
-and 2 shared), at full width or ``--reduced``:
+and 2 shared), recurrentgemma-2b (RG-LRU and local attention) and
+mamba2-780m (SSD), at full width or ``--reduced``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --reduced --batch 4 --prompt-len 20 --shared-prefix 8 --ragged \
@@ -35,6 +36,19 @@ continuous engine raises with the reference's message); all 27 layers
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-lite-16b --engine fixed --batch 8 \
       --prompt-len 256 --new-tokens 64
+
+recurrentgemma-2b and mamba2-780m keep per-slot state rows: as in the
+reference, the engine turns the prefix cache off, admits each prompt with
+one monolithic prefill and decodes through the split step (log lines
+say so), and ``--spec-decode`` or ``--tiered`` raise. mamba2's prefill
+takes a prompt of at most ``ssd_chunk`` (256) tokens or a multiple of it
+(the reference's assertion):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-2b --reduced --batch 4 --prompt-len 20 \
+      --ragged --new-tokens 12 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --batch 8 --prompt-len 256 --ragged --new-tokens 64
 
 Weights are random (a seeded ``torch.Generator``) and weight-only MX. By
 default they are MXFP8 with an MX fp8 KV cache, the reference launcher's

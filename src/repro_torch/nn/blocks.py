@@ -1,20 +1,26 @@
-"""Decoder block wiring (port of ``repro.nn.blocks``): attention and
-multi-head latent attention mixers.
+"""Decoder block wiring (port of ``repro.nn.blocks``): a sequence mixer
+(attention, multi-head latent attention, RG-LRU or SSD) and a channel
+mixer.
 
-Pre-norm residual blocks: attention (or MLA, ``nn.mla``) then a channel
-mixer, a dense gated FFN (SwiGLU or GeGLU) or a mixture of experts
-(``ffn="moe"``, ``nn.moe``), with gemma2's sandwich post-norms on the
-mixer's and the FFN's outputs where the config asks for them. MLA blocks
-run the contiguous-cache paths alone (dense prefill, one-token decode),
-as in the reference: the paged paths raise for them with its messages.
-The recurrent mixers and the no-gate ``gelu`` FFN (ROADMAP A8) raise
-here.
+Pre-norm residual blocks: the mixer (``nn.attention``, ``nn.mla``,
+``nn.rglru``, ``nn.ssd``) then a channel mixer, a dense gated FFN (SwiGLU
+or GeGLU), a mixture of experts (``ffn="moe"``, ``nn.moe``) or none
+(``ffn="none"``, mamba2's mixer-only blocks), with gemma2's sandwich
+post-norms where the config asks for them. MLA blocks run the
+contiguous-cache paths alone (dense prefill, one-token decode), as in the
+reference. The recurrent mixers keep a state instead of a K/V cache: the
+contiguous cache holds it per batch row, and the paged cache per decode
+slot (``init_paged_cache``), which the split step's decode updates in
+place. Every paged path that needs attention (speculative verify, chunked
+prefill, the ragged step, the prefix-cached prefill) raises for the other
+mixers with the reference's messages. The no-gate ``gelu`` FFN (ROADMAP
+A8d) raises here.
 """
 from __future__ import annotations
 
 import torch
 
-from . import attention, ffn, linear, mla, moe
+from . import attention, ffn, linear, mla, moe, rglru, ssd
 from .config import BlockDef, ModelConfig
 from .norms import rmsnorm_apply, rmsnorm_init
 
@@ -36,6 +42,22 @@ def _mla_cfg(cfg: ModelConfig) -> mla.MLAConfig:
         query_chunk=cfg.query_chunk)
 
 
+def _rglru_cfg(cfg: ModelConfig) -> rglru.RGLRUConfig:
+    return rglru.RGLRUConfig(d_model=cfg.d_model,
+                             width=cfg.rnn_width or cfg.d_model,
+                             conv_width=cfg.conv_width)
+
+
+def _ssd_cfg(cfg: ModelConfig) -> ssd.SSDConfig:
+    return ssd.SSDConfig(
+        d_model=cfg.d_model, d_inner=cfg.d_inner, headdim=cfg.headdim,
+        d_state=cfg.d_state, ngroups=cfg.ngroups, conv_width=cfg.conv_width,
+        chunk=cfg.ssd_chunk)
+
+
+RECURRENT = ("rglru", "ssd")
+
+
 def _moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
     return moe.MoEConfig(
         d_model=cfg.d_model, d_ff_expert=cfg.d_ff_expert,
@@ -47,42 +69,66 @@ def _moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
 
 
 def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
-    if bd.mixer not in ("attn", "mla"):
-        raise NotImplementedError(
-            f"mixer {bd.mixer!r} is not ported to repro_torch (ROADMAP A8)")
+    if bd.mixer not in ("attn", "mla", *RECURRENT):
+        raise ValueError(bd.mixer)
     # the experts take silu or the tanh GELU for every kind; a dense FFN
     # only the gated kinds
-    if not (bd.ffn == "moe" or (bd.ffn == "dense"
-                                and cfg.ffn_kind in ffn.ACTIVATIONS)):
+    if not (bd.ffn in ("moe", "none") or (
+            bd.ffn == "dense" and cfg.ffn_kind in ffn.ACTIVATIONS)):
         raise NotImplementedError(
-            f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A8)")
+            f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A8d)")
+
+
+#: why each paged path takes attention mixers alone, as the reference
+#: says it (MLA is served through the contiguous cache)
+_ATTN_ONLY = {
+    "speculative verify": "recurrent state cannot be rolled back "
+    "page-exactly — it has no position axis to truncate",
+    "chunked paged prefill": "recurrent state is per-slot, not paged — "
+    "chunk-at-a-time prefill has no pages to resume from",
+    "the ragged engine step": "the engine falls back to "
+    "step_mode='split'",
+    "prefix-cached prefill": "recurrent state would need per-node "
+    "snapshots",
+}
 
 
 def _require_attn(bd: BlockDef, cfg: ModelConfig, what: str) -> None:
-    """The paged paths take attention mixers alone (MLA is served through
-    the contiguous cache, as in the reference)."""
+    """The paged paths that take attention mixers alone raise for the
+    others with the reference's message."""
     _require_ported(bd, cfg)
     if bd.mixer != "attn":
         raise NotImplementedError(
-            f"{what} requires attention mixers, got {bd.mixer!r}")
+            f"{what} requires attention mixers, got {bd.mixer!r} "
+            f"({_ATTN_ONLY[what]})")
 
 
 def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
          device) -> dict:
+    """One block's random serving weights from ``gen``; a mixer-only
+    block (``ffn="none"``) has no ``norm_ffn`` and no ``ffn``."""
     _require_ported(bd, cfg)
-    mixer = (mla.init(gen, _mla_cfg(cfg), cfg.quant, device,
-                      cfg.compute_dtype) if bd.mixer == "mla" else
-             attention.init(gen, _attn_cfg(cfg, bd), cfg.quant, device))
+    if bd.mixer == "mla":
+        mixer = mla.init(gen, _mla_cfg(cfg), cfg.quant, device,
+                         cfg.compute_dtype)
+    elif bd.mixer == "rglru":
+        mixer = rglru.init(gen, _rglru_cfg(cfg), cfg.quant, device)
+    elif bd.mixer == "ssd":
+        mixer = ssd.init(gen, _ssd_cfg(cfg), cfg.quant, device)
+    else:
+        mixer = attention.init(gen, _attn_cfg(cfg, bd), cfg.quant, device)
     params = {"norm_mixer": rmsnorm_init(cfg.d_model, device),
-              "mixer": mixer,
-              "norm_ffn": rmsnorm_init(cfg.d_model, device),
-              "ffn": (moe.init(gen, _moe_cfg(cfg), cfg.quant, device,
-                               cfg.compute_dtype) if bd.ffn == "moe" else
-                      ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.quant,
-                               device))}
+              "mixer": mixer}
+    if bd.ffn != "none":
+        params["norm_ffn"] = rmsnorm_init(cfg.d_model, device)
+        params["ffn"] = (moe.init(gen, _moe_cfg(cfg), cfg.quant, device,
+                                  cfg.compute_dtype) if bd.ffn == "moe" else
+                         ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.quant,
+                                  device))
     if cfg.post_norms:
         params["postnorm_mixer"] = rmsnorm_init(cfg.d_model, device)
-        params["postnorm_ffn"] = rmsnorm_init(cfg.d_model, device)
+        if bd.ffn != "none":
+            params["postnorm_ffn"] = rmsnorm_init(cfg.d_model, device)
     return params
 
 
@@ -124,6 +170,10 @@ def require_trainable(bd: BlockDef, cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "training MLA blocks (the latent projections' gradients) is "
             "not ported (ROADMAP A9b)")
+    if bd.mixer in RECURRENT:
+        raise NotImplementedError(
+            f"training {bd.mixer!r} blocks (the recurrent scan's gradient) "
+            "is not ported (ROADMAP A9b)")
     if bd.ffn == "moe":
         raise NotImplementedError(
             "training MoE blocks (the router, the Switch loss and grads "
@@ -175,7 +225,8 @@ def _decode_tail(params, x: torch.Tensor, h: torch.Tensor, norm_eps: float,
                  post_norms: bool = False, moe_cfg=None) -> torch.Tensor:
     """Residual add + channel mixer (the dense FFN, or with ``moe_cfg``
     the mixture of experts, without the auxiliary loss that the reference's
-    serving paths drop), with
+    serving paths drop; with ``ffn_kind`` None, none: the block returns
+    the first sum), with
     ``post_norms`` gemma2's RMSNorms of the mixer's output ``h`` and of
     the FFN's output.
 
@@ -193,6 +244,8 @@ def _decode_tail(params, x: torch.Tensor, h: torch.Tensor, norm_eps: float,
     if post_norms:
         h = rmsnorm_apply(params["postnorm_mixer"], h, norm_eps)
     x_sum = x.to(dt).to(torch.float32) + h.to(torch.float32)
+    if ffn_kind is None:
+        return x_sum
     h = rmsnorm_apply(params["norm_ffn"], x_sum, norm_eps, dtype=dt)
     if moe_cfg is None:
         h = ffn.apply(params["ffn"], h, ffn_kind, dt)
@@ -206,7 +259,8 @@ def _decode_tail(params, x: torch.Tensor, h: torch.Tensor, norm_eps: float,
 def _tail(params, x: torch.Tensor, h: torch.Tensor, bd: BlockDef,
           cfg: ModelConfig) -> torch.Tensor:
     return _decode_tail(params, x, h, cfg.norm_eps, cfg.compute_dtype,
-                        cfg.ffn_kind, cfg.post_norms,
+                        None if bd.ffn == "none" else cfg.ffn_kind,
+                        cfg.post_norms,
                         _moe_cfg(cfg) if bd.ffn == "moe" else None)
 
 
@@ -216,28 +270,53 @@ def _norm_in(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                          dtype=cfg.compute_dtype)
 
 
+def _init_state(batch: int, bd: BlockDef, cfg: ModelConfig,
+                device) -> dict:
+    if bd.mixer == "rglru":
+        return rglru.init_state(batch, _rglru_cfg(cfg), device)
+    return ssd.init_state(batch, _ssd_cfg(cfg), device)
+
+
 def init_cache(batch: int, max_seq: int, bd: BlockDef, cfg: ModelConfig,
                device) -> dict:
     """The block's empty contiguous cache: ring buffers of K/V for
-    attention, the latent cache for MLA."""
+    attention, the latent cache for MLA, a recurrent mixer's zero state
+    of ``batch`` rows."""
     _require_ported(bd, cfg)
     if bd.mixer == "mla":
         return mla.init_cache(batch, max_seq, _mla_cfg(cfg), device)
+    if bd.mixer in RECURRENT:
+        return _init_state(batch, bd, cfg, device)
     return attention.init_cache(batch, max_seq, _attn_cfg(cfg, bd),
                                 cfg.quant, device)
 
 
+def _recurrent_decode(params, h: torch.Tensor, state: dict, bd: BlockDef,
+                      cfg: ModelConfig, scanned: bool) -> torch.Tensor:
+    """A recurrent mixer's one-token step over its normed input ``h``,
+    ``state`` updated in place (``scanned``: ``rglru.apply_decode``)."""
+    if bd.mixer == "rglru":
+        return rglru.apply_decode(params, h, state, _rglru_cfg(cfg),
+                                  cfg.compute_dtype, scanned=scanned)
+    return ssd.apply_decode(params, h, state, _ssd_cfg(cfg),
+                            cfg.compute_dtype)
+
+
 def apply_decode(params, x: torch.Tensor, cache: dict, pos: int,
-                 bd: BlockDef, cfg: ModelConfig) -> torch.Tensor:
+                 bd: BlockDef, cfg: ModelConfig,
+                 scanned: bool = True) -> torch.Tensor:
     """One-token decode of one block against its contiguous cache: x (B,
-    1, d_model) at the shared position ``pos``; ``cache`` in place. Like
-    every step function here it returns the block's output sum unrounded
-    in f32 (:func:`_decode_tail`)."""
+    1, d_model) at the shared position ``pos``; ``cache`` in place
+    (``scanned``: whether the reference scans this layer,
+    ``rglru.apply_decode``). Like every step function here it returns the
+    block's output sum unrounded in f32 (:func:`_decode_tail`)."""
     _require_ported(bd, cfg)
     h = _norm_in(params, x, cfg)
     if bd.mixer == "mla":
         h = mla.apply_decode(params["mixer"], h, cache, pos, _mla_cfg(cfg),
                              cfg.compute_dtype)
+    elif bd.mixer in RECURRENT:
+        h = _recurrent_decode(params["mixer"], h, cache, bd, cfg, scanned)
     else:
         h = attention.apply_decode(params["mixer"], h, cache, pos,
                                    _attn_cfg(cfg, bd), cfg.quant,
@@ -276,7 +355,18 @@ def prefill_block(params, x: torch.Tensor, positions: torch.Tensor,
     """Dense prefill of one block that also builds its contiguous cache:
     x (B, S, d_model) at ``positions`` (B, S). Returns (x, cache). An MLA
     block runs the mixer's full forward, then builds its latent cache
-    from the same normed input, as the reference's."""
+    from the same normed input, as the reference's; a recurrent block
+    runs its forward and returns its final state as the cache."""
+    if bd.mixer in RECURRENT:
+        _require_ported(bd, cfg)
+        xn, dt = _norm_in(params, x, cfg), cfg.compute_dtype
+        if bd.mixer == "rglru":
+            h, state = rglru.prefill(params["mixer"], xn, _rglru_cfg(cfg),
+                                     dt)
+        else:
+            h, state = ssd.prefill_state(params["mixer"], xn,
+                                         _ssd_cfg(cfg), dt)
+        return _tail(params, x, h, bd, cfg), state
     if bd.mixer == "mla":
         xn, mcfg = _norm_in(params, x, cfg), _mla_cfg(cfg)
         h = mla.apply_train(params["mixer"], xn, positions, mcfg,
@@ -314,15 +404,28 @@ def prefill_block_tail(params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def init_paged_cache(num_pages: int, page_size: int, bd: BlockDef,
-                     cfg: ModelConfig, device, tiered: bool = False) -> dict:
+                     cfg: ModelConfig, device, tiered: bool = False,
+                     num_slots: int = 0) -> dict:
+    """The block's paged serving cache: an attention layer's page pool
+    (shared page table); a recurrent mixer's state rows, one for each of
+    ``num_slots`` decode slots (its state is O(1) a sequence, so paging
+    buys nothing). Tiered pools and MLA raise with the reference's
+    messages."""
     _require_ported(bd, cfg)
-    if bd.mixer == "mla":
+    if bd.mixer == "attn":
+        return attention.init_paged_pool(num_pages, page_size,
+                                         _attn_cfg(cfg, bd), cfg.quant,
+                                         device, tiered=tiered)
+    if tiered:
         raise NotImplementedError(
-            f"paged serving does not support mixer {bd.mixer!r} yet (MLA "
-            "latent caches need their own pool layout — see ROADMAP)")
-    return attention.init_paged_pool(num_pages, page_size,
-                                     _attn_cfg(cfg, bd), cfg.quant, device,
-                                     tiered=tiered)
+            f"tiered KV pools require attention mixers, got {bd.mixer!r}")
+    if bd.mixer in RECURRENT:
+        if num_slots < 1:
+            raise ValueError("recurrent state rows need num_slots >= 1")
+        return _init_state(num_slots, bd, cfg, device)
+    raise NotImplementedError(
+        f"paged serving does not support mixer {bd.mixer!r} yet (MLA "
+        "latent caches need their own pool layout — see ROADMAP)")
 
 
 def apply_ragged_step(params, x: torch.Tensor, cache: dict,
@@ -360,8 +463,19 @@ def apply_verify_paged(params, x: torch.Tensor, cache: dict,
 def apply_decode_paged(params, x: torch.Tensor, cache: dict,
                        page_rows: torch.Tensor, pos: torch.Tensor,
                        bd: BlockDef, cfg: ModelConfig, page_fmts=None,
-                       mixed_fmts=None) -> torch.Tensor:
-    """Per-slot decode of one block: x (B, 1, d_model), pos (B,)."""
+                       mixed_fmts=None, scanned: bool = True) -> torch.Tensor:
+    """Per-slot decode of one block: x (B, 1, d_model), pos (B,); an
+    attention layer's pool or a recurrent mixer's state rows (every slot's
+    row steps, inactive ones too, as in the reference: admission
+    overwrites them) are updated in place (``scanned`` as in
+    :func:`apply_decode`)."""
+    _require_ported(bd, cfg)
+    if bd.mixer in RECURRENT:
+        h = _recurrent_decode(params["mixer"], _norm_in(params, x, cfg),
+                              cache, bd, cfg, scanned)
+        return _tail(params, x, h, bd, cfg)
+    if bd.mixer != "attn":
+        raise NotImplementedError(f"paged decode for mixer {bd.mixer!r}")
     return apply_verify_paged(params, x, cache, page_rows, pos, bd, cfg,
                               page_fmts=page_fmts, mixed_fmts=mixed_fmts)
 

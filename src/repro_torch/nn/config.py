@@ -1,11 +1,13 @@
 """Model configuration schema (port of ``repro.nn.config``).
 
 Only the fields the ported paths read are carried over: attention and
-multi-head latent attention (MLA, deepseek-v2-lite) blocks, gemma2's
-embedding scale, logit softcap and sandwich post-norms, the MoE channel
-mixer (mixtral's and deepseek's ``ffn="moe"`` blocks) and training's
-``remat``. Recurrent and codebook fields wait for their modules
-(ROADMAP A8).
+multi-head latent attention (MLA, deepseek-v2-lite) blocks, the recurrent
+mixers (RG-LRU for recurrentgemma, SSD for mamba2, with the reference's
+defaults), gemma2's embedding scale, logit softcap and sandwich
+post-norms, the MoE channel mixer (mixtral's and deepseek's
+``ffn="moe"`` blocks), mixer-only blocks (mamba2's ``ffn="none"``) and
+training's ``remat``. Codebook fields wait for their modules (ROADMAP
+A8d).
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ from repro_torch.core import QuantConfig
 class BlockDef:
     """One decoder block: a sequence mixer + a channel mixer."""
 
-    mixer: str  # "attn" | "mla" (the recurrent mixers are not ported)
+    mixer: str  # "attn" | "mla" | "rglru" | "ssd"
     window: Optional[int] = None  # sliding window for attn mixers
-    ffn: str = "dense"  # "dense" | "moe"
+    ffn: str = "dense"  # "dense" | "moe" | "none"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +58,15 @@ class ModelConfig:
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+    # rglru
+    rnn_width: int = 0
+    conv_width: int = 4
+    # ssd
+    d_inner: int = 0
+    headdim: int = 64
+    d_state: int = 128
+    ngroups: int = 1
+    ssd_chunk: int = 256
     tied_embeddings: bool = True
     scale_embeds_by_sqrt_dim: bool = False
     logit_softcap: Optional[float] = None

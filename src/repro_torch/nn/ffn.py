@@ -1,5 +1,5 @@
 """Gated feed-forward blocks (port of ``repro.nn.ffn``): SwiGLU and
-GeGLU. The no-gate ``gelu`` kind (musicgen) waits for ROADMAP A8."""
+GeGLU. The no-gate ``gelu`` kind (musicgen) waits for ROADMAP A8d."""
 from __future__ import annotations
 
 import torch

@@ -1,5 +1,6 @@
-"""LM assembly (port of ``repro.nn.model``): embedding -> attention or
-MLA blocks (dense or MoE channel mixers) -> final norm -> LM head. Serving
+"""LM assembly (port of ``repro.nn.model``): embedding -> attention, MLA
+or recurrent (RG-LRU, SSD) blocks (dense, MoE or no channel mixers) ->
+final norm -> LM head. Serving
 runs one engine step at a time: the ragged step, its layer-fused
 megakernel form, or the split step's decode / verify and prefill chunk;
 and the contiguous-cache path of dense prefill (``prefill``,
@@ -35,7 +36,8 @@ packages' caches compare leaf by leaf::
    with every leaf stacked over num_groups, ...), "epilogue{j}": ...}
 
 each block cache being ``attention.init_cache``'s dict (an MLA block's:
-``mla.init_cache``'s latent cache); :func:`cache_layers` gives its
+``mla.init_cache``'s latent cache; a recurrent block's: its state,
+``{"h", "conv"}``); :func:`cache_layers` gives its
 per-layer views in execution order. A stack whose blocks differ (a
 prologue block ahead of the pattern, as deepseek-v2-lite's dense-FFN
 first layer before its MoE layers) keeps a list of per-layer params and
@@ -121,12 +123,16 @@ def params_from_jax(params_np, cfg: ModelConfig, device) -> dict:
     block's ``experts`` stacks (E, d_in, d_out) expert by expert along
     d_in; its router stays f32. An MLA mixer's ``wk_b`` and ``wv_b`` also
     keep their plain bf16 cast (``mla.absorbed_weight``), which the
-    reference's absorbed decode multiplies.
+    reference's absorbed decode multiplies. The recurrent mixers' f32
+    leaves (convolutions, RG-LRU gates and ``lam``, SSD's ``A_log``,
+    ``dt_bias`` and ``D``) carry over as they are.
     """
     def tensor(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
     def convert(tree):
+        if not isinstance(tree, dict):
+            return tensor(tree)
         if "experts" in tree:
             return {"router": {"w": tensor(tree["router"]["w"])},
                     "experts": {k: torch.stack([linear.prepare_weight(
@@ -174,15 +180,18 @@ class PagedCache(list):
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device, tiered: bool = False) -> PagedCache:
-    """One page pool per layer (shared page table, like the reference):
-    MX, wide bf16 without an MX cache, or mixed-format with ``tiered``.
-    ``num_pages`` counts every physical page, a trash page the caller
-    reserves included. A uniform stack lays each leaf out as one (L, ...)
-    tensor and hands out its slices."""
+                     device, tiered: bool = False,
+                     num_slots: int = 0) -> PagedCache:
+    """One page pool per attention layer (shared page table, like the
+    reference): MX, wide bf16 without an MX cache, or mixed-format with
+    ``tiered``; one state row for each of ``num_slots`` decode slots per
+    recurrent layer. ``num_pages`` counts every physical page, a trash
+    page the caller reserves included. A uniform stack (mamba2's SSD
+    layers too) lays each leaf out as one (L, ...) tensor and hands out
+    its slices."""
     def pool(bd):
         return blocks.init_paged_cache(num_pages, page_size, bd, cfg, device,
-                                       tiered=tiered)
+                                       tiered=tiered, num_slots=num_slots)
 
     if not _uniform(cfg):
         return PagedCache([pool(bd) for _, _, bd in iter_layer_blocks(cfg)])
@@ -214,15 +223,25 @@ def reference_cache_leaves(cfg: ModelConfig, cache: list) -> list:
             for key in sorted(cache[layers[0]])]
 
 
-def layer_carries(cfg: ModelConfig) -> list:
+def layer_carries(cfg: ModelConfig, into_head: bool = False) -> list:
     """Per layer, in :func:`iter_layer_blocks` order: whether its output
-    sum reaches the next layer unrounded, in f32. The reference scans the
-    pattern, and XLA fuses the residual add that ends a block into the
-    next block's RMSNorm when both lie in one iteration of the scan
-    (``blocks._decode_tail``); across iterations the scan carries
-    bf16."""
-    return [g is not None and int(key[len("block"):]) < len(cfg.pattern) - 1
-            for key, g, _ in iter_layer_blocks(cfg)]
+    sum reaches the next layer unrounded, in f32. XLA fuses the residual
+    add that ends a block into the next block's RMSNorm where both lie in
+    one computation (``blocks._decode_tail``): inside one iteration of the
+    reference's scan over the pattern, and between consecutive unscanned
+    prologue or epilogue blocks (recurrentgemma's two trailing RG-LRU
+    layers); into and out of the scan it carries bf16. With ``into_head``
+    (the one-token decode steps, whose final norm reads every row) an
+    unscanned last layer also hands the final norm its unrounded sum."""
+    last = {"prologue": len(cfg.prologue) - 1, "block": len(cfg.pattern) - 1,
+            "epilogue": len(cfg.epilogue) - 1}
+    out = []
+    for key, _, _ in iter_layer_blocks(cfg):
+        kind = key.rstrip("0123456789")
+        out.append(int(key[len(kind):]) < last[kind])
+    if into_head and out and (cfg.epilogue or not cfg.num_groups):
+        out[-1] = True
+    return out
 
 
 def _carried(x: torch.Tensor, carry: bool, cfg: ModelConfig):
@@ -344,12 +363,12 @@ def decode_step(params, cfg: ModelConfig, cache: dict,
     against the contiguous ``cache`` (updated in place). Returns (logits
     (B, 1, V) f32, cache)."""
     x = _embed(params, cfg, tokens)
-    for bp, c, (_, _, bd), carry in zip(params["layers"],
+    for bp, c, (_, g, bd), carry in zip(params["layers"],
                                         cache_layers(cfg, cache),
                                         iter_layer_blocks(cfg),
-                                        layer_carries(cfg)):
-        x = _carried(blocks.apply_decode(bp, x, c, int(pos), bd, cfg),
-                     carry, cfg)
+                                        layer_carries(cfg, into_head=True)):
+        x = _carried(blocks.apply_decode(bp, x, c, int(pos), bd, cfg,
+                                         scanned=g is not None), carry, cfg)
     return _head(params, cfg, x), cache
 
 
@@ -358,13 +377,20 @@ def decode_step_paged(params, cfg: ModelConfig, cache: list,
                       pos: torch.Tensor, page_fmts=None,
                       mixed_fmts=None) -> torch.Tensor:
     """The split step's decode: tokens (B, 1), page_rows (B, P) (-1 =
-    unallocated), pos (B,) each slot's position. Every layer writes its
-    K/V on the host side (inactive slots' writes drop) and attends by
-    ``cfg.decode_kernel``; ``cache`` is updated in place. Returns logits
-    (B, 1, V) f32. A tiered cache passes ``page_fmts`` / ``mixed_fmts``
-    (fused only)."""
-    return verify_step_paged(params, cfg, cache, tokens, page_rows, pos,
-                             page_fmts=page_fmts, mixed_fmts=mixed_fmts)
+    unallocated), pos (B,) each slot's position. Every attention layer
+    writes its K/V on the host side (inactive slots' writes drop) and
+    attends by ``cfg.decode_kernel``; every recurrent layer steps its
+    state rows, slot b's row by row b of the batch; ``cache`` is updated
+    in place. Returns logits (B, 1, V) f32. A tiered cache passes
+    ``page_fmts`` / ``mixed_fmts`` (fused only)."""
+    x = _embed(params, cfg, tokens)
+    for bp, pool, (_, g, bd), carry in zip(
+            params["layers"], cache, iter_layer_blocks(cfg),
+            layer_carries(cfg, into_head=True)):
+        x = _carried(blocks.apply_decode_paged(
+            bp, x, pool, page_rows, pos, bd, cfg, page_fmts=page_fmts,
+            mixed_fmts=mixed_fmts, scanned=g is not None), carry, cfg)
+    return _head(params, cfg, x)
 
 
 def verify_step_paged(params, cfg: ModelConfig, cache: list,
@@ -502,7 +528,8 @@ def megakernel_step_paged(params, cfg: ModelConfig, cache: list,
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP A9b) unless every
-    block of ``cfg`` trains here: attention-only SwiGLU blocks."""
+    block of ``cfg`` trains here: attention-only SwiGLU blocks (MLA, MoE,
+    the recurrent mixers and gemma2's blocks wait for A9b)."""
     for _, _, bd in iter_layer_blocks(cfg):
         blocks.require_trainable(bd, cfg)
 

@@ -68,7 +68,16 @@ shared position over contiguous ring-buffer caches
 (``model.decode_step``); ``generate`` is the batch API of both engines.
 MLA models (deepseek-v2-lite) are served by ``FixedSlotEngine`` alone,
 over their latent caches: the continuous engine refuses them with the
-reference's message, as their caches have no page layout there.
+reference's message, as their caches have no page layout there. Models
+with recurrent mixers (RG-LRU, SSD: recurrentgemma-2b, mamba2-780m) are
+served by both engines: the paged cache keeps one state row a slot per
+recurrent layer, a monolithic prefill installs the prompt's final state
+into its slot's row, the split step's decode steps every row, and a
+swap-out carries the row with the sequence's pages into whatever slot
+readmits it. As in the reference, speculation raises for them, the
+prefix cache turns off, chunked prefill falls back to monolithic
+admission and the ragged and megakernel steps to the split dispatches,
+each with its log line, and tiering raises.
 
 The page pools update in place: the reference's jitted steps donate the
 cache pytree and return a new one instead. The reference bounds its
@@ -218,23 +227,27 @@ def _unported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
+#: the mixers the continuous engine serves: attention through page pools,
+#: the recurrent mixers through per-slot state rows
+_PAGED_MIXERS = {"attn", "rglru", "ssd"}
+
+
 def _check_mixers(cfg: ModelConfig) -> None:
     """The reference's refusal of mixers that have no paged cache there
-    (MLA: FixedSlotEngine serves it), checked first as there; then the
-    recurrent mixers, which wait for their modules."""
-    mixers = {bd.mixer for bd in cfg.all_blocks()} - {"attn"}
-    unpaged = mixers - {"rglru", "ssd"}
+    (MLA: FixedSlotEngine serves it), checked first as there."""
+    unpaged = {bd.mixer for bd in cfg.all_blocks()} - _PAGED_MIXERS
     if unpaged:
         raise NotImplementedError(
             f"continuous batching does not support mixers {unpaged} "
             "— use FixedSlotEngine (launch/serve.py --engine fixed)")
-    if mixers:
-        raise _unported(f"non-attention mixers {sorted(mixers)}", "A8")
 
 
-def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
+def _check_supported(cfg: ModelConfig, scfg: ServeConfig,
+                     chunked: bool) -> None:
     """The reference's ValueErrors for unknown settings, then a
-    NotImplementedError naming the ROADMAP item of each unported path."""
+    NotImplementedError naming the ROADMAP item of each unported path.
+    ``chunked``: whether the engine streams prompts in chunks (the chunk
+    settings are checked only then, as in the reference)."""
     if scfg.decode_kernel not in ("einsum", "fused"):
         raise ValueError(
             f"unknown decode_kernel {scfg.decode_kernel!r} "
@@ -243,7 +256,7 @@ def _check_supported(cfg: ModelConfig, scfg: ServeConfig) -> None:
         raise ValueError(
             f"unknown prefill_mode {scfg.prefill_mode!r} "
             "(expected 'chunked' or 'monolithic')")
-    if scfg.prefill_mode == "chunked":
+    if chunked:
         if scfg.prefill_chunk <= 0:
             raise ValueError("prefill_chunk must be >= 1")
         if scfg.prefill_token_budget is not None \
@@ -363,6 +376,18 @@ class ContinuousBatchingEngine:
     def __init__(self, params, cfg: ModelConfig, serve_cfg: ServeConfig,
                  device="cuda"):
         _check_mixers(cfg)
+        # the reference's fallbacks for recurrent mixers, whose state has
+        # no pages: speculation raises (checked before tiering, as there),
+        # the prefix cache turns off, chunked prefill falls back to
+        # monolithic admission, the ragged and megakernel steps to the
+        # split dispatches, and tiering raises (_validate_tiering)
+        recurrent = sorted({bd.mixer for bd in cfg.all_blocks()} - {"attn"})
+        if (serve_cfg.spec_decode and serve_cfg.num_draft_tokens >= 1
+                and recurrent):
+            raise NotImplementedError(
+                f"speculative decoding requires attention-only models, "
+                f"got mixers {recurrent}: recurrent state has no position "
+                "axis to roll rejected drafts back through")
         self.tiered = bool(serve_cfg.tiered)
         self.tier = None
         if self.tiered:
@@ -370,14 +395,25 @@ class ContinuousBatchingEngine:
             # ValueErrors rather than the unported paths' errors
             self.tier = serve_cfg.tier_policy or TierPolicy()
             _validate_tiering(cfg, serve_cfg, self.tier)
-        _check_supported(cfg, serve_cfg)
+        # prefix sharing needs K/V pages alone: a recurrent state is not a
+        # pure function of a paged token prefix
+        self.prefix_enabled = bool(serve_cfg.prefix_cache and not recurrent)
+        if serve_cfg.prefix_cache and not self.prefix_enabled:
+            log.info("prefix cache disabled: mixers %s are not "
+                     "attention-only", recurrent)
+        # chunked prefill streams prompts through the page pools, and a
+        # recurrent state has no chunk to resume from
+        self.chunked = serve_cfg.prefill_mode == "chunked" and not recurrent
+        if serve_cfg.prefill_mode == "chunked" and not self.chunked:
+            log.info("chunked prefill disabled: mixers %s are not "
+                     "attention-only; using monolithic prefill", recurrent)
+        _check_supported(cfg, serve_cfg, self.chunked)
         self.device = torch.device(device)
         C.exact_cuda_products(self.device)
         self.params = params
         self.cfg = cfg
         # monolithic prefill builds full-length (non-ring) caches: slot ==
         # absolute position, so a prompt's cache reshapes into its pages
-        self.chunked = serve_cfg.prefill_mode == "chunked"
         self.cfg_prefill = cfg.replace(serve_full_cache=True)
         # the split step's attention path, as the reference sets it
         self.cfg_decode = cfg.replace(decode_kernel=serve_cfg.decode_kernel)
@@ -399,11 +435,11 @@ class ContinuousBatchingEngine:
         self._submit_time: Dict[int, float] = {}
         self.admission_latencies: deque = deque(maxlen=4096)
         # the reference's ladder, decided here once from the configuration:
-        # the one-dispatch ragged step needs the fused kernel, an MX pool
-        # and chunked prefill (monolithic admission dispatches outside the
-        # step; attention-only mixers are the only ported ones); anything
-        # else runs the split dispatches
-        ragged_ok = (serve_cfg.decode_kernel == "fused"
+        # the one-dispatch ragged step needs attention-only mixers, the
+        # fused kernel, an MX pool and chunked prefill (monolithic
+        # admission dispatches outside the step); anything else runs the
+        # split dispatches
+        ragged_ok = (not recurrent and serve_cfg.decode_kernel == "fused"
                      and cfg.quant.enabled and cfg.quant.quantize_kv_cache
                      and self.chunked)
         # "megakernel" is the ragged step with its layer stack fused, so
@@ -465,14 +501,14 @@ class ContinuousBatchingEngine:
             page_size=ps, max_seq=serve_cfg.max_seq,
             prefill_chunk=serve_cfg.prefill_chunk if self.chunked else 0,
             prefill_max_chunks=serve_cfg.prefill_max_chunks,
-            prefix_cache=serve_cfg.prefix_cache,
+            prefix_cache=self.prefix_enabled,
             admit_window=serve_cfg.admit_window,
             max_deferrals=serve_cfg.max_deferrals,
             num_draft_tokens=self._k,
             unit_budget=unit_budget, track_allocs=self.tiered)
         self.cache = model.init_paged_cache(
             cfg, self.num_pages + self._trash_pages, ps, self.device,
-            tiered=self.tiered)
+            tiered=self.tiered, num_slots=serve_cfg.max_slots)
         if self.megakernel:
             # the kernel reads the (L, ...) stacks behind the per-layer
             # weights and pools; raises for params laid out otherwise
@@ -682,9 +718,11 @@ class ContinuousBatchingEngine:
                 snapshot, owned_idx, *_ = seq.req.swap
                 seq.req.swap = None
                 if owned_idx:
+                    # the state rows land in whatever slot it got now
                     kv_cache.restore_seq(
                         self.cache, snapshot,
-                        self._ids([seq.pages[i] for i in owned_idx]))
+                        self._ids([seq.pages[i] for i in owned_idx]),
+                        slot=seq.slot)
                     self._count_dispatch("write")
                 if self.tiered:
                     # the restored bytes keep their narrow encodings: put
@@ -734,9 +772,11 @@ class ContinuousBatchingEngine:
             ids = self._ids(seq.pages[n_full:])
             if valid:
                 kv_cache.install_prefill_offset(self.cache, layers, ids, ps,
-                                                valid, len(tail))
+                                                valid, len(tail),
+                                                slot=seq.slot)
             else:
-                kv_cache.install_prefill(self.cache, layers, ids, ps)
+                kv_cache.install_prefill(self.cache, layers, ids, ps,
+                                         slot=seq.slot)
         else:
             logits, pfcache = model.prefill(
                 self.params, self.cfg_prefill,
@@ -744,9 +784,10 @@ class ContinuousBatchingEngine:
                 max_seq=kv_cache.pages_for(len(prompt), ps) * ps)
             self._count_dispatch("prefill")
             self.prefill_tokens += len(prompt)
+            # pages for attention layers, the slot's rows for recurrent ones
             kv_cache.install_prefill(
                 self.cache, model.cache_layers(self.cfg_prefill, pfcache),
-                self._ids(seq.pages), ps)
+                self._ids(seq.pages), ps, slot=seq.slot)
         self._count_dispatch("write")
         sched.register_prefix(seq)
         tok = int(self._sample_rows(logits[:, -1], [(0, seq)])[0])
@@ -761,7 +802,9 @@ class ContinuousBatchingEngine:
         owned_idx, owned_ids = sched.exclusive_pages(victim)
         snapshot = None
         if owned_ids:
-            snapshot = kv_cache.extract_seq(self.cache, self._ids(owned_ids))
+            # its pages and its slot's state rows
+            snapshot = kv_cache.extract_seq(self.cache, self._ids(owned_ids),
+                                            slot=victim.slot)
             self._count_dispatch("write")
         if self.tiered:
             self._swap_fmts[victim.req.id] = [
@@ -1291,7 +1334,17 @@ class ContinuousBatchingEngine:
         dispatch, whose writes all drop (the prefill kernel writes at
         least one row, so it is not warmed). No live page, no page format
         or age and no engine counter changes; the kernel wrappers' launch
-        counts do."""
+        counts do. Recurrent state rows, which the decode steps in every
+        slot, are put back afterwards."""
+        states = [{k: t.clone() for k, t in entry.items()}
+                  for entry in self.cache if not kv_cache.is_pool(entry)]
+        self._warmup_dispatch()
+        for entry, saved in zip((e for e in self.cache
+                                 if not kv_cache.is_pool(e)), states):
+            for k, t in entry.items():
+                t.copy_(saved[k])
+
+    def _warmup_dispatch(self) -> None:
         rows = self.serve_cfg.max_slots
         dev = self.device
         zeros = torch.zeros((rows,), dtype=torch.int32, device=dev)
@@ -1468,6 +1521,7 @@ class ContinuousBatchingEngine:
         stats = {
             "allocated_bytes": kv_cache.cache_nbytes(self.cache),
             "page_bytes": page_bytes,
+            "state_bytes": kv_cache.state_nbytes(self.cache),
             "peak_pages": sched.peak_pages,
             "resident_tokens_at_peak": sched.resident_at_peak,
             "preemptions": sched.preemptions,

@@ -10,6 +10,14 @@ trash page). A tiered page's element format lives in the engine's
 per-page format ids, not in its bytes, so the page surgery below copies
 bytes only and the engine carries the ids beside them.
 
+The device cache interleaves two kinds of per-layer entries, told apart
+by their keys as in the reference: page pools (``{"k", "v"}`` wide or
+``{"k_elems", "k_scales", "v_elems", "v_scales"}`` MX, leaves (NP, PS,
+KVH, .)) and a recurrent mixer's state rows (``{"h", "conv"}``, leaves
+with the decode slot first). A request's prefill installs its pages and
+its state row; a swap snapshot carries both, the state row keyed by the
+slot it leaves and restored into the slot it gets.
+
 The device functions update the pools in place; the reference returns a
 new cache pytree and its engine donates the old one.
 """
@@ -171,6 +179,14 @@ class PagePool:
 # ---------------------------------------------------------------------------
 
 
+_POOL_KEYS = ({"k", "v"}, {"k_elems", "k_scales", "v_elems", "v_scales"})
+
+
+def is_pool(entry: dict) -> bool:
+    """Whether a layer's cache entry is a page pool (else state rows)."""
+    return set(entry) in _POOL_KEYS
+
+
 def _leaves(pool: dict):
     """(key, uint8 view) of every leaf: fp8 and E8M0 leaves are one byte
     per element, and byte views take every indexing op on every device."""
@@ -178,72 +194,112 @@ def _leaves(pool: dict):
 
 
 def _install_pairs(cache: list, prefill_layers: list) -> list:
-    """(destination, source) uint8 views of an install, a pair a layer and
-    leaf: (NP, PS, ...) pool leaves against (1, T, ...) prefill leaves.
+    """(destination, source) uint8 views of an install, a pair a pool layer
+    and leaf: (NP, PS, ...) pool leaves against (1, T, ...) prefill leaves.
     On a uniform stack the pools are slices of ``PagedCache.stack``, so
     the writes land in the tensors the stacked kernels read. ``kpos`` is
     not installed."""
     return [(leaf.view(torch.uint8), lay[key].view(torch.uint8))
-            for pool, lay in zip(cache, prefill_layers)
+            for pool, lay in zip(cache, prefill_layers) if is_pool(pool)
             for key, leaf in pool.items()]
 
 
+def _install_states(cache: list, prefill_layers: list, slot) -> None:
+    """Write a batch-1 prefill's recurrent states into row ``slot`` of
+    every state layer."""
+    for entry, lay in zip(cache, prefill_layers):
+        if is_pool(entry):
+            continue
+        if slot is None:
+            raise ValueError("installing recurrent state needs the slot")
+        for key, leaf in entry.items():
+            leaf[slot] = lay[key][0]
+
+
 def install_prefill(cache: list, prefill_layers: list,
-                    page_ids: torch.Tensor, page_size: int) -> None:
+                    page_ids: torch.Tensor, page_size: int,
+                    slot: Optional[int] = None) -> None:
     """Write one request's prefill cache into its pages ``page_ids`` in
-    place. ``prefill_layers`` are the per-layer views
-    (``model.cache_layers``) of a batch-1 cache of ``len(page_ids) *
-    page_size`` positions without a ring (``serve_full_cache``), so slot t
-    is row t % page_size of page t // page_size."""
+    place, and its recurrent states into decode slot ``slot``'s rows.
+    ``prefill_layers`` are the per-layer views (``model.cache_layers``) of
+    a batch-1 cache of ``len(page_ids) * page_size`` positions without a
+    ring (``serve_full_cache``), so slot t is row t % page_size of page t
+    // page_size."""
     n = page_ids.shape[0]
     for dst, src in _install_pairs(cache, prefill_layers):
         dst[page_ids] = src[0].reshape(n, page_size, *src.shape[2:])
+    _install_states(cache, prefill_layers, slot)
 
 
 def install_prefill_offset(cache: list, prefill_layers: list,
                            page_ids: torch.Tensor, page_size: int,
-                           offset: int, num_rows: int) -> None:
+                           offset: int, num_rows: int,
+                           slot: Optional[int] = None) -> None:
     """Write a prefill tail that starts mid-page (a partial-page prefix
     hit): row r of ``prefill_layers`` lands at row ``offset + r`` of the
     span of ``page_ids``, for the first ``num_rows`` rows (the rest is
     padding). The caller owns every written page alone (copy-on-write
-    first); the first page keeps its cached rows below ``offset``."""
+    first); the first page keeps its cached rows below ``offset``.
+    Recurrent states install whole into ``slot``'s rows, as in
+    :func:`install_prefill` (prefix sharing implies attention-only
+    models, so there are none on this path)."""
     rows = torch.arange(num_rows, device=page_ids.device) + offset
     pidx = page_ids[rows // page_size]
     sidx = rows % page_size
     for dst, src in _install_pairs(cache, prefill_layers):
         dst[pidx, sidx] = src[0, :num_rows]
+    _install_states(cache, prefill_layers, slot)
 
 
 def copy_page(cache: list, src: int, dst: int) -> None:
     """Copy physical page ``src`` -> ``dst`` in every layer's pool (the
-    device half of copy-on-write)."""
+    device half of copy-on-write); state rows are per-slot, never
+    shared."""
     for pool in cache:
-        for _, leaf in _leaves(pool):
-            leaf[dst] = leaf[src]
+        if is_pool(pool):
+            for _, leaf in _leaves(pool):
+                leaf[dst] = leaf[src]
 
 
-def extract_seq(cache: list, page_ids: torch.Tensor) -> list:
-    """Snapshot pages ``page_ids`` of every pool (swap-style preemption:
-    restoring the exact bytes keeps generation bit-identical)."""
-    return [{key: leaf.index_select(0, page_ids)
-             for key, leaf in _leaves(pool)} for pool in cache]
+def extract_seq(cache: list, page_ids: torch.Tensor,
+                slot: Optional[int] = None) -> list:
+    """Snapshot pages ``page_ids`` of every pool and, with ``slot``, that
+    slot's state rows (swap-style preemption: restoring the exact bytes
+    keeps generation bit-identical)."""
+    out = []
+    for entry in cache:
+        if is_pool(entry):
+            out.append({key: leaf.index_select(0, page_ids)
+                        for key, leaf in _leaves(entry)})
+        else:
+            out.append(None if slot is None else
+                       {key: leaf[slot].clone()
+                        for key, leaf in entry.items()})
+    return out
 
 
 def merge_snapshots(a, b: list) -> list:
     """Concatenate two :func:`extract_seq` snapshots along the page axis
-    (``a`` may be None: a swap that owned no page exclusively)."""
+    (``a`` may be None: a swap that owned no page exclusively). State rows
+    keep ``a``'s."""
     if a is None:
         return b
     return [{key: torch.cat([sa[key], sb[key]]) for key in sa}
+            if sa is not None and is_pool(sa) else sa
             for sa, sb in zip(a, b)]
 
 
-def restore_seq(cache: list, snapshot: list, page_ids: torch.Tensor) -> None:
-    """Inverse of :func:`extract_seq` onto freshly allocated pages."""
-    for pool, snap in zip(cache, snapshot):
-        for key, leaf in _leaves(pool):
-            leaf[page_ids] = snap[key]
+def restore_seq(cache: list, snapshot: list, page_ids: torch.Tensor,
+                slot: Optional[int] = None) -> None:
+    """Inverse of :func:`extract_seq` onto freshly allocated pages and,
+    with ``slot``, the slot's state rows."""
+    for entry, snap in zip(cache, snapshot):
+        if is_pool(entry):
+            for key, leaf in _leaves(entry):
+                leaf[page_ids] = snap[key]
+        elif slot is not None and snap is not None:
+            for key, leaf in entry.items():
+                leaf[slot] = snap[key]
 
 
 def snapshot_geometry(cache: list, layout: list, num_pages: int) -> list:
@@ -281,15 +337,24 @@ def restore_leaves(cache: list, layout: list, leaves: list,
                 data[j] if stacked else data)
 
 
-def cache_nbytes(cache: list) -> int:
-    """Total bytes of every pool leaf."""
+def _nbytes(entries) -> int:
     return sum(leaf.numel() * leaf.element_size()
-               for pool in cache for leaf in pool.values())
+               for entry in entries for leaf in entry.values())
+
+
+def cache_nbytes(cache: list) -> int:
+    """Total bytes of every cache leaf (pools and recurrent state)."""
+    return _nbytes(cache)
 
 
 def pool_page_nbytes(cache: list, num_pages: int) -> int:
-    """Bytes one page costs across all layers."""
-    total = cache_nbytes(cache)
+    """Bytes one page costs across all attention layers."""
+    total = _nbytes(e for e in cache if is_pool(e))
     if total % num_pages:
         raise ValueError("pool bytes not divisible by page count")
     return total // num_pages
+
+
+def state_nbytes(cache: list) -> int:
+    """Bytes of the per-slot recurrent state (not paged)."""
+    return _nbytes(e for e in cache if not is_pool(e))

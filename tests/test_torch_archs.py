@@ -112,7 +112,8 @@ def test_registry_shapes_and_applicability():
     assert set(tconfigs.list_archs()) <= set(jconfigs.list_archs())
     assert tconfigs.list_archs() == sorted(
         ["deepseek-v2-lite-16b", "gemma2-2b", "gemma2-9b", "granite-8b",
-         "mixtral-8x22b", "phi4-mini-3.8b"])
+         "mamba2-780m", "mixtral-8x22b", "phi4-mini-3.8b",
+         "recurrentgemma-2b"])
     assert {k: dataclasses.astuple(v) for k, v in tconfigs.SHAPES.items()} \
         == {k: dataclasses.astuple(v) for k, v in jconfigs.SHAPES.items()}
     for arch in tconfigs.list_archs():
@@ -122,7 +123,7 @@ def test_registry_shapes_and_applicability():
                 jconfigs.shape_applicable(jconfigs.get_config(arch),
                                           jconfigs.SHAPES[name])
     with pytest.raises(KeyError, match="unported"):
-        tconfigs.get_config("mamba2-780m")
+        tconfigs.get_config("musicgen-medium")
     nine = _fields(tconfigs.get_reduced("gemma2-9b"))
     two = _fields(tconfigs.get_reduced("gemma2-2b"))
     assert {k: v for k, v in nine.items() if k != "name"} == \
@@ -147,6 +148,10 @@ def test_megakernel_reject_reasons_equal_the_reference(arch):
                 assert want.startswith("ffn kind 'moe'")
             elif arch == "deepseek-v2-lite-16b":
                 assert want.startswith("non-attention mixers ['mla']")
+            elif arch == "recurrentgemma-2b":
+                assert want.startswith("non-attention mixers ['rglru']")
+            elif arch == "mamba2-780m":
+                assert want.startswith("non-attention mixers ['ssd']")
             elif kv:
                 assert want is None
 

@@ -24,8 +24,9 @@ Bars, each measured here:
     (ragged and split; dense and sorted) equal the reference engine's, at
     a weight seed whose every pick leads its runner-up by more than
     GAP_TOL_ULPS (asserted); its megakernel mode falls back to the ragged
-    step with the reference's reason; the recurrent mixers still raise,
-    naming ROADMAP A8, and MLA gets the reference's refusal.
+    step with the reference's reason; the recurrent mixers behind an MoE
+    FFN take the reference's fallbacks, the no-gate ``gelu`` FFN raises
+    naming ROADMAP A8d, and MLA gets the reference's refusal.
 """
 import numpy as np
 import pytest
@@ -286,14 +287,21 @@ def test_megakernel_falls_back_with_the_reference_reason(caplog):
 
 @pytest.mark.parametrize("mixer", ["rglru", "ssd"])
 def test_engine_still_raises_a8_for_other_mixers(mixer):
-    _, _, tcfg, tparams = _pair(ENGINE_SEED)
-    cfg = tcfg.replace(pattern=(BlockDef(mixer, ffn="moe"),))
-    with pytest.raises(NotImplementedError, match=r"A8\)"):
-        ContinuousBatchingEngine(tparams, cfg, ServeConfig(**SERVE),
-                                 device="cpu")
+    """The recurrent mixers are ported now (behind an MoE FFN too): the
+    engine takes them with the reference's fallbacks (the split step,
+    monolithic admission, no prefix cache), and what A8 still holds, the
+    no-gate ``gelu`` FFN (A8d), raises."""
+    _, _, tcfg, _ = _pair(ENGINE_SEED)
+    cfg = tcfg.replace(pattern=(BlockDef(mixer, ffn="moe"),), d_inner=128,
+                       headdim=16, d_state=32, ssd_chunk=8)
+    params = tmodel.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ContinuousBatchingEngine(params, cfg, ServeConfig(**SERVE),
+                                   device="cpu")
+    assert (eng.ragged, eng.chunked, eng.prefix_enabled) == (False,) * 3
     with pytest.raises(NotImplementedError, match="A8"):
-        tblocks.init(torch.Generator().manual_seed(0), cfg.pattern[0], cfg,
-                     "cpu")
+        tblocks.init(torch.Generator().manual_seed(0),
+                     BlockDef(mixer, ffn="dense"),
+                     cfg.replace(ffn_kind="gelu"), "cpu")
 
 
 @pytest.mark.parametrize("tiered", [False, True])
