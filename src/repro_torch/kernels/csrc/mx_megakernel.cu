@@ -19,9 +19,13 @@
 //   C   the wo product (rounded to bf16) and the residual sum, kept in f32
 //       for the FFN norm (XLA hands that norm the unrounded sum,
 //       nn/blocks.py::_decode_tail);
-//   D   RMSNorm of the f32 sum; the gate and up products, each rounded to
-//       bf16; flush(g * flush(sigmoid(g))) rounded to bf16, times up,
-//       rounded (nn/ffn.py);
+//   D   RMSNorm of the f32 sum, then the FFN of the reference's kind
+//       (nn/ffn.py): swiglu and geglu take the gate and up products, each
+//       rounded to bf16, then act(gate) rounded to bf16 times up, rounded
+//       (act flush(g * flush(sigmoid(g))) or the tanh GELU); gelu has no
+//       gate and takes the tanh GELU of the rounded up product, rounded.
+//       The tanh GELU is the plain version's formula on CUDA tensors op by
+//       op (flushed input, tanhf, no contraction, flushed result);
 //   E   the down product (rounded), added to the bf16-rounded sum: the new
 //       bf16 residual.
 // The final residual is the output; the final norm and the LM head stay
@@ -65,9 +69,10 @@
 // A gate/up
 // tile takes 64 columns of each: the even warpgroups sum the gate, the odd
 // ones the up projection of the same elements, and the rounded gate
-// crosses to its up thread through shared memory. Tiles are numbered with
-// the activation tile fastest, so the CTAs that share a weight column
-// block run together and read it once from L2.
+// crosses to its up thread through shared memory. Without a gate (gelu)
+// that phase is up's product alone, in plain 128-column tiles. Tiles are
+// numbered with the activation tile fastest, so the CTAs that share a
+// weight column block run together and read it once from L2.
 //
 // What bounds it on an H100 SXM (data-sheet peaks). Granite-8b at the main
 // path's shapes (R 8, W 64: 512 rows) does 8.04 TFLOP of products a step:
@@ -110,6 +115,9 @@ constexpr int kGemmSmem = kRing + kXch;
 constexpr int kMaxSmem = 232448;  // an H100 block's shared memory
 static_assert(kStage % 1024 == 0 && kHalf % 1024 == 0,
               "128-byte-swizzled boxes start on 1024-byte lines");
+
+// the FFN kinds (mx_megakernel.FFN_KINDS)
+constexpr int kSwiglu = 0, kGeglu = 1, kGelu = 2;
 
 __device__ __forceinline__ bf16 rnd(float x) { return __float2bfloat16_rn(x); }
 __device__ __forceinline__ float f32(bf16 x) { return __bfloat162float(x); }
@@ -356,6 +364,18 @@ __device__ __forceinline__ void rope_pair(bf16& x1, bf16& x2, float cosv,
   x2 = o2;
 }
 
+// jax.nn.gelu(g, approximate=True) as the plain version computes it on CUDA
+// tensors (nn/ffn.py::gelu_tanh): u = (g + g * g * g * 0.044715) *
+// 0.7978845834732056, then g * ((tanh(u) + 1) * 0.5), each op rounded to
+// f32 (no contraction), subnormal input and result flushed
+__device__ __forceinline__ float gelu_tanh(float g) {
+  g = mx::flush(g);
+  const float g3 = __fmul_rn(__fmul_rn(g, g), g);
+  const float u = __fmul_rn(__fadd_rn(g, __fmul_rn(g3, 0.044715f)),
+                            0.7978845834732056f);
+  return mx::flush(__fmul_rn(g, __fmul_rn(__fadd_rn(tanhf(u), 1.0f), 0.5f)));
+}
+
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
@@ -377,6 +397,7 @@ struct Args {
   bf16* hidden;  // (M, DFF)
   int* visits;   // (L, R, KVH)
   int rows_qkv, rows_wo, rows_gu, rows_down;  // the plan's tile rows
+  int ffn_kind;  // kSwiglu, kGeglu or kGelu
   size_t layer_elems, layer_scales;  // pool bytes of one layer
   mxcell::Cell cell;  // its pools are layer 0's
   int L, M, DM, HD, KVD, DFF, npos;
@@ -406,6 +427,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Phase out_proj = {{{&maps.a_wo, &maps.wo, &maps.wo, DM, HD, 0}}, 1,
                           M};
   const Phase gate_up = {{{&maps.a_gu, &maps.wg, &maps.wu, DFF, DM, 1}}, 1,
+                         M};
+  // the gelu kind's up product alone (no gate)
+  const Phase up_only = {{{&maps.a_gu, &maps.wu, &maps.wu, DFF, DM, 0}}, 1,
                          M};
   const Phase down = {{{&maps.a_down, &maps.wd, &maps.wd, DM, DFF, 0}}, 1,
                       M};
@@ -528,38 +552,59 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_proxy_async_global();
     grid.sync();
     // D2: gate (even warpgroups) and up (odd ones) of the same columns; the
-    // rounded gate crosses to its up thread through shared memory
-    run_phase(gate_up, a.rows_gu, l, smem, used,
-              [&](auto rt, const Unit&, const float* acc, int m0, int n0) {
-                constexpr int R = decltype(rt)::value;
-                const bool is_up = (threadIdx.x / 128) & 1;
-                uint32_t* xs = xch + (threadIdx.x / 256) * 128 +
-                               threadIdx.x % 128;
-                if (!is_up) {
-#pragma unroll
-                  for (int i = 0; i < R / 4; i += 2) {
-                    const __nv_bfloat162 g2 =
-                        __floats2bfloat162_rn(acc[i], acc[i + 1]);
-                    xs[(i / 2) * 256] = *reinterpret_cast<const uint32_t*>(&g2);
-                  }
-                }
-                __syncthreads();
-                if (is_up) {
+    // rounded gate crosses to its up thread through shared memory. Without
+    // a gate (gelu), each thread's up sums go through the GELU where they
+    // are.
+    if (a.ffn_kind == kGelu) {
+      run_phase(up_only, a.rows_gu, l, smem, used,
+                [&](auto rt, const Unit&, const float* acc, int m0, int n0) {
+                  constexpr int R = decltype(rt)::value;
 #pragma unroll
                   for (int i = 0; i < R / 4; ++i) {
-                    const int m = m0 + frag_m<R>(i), n = n0 + frag_n(i, true);
-                    if (m >= M || n >= DFF) continue;
-                    const uint32_t g2 = xs[(i / 2) * 256];
-                    const float gv = __uint_as_float(
-                        (i & 1) ? (g2 & 0xFFFF0000u) : (g2 << 16));
-                    const float act =
-                        mx::flush(gv * mx::flush(1.0f / (1.0f + expf(-gv))));
-                    const float u = f32(rnd(acc[i]));
-                    a.hidden[static_cast<size_t>(m) * DFF + n] =
-                        rnd(f32(rnd(act)) * u);
+                    const int m = m0 + frag_m<R>(i), n = n0 + frag_n(i, false);
+                    if (m < M && n < DFF) {
+                      a.hidden[static_cast<size_t>(m) * DFF + n] =
+                          rnd(gelu_tanh(f32(rnd(acc[i]))));
+                    }
                   }
-                }
-              });
+                });
+    } else {
+      run_phase(gate_up, a.rows_gu, l, smem, used,
+                [&](auto rt, const Unit&, const float* acc, int m0, int n0) {
+                  constexpr int R = decltype(rt)::value;
+                  const bool is_up = (threadIdx.x / 128) & 1;
+                  uint32_t* xs = xch + (threadIdx.x / 256) * 128 +
+                                 threadIdx.x % 128;
+                  if (!is_up) {
+#pragma unroll
+                    for (int i = 0; i < R / 4; i += 2) {
+                      const __nv_bfloat162 g2 =
+                          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+                      xs[(i / 2) * 256] =
+                          *reinterpret_cast<const uint32_t*>(&g2);
+                    }
+                  }
+                  __syncthreads();
+                  if (is_up) {
+#pragma unroll
+                    for (int i = 0; i < R / 4; ++i) {
+                      const int m = m0 + frag_m<R>(i), n = n0 + frag_n(i, true);
+                      if (m >= M || n >= DFF) continue;
+                      const uint32_t g2 = xs[(i / 2) * 256];
+                      const float gv = __uint_as_float(
+                          (i & 1) ? (g2 & 0xFFFF0000u) : (g2 << 16));
+                      const float act =
+                          a.ffn_kind == kGeglu
+                              ? gelu_tanh(gv)
+                              : mx::flush(gv *
+                                          mx::flush(1.0f / (1.0f + expf(-gv))));
+                      const float u = f32(rnd(acc[i]));
+                      a.hidden[static_cast<size_t>(m) * DFF + n] =
+                          rnd(f32(rnd(act)) * u);
+                    }
+                  }
+                });
+    }
     fence_proxy_async_global();
     grid.sync();
     // E: down and the new residual
@@ -662,7 +707,8 @@ extern "C" int mx_megakernel_grid(int T, int G, int D, int PS) {
 // walked in tiles of T tokens (T >= W: one tile). `grid` (for this T) and
 // each phase's tile rows (256 or 128) are mx_megakernel.megakernel_plan's. No
 // fallback: a shape the products or the walk cannot take, a grid that
-// cannot be co-resident, or any launch error, is returned.
+// cannot be co-resident, or any launch error, is returned. ffn_kind is
+// kSwiglu, kGeglu or kGelu; for kGelu `wg` is not read (pass `wu`).
 extern "C" int mx_megakernel_launch(
     const void* x0, void* xout, const void* norm_mixer, const void* norm_ffn,
     const void* wq, const void* wk, const void* wv, const void* wo,
@@ -673,15 +719,16 @@ extern "C" int mx_megakernel_launch(
     void* attn, void* x_sum, void* hidden, void* visits, int L, int R,
     int W, int H, int KVH, int D, int DM, int DFF, int NP, int PS, int ED,
     int P, int npos, int T, int block_size, int fmt, int window,
-    int mixed_mask, int mixed_default, int grid, int rows_qkv, int rows_wo,
-    int rows_gu, int rows_down, float eps, float softcap, float scale,
-    void* stream) {
+    int mixed_mask, int mixed_default, int grid, int ffn_kind, int rows_qkv,
+    int rows_wo, int rows_gu, int rows_down, float eps, float softcap,
+    float scale, void* stream) {
   const int M = R * W;
   auto rows_ok = [](int r) { return r == 256 || r == 128; };
   if (!mxwalk::pools_ok(page_fmts, D, ED, PS, block_size, fmt) ||
       R * KVH == 0 || L < 1 || T < 1 || H % KVH || D % 2 || DM % 8 ||
       DFF % 8 || (H * D) % 8 || (KVH * D) % 8 || !rows_ok(rows_qkv) ||
-      !rows_ok(rows_wo) || !rows_ok(rows_gu) || !rows_ok(rows_down)) {
+      !rows_ok(rows_wo) || !rows_ok(rows_gu) || !rows_ok(rows_down) ||
+      ffn_kind < kSwiglu || ffn_kind > kGelu) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   T = T < W ? T : W;
@@ -708,6 +755,7 @@ extern "C" int mx_megakernel_launch(
   a.rows_wo = rows_wo;
   a.rows_gu = rows_gu;
   a.rows_down = rows_down;
+  a.ffn_kind = ffn_kind;
   const size_t rows = static_cast<size_t>(NP) * PS * KVH;
   a.layer_elems = rows * ED;
   a.layer_scales = rows * (D / block_size);

@@ -3,8 +3,10 @@ launch (port of ``repro.kernels.mx_megakernel``).
 
 ``mx_megakernel_step`` runs every layer's RMSNorm, q/k/v products, RoPE,
 the ragged MX page walk with its in-kernel quantized K/V write, the
-output product, the residual add, the FFN RMSNorm, the gated MLP and the
-second residual add. On CUDA tensors it launches one persistent
+output product, the residual add, the FFN RMSNorm, the FFN of the
+reference's three kinds (``FFN_KINDS``: the gated SwiGLU and GeGLU, and
+the no-gate GELU of the up projection alone) and the second residual
+add. On CUDA tensors it launches one persistent
 cooperative kernel (``csrc/mx_megakernel.cu``) per call, with the
 products in its own body; on CPU tensors it runs
 :func:`mx_megakernel_step_plain`, the port's per-layer ragged step
@@ -21,7 +23,7 @@ them: fake-quantized once, bf16, ``(d_in, d_out)``)::
   wk, wv      (L, DM, KVH * D)
   wo          (L, H * D, DM)
   norm_ffn    (L, DM) f32
-  gate, up    (L, DM, DFF)
+  gate, up    (L, DM, DFF)               gate None for ffn_kind "gelu"
   down        (L, DFF, DM)
   pools       (L, NP, PS, KVH, ED / NB)  the ragged kernel's pools, stacked
   page_table  (R, P) int               shared by every layer; entries < 0
@@ -58,7 +60,7 @@ def _library():
     if _lib is None:
         lib = build.load("mx_megakernel")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mx_megakernel_launch.argtypes = ([ptr] * 30 + [i32] * 24
+        lib.mx_megakernel_launch.argtypes = ([ptr] * 30 + [i32] * 25
                                              + [f32] * 3 + [ptr])
         lib.mx_megakernel_launch.restype = i32
         lib.mx_megakernel_smem_bytes.argtypes = [i32] * 4
@@ -86,6 +88,12 @@ def grid_size(w: int, g: int, d: int, ps: int) -> int:
     return n
 
 
+#: the FFN kinds of the fused layer tail, by the kernel's id (its index):
+#: the activation is silu (swiglu) or the tanh GELU (geglu) of the gate
+#: times up, or the tanh GELU of up alone (gelu, no gate)
+FFN_KINDS = ("swiglu", "geglu", "gelu")
+GATED_KINDS = ("swiglu", "geglu")
+
 #: the kernel's product tile (csrc/mx_megakernel.cu): TILE_N weight
 #: columns (a gate/up pair: TILE_N / 2 of each) by one of TILE_ROWS
 #: activation rows, walked in TILE_K-deep TMA stages
@@ -93,6 +101,7 @@ TILE_N, TILE_K = 128, 64
 TILE_ROWS = (256, 128)
 #: the step's product phases, in the kernel's order: name -> (N, K) of
 #: each job; gate_up is a pair (its tile holds both products' columns)
+#: unless the FFN has no gate (then it is up's product alone)
 PHASES = ("qkv", "wo", "gate_up", "down")
 
 
@@ -101,7 +110,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def megakernel_plan(m: int, dm: int, hd: int, kvd: int, dff: int,
-                    ctas: int) -> dict:
+                    ctas: int, gated: bool = True) -> dict:
     """The product plan of one launch: for each phase its jobs' (N, K),
     the activation rows of its tiles and its tile count.
 
@@ -115,6 +124,11 @@ def megakernel_plan(m: int, dm: int, hd: int, kvd: int, dff: int,
     (96 tiles) and gate/up (448), and 128 for wo and down (128 tiles where
     256 rows leave 64). At 2,048 rows (four chunks a row, W 256) every
     phase takes 256: q/k/v 384 tiles, wo and down 256, gate/up 1,792.
+    Without a gate (``gated`` False: the ``gelu`` kind) the up product
+    alone takes the gate_up phase, TILE_N columns a tile; at musicgen's
+    widths (d_model 1,536, 24 heads of 64, d_ff 6,144) and 512 rows that
+    is 256 rows for q/k/v (72 tiles) and up (96), 128 for wo and down (48
+    each): one wave each on 132 SMs.
     Returns ``{name: {"jobs", "pair", "rows", "tm", "tiles"}}``.
     """
     if min(m, dm, hd, kvd, dff, ctas) < 1:
@@ -123,7 +137,7 @@ def megakernel_plan(m: int, dm: int, hd: int, kvd: int, dff: int,
             "gate_up": ((dff, dm),), "down": ((dm, dff),)}
     plan = {}
     for name in PHASES:
-        pair = name == "gate_up"
+        pair = gated and name == "gate_up"
         cols = TILE_N // 2 if pair else TILE_N
         best = None
         for rows in TILE_ROWS:
@@ -165,36 +179,37 @@ def _scratch_for(dev, m: int, dm: int, hd: int, kvd: int, dff: int):
 
 
 def _launch(x0, weights, norms, pools, table, start, lens, *, head_dim,
-            rope_theta, norm_eps, fmt_name, block_size, softcap, window,
-            page_fmts, mixed_fmts, num_positions):
+            rope_theta, norm_eps, ffn_kind, fmt_name, block_size, softcap,
+            window, page_fmts, mixed_fmts, num_positions):
     from repro_torch.nn.rotary import rope_table
 
     wq, wk, wv, wo, gate, up, down = weights
+    gated = gate is not None
+    named = [(n, t) for n, t in zip(("wq", "wk", "wv", "wo", "gate", "up",
+                                     "down"), weights) if t is not None]
     r, w, dm = x0.shape
     layers, npages, ps, kvh, ed = pools[0].shape
     d = head_dim
     h = wq.shape[-1] // d
-    dff = gate.shape[-1]
+    dff = up.shape[-1]
     lib = _library()
     tile = walk_tile(w, h // kvh, d, ps)
     smem = lib.mx_megakernel_smem_bytes(tile, h // kvh, d, ps)
     _launch_common(
-        [("x0", x0)] + list(zip(("wq", "wk", "wv", "wo", "gate", "up",
-                                 "down"), weights)),
+        [("x0", x0)] + named,
         list(zip(("ke", "ks", "ve", "vs"), pools))
         + [("norm_mixer", norms[0]), ("norm_ffn", norms[1]),
            ("page_fmts", page_fmts)], ps, d, block_size, smem,
         tile * h // kvh)
     if any(t.dtype != torch.float32 for t in norms):
         raise TypeError("the CUDA megakernel takes f32 norm scales")
-    for name, t in zip(("wq", "wk", "wv", "wo", "gate", "up", "down"),
-                       weights):
+    for name, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              "(TMA)")
     cos, sin = rope_table(d, float(rope_theta), num_positions, x0.device)
     grid = grid_size(w, h // kvh, d, ps)
-    plan = megakernel_plan(r * w, dm, h * d, kvh * d, dff, grid)
+    plan = megakernel_plan(r * w, dm, h * d, kvh * d, dff, grid, gated)
     scratch = _scratch_for(x0.device, r * w, dm, h * d, kvh * d, dff)
     out = torch.empty_like(x0)
     visits = torch.empty((layers, r, kvh, 1), dtype=torch.int32,
@@ -202,13 +217,16 @@ def _launch(x0, weights, norms, pools, table, start, lens, *, head_dim,
     mask, default = _mixed_ids(page_fmts, mixed_fmts)
     err = lib.mx_megakernel_launch(
         x0.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in norms),
-        *(t.data_ptr() for t in weights), *(t.data_ptr() for t in pools),
+        *(t.data_ptr() for t in (wq, wk, wv, wo, gate if gated else up, up,
+                                 down)),
+        *(t.data_ptr() for t in pools),
         table.data_ptr(), start.data_ptr(), lens.data_ptr(), _ptr(page_fmts),
         cos.data_ptr(), sin.data_ptr(), *(t.data_ptr() for t in scratch),
         visits.data_ptr(), layers, r, w, h, kvh, d, dm, dff, npages, ps, ed,
         table.shape[1], num_positions, tile, block_size,
         F.FORMAT_IDS[fmt_name],
         -1 if window is None else int(window), mask, default, grid,
+        FFN_KINDS.index(ffn_kind),
         *(plan[k]["rows"] for k in PHASES), float(norm_eps),
         float(softcap or 0.0), float(d ** -0.5),
         torch.cuda.current_stream(x0.device).cuda_stream)
@@ -221,13 +239,15 @@ def _launch(x0, weights, norms, pools, table, start, lens, *, head_dim,
 def mx_megakernel_step_plain(x0, weights, norms, pools, table, start, lens,
                              *, head_dim, rope_theta, norm_eps, fmt_name,
                              block_size, softcap, window, page_fmts,
-                             mixed_fmts, compute_dtype=torch.bfloat16):
+                             mixed_fmts, ffn_kind="swiglu",
+                             compute_dtype=torch.bfloat16):
     """The port's per-layer ragged step over the stacked weights and
     pools, layer by layer: ``nn.attention.apply_ragged`` (norm, the
     rounded products, RoPE from the host-made table) with
     :func:`mx_attention_ragged_fused_plain` as its attention, then the
-    residual add and FFN of ``nn.blocks._decode_tail``. Expects the rows
-    normalised by ``normalize_rows``. Returns ``(x, visits)``."""
+    residual add and the FFN of ``ffn_kind`` (``nn.ffn.apply``) of
+    ``nn.blocks._decode_tail``. Expects the rows normalised by
+    ``normalize_rows``. Returns ``(x, visits)``."""
     from repro_torch.core import QuantConfig
     from repro_torch.nn import attention, blocks
     from repro_torch.nn.norms import rmsnorm_apply
@@ -259,9 +279,10 @@ def mx_megakernel_step_plain(x0, weights, norms, pools, table, start, lens,
                                    mixed_fmts=mixed_fmts, attend=attend)
         tail = {"norm_ffn": {"scale": norms[1][li]},
                 "ffn": {name: {"w": t[li]} for name, t in
-                        (("gate", gate), ("up", up), ("down", down))}}
-        x = blocks._decode_tail(tail, x, h, norm_eps, compute_dtype).to(
-            compute_dtype)
+                        (("gate", gate), ("up", up), ("down", down))
+                        if t is not None}}
+        x = blocks._decode_tail(tail, x, h, norm_eps, compute_dtype,
+                                ffn_kind).to(compute_dtype)
     return x, torch.stack(visits)
 
 
@@ -277,6 +298,8 @@ def mx_megakernel_step(x0, norm_mixer, wq, wk, wv, wo, norm_ffn, gate, up,
     """The whole decoder stack over a ragged row batch in one launch (the
     module docstring has the layouts).
 
+    ``ffn_kind`` is one of ``FFN_KINDS``; ``gate`` is None for the no-gate
+    ``gelu`` kind and a tensor for the gated ones (else ``ValueError``).
     ``quant`` is the model's ``QuantConfig``: the weights arrive prepared,
     and activation quantization is refused, as in the reference. Tiered
     pools (``page_fmts``) write the window in ``fmt_name``, which must be
@@ -300,11 +323,13 @@ def mx_megakernel_step(x0, norm_mixer, wq, wk, wv, wo, norm_ffn, gate, up,
             "the megakernel runs weight-only or unquantized linears; "
             "activation quantization is rejected by the engine's fallback "
             "ladder")
-    if gate is None or ffn_kind != "swiglu":
-        raise NotImplementedError(
-            f"ffn_kind {ffn_kind!r}: the fused layer tail runs the gated "
-            "SwiGLU MLP only (the engine serves other kinds through the "
-            "per-layer ragged step)")
+    if ffn_kind not in FFN_KINDS:
+        raise ValueError(f"unknown ffn_kind {ffn_kind!r} (expected one of "
+                         f"{FFN_KINDS})")
+    if (gate is not None) != (ffn_kind in GATED_KINDS):
+        raise ValueError(
+            f"ffn_kind {ffn_kind!r} takes "
+            f"{'a gate' if ffn_kind in GATED_KINDS else 'no gate'}")
     r, w, dm = x0.shape
     layers, d = wq.shape[0], head_dim
     pools = (ke_pool, ks_pool, ve_pool, vs_pool)
@@ -319,7 +344,7 @@ def mx_megakernel_step(x0, norm_mixer, wq, wk, wv, wo, norm_ffn, gate, up,
             "gate": (dm, dff), "up": (dm, dff), "down": (dff, dm)}
     weights = (wq, wk, wv, wo, gate, up, down)
     for (name, shape), t in zip(want.items(), weights):
-        if t.shape != (layers, *shape):
+        if t is not None and t.shape != (layers, *shape):
             raise ValueError(f"{name} must be {(layers, *shape)}, got "
                              f"{tuple(t.shape)}")
     if hd % d or (hd // d) % kvh:
@@ -334,9 +359,9 @@ def mx_megakernel_step(x0, norm_mixer, wq, wk, wv, wo, norm_ffn, gate, up,
     table, start, lens = normalize_rows(page_table, row_start, seq_lens,
                                         ke_pool.shape[1], w)
     kw = dict(head_dim=d, rope_theta=rope_theta, norm_eps=norm_eps,
-              fmt_name=F.get_format(fmt_name).name, block_size=block_size,
-              softcap=softcap, window=window, page_fmts=page_fmts,
-              mixed_fmts=mixed_fmts)
+              ffn_kind=ffn_kind, fmt_name=F.get_format(fmt_name).name,
+              block_size=block_size, softcap=softcap, window=window,
+              page_fmts=page_fmts, mixed_fmts=mixed_fmts)
     if dev.type == "cuda":
         if compute_dtype != torch.bfloat16:
             raise TypeError("the CUDA megakernel computes in bf16")

@@ -10,8 +10,10 @@ megakernel mode falls back to the ragged step), phi4-mini-3.8b,
 mixtral-8x22b (8 experts top-2 behind every layer, window 4096; the
 megakernel mode falls back to the ragged step), deepseek-v2-lite-16b
 (multi-head latent attention, a dense first layer, then 64 experts top-6
-and 2 shared), recurrentgemma-2b (RG-LRU and local attention) and
-mamba2-780m (SSD), at full width or ``--reduced``:
+and 2 shared), recurrentgemma-2b (RG-LRU and local attention),
+mamba2-780m (SSD), llava-next-mistral-7b (its mistral-7b backbone served
+from token ids, as in the reference) and musicgen-medium, at full width
+or ``--reduced``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --reduced --batch 4 --prompt-len 20 --shared-prefix 8 --ragged \
@@ -49,6 +51,13 @@ takes a prompt of at most ``ssd_chunk`` (256) tokens or a multiple of it
       --ragged --new-tokens 12 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --batch 8 --prompt-len 256 --ragged --new-tokens 64
+
+musicgen-medium's codebook heads are served by no engine, as in the
+reference: the continuous engine raises ``NotImplementedError``
+("continuous batching with codebook heads is a follow-on") and
+``--engine fixed`` ``ValueError`` (its token prompts are not codebook
+frames); ``model.prefill`` and ``model.decode_step`` run it
+(``chip_smoke.py`` phase 14b).
 
 Weights are random (a seeded ``torch.Generator``) and weight-only MX. By
 default they are MXFP8 with an MX fp8 KV cache, the reference launcher's

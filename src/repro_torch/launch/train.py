@@ -19,8 +19,10 @@ other's), SIGTERM/SIGINT save at the next step boundary, a straggler
 watchdog, a checkpoint every ``--ckpt-every`` steps and at the end, all
 under ``fault.run_with_restarts``.
 
-Attention-only SwiGLU archs train here (granite-8b, phi4-mini-3.8b);
-gemma2 and MoE archs, ``--multihost`` and ``--model-parallel`` > 1 raise
+Attention-only SwiGLU archs train here (granite-8b, phi4-mini-3.8b,
+llava-next-mistral-7b from token batches, as the reference's launcher);
+gemma2, musicgen (its GELU FFN), the MoE, MLA and recurrent archs,
+``--multihost`` and ``--model-parallel`` > 1 raise
 ``NotImplementedError`` (ROADMAP A9b, A7). ``--device`` defaults to
 ``cuda`` and raises without a card.
 """
@@ -119,7 +121,7 @@ def run(args) -> dict:
     dev = _device(args.device)
     ds = SyntheticLMDataset(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
-        global_batch=args.global_batch))
+        global_batch=args.global_batch, num_codebooks=cfg.num_codebooks))
     guard = fault.PreemptionGuard()
     watchdog = fault.StragglerWatchdog()
     report = {"steps": [], "loss": [], "grad_norm": [], "lr": [],

@@ -3,18 +3,17 @@
 mixer.
 
 Pre-norm residual blocks: the mixer (``nn.attention``, ``nn.mla``,
-``nn.rglru``, ``nn.ssd``) then a channel mixer, a dense gated FFN (SwiGLU
-or GeGLU), a mixture of experts (``ffn="moe"``, ``nn.moe``) or none
-(``ffn="none"``, mamba2's mixer-only blocks), with gemma2's sandwich
-post-norms where the config asks for them. MLA blocks run the
+``nn.rglru``, ``nn.ssd``) then a channel mixer, a dense FFN (SwiGLU,
+GeGLU or musicgen's no-gate GELU), a mixture of experts (``ffn="moe"``,
+``nn.moe``) or none (``ffn="none"``, mamba2's mixer-only blocks), with
+gemma2's sandwich post-norms where the config asks for them. MLA blocks run the
 contiguous-cache paths alone (dense prefill, one-token decode), as in the
 reference. The recurrent mixers keep a state instead of a K/V cache: the
 contiguous cache holds it per batch row, and the paged cache per decode
 slot (``init_paged_cache``), which the split step's decode updates in
 place. Every paged path that needs attention (speculative verify, chunked
 prefill, the ragged step, the prefix-cached prefill) raises for the other
-mixers with the reference's messages. The no-gate ``gelu`` FFN (ROADMAP
-A8d) raises here.
+mixers with the reference's messages.
 """
 from __future__ import annotations
 
@@ -71,12 +70,11 @@ def _moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
 def _require_ported(bd: BlockDef, cfg: ModelConfig) -> None:
     if bd.mixer not in ("attn", "mla", *RECURRENT):
         raise ValueError(bd.mixer)
-    # the experts take silu or the tanh GELU for every kind; a dense FFN
-    # only the gated kinds
-    if not (bd.ffn in ("moe", "none") or (
-            bd.ffn == "dense" and cfg.ffn_kind in ffn.ACTIVATIONS)):
-        raise NotImplementedError(
-            f"ffn {bd.ffn!r}/{cfg.ffn_kind!r} is not ported (ROADMAP A8d)")
+    if bd.ffn not in ("dense", "moe", "none"):
+        raise ValueError(f"unknown channel mixer {bd.ffn!r}")
+    if bd.ffn != "none" and cfg.ffn_kind not in ffn.ACTIVATIONS:
+        raise ValueError(f"unknown ffn kind {cfg.ffn_kind!r} (expected one "
+                         f"of {sorted(ffn.ACTIVATIONS)})")
 
 
 #: why each paged path takes attention mixers alone, as the reference
@@ -124,7 +122,7 @@ def init(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
         params["ffn"] = (moe.init(gen, _moe_cfg(cfg), cfg.quant, device,
                                   cfg.compute_dtype) if bd.ffn == "moe" else
                          ffn.init(gen, cfg.d_model, cfg.d_ff, cfg.quant,
-                                  device))
+                                  device, cfg.ffn_kind))
     if cfg.post_norms:
         params["postnorm_mixer"] = rmsnorm_init(cfg.d_model, device)
         if bd.ffn != "none":
@@ -164,7 +162,8 @@ class _Rounded(torch.autograd.Function):
 
 def require_trainable(bd: BlockDef, cfg: ModelConfig) -> None:
     """Training is ported for attention-only SwiGLU blocks; the rest
-    waits for ROADMAP A9b."""
+    waits for ROADMAP A9b (the kinds that need the gradient of XLA:CPU's
+    tanh among them: gemma2's GeGLU, musicgen's GELU)."""
     _require_ported(bd, cfg)
     if bd.mixer == "mla":
         raise NotImplementedError(
@@ -178,11 +177,23 @@ def require_trainable(bd: BlockDef, cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "training MoE blocks (the router, the Switch loss and grads "
             "through both dispatches) is not ported (ROADMAP A9b)")
+    if cfg.ffn_kind == "gelu":
+        raise NotImplementedError(
+            "training the no-gate GELU FFN (musicgen: the gradient of "
+            "XLA:CPU's tanh, as gemma2's GeGLU) is not ported (ROADMAP A9b)")
     if (cfg.ffn_kind != "swiglu" or cfg.post_norms or cfg.attn_softcap
             or cfg.logit_softcap):
         raise NotImplementedError(
             "training gemma2-style blocks (GeGLU, post-norms, softcaps: "
             "gradients of XLA:CPU's tanh) is not ported (ROADMAP A9b)")
+
+
+def _require_train_forward(bd: BlockDef, cfg: ModelConfig) -> None:
+    """What :func:`apply_train` runs: every block that
+    :func:`require_trainable` takes, and the no-gate GELU FFN's forward
+    (``ffn.apply`` refuses its gradient, which waits for ROADMAP A9b)."""
+    require_trainable(bd, cfg.replace(ffn_kind="swiglu")
+                      if cfg.ffn_kind == "gelu" else cfg)
 
 
 def init_train(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
@@ -192,16 +203,17 @@ def init_train(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
     return {"norm_mixer": rmsnorm_init(cfg.d_model, device),
             "mixer": attention.init_train(gen, _attn_cfg(cfg, bd), device),
             "norm_ffn": rmsnorm_init(cfg.d_model, device),
-            "ffn": ffn.init_train(gen, cfg.d_model, cfg.d_ff, device)}
+            "ffn": ffn.init_train(gen, cfg.d_model, cfg.d_ff, device,
+                                  cfg.ffn_kind)}
 
 
 def apply_train(params, x: torch.Tensor, positions: torch.Tensor,
                 bd: BlockDef, cfg: ModelConfig) -> tuple:
     """One block over the full sequence x (B, S, d_model) bf16 (training
-    / prefill compute): pre-norm attention and SwiGLU FFN under the
+    / prefill compute): pre-norm attention and the dense FFN under the
     config's quantization policy, each residual add rounded to bf16.
     Returns (x, aux), aux the f32 zero of a dense block."""
-    require_trainable(bd, cfg)
+    _require_train_forward(bd, cfg)
     quant, dt = cfg.quant, cfg.compute_dtype
     h = _Rounded.apply(rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps,
                                      dtype=torch.float32), dt)

@@ -5,9 +5,9 @@ multi-head latent attention (MLA, deepseek-v2-lite) blocks, the recurrent
 mixers (RG-LRU for recurrentgemma, SSD for mamba2, with the reference's
 defaults), gemma2's embedding scale, logit softcap and sandwich
 post-norms, the MoE channel mixer (mixtral's and deepseek's
-``ffn="moe"`` blocks), mixer-only blocks (mamba2's ``ffn="none"``) and
-training's ``remat``. Codebook fields wait for their modules (ROADMAP
-A8d).
+``ffn="moe"`` blocks), mixer-only blocks (mamba2's ``ffn="none"``),
+musicgen's parallel codebook heads (``num_codebooks``) and training's
+``remat``.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ class BlockDef:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str
+    family: str  # dense | moe | hybrid | ssm | vlm | audio
     d_model: int
     vocab_size: int
     pattern: Tuple[BlockDef, ...]
@@ -70,6 +70,7 @@ class ModelConfig:
     tied_embeddings: bool = True
     scale_embeds_by_sqrt_dim: bool = False
     logit_softcap: Optional[float] = None
+    num_codebooks: int = 1  # musicgen: parallel codebook heads
     post_norms: bool = False  # gemma2 sandwich norms
     norm_eps: float = 1e-6
     quant: QuantConfig = QuantConfig()

@@ -1,5 +1,6 @@
-"""Gated feed-forward blocks (port of ``repro.nn.ffn``): SwiGLU and
-GeGLU. The no-gate ``gelu`` kind (musicgen) waits for ROADMAP A8d."""
+"""Feed-forward blocks (port of ``repro.nn.ffn``): the gated SwiGLU and
+GeGLU, and musicgen's no-gate ``gelu`` (the tanh GELU of the up
+projection alone)."""
 from __future__ import annotations
 
 import torch
@@ -11,17 +12,30 @@ from . import common as C
 from . import linear
 
 
+def _check_kind(kind: str) -> None:
+    if kind not in ACTIVATIONS:
+        raise ValueError(f"unknown ffn kind {kind!r} (expected one of "
+                         f"{sorted(ACTIVATIONS)})")
+
+
 def init(gen: torch.Generator, d_model: int, d_ff: int, quant: QuantConfig,
-         device) -> dict:
-    return {"gate": linear.init(gen, d_model, d_ff, quant, device),
-            "up": linear.init(gen, d_model, d_ff, quant, device),
+         device, kind: str = "swiglu") -> dict:
+    """Random prepared projections; the ``gelu`` kind has no ``gate``."""
+    _check_kind(kind)
+    params = {"gate": linear.init(gen, d_model, d_ff, quant, device)} \
+        if kind in GATED else {}
+    return {**params, "up": linear.init(gen, d_model, d_ff, quant, device),
             "down": linear.init(gen, d_ff, d_model, quant, device)}
 
 
-def init_train(gen: torch.Generator, d_model: int, d_ff: int,
-               device) -> dict:
-    """f32 master projections (the training path)."""
-    return {"gate": linear.init_master(gen, d_model, d_ff, device),
+def init_train(gen: torch.Generator, d_model: int, d_ff: int, device,
+               kind: str = "swiglu") -> dict:
+    """f32 master projections (the training path); no ``gate`` for the
+    ``gelu`` kind."""
+    _check_kind(kind)
+    params = {"gate": linear.init_master(gen, d_model, d_ff, device)} \
+        if kind in GATED else {}
+    return {**params,
             "up": linear.init_master(gen, d_model, d_ff, device),
             "down": linear.init_master(gen, d_ff, d_model, device)}
 
@@ -44,14 +58,28 @@ def gelu_tanh(g: torch.Tensor) -> torch.Tensor:
     return flush_subnormals(g * ((torch.tanh(u) + 1.0) * 0.5))
 
 
-ACTIVATIONS = {"swiglu": silu, "geglu": gelu_tanh}
+#: each kind's activation: of the gate (the gated kinds), or of the up
+#: projection itself (``gelu``)
+ACTIVATIONS = {"swiglu": silu, "geglu": gelu_tanh, "gelu": gelu_tanh}
+#: the kinds with a gate projection
+GATED = ("swiglu", "geglu")
 
 
 def apply(params, x: torch.Tensor, kind: str = "swiglu",
           compute_dtype=torch.bfloat16, quant=None) -> torch.Tensor:
-    """The gated FFN; ``quant`` as in ``linear.apply`` (None for prepared
-    serving weights, the config's policy for f32 training masters)."""
+    """The FFN of ``kind``; ``quant`` as in ``linear.apply`` (None for
+    prepared serving weights, the config's policy for f32 training
+    masters). The gated kinds multiply ``bf16(act(gate))`` by ``up``;
+    ``gelu`` takes ``bf16(gelu_tanh(up))``."""
+    _check_kind(kind)
     up = linear.apply(params["up"], x, compute_dtype, quant)
+    if kind not in GATED:
+        if torch.is_grad_enabled() and up.requires_grad:
+            raise NotImplementedError(
+                "the gradient of the no-gate GELU FFN (XLA:CPU's tanh) is "
+                "not ported (ROADMAP A9b)")
+        h = C.round_to(gelu_tanh(up.to(torch.float32)), compute_dtype)
+        return linear.apply(params["down"], h, compute_dtype, quant)
     gate = linear.apply(params["gate"], x, compute_dtype, quant)
     act = ACTIVATIONS[kind](gate.to(torch.float32))
     # the product of two bf16 values is exact in f32, so one rounding

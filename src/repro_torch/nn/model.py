@@ -1,6 +1,11 @@
 """LM assembly (port of ``repro.nn.model``): embedding -> attention, MLA
 or recurrent (RG-LRU, SSD) blocks (dense, MoE or no channel mixers) ->
-final norm -> LM head. Serving
+final norm -> LM head. As in the reference, ``forward``, ``prefill``,
+``decode_step`` and ``loss_fn`` also take precomputed ``embeds`` (B, S,
+d_model) in place of tokens (llava's vision stub), and a config with
+``num_codebooks`` > 1 (musicgen) takes codebook tokens (..., CB), sums the
+codebooks' embeddings (codebook c indexes rows ``c * vocab_size ..`` of
+one table) and returns (..., CB, V) logits from every head. Serving
 runs one engine step at a time: the ragged step, its layer-fused
 megakernel form, or the split step's decode / verify and prefill chunk;
 and the contiguous-cache path of dense prefill (``prefill``,
@@ -8,7 +13,7 @@ and the contiguous-cache path of dense prefill (``prefill``,
 
 Parameters are a plain dict::
 
-  {"embedding": {"embed": (V, D) bf16[, "head": (D, V) bf16]},
+  {"embedding": {"embed": (V * CB, D) bf16[, "head": (D, V * CB) bf16]},
    "layers": [block params, in iter_layer_blocks order],
    "layer_stack": block params with a leading (L,) axis (uniform stacks),
    "final_norm": {"scale": (D,) f32}}
@@ -104,7 +109,7 @@ def init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Random weights from ``gen`` (a generator on ``device``), prepared
     layer by layer so no f32 copy of the whole model is ever held."""
     return {
-        "embedding": embedding.init(gen, cfg.vocab_size, cfg.d_model,
+        "embedding": embedding.init(gen, table_rows(cfg), cfg.d_model,
                                     cfg.tied_embeddings, device,
                                     cfg.compute_dtype),
         **_layer_params(cfg, (blocks.init(gen, bd, cfg, device)
@@ -258,15 +263,64 @@ def _walk_blocks(apply_fn, params, cfg: ModelConfig, cache: list, x):
     return x
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def table_rows(cfg: ModelConfig) -> int:
+    """Rows of the embedding table (and columns of an untied head): the
+    vocabulary once for each codebook."""
+    return cfg.vocab_size * cfg.num_codebooks
+
+
+def _codebook_tokens(cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Codebook tokens (..., CB), codebook c offset into its vocabulary
+    slice ``c * vocab_size ..`` of the table. Tokens of another shape raise
+    ``ValueError``, as the reference's broadcast of the offsets does."""
+    cb = cfg.num_codebooks
+    if tokens.ndim < 3 or tokens.shape[-1] != cb:
+        raise ValueError(
+            f"{cfg.name} takes codebook tokens (B, S, {cb}); got "
+            f"{tuple(tokens.shape)}")
+    return tokens + torch.arange(cb, dtype=tokens.dtype,
+                                 device=tokens.device) * cfg.vocab_size
+
+
+def sum_codebooks(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The codebooks' rows x (B, S, CB, D) summed as the reference's
+    ``sum(axis=2)`` of bf16: in f32, codebook by codebook in order,
+    rounded once to ``dt``."""
+    acc = x[:, :, 0].to(torch.float32)
+    for c in range(1, x.shape[2]):
+        acc = acc + x[:, :, c].to(torch.float32)
+    return acc.to(dt)
+
+
+def _embed(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+           embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's ``_embed_inputs``: precomputed ``embeds`` cast to
+    the compute dtype, or the table rows of ``tokens`` (codebook tokens'
+    rows summed, :func:`sum_codebooks`)."""
+    if embeds is not None:
+        return embeds.to(cfg.compute_dtype)
+    if cfg.num_codebooks > 1:
+        x = embedding.embed(params["embedding"], _codebook_tokens(
+            cfg, tokens), cfg.compute_dtype,
+            scale_by_sqrt_dim=cfg.scale_embeds_by_sqrt_dim)
+        return sum_codebooks(x, cfg.compute_dtype)
     return embedding.embed(params["embedding"], tokens, cfg.compute_dtype,
                            scale_by_sqrt_dim=cfg.scale_embeds_by_sqrt_dim)
 
 
+def _codebook_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Logits (..., CB * V) as (..., CB, V) where the config has codebook
+    heads, as every head of the reference reshapes them."""
+    if cfg.num_codebooks > 1:
+        return logits.reshape(*logits.shape[:-1], cfg.num_codebooks,
+                              cfg.vocab_size)
+    return logits
+
+
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return embedding.logits(params["embedding"], x, cfg.compute_dtype,
-                            softcap=cfg.logit_softcap)
+    return _codebook_logits(cfg, embedding.logits(
+        params["embedding"], x, cfg.compute_dtype, softcap=cfg.logit_softcap))
 
 
 # ---------------------------------------------------------------------------
@@ -313,13 +367,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         for _, _, bd in iter_layer_blocks(cfg)])
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            max_seq: Optional[int] = None) -> tuple:
-    """Dense prefill of tokens (B, S) at positions 0..S-1. Returns (the
-    last token's logits (B, 1, V) f32, the contiguous cache of
-    ``max_seq`` positions, default S)."""
-    x = _embed(params, cfg, tokens)
-    b, s = tokens.shape
+def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            max_seq: Optional[int] = None, *,
+            embeds: Optional[torch.Tensor] = None) -> tuple:
+    """Dense prefill of tokens (B, S) (codebook tokens (B, S, CB); or
+    ``embeds`` (B, S, d_model)) at positions 0..S-1. Returns (the last
+    token's logits (B, 1, V) f32 ((B, 1, CB, V) with codebooks), the
+    contiguous cache of ``max_seq`` positions, default S)."""
+    x = _embed(params, cfg, tokens, embeds)
+    b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     layers = []
@@ -343,7 +399,7 @@ def prefill_with_prefix(params, cfg: ModelConfig, cache: list,
     ``kv_cache.install_prefill`` or ``install_prefill_offset`` writes
     into the sequence's tail pages)."""
     x = _embed(params, cfg, tokens)
-    b, s = tokens.shape
+    b, s = x.shape[:2]
     positions = (pos0 + torch.arange(s, dtype=torch.int32,
                                      device=x.device))[None].expand(b, s)
     layers = []
@@ -358,11 +414,14 @@ def prefill_with_prefix(params, cfg: ModelConfig, cache: list,
 
 
 def decode_step(params, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor, pos: int) -> tuple:
-    """One-token decode, tokens (B, 1), every row at position ``pos``,
-    against the contiguous ``cache`` (updated in place). Returns (logits
-    (B, 1, V) f32, cache)."""
-    x = _embed(params, cfg, tokens)
+                tokens: Optional[torch.Tensor] = None,
+                pos: Optional[int] = None, *,
+                embeds: Optional[torch.Tensor] = None) -> tuple:
+    """One-token decode, tokens (B, 1) (codebook tokens (B, 1, CB); or
+    ``embeds`` (B, 1, d_model)), every row at position ``pos``, against
+    the contiguous ``cache`` (updated in place). Returns (logits (B, 1, V)
+    f32 ((B, 1, CB, V) with codebooks), cache)."""
+    x = _embed(params, cfg, tokens, embeds)
     for bp, c, (_, g, bd), carry in zip(params["layers"],
                                         cache_layers(cfg, cache),
                                         iter_layer_blocks(cfg),
@@ -509,8 +568,9 @@ def megakernel_step_paged(params, cfg: ModelConfig, cache: list,
     x, _ = mx_megakernel.mx_megakernel_step(
         x, lay["norm_mixer"]["scale"], *(lay["mixer"][k]["w"] for k in
                                          ("wq", "wk", "wv", "wo")),
-        lay["norm_ffn"]["scale"], *(lay["ffn"][k]["w"] for k in
-                                    ("gate", "up", "down")),
+        lay["norm_ffn"]["scale"],
+        *(lay["ffn"][k]["w"] if k in lay["ffn"] else None
+          for k in ("gate", "up", "down")),
         *pools, page_rows, row_start, seq_lens,
         head_dim=d, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
         ffn_kind=cfg.ffn_kind, quant=cfg.quant, fmt_name=cfg.quant.fmt,
@@ -538,7 +598,7 @@ def init_train(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Random f32 masters from ``gen`` (a generator on ``device``) in the
     per-layer layout: ``{"embedding", "layers": [...], "final_norm"}``."""
     return {
-        "embedding": embedding.init_train(gen, cfg.vocab_size, cfg.d_model,
+        "embedding": embedding.init_train(gen, table_rows(cfg), cfg.d_model,
                                           cfg.tied_embeddings, device),
         "layers": [blocks.init_train(gen, bd, cfg, device)
                    for _, _, bd in iter_layer_blocks(cfg)],
@@ -615,19 +675,30 @@ def _group_train(cfg: ModelConfig, layers: list, x: torch.Tensor,
     return x, aux
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None) -> tuple:
-    """Full-sequence forward of ``tokens`` (B, S) over the training
-    masters. Returns (logits (B, S, V) f32, aux loss). With
+    """Full-sequence forward of ``tokens`` (B, S) (codebook tokens (B, S,
+    CB); or ``embeds`` (B, S, d_model)) over the training masters.
+    Returns (logits (B, S, V) f32 ((B, S, CB, V) with codebooks), aux
+    loss). With
     ``cfg.remat == "full"`` each pattern group's forward is recomputed in
     the backward (``torch.utils.checkpoint``, as the reference's
     ``jax.checkpoint`` around its scan body); prologue and epilogue blocks
     run outside it, as in the reference. On a card it first turns off
     cuBLAS's reduced-precision bf16 reduction and TF32
     (``common.exact_cuda_products``), as the serving engine does."""
-    C.exact_cuda_products(tokens.device)
-    x = embedding.embed_train(params["embedding"], tokens, cfg.compute_dtype)
-    b, s = tokens.shape
+    C.exact_cuda_products((tokens if embeds is None else embeds).device)
+    if embeds is not None:
+        x = embeds.to(cfg.compute_dtype)
+    elif cfg.num_codebooks > 1:
+        x = sum_codebooks(embedding.embed_train(
+            params["embedding"], _codebook_tokens(cfg, tokens),
+            cfg.compute_dtype), cfg.compute_dtype)
+    else:
+        x = embedding.embed_train(params["embedding"], tokens,
+                                  cfg.compute_dtype)
+    b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
@@ -651,15 +722,18 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                                   cfg)
         aux = aux + a
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return embedding.logits(params["embedding"], x, cfg.compute_dtype), aux
+    return _codebook_logits(cfg, embedding.logits(
+        params["embedding"], x, cfg.compute_dtype)), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict) -> tuple:
     """Cross-entropy LM loss over the labels >= 0, plus the z-loss
     (1e-4 mean squared log-normalizer) and ``aux_loss_weight`` times the
-    aux loss. ``batch``: {"tokens", "labels"} (B, S). Returns (total,
-    {"ce", "zloss", "aux"})."""
-    logits, aux = forward(params, cfg, batch["tokens"])
+    aux loss. ``batch``: {"tokens" or "embeds", "labels"}, labels (B, S)
+    ((B, S, CB) with codebooks). Returns (total, {"ce", "zloss",
+    "aux"})."""
+    logits, aux = forward(params, cfg, batch.get("tokens"),
+                          batch.get("embeds"))
     labels = batch["labels"].long()
     mask = (labels >= 0).to(torch.float32)
     lf = logits.to(torch.float32)

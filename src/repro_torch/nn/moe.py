@@ -59,10 +59,6 @@ def _check(cfg: MoEConfig) -> None:
     if cfg.dispatch not in ("dense", "sorted"):
         raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r} "
                          "(expected 'dense' or 'sorted')")
-    if cfg.num_shared and cfg.ffn_kind not in ffn.ACTIVATIONS:
-        raise NotImplementedError(
-            f"shared experts of ffn kind {cfg.ffn_kind!r}: the no-gate "
-            "gelu FFN is not ported to repro_torch yet (ROADMAP A8d)")
 
 
 def init(gen: torch.Generator, cfg: MoEConfig, quant: QuantConfig, device,
@@ -86,7 +82,8 @@ def init(gen: torch.Generator, cfg: MoEConfig, quant: QuantConfig, device,
                                                       device)},
               "experts": experts}
     if cfg.num_shared:
-        params["shared"] = ffn.init(gen, dm, cfg.d_ff_shared, quant, device)
+        params["shared"] = ffn.init(gen, dm, cfg.d_ff_shared, quant, device,
+                                    cfg.ffn_kind)
     return params
 
 

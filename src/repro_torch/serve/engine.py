@@ -78,6 +78,11 @@ readmits it. As in the reference, speculation raises for them, the
 prefix cache turns off, chunked prefill falls back to monolithic
 admission and the ragged and megakernel steps to the split dispatches,
 each with its log line, and tiering raises.
+As in the reference, no engine serves codebook heads (musicgen): the
+continuous engine refuses them with the reference's message and
+``FixedSlotEngine.generate`` takes (B, S0) prompts alone; musicgen runs
+through the model functions (``model.prefill``, ``decode_step`` and the
+paged steps).
 
 The page pools update in place: the reference's jitted steps donate the
 cache pytree and return a new one instead. The reference bounds its
@@ -234,12 +239,16 @@ _PAGED_MIXERS = {"attn", "rglru", "ssd"}
 
 def _check_mixers(cfg: ModelConfig) -> None:
     """The reference's refusal of mixers that have no paged cache there
-    (MLA: FixedSlotEngine serves it), checked first as there."""
+    (MLA: FixedSlotEngine serves it), checked first as there, then of
+    codebook heads (musicgen), which no engine of the reference serves."""
     unpaged = {bd.mixer for bd in cfg.all_blocks()} - _PAGED_MIXERS
     if unpaged:
         raise NotImplementedError(
             f"continuous batching does not support mixers {unpaged} "
             "— use FixedSlotEngine (launch/serve.py --engine fixed)")
+    if cfg.num_codebooks > 1:
+        raise NotImplementedError(
+            "continuous batching with codebook heads is a follow-on")
 
 
 def _check_supported(cfg: ModelConfig, scfg: ServeConfig,
@@ -349,10 +358,16 @@ class FixedSlotEngine:
         temperature > 0 the first token draws under ``key`` (default
         ``PRNGKey(0)``, two uint32 words) and each later one under the
         second half of a ``split`` of the running key, as the
-        reference."""
+        reference. Prompts of another rank (codebook frames (B, S0, CB))
+        raise ``ValueError``, as the reference's unpacking of their
+        shape does: no engine serves codebook heads."""
         key = sampling.prng_key(0) if key is None else np.asarray(key)
-        toks = torch.as_tensor(np.asarray(prompts, np.int32),
-                               device=self.device).long()
+        prompts = np.asarray(prompts, np.int32)
+        if prompts.ndim != 2:
+            raise ValueError(
+                f"FixedSlotEngine.generate takes (B, S0) prompts; got shape "
+                f"{prompts.shape}")
+        toks = torch.as_tensor(prompts, device=self.device).long()
         s0 = toks.shape[1]
         temp = self.serve_cfg.temperature
         logits, cache = model.prefill(self.params, self.cfg, toks,

@@ -25,8 +25,8 @@ Bars, each measured here:
     a weight seed whose every pick leads its runner-up by more than
     GAP_TOL_ULPS (asserted); its megakernel mode falls back to the ragged
     step with the reference's reason; the recurrent mixers behind an MoE
-    FFN take the reference's fallbacks, the no-gate ``gelu`` FFN raises
-    naming ROADMAP A8d, and MLA gets the reference's refusal.
+    FFN take the reference's fallbacks, a dense no-gate ``gelu`` FFN
+    builds without a gate, and MLA gets the reference's refusal.
 """
 import numpy as np
 import pytest
@@ -108,11 +108,12 @@ def _layer0(jparams):
 @pytest.mark.parametrize("dispatch", ["dense", "sorted"])
 @pytest.mark.parametrize("kind,shared,top_k", [
     ("swiglu", 0, 2), ("swiglu", 1, 2), ("gelu", 0, 2), ("geglu", 1, 2),
-    ("swiglu", 0, 3)])
+    ("gelu", 1, 2), ("swiglu", 0, 3)])
 def test_moe_layer_equals_the_jitted_reference(dispatch, kind, shared,
                                                top_k):
     """Bit for bit on (3, 11, 64) rows; top-3 makes the sorted dispatch's
-    bf16 scatter order count (three adds a token)."""
+    bf16 scatter order count (three adds a token); the gelu kind's shared
+    experts run the no-gate FFN (``ffn.apply``)."""
     jcfg, jparams, tcfg, tparams = _pair(
         1, moe_dispatch=dispatch, ffn_kind=kind, num_shared=shared,
         top_k=top_k)
@@ -208,9 +209,6 @@ def test_unported_moe_paths_raise():
     with pytest.raises(ValueError, match="dispatch"):
         tmoe.apply(params, x, tmoe.MoEConfig(64, 64, 4, 2,
                                              dispatch="ragged"))
-    with pytest.raises(NotImplementedError, match="A8d"):
-        tmoe.apply(params, x, tmoe.MoEConfig(64, 64, 4, 2, num_shared=1,
-                                             ffn_kind="gelu"))
 
 
 # ---------------------------------------------------------------------------
@@ -289,8 +287,8 @@ def test_megakernel_falls_back_with_the_reference_reason(caplog):
 def test_engine_still_raises_a8_for_other_mixers(mixer):
     """The recurrent mixers are ported now (behind an MoE FFN too): the
     engine takes them with the reference's fallbacks (the split step,
-    monolithic admission, no prefix cache), and what A8 still holds, the
-    no-gate ``gelu`` FFN (A8d), raises."""
+    monolithic admission, no prefix cache); the no-gate ``gelu`` FFN
+    (ported with A8d) builds a dense block without a gate."""
     _, _, tcfg, _ = _pair(ENGINE_SEED)
     cfg = tcfg.replace(pattern=(BlockDef(mixer, ffn="moe"),), d_inner=128,
                        headdim=16, d_state=32, ssd_chunk=8)
@@ -298,10 +296,10 @@ def test_engine_still_raises_a8_for_other_mixers(mixer):
     eng = ContinuousBatchingEngine(params, cfg, ServeConfig(**SERVE),
                                    device="cpu")
     assert (eng.ragged, eng.chunked, eng.prefix_enabled) == (False,) * 3
-    with pytest.raises(NotImplementedError, match="A8"):
-        tblocks.init(torch.Generator().manual_seed(0),
-                     BlockDef(mixer, ffn="dense"),
-                     cfg.replace(ffn_kind="gelu"), "cpu")
+    block = tblocks.init(torch.Generator().manual_seed(0),
+                         BlockDef(mixer, ffn="dense"),
+                         cfg.replace(ffn_kind="gelu"), "cpu")
+    assert set(block["ffn"]) == {"up", "down"}
 
 
 @pytest.mark.parametrize("tiered", [False, True])
