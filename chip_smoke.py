@@ -296,7 +296,30 @@ code is not 0 and no result line is printed:
      bar); (d) reduced llava's ragged and megakernel streams equal on
      card and CPU, reduced musicgen's greedy frames parting only at ties,
      and two reduced llava QAT steps card vs CPU within 11b's bounds;
-  15. print the kernels line, then the device line last.
+  15. gemma2 and musicgen training, and QAT's kernel tier, after phase
+     14's state is freed: (a) gemma2-2b at its published widths and all 26 layers
+     (GeGLU, sandwich post-norms, softcaps 50 and 30, the embedding
+     scale, local/global layers; tied 256,000-row table) and (b)
+     musicgen-medium at its published widths and all 48 layers (no-gate
+     GELU, 4 codebooks of 2,048, (8, 128, 4) frames) through the train
+     launcher at its defaults, 4 steps each, with 11a's gates: #6's
+     count reset just before and read just after the run (2 x linears x
+     2 (remat) x steps: 26 x 7 and 48 x 6 linears), layer 0's captured
+     #6 calls byte-equal to the plain version, the launcher's step-0
+     loss equal to one step forced onto the plain quantizer (every
+     gradient bit-equal), finite losses; the median step, tokens/s, peak
+     memory, the step's forward / backward / optimizer split and #6 at
+     the step's shapes beside its bound; (c)
+     reduced gemma2-2b, gemma2-9b and musicgen-medium, 3 QAT steps on
+     card and CPU (11b's bounds and checkpoint checks); (d)
+     ``qat_matmul(mode="pallas")`` at (a)'s and (b)'s gate/up products
+     (1,024 x 2,304 x 9,216 and 1,024 x 1,536 x 6,144): #10 launched
+     once a forward (counts reset just before, read just after), its
+     captured call held to its plain version (phase 5's bar), the output
+     within QAT_PALLAS_ULPS of the fused mode's and both gradients
+     bit-equal to its; #10 timed beside its plain version, its bound and
+     cuBLAS's bf16 product;
+  16. print the kernels line, then the device line last.
 
 It exits 1 without a result when no CUDA card is visible.
 """
@@ -5541,11 +5564,6 @@ def check_reduced_mixtral(card: str = "cuda") -> None:
 #: 11a: phi4-mini-3.8b at full width and depth through the launcher at
 #: its defaults (seq 128, global batch 8, MXFP8 QAT, remat full)
 TRAIN_ARGV = ["--arch", "phi4-mini-3.8b", "--steps", "4"]
-#: the linears whose two operands a phi4-mini forward quantizes: 32 x 7
-TRAIN_LINEARS = 32 * 7
-#: #6 calls of layer 0 in 11a's first forward (an x and a w a linear),
-#: captured and held to the plain version
-TRAIN_CAPTURE = 2 * 7
 #: 11b: reduced steps on card and CPU, held to tests/test_torch_train.py's
 #: bounds: each loss within TRAIN_LOSS_RTOL of the CPU's, each param leaf's
 #: distance from the CPU's within TRAIN_PARAM_TOL of the CPU run's own
@@ -5553,6 +5571,15 @@ TRAIN_CAPTURE = 2 * 7
 TRAIN_REDUCED_STEPS = 3
 TRAIN_LOSS_RTOL = 5e-3
 TRAIN_PARAM_TOL = 0.15
+
+
+def train_linears(cfg) -> int:
+    """The QAT products of one layer, whose two operands each forward
+    quantizes: q, k, v, o and the FFN's (gate, up, down; no gate for the
+    no-gate GELU). phi4-mini: 7 a layer, 32 x 7 in all."""
+    from repro_torch.nn import ffn
+
+    return 4 + (3 if cfg.ffn_kind in ffn.GATED else 2)
 
 
 class _QuantizeSpy:
@@ -5605,17 +5632,19 @@ def _launcher_batches(cfg, args, steps, dev: str) -> list:
 
     ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
                                        seq_len=args.seq_len,
-                                       global_batch=args.global_batch))
+                                       global_batch=args.global_batch,
+                                       num_codebooks=cfg.num_codebooks))
     return [{k: torch.from_numpy(v).to(dev) for k, v in
              ds.batch_at(s).items()} for s in range(steps)]
 
 
-def train_forced_plain(cfg, opt_cfg, args, dev: str = "cuda") -> dict:
-    """11a: one step's loss and gradients (phi4-mini, the launcher's
+def train_forced_plain(cfg, opt_cfg, args, dev: str = "cuda",
+                       label: str = "11a") -> dict:
+    """11a (15a, 15b): one step's loss and gradients (the launcher's
     weights and its step-0 batch) with #6, then with its plain version
-    forced on the same CUDA tensors: bit-equal; #6 launches 2 x
-    TRAIN_LINEARS x 2 (remat recomputes the forward) in the first, none
-    in the second."""
+    forced on the same CUDA tensors: bit-equal; #6 launches 2 x linears
+    (:func:`train_linears` a layer) x 2 (remat recomputes the forward) in
+    the first, none in the second."""
     from repro_torch.kernels import mx_quantize as mq
     from repro_torch.launch import train as launch_train
     from repro_torch.train import loop
@@ -5627,20 +5656,22 @@ def train_forced_plain(cfg, opt_cfg, args, dev: str = "cuda") -> dict:
     mq.mx_quantize.launches = 0
     loss, _, grads = loop.loss_and_grads(params, cfg, batch)
     launches = mq.mx_quantize.launches
-    want = 2 * TRAIN_LINEARS * (2 if cfg.remat == "full" else 1)
+    want = 2 * cfg.num_layers * train_linears(cfg) * (
+        2 if cfg.remat == "full" else 1)
     if dev == "cuda" and launches != want:
-        raise AssertionError(f"11a one step: {launches} #6 launches, want "
-                             f"{want}")
+        raise AssertionError(f"{label} one step: {launches} #6 launches, "
+                             f"want {want}")
     with _QuantizeSpy(plain=True):
         mq.mx_quantize.launches = 0
         loss_p, _, grads_p = loop.loss_and_grads(params, cfg, batch)
         if mq.mx_quantize.launches:
-            raise AssertionError("11a: the forced plain step launched #6")
+            raise AssertionError(f"{label}: the forced plain step launched "
+                                 "#6")
     if not torch.equal(loss, loss_p):
-        raise AssertionError(f"11a: loss {float(loss)} with #6, "
+        raise AssertionError(f"{label}: loss {float(loss)} with #6, "
                              f"{float(loss_p)} with the plain quantizer")
-    n = _grads_equal(grads, grads_p, "11a #6 vs plain quantizer")
-    log(f"11a one step with #6 ({launches} launches) and with its plain "
+    n = _grads_equal(grads, grads_p, f"{label} #6 vs plain quantizer")
+    log(f"{label} one step with #6 ({launches} launches) and with its plain "
         f"version forced: loss {float(loss):.6f} and all {n} gradient "
         "leaves bit-equal")
     del params, grads, grads_p
@@ -5672,11 +5703,13 @@ def _timed_parts(step_fn, state, batch) -> tuple:
 
 
 def train_step_breakdown(cfg, opt_cfg, args, dev: str = "cuda",
-                         top: int = 12) -> dict:
-    """11a: where a full-width train step's time goes, on a fresh
-    launcher state and the launcher's own step (``launch.train.build``):
-    step 0 warms; step 1 split into its parts (forward, backward,
-    optimizer) by CUDA events at ``loop.PART_MARKS``; step 2 traced by
+                         top: int = 12, label: str = "11a",
+                         profiled: bool = True) -> dict:
+    """11a (15a, 15b): where a full-width train step's time goes, on a
+    fresh launcher state and the launcher's own step
+    (``launch.train.build``): step 0 warms; step 1 split into its parts
+    (forward, backward, optimizer) by CUDA events at
+    ``loop.PART_MARKS``; with ``profiled``, step 2 traced by
     torch.profiler: the device's busy time against the host clock, its
     kernel launches, the busy time by kernel class (GEMMs, #6, the rest)
     and the operators with the most device time of their own."""
@@ -5690,10 +5723,13 @@ def train_step_breakdown(cfg, opt_cfg, args, dev: str = "cuda",
     batches = _launcher_batches(cfg, args, 3, dev)
     state, _ = step_fn(state, batches[0])
     state, split = _timed_parts(step_fn, state, batches[1])
-    log("11a step split (CUDA events at the launcher step's part marks, "
-        "step 1): " + ", ".join(f"{k[:-3]} {v:.2f} ms" for k, v in
-                                split.items())
+    log(f"{label} step split (CUDA events at the launcher step's part "
+        "marks, step 1): " + ", ".join(f"{k[:-3]} {v:.2f} ms" for k, v in
+                                       split.items())
         + " (remat recomputes the forward in the backward)")
+    if not profiled:
+        del state, step_fn
+        return split
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -5741,7 +5777,8 @@ def train_quantize_shapes(cfg, m: int = 1024) -> dict:
     q = cfg.num_heads * cfg.head_dim
     per_layer = 2 if cfg.remat == "full" else 1
     n = cfg.num_layers * per_layer
-    return {"x d_model": (m, d, torch.bfloat16, 5 * n),
+    ffn_in = train_linears(cfg) - 5  # gate and up, or up alone
+    return {"x d_model": (m, d, torch.bfloat16, (3 + ffn_in) * n),
             "x attention out": (m, q, torch.bfloat16, n),
             "x d_ff": (m, f, torch.bfloat16, n),
             "w wq": (q, d, torch.float32, n), "w wk/wv": (kv, d,
@@ -5749,16 +5786,17 @@ def train_quantize_shapes(cfg, m: int = 1024) -> dict:
                                                           2 * n),
             "w wo": (d, q, torch.float32, n), "w gate/up": (f, d,
                                                             torch.float32,
-                                                            2 * n),
+                                                            ffn_in * n),
             "w down": (d, f, torch.float32, n)}
 
 
-def time_train_quantize(cfg) -> dict:
-    """#6 at 11a's training shapes: each shape's kernel time (median of
-    25, L2 flushed before each, as phase 5 times it), its plain version's
-    and its bound (each input read once, codes and scales written once;
-    one compare and one divide an element at the f32 rate), and the
-    step's sum over its 896 calls."""
+def time_train_quantize(cfg, label: str = "11a") -> dict:
+    """#6 at a launcher step's training shapes (11a, 15a, 15b): each
+    shape's kernel time (median of 25, L2 flushed before each, as phase 5
+    times it), its plain version's and its bound (each input read once,
+    codes and scales written once; one compare and one divide an element
+    at the f32 rate), and the step's sum over its calls (896 at
+    phi4-mini, 728 at gemma2-2b, 1,152 at musicgen-medium)."""
     from repro_torch.core import formats as F
     from repro_torch.kernels import mx_quantize as mq
 
@@ -5784,18 +5822,21 @@ def time_train_quantize(cfg) -> dict:
         total += n * ms
         total_bound += n * bound_ms
         calls += n
-        log(f"11a #6 {name} ({m}, {k}) {str(dtype)[6:]}: kernel {ms:.4f} ms, "
+        log(f"{label} #6 {name} ({m}, {k}) {str(dtype)[6:]}: kernel "
+            f"{ms:.4f} ms, "
             f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
             f"{n} calls a step")
     del scratch
-    log(f"11a #6 over one step's {calls} calls: {total:.2f} ms against a "
+    log(f"{label} #6 over one step's {calls} calls: {total:.2f} ms against a "
         f"bound of {total_bound:.2f} ms")
     return {"shapes": rows, "ms_step": total, "bound_ms_step": total_bound,
             "calls_step": calls}
 
 
-def train_full_width(argv=TRAIN_ARGV, dev: str = "cuda") -> dict:
-    """11a (see the module docstring)."""
+def train_full_width(argv=TRAIN_ARGV, dev: str = "cuda", label: str = "11a",
+                     profiled: bool = True) -> dict:
+    """11a, and 15a / 15b without the profiled step (see the module
+    docstring)."""
     from repro_torch.core import MXTensor
     from repro_torch.kernels import mx_quantize as mq
     from repro_torch.launch import train as launch_train
@@ -5803,30 +5844,31 @@ def train_full_width(argv=TRAIN_ARGV, dev: str = "cuda") -> dict:
     t0 = time.perf_counter()
     args = launch_train.parse_args(argv + ["--device", dev])
     cfg, opt_cfg = launch_train.configure(args)
-    plain = train_forced_plain(cfg, opt_cfg, args, dev)
+    plain = train_forced_plain(cfg, opt_cfg, args, dev, label)
     gc.collect()
     torch.cuda.empty_cache()
-    with _QuantizeSpy(capture=TRAIN_CAPTURE) as spy:
+    capture = 2 * train_linears(cfg)  # layer 0's x and w of each linear
+    with _QuantizeSpy(capture=capture) as spy:
         mq.mx_quantize.launches = 0
         report = launch_train.run(args)
         launches = mq.mx_quantize.launches
     gc.collect()
     torch.cuda.empty_cache()
-    want = 2 * TRAIN_LINEARS * (2 if cfg.remat == "full" else 1) \
-        * args.microbatches * args.steps
+    want = 2 * cfg.num_layers * train_linears(cfg) * (
+        2 if cfg.remat == "full" else 1) * args.microbatches * args.steps
     if launches != want:
-        raise AssertionError(f"11a: {launches} #6 launches in {args.steps} "
-                             f"steps, want {want}")
+        raise AssertionError(f"{label}: {launches} #6 launches in "
+                             f"{args.steps} steps, want {want}")
     if report["final_step"] != args.steps or not all(
             np.isfinite(report["loss"])):
-        raise AssertionError(f"11a: losses {report['loss']}")
+        raise AssertionError(f"{label}: losses {report['loss']}")
     if report["loss"][0] != plain["loss"]:
-        raise AssertionError(f"11a: the launcher's step-0 loss "
+        raise AssertionError(f"{label}: the launcher's step-0 loss "
                              f"{report['loss'][0]} is not the checked "
                              f"step's {plain['loss']}")
-    if len(spy.calls) != TRAIN_CAPTURE:
-        raise AssertionError(f"11a: {len(spy.calls)} #6 calls captured, "
-                             f"want {TRAIN_CAPTURE}")
+    if len(spy.calls) != capture:
+        raise AssertionError(f"{label}: {len(spy.calls)} #6 calls captured,"
+                             f" want {capture}")
     max_err = 0.0
     for x, fmt, block, elems, scales in spy.calls:
         want_e, want_s = mq.mx_quantize_plain(x, fmt_name=fmt,
@@ -5834,8 +5876,9 @@ def train_full_width(argv=TRAIN_ARGV, dev: str = "cuda") -> dict:
         if not (torch.equal(elems.view(torch.uint8),
                             want_e.view(torch.uint8))
                 and torch.equal(scales, want_s)):
-            raise AssertionError(f"11a: a captured #6 call {tuple(x.shape)} "
-                                 f"{x.dtype} differs from its plain version")
+            raise AssertionError(f"{label}: a captured #6 call "
+                                 f"{tuple(x.shape)} {x.dtype} differs from "
+                                 "its plain version")
         got, want = (MXTensor(elements=e, scales=sc, fmt_name=fmt,
                               block_size=block, axis=1,
                               shape=tuple(x.shape)).dequantize(torch.float32)
@@ -5846,8 +5889,11 @@ def train_full_width(argv=TRAIN_ARGV, dev: str = "cuda") -> dict:
     ms = report["median_step_ms"]
     timed = report["step_ms"][1:]
     tok_s = report["tokens_per_step"] * len(timed) / (sum(timed) / 1e3)
-    log(f"11a phi4-mini-3.8b at full width ({cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, vocab {cfg.vocab_size}), {args.steps} steps of "
+    books = f" x {cfg.num_codebooks} codebooks" \
+        if cfg.num_codebooks > 1 else ""
+    log(f"{label} {cfg.name} at full width ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}{books}), "
+        f"{args.steps} steps of "
         f"{report['tokens_per_step']} tokens: losses {report['loss']}, grad "
         f"norms {report['grad_norm']}, lr {report['lr']}; step ms "
         f"{[round(t, 2) for t in report['step_ms']]} (median {ms:.2f}), "
@@ -5856,11 +5902,12 @@ def train_full_width(argv=TRAIN_ARGV, dev: str = "cuda") -> dict:
         f"{len(spy.calls)} #6 calls {shapes} byte-equal to the plain "
         f"version (max abs error of the dequantized values {max_err})")
     del spy
-    split = train_step_breakdown(cfg, opt_cfg, args, dev)
+    split = train_step_breakdown(cfg, opt_cfg, args, dev, label=label,
+                                 profiled=profiled)
     gc.collect()
     torch.cuda.empty_cache()
-    quant = time_train_quantize(cfg)
-    log(f"phase 11a: {time.perf_counter() - t0:.1f} s")
+    quant = time_train_quantize(cfg, label)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
     return {"report": report, "launches": launches, "split": split,
             "quantize": quant, "tokens_per_s": tok_s,
             "max_abs_err": max_err}
@@ -5882,7 +5929,8 @@ def _train_reduced(dev: str, params0, cfg, steps, ckpt=None, start=0,
     step = loop.make_train_step(cfg, OptimConfig(
         lr=3e-3, warmup_steps=1, total_steps=steps))
     ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
-                                       seq_len=16, global_batch=4))
+                                       seq_len=16, global_batch=4,
+                                       num_codebooks=cfg.num_codebooks))
     losses = []
     for s in range(start, steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in
@@ -5894,8 +5942,10 @@ def _train_reduced(dev: str, params0, cfg, steps, ckpt=None, start=0,
     return state, losses
 
 
-def check_reduced_training(card: str = "cuda") -> dict:
-    """11b: reduced phi4-mini and granite-8b (seeded f32 masters) train
+def check_reduced_training(card: str = "cuda",
+                           archs=("phi4-mini-3.8b", "granite-8b"),
+                           label: str = "11b") -> dict:
+    """11b (15c): the reduced ``archs`` (seeded f32 masters) train
     TRAIN_REDUCED_STEPS steps on the card and on the CPU from the same
     params and batches: losses within TRAIN_LOSS_RTOL, each param leaf
     within TRAIN_PARAM_TOL of the CPU run's movement. The card run saves
@@ -5910,7 +5960,7 @@ def check_reduced_training(card: str = "cuda") -> dict:
     from repro_torch.train import checkpoint, optim
 
     out = {}
-    for arch in ("phi4-mini-3.8b", "granite-8b"):
+    for arch in archs:
         cfg = get_reduced(arch)
         params0 = model.init_train(cfg, torch.Generator().manual_seed(
             WEIGHTS_SEED), "cpu")
@@ -5921,7 +5971,7 @@ def check_reduced_training(card: str = "cuda") -> dict:
         with tempfile.TemporaryDirectory() as ckpt:
             got, losses = _train_reduced(card, params0, cfg,
                                          TRAIN_REDUCED_STEPS, ckpt=ckpt)
-            what = f"11b reduced {arch}"
+            what = f"{label} reduced {arch}"
             for a, b in zip(losses, cpu_losses):
                 if not abs(a - b) <= TRAIN_LOSS_RTOL * abs(b):
                     raise AssertionError(f"{what}: losses {losses} on the "
@@ -8213,6 +8263,149 @@ def check_mx_dot_products() -> list:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 15: gemma2 and musicgen training, qat_matmul's kernel tier
+# ---------------------------------------------------------------------------
+
+#: 15a / 15b: through the launcher at its defaults, as 11a
+TRAIN_A9B_ARGV = {"gemma2-2b": ["--arch", "gemma2-2b", "--steps", "4"],
+                  "musicgen-medium": ["--arch", "musicgen-medium",
+                                      "--steps", "4"]}
+#: 15c: this slice's reduced archs, card against CPU (11b's bounds)
+TRAIN_A9B_REDUCED = ("gemma2-2b", "gemma2-9b", "musicgen-medium")
+#: 15d: qat_matmul(mode="pallas") at 15a's and 15b's gate/up products (M,
+#: K, N): a step's 1,024 tokens
+QAT_PALLAS_SHAPES = {"gemma2_2b": (1024, 2304, 9216),
+                     "musicgen": (1024, 1536, 6144)}
+#: 15d: the kernel tier's output against the fused mode's: one bf16
+#: rounding of each, plus MM_RTOL of |xq| @ |wq| for the two sums' orders
+QAT_PALLAS_ULPS = 1
+
+
+def check_qat_pallas(fmt: str = "fp8_e4m3", block: int = 32) -> dict:
+    """15d: ``core.qat_matmul(mode="pallas")`` at QAT_PALLAS_SHAPES, bf16
+    activations and an f32 master, forward and backward, with #10's,
+    #9's and #6's counts reset just before and read just after: #10
+    launches once (#9 never, #6 twice: both operands); #10's captured
+    call within MM_RTOL of |a| @ |w| of its plain version on the same
+    bytes (phase 5's bar); the output within QAT_PALLAS_ULPS bf16 ulps
+    (plus the sums' order bar) of ``mode="fused"``'s, both gradients
+    equal to its bit for bit (the backward does not depend on the mode).
+    #10 is then timed on the captured call beside its plain version, its
+    bound and cuBLAS's bf16 product of the dequantized operands."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import qat_matmul
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels import mx_quantize as mq
+
+    gen = torch.Generator("cuda").manual_seed(15)
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    storage = F.get_format(fmt).storage_len
+    vv, wo = mm.mx_matmul_vv, mm.mx_matmul_wo
+    out = {}
+    for name, (m, k, n) in QAT_PALLAS_SHAPES.items():
+        x = _gauss((m, k), gen).bfloat16()
+        w = _gauss((k, n), gen, k ** -0.5)
+        dy = _gauss((m, n), gen).bfloat16()
+        runs = {}
+        calls = []
+
+        def spy(*args, **kw):
+            y = vv(*args, **kw)
+            calls.append((args, kw, y.clone()))
+            return y
+
+        for mode in ("pallas", "fused"):
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            # the wrapper counts its launches under its module name, so
+            # the spy that stands in for it holds the count meanwhile
+            for f in (spy, wo, mq.mx_quantize):
+                f.launches = 0
+            mm.mx_matmul_vv = spy
+            try:
+                y = qat_matmul(xg, wg, fmt, block, True, mode)
+                dx, dw = torch.autograd.grad(y, (xg, wg), dy)
+                torch.cuda.synchronize()
+            finally:
+                mm.mx_matmul_vv = vv
+            runs[mode] = (y.detach(), dx, dw,
+                          (spy.launches, wo.launches,
+                           mq.mx_quantize.launches))
+        (y, dx, dw, n_p), (yf, dxf, dwf, n_f) = runs["pallas"], runs["fused"]
+        if n_p != (1, 0, 2) or n_f != (0, 0, 2) or len(calls) != 1:
+            raise AssertionError(f"15d {name}: launches (#10, #9, #6) "
+                                 f"{n_p} pallas, {n_f} fused; want (1, 0, 2)"
+                                 " and (0, 0, 2)")
+        if not (torch.equal(dx, dxf) and torch.equal(dw, dwf)):
+            raise AssertionError(f"15d {name}: the gradients differ from "
+                                 "the fused mode's")
+        args, kw, got = calls[0]
+        xq = qat_operand(x, fmt, block)
+        wq = qat_operand(w.t().contiguous(), fmt, block).t()
+        sums = MM_RTOL * (xq.abs() @ wq.abs())
+        want = mm.mx_matmul_vv_plain(*args, **kw)
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or \
+                ((got - want).abs() > sums).any():
+            raise AssertionError(f"15d {name}: #10's captured call lies "
+                                 f"{err} from its plain version")
+        ulp = _bf16_ulp(yf.float().abs())
+        gap = (y.float() - yf.float()).abs()
+        if (gap > QAT_PALLAS_ULPS * ulp + sums).any():
+            raise AssertionError(f"15d {name}: pallas output off the fused "
+                                 f"one by more than {QAT_PALLAS_ULPS} ulp")
+        ulps = float((gap / ulp.clamp(min=1e-30)).max())
+        differ = int((y != yf).sum())
+        vv.launches = 0
+        run = functools.partial(vv, *args, **kw)
+        plain = functools.partial(mm.mx_matmul_vv_plain, *args, **kw)
+        xqb, wqb = xq.bfloat16(), wq.bfloat16()
+        library = functools.partial(torch.matmul, xqb, wqb)
+        ms = cuda_ms(run, 25, scratch.zero_)
+        plain_ms = cuda_ms(plain, 3, scratch.zero_)
+        library_ms = cuda_ms(library, 25, scratch.zero_)
+        nbytes = (m + n) * (storage(k) + k // block) + 4 * m * n
+        bound_ms, bound_by = _bound(nbytes, 2.0 * m * n * k, FP8_FLOPS)
+        out[name] = {"launches": n_p[0], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "ulps_vs_fused": ulps}
+        log(f"15d qat_matmul(mode='pallas') {name} (M {m}, K {k}, N {n}, "
+            f"{fmt} block {block}): #10 launched {n_p[0]} (#9 {n_p[1]}, #6 "
+            f"{n_p[2]}); its call within {err:.3g} of its plain version; "
+            f"output {ulps:.2f} bf16 ulps from the fused mode's at most "
+            f"({differ} of {y.numel()} differ), dx and dw bit-equal to the "
+            f"fused mode's; #10 {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), cuBLAS bf16 "
+            f"{library_ms:.4f} ms")
+    del scratch
+    return out
+
+
+def qat_operand(t: torch.Tensor, fmt: str, block: int) -> torch.Tensor:
+    """``t`` (R, K) block-quantized along K by the fused quantizer and
+    dequantized to f32: the values qat_matmul multiplies."""
+    from repro_torch.kernels.ops import quantize_pallas
+
+    return quantize_pallas(t, fmt, block).dequantize(torch.float32)
+
+
+def train_a9b() -> dict:
+    """Phase 15 (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch, label in (("gemma2-2b", "15a"), ("musicgen-medium", "15b")):
+        out[arch] = train_full_width(TRAIN_A9B_ARGV[arch], label=label,
+                                     profiled=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["reduced"] = check_reduced_training(archs=TRAIN_A9B_REDUCED,
+                                            label="15c")
+    out["qat_pallas"] = check_qat_pallas()
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _weights(params):
     """Every weight tensor once: the per-layer entries are slices of the
     (L, ...) stacks, which are left out."""
@@ -8441,6 +8634,11 @@ def main() -> int:
     mega["max_abs_err_geglu"] = a8d["geglu"]["max_abs_err"]
     mega["codes_differing_geglu"] = a8d["geglu"]["codes_differing"]
     del a8d, llava, mg
+    gc.collect()
+    torch.cuda.empty_cache()
+    a9b = train_a9b()
+    gc.collect()
+    torch.cuda.empty_cache()
     mx = check_mx_dot_products()
     quant = next(e for e in mx if e["name"] == "mx_quantize")
     quant["launches_train"] = train["launches"]
@@ -8451,6 +8649,17 @@ def main() -> int:
         row = train["quantize"]["shapes"][name]
         for k in ("ms", "plain_ms", "bound_ms", "bound_by"):
             quant[f"{k}_train_{key}"] = row[k]
+    for arch, key in (("gemma2-2b", "gemma2_2b"),
+                      ("musicgen-medium", "musicgen")):
+        quant[f"launches_train_{key}"] = a9b[arch]["launches"]
+        quant[f"max_abs_err_train_{key}"] = a9b[arch]["max_abs_err"]
+        quant[f"ms_train_step_{key}"] = a9b[arch]["quantize"]["ms_step"]
+        quant[f"bound_ms_train_step_{key}"] = \
+            a9b[arch]["quantize"]["bound_ms_step"]
+    vv = next(e for e in mx if e["name"] == "mx_matmul_vv")
+    for key, row in a9b["qat_pallas"].items():
+        for k, v in row.items():
+            vv[f"{k}_qat_pallas_{key}"] = v
     kernels = [kernel, verify, prefill] + pair + [repack, mega] + mx
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

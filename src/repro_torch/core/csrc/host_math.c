@@ -26,6 +26,18 @@
  *   xla_gelu_tanh: jax.nn.gelu(x, approximate=True) as XLA:CPU fuses it,
  *     x * ((tanh(fma(x * x * x, 0.044715, x) * sqrt(2 / pi)) + 1) * 0.5),
  *     with the reference's flush of subnormal operands and results.
+ *   xla_tanh_grad, xla_softcap_grad, xla_gelu_tanh_grad: the input
+ *     gradients that jax.jit(jax.grad(...)) computes on XLA:CPU for an
+ *     incoming gradient g, each from the forward's own t = tanh(...):
+ *     jax's tanh JVP h = g * (1 - t), h + h * t (contracted to
+ *     fma(h, t, h)); the softcap's h = (g * cap) * (1 - t) and
+ *     fma(h, t, h) * f32(1 / cap) (XLA folds the divide); the GELU's
+ *     fma(a * 0.0356774069, x2 * 3, fma(g, cdf, a * 0.797884583)) with
+ *     x2 = x * x, cdf = (t + 1) * 0.5, a = fma(m, t, m) and
+ *     m = ((x * g) * 0.5) * (1 - t): XLA folds sqrt(2 / pi) * 0.044715
+ *     into one constant and adds the three terms in this order. Every
+ *     operand and result is flushed to zero where subnormal, as XLA:CPU
+ *     runs.
  *   xla_exp, xla_logistic, xla_softplus: XLA:CPU's f32 exp (the Cephes
  *     polynomial of its CPU emitter: x clamped to [-87.8, 88.8], n =
  *     floor(fma(x, log2(e), 0.5)) clamped to +-127, a = x - n ln2 in two
@@ -36,6 +48,8 @@
  *     Cephes log of 1 + x; subnormal operands and results flushed, as
  *     XLA:CPU runs. Each equals jax.jit of the function on 2^20 f32
  *     samples.
+ *   xla_log: XLA:CPU's f32 log (the Cephes log above, which its log1p
+ *     takes past sqrt(2) - 1), the loss's log-normalizer.
  *   xla_fma: fmaf(a, b, c) elementwise, the multiply-add XLA:CPU contracts
  *     (the RG-LRU scan's a2 * b1 + b2, the causal convolutions' taps).
  *   xla_dot: batched f32 products out[z, i, j] = sum_k a[z, i, k] b[z, k,
@@ -93,6 +107,40 @@ void xla_gelu_tanh(const float* x, float* out, long n) {
     const float v = flush(x[i]);
     const float u = fmaf(v * v * v, 0.044715f, v) * 0.797884583f;
     out[i] = flush(v * ((tanh_one(u) + 1.0f) * 0.5f));
+  }
+}
+
+void xla_tanh_grad(const float* x, const float* g, float* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    const float t = tanh_one(flush(x[i]));
+    const float h = flush(flush(g[i]) * flush(1.0f - t));
+    out[i] = flush(fmaf(h, t, h));
+  }
+}
+
+void xla_softcap_grad(const float* x, const float* g, float* out, long n,
+                      float cap, float recip) {
+  for (long i = 0; i < n; ++i) {
+    const float t = tanh_one(flush(flush(x[i]) * recip));
+    const float h = flush(flush(flush(g[i]) * cap) * flush(1.0f - t));
+    out[i] = flush(flush(fmaf(h, t, h)) * recip);
+  }
+}
+
+void xla_gelu_tanh_grad(const float* x, const float* g, float* out,
+                        long n) {
+  for (long i = 0; i < n; ++i) {
+    const float v = flush(x[i]), gi = flush(g[i]);
+    const float x2 = flush(v * v);
+    const float u = flush(flush(fmaf(flush(x2 * v), 0.044715f, v))
+                          * 0.797884583f);
+    const float t = tanh_one(u);
+    const float cdf = flush(flush(t + 1.0f) * 0.5f);
+    const float m = flush(flush(flush(v * gi) * 0.5f) * flush(1.0f - t));
+    const float a = flush(fmaf(m, t, m));
+    const float inner = flush(fmaf(gi, cdf, flush(a * 0.797884583f)));
+    out[i] = flush(fmaf(flush(a * 0.0356774069f), flush(x2 * 3.0f),
+                        inner));
   }
 }
 
@@ -177,6 +225,10 @@ static float log1p_one(float x) {
   float s = (x * x2) * (num / den);
   s = fmaf(-0.5f, x2, s);
   return x + s;
+}
+
+void xla_log(const float* x, float* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = log_one(flush(x[i]));
 }
 
 void xla_exp(const float* x, float* out, long n) {

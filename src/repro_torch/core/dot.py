@@ -124,7 +124,9 @@ def quantize_weight(w: torch.Tensor, fmt: str, block_size: int) -> MXTensor:
 
 def _qat_fwd(x, w, fmt, block_size, quantize_acts_, mode, acc_dtype):
     """The reference's ``_qat_fwd``: residuals in bf16 for bf16 inputs,
-    else f32; ``y`` in ``x``'s dtype."""
+    else f32; ``y`` in ``x``'s dtype. Under ``mode="pallas"`` the product
+    is ``mx_dot``'s kernel tier on the MX operands: #10 (``mx_matmul_vv``)
+    with quantized activations, #9 (``mx_matmul_wo``) without."""
     res_dtype = x.dtype if x.dtype == torch.bfloat16 else torch.float32
     w_mx = quantize_weight(w, fmt, block_size)
     wq = w_mx.dequantize(res_dtype)
@@ -183,11 +185,15 @@ def qat_matmul(x: torch.Tensor, w: torch.Tensor, fmt: str = "fp8_e4m3",
     The f32 master ``w (d_in, d_out)`` and, with ``quantize_acts``, ``x``
     are block-quantized afresh at every call, both at ``fmt`` as in the
     reference; the backward multiplies the quantized values. ``mode`` is
-    ``mx_dot``'s ("emulated" or "fused"; callers map "pallas" to
-    "fused", as ``repro.nn.linear`` does). On CUDA tensors both
-    quantizations launch #6 (``kernels.mx_quantize``)."""
-    if mode not in ("emulated", "fused"):
-        raise ValueError(f"qat_matmul takes mode 'emulated' or 'fused', not "
+    ``mx_dot``'s: "emulated", "fused" or "pallas", whose forward runs
+    ``kernels.ops.mx_matmul`` on the MX operands (#10, or #9 without
+    ``quantize_acts``, on CUDA tensors; their plain versions on CPU
+    tensors). The backward does not depend on the mode. ``nn.linear``
+    maps "pallas" to "fused", as ``repro.nn.linear`` does, so only a
+    direct call runs the kernel tier. On CUDA tensors both quantizations
+    launch #6 (``kernels.mx_quantize``)."""
+    if mode not in MODES:
+        raise ValueError(f"qat_matmul takes a mode of {MODES}, not "
                          f"{mode!r}")
     return _QATMatmul.apply(x, w, fmt, block_size, quantize_acts, mode,
                             acc_dtype)

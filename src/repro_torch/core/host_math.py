@@ -19,12 +19,16 @@ helper that cannot be built raises: nothing falls back to torch's math.
   own that neither libm nor torch reproduces (C5), and :func:`gelu_tanh`,
   ``jax.nn.gelu(approximate=True)`` as XLA fuses it around that tanh.
   :func:`softcap` applies the tanh to CPU tensors as the jitted reference
-  does and keeps torch's on the card.
+  does. All three are differentiable: on CPU tensors their gradients are
+  ``jax.jit(jax.grad(...))``'s bits (jax's tanh JVP in XLA:CPU's order,
+  its contractions and flushed subnormals); on the card each is torch's
+  ops and torch's autograd.
 * :func:`exp`, :func:`logistic`, :func:`softplus` -- XLA:CPU's f32 exp (a
   Cephes polynomial of its own), ``jax.nn.sigmoid`` and
   ``jax.nn.softplus`` around it (softplus through XLA's log1p), which the
   recurrent mixers' gates and step sizes take; torch's exp parts from
-  XLA's in about one value of ten.
+  XLA's in about one value of ten. These have no gradient (the
+  recurrent mixers' training waits for ROADMAP A9b).
 * :func:`fma` and :func:`dot` -- the multiply-adds that XLA:CPU contracts
   (the RG-LRU scan's combine, the causal convolutions' taps) and its f32
   dot over a short contraction: one chain of fused multiply-adds in
@@ -41,6 +45,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .formats import flush_subnormals
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "host_math.c"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -79,10 +85,16 @@ def _library() -> ctypes.CDLL:
     lib.rope_cos_sin.restype = None
     lib.xla_rsqrt.argtypes = [ptr, ptr, n, ctypes.c_float, ctypes.c_float]
     lib.xla_rsqrt.restype = ctypes.c_int
-    for fn in (lib.xla_tanh, lib.xla_gelu_tanh, lib.xla_exp,
+    for fn in (lib.xla_tanh, lib.xla_gelu_tanh, lib.xla_exp, lib.xla_log,
                lib.xla_logistic, lib.xla_softplus):
         fn.argtypes = [ptr, ptr, n]
         fn.restype = None
+    for fn in (lib.xla_tanh_grad, lib.xla_gelu_tanh_grad):
+        fn.argtypes = [ptr, ptr, ptr, n]
+        fn.restype = None
+    lib.xla_softcap_grad.argtypes = [ptr, ptr, ptr, n, ctypes.c_float,
+                                     ctypes.c_float]
+    lib.xla_softcap_grad.restype = None
     lib.xla_fma.argtypes = [ptr, ptr, ptr, ptr, n]
     lib.xla_fma.restype = None
     lib.xla_dot.argtypes = [ptr, ptr, ptr, n, n, n, n, n]
@@ -149,19 +161,68 @@ def rsqrt(x: torch.Tensor, scale: float = 1.0,
 
 def _elementwise(fn, x: torch.Tensor) -> torch.Tensor:
     if x.requires_grad and torch.is_grad_enabled():
-        raise ValueError("the host elementwise helpers have no gradient")
+        raise ValueError("exp, logistic and softplus have no gradient "
+                         "(ROADMAP A9b)")
+    return _host_call(fn, x)
+
+
+def _host_call(fn, x: torch.Tensor, *args) -> torch.Tensor:
     x = _host_f32(x)
     out = torch.empty_like(x)
-    fn(x.data_ptr(), out.data_ptr(), x.numel())
+    fn(x.data_ptr(), out.data_ptr(), x.numel(), *args)
     return out
+
+
+def _grad_call(fn, x: torch.Tensor, g: torch.Tensor, *args) -> torch.Tensor:
+    x, g = _host_f32(x), _host_f32(g.expand_as(x))
+    out = torch.empty_like(x)
+    fn(x.data_ptr(), g.data_ptr(), out.data_ptr(), x.numel(), *args)
+    return out
+
+
+def _recip(cap: float) -> float:
+    """``f32(1 / cap)``, the multiply XLA puts for a divide by ``cap``."""
+    return float(np.float32(1.0) / np.float32(cap))
+
+
+class _HostTanh(torch.autograd.Function):
+    """:func:`tanh`, :func:`gelu_tanh` or :func:`softcap` of an f32 CPU
+    tensor (``cap`` 0 for the first two), with XLA:CPU's gradient: the C
+    helper's ``xla_*_grad`` of the saved input and the incoming
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, kind, cap):
+        ctx.save_for_backward(x)
+        ctx.kind, ctx.cap = kind, cap
+        lib = _library()
+        if kind == "softcap":
+            u = flush_subnormals(x * _recip(cap))
+            return _host_call(lib.xla_tanh, u) * cap
+        return _host_call(getattr(lib, f"xla_{kind}"), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lib = _library()
+        if ctx.kind == "softcap":
+            dx = _grad_call(lib.xla_softcap_grad, x, g, ctx.cap,
+                            _recip(ctx.cap))
+        else:
+            dx = _grad_call(getattr(lib, f"xla_{ctx.kind}_grad"), x, g)
+        return dx, None, None
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
     """XLA:CPU's f32 ``tanh`` of every element of an f32 CPU tensor: ``x``
     itself below 0.0004 in magnitude, +-1 from 20, else its rational
     approximation on ``x`` clamped to +-7.99881172 (fused multiply-adds,
-    one IEEE divide). Bit-equal to ``jax.jit(jnp.tanh)`` on the CPU."""
-    return _elementwise(_library().xla_tanh, x)
+    one IEEE divide). Bit-equal to ``jax.jit(jnp.tanh)`` on the CPU, its
+    gradient to the jitted ``jax.grad``'s: ``h = g * (1 - t)``, then
+    ``fma(h, t, h)``. On the card ``torch.tanh``."""
+    if x.device.type != "cpu":
+        return torch.tanh(x)
+    return _HostTanh.apply(x, "tanh", 0.0)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -169,24 +230,35 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     jitted reference computes it: ``x * ((tanh(u) + 1) * 0.5)`` with ``u =
     fma(x**3, 0.044715, x) * f32(sqrt(2 / pi))`` (XLA contracts the
     multiply-add), :func:`tanh`, and subnormal operands and results
-    flushed to signed zeros."""
-    return _elementwise(_library().xla_gelu_tanh, x)
+    flushed to signed zeros. Its gradient is the jitted ``jax.grad``'s
+    (``xla_gelu_tanh_grad`` in ``csrc/host_math.c``); ``nn.ffn.gelu_tanh``
+    takes the card."""
+    return _HostTanh.apply(x, "gelu_tanh", 0.0)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """``tanh(x / cap) * cap`` of f32 ``x``. On CPU tensors as the jitted
     reference computes it: XLA folds the divide into a multiply by
-    ``f32(1 / cap)``, and its tanh is :func:`tanh`. On the card torch's
-    divide and ``tanh``, as the CUDA kernels' ``tanhf(s / cap) * cap``."""
+    ``f32(1 / cap)`` (a subnormal product flushed), and its tanh is
+    :func:`tanh`; the gradient is
+    ``fma(h, t, h) * f32(1 / cap)`` with ``h = (g * cap) * (1 - t)``, as
+    XLA:CPU computes ``jax.grad``'s. On the card torch's divide and
+    ``tanh``, as the CUDA kernels' ``tanhf(s / cap) * cap``, with torch's
+    autograd."""
     if x.device.type != "cpu":
         return torch.tanh(x / cap) * cap
-    recip = float(np.float32(1.0) / np.float32(cap))
-    return tanh(x * recip) * cap
+    return _HostTanh.apply(x, "softcap", float(cap))
 
 
 def exp(x: torch.Tensor) -> torch.Tensor:
     """XLA:CPU's f32 ``exp`` of every element of an f32 CPU tensor."""
     return _elementwise(_library().xla_exp, x)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``log`` of every element of an f32 CPU tensor (no
+    gradient)."""
+    return _elementwise(_library().xla_log, x)
 
 
 def logistic(x: torch.Tensor) -> torch.Tensor:
@@ -233,6 +305,16 @@ def dot(a: torch.Tensor, b: torch.Tensor, lanes: int = 1) -> torch.Tensor:
         _library().xla_dot(a.data_ptr(), b.data_ptr(), out.data_ptr(), nb, m,
                            k, n, lanes)
     return out
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 batched ``a @ b``, (..., M, K) by (..., K, N): on CPU tensors
+    in XLA:CPU's order for the shape (:func:`dot` over :func:`dot_lanes`),
+    on the card ``torch.matmul``."""
+    if a.device.type != "cpu":
+        return torch.matmul(a, b)
+    m, k = a.shape[-2:]
+    return dot(a, b, dot_lanes(m, k, b.shape[-1]))
 
 
 def dot_lanes(m: int, k: int, n: int) -> int:

@@ -2,7 +2,7 @@
 
 Port of ``repro.core.policy``. The reference's ``mx_weight_gather`` (the
 FSDP all-gather of MX bytes) belongs to the mesh rules and waits for
-ROADMAP A9b.
+ROADMAP A7.
 """
 from __future__ import annotations
 

@@ -19,12 +19,14 @@ other's), SIGTERM/SIGINT save at the next step boundary, a straggler
 watchdog, a checkpoint every ``--ckpt-every`` steps and at the end, all
 under ``fault.run_with_restarts``.
 
-Attention-only SwiGLU archs train here (granite-8b, phi4-mini-3.8b,
-llava-next-mistral-7b from token batches, as the reference's launcher);
-gemma2, musicgen (its GELU FFN), the MoE, MLA and recurrent archs,
-``--multihost`` and ``--model-parallel`` > 1 raise
-``NotImplementedError`` (ROADMAP A9b, A7). ``--device`` defaults to
-``cuda`` and raises without a card.
+Attention archs with a dense FFN train here: granite-8b, phi4-mini-3.8b,
+llava-next-mistral-7b from token batches, as the reference's launcher;
+gemma2-2b and gemma2-9b (GeGLU, post-norms, softcaps; gemma2-9b's f32
+masters and AdamW state, ~148 GB, do not fit one 80 GB card at full
+size: ``--reduced``) and musicgen-medium (its GELU FFN, from (B, S, 4)
+codebook batches). The MoE, MLA and recurrent archs, ``--multihost``
+and ``--model-parallel`` > 1 raise ``NotImplementedError`` (ROADMAP
+A9b, A7). ``--device`` defaults to ``cuda`` and raises without a card.
 """
 from __future__ import annotations
 

@@ -40,7 +40,7 @@ from repro_torch.kernels import (mx_attention_prefill_fused,
                                  mx_attention_verify_fused)
 
 from . import linear
-from .norms import window_sum
+from .norms import WINDOW, window_sum
 from .rotary import apply_rope
 
 NEG_INF = -2.0e38
@@ -170,29 +170,115 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, window) -> torch.Tensor:
 
 
 class _Softmax(torch.autograd.Function):
-    """Softmax over the last axis with ``jax.nn.softmax``'s gradient: its
-    custom JVP ``y * (t - sum(y * t))`` transposed, ``y * g + y * -sum(y *
-    g)``, rather than autograd's path through the exp and the divide. On
-    CPU tensors the denominator sums as XLA:CPU's reduction does, in
-    windows of 32 keys, each in order (``norms.window_sum``): torch's row
-    sum takes another order, which moves bf16 probabilities (at reduced
-    deepseek-v2-lite's 19-key prompts)."""
+    """Softmax over the last axis, ``e / sum(e)`` with ``e = exp(logits -
+    max)``, and the jitted reference's gradient: jax differentiates that
+    divide, and XLA:CPU computes ``(g / D - S) * e`` with ``D = sum(e)``
+    and ``S`` the sum over the keys of ``(g * (1 / (D * D))) * e``, each
+    product contracted into the running sum (:func:`_fma_window_sum`). On
+    CPU tensors ``e`` is XLA:CPU's exp (``host_math.exp``; torch's parts
+    from it in the last bit of about one value in ten, which the
+    backward's ``* e`` carries into near-cancelling key gradients), and
+    ``D`` sums as XLA:CPU's reduction does, in windows of 32 keys, each
+    in order (``norms.window_sum``): torch's row sum takes another order,
+    which moves bf16 probabilities (at reduced deepseek-v2-lite's 19-key
+    prompts). On the card torch's exp and sums, and the same
+    expression."""
 
     @staticmethod
     def forward(ctx, logits):
-        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-        if e.device.type == "cpu":
-            y = e / window_sum(e)[..., None]
+        shifted = logits - logits.amax(dim=-1, keepdim=True)
+        if shifted.device.type == "cpu":
+            e = host_math.exp(shifted)
+            d = window_sum(e)[..., None]
         else:
-            y = e / e.sum(dim=-1, keepdim=True)
-        ctx.save_for_backward(y)
-        return y
+            e = torch.exp(shifted)
+            d = e.sum(dim=-1, keepdim=True)
+        ctx.save_for_backward(e, d)
+        return e / d
 
     @staticmethod
     def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        yg = y * g
-        return yg + y * -yg.sum(dim=-1, keepdim=True)
+        e, d = ctx.saved_tensors
+        gm = g * (1.0 / (d * d))
+        if e.device.type == "cpu":
+            s = _fma_window_sum(gm, e)
+        else:
+            s = (gm * e).sum(dim=-1, keepdim=True)
+        return (g / d + -s) * e
+
+
+def _fma_window_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum(a * b)`` over the last axis (kept), as XLA:CPU reduces a
+    product: windows of 32 (``norms.window_sum``'s levels), each one
+    chain of fused multiply-adds in order (``host_math.fma``); measured
+    at up to 32 keys."""
+    a, b = torch.broadcast_tensors(a, b)
+    n = a.shape[-1]
+    pad = -n % WINDOW
+    if pad:
+        lo = pad // 2
+        a = torch.nn.functional.pad(a, (lo, pad - lo))
+        b = torch.nn.functional.pad(b, (lo, pad - lo))
+    a = a.reshape(*a.shape[:-1], -1, WINDOW)
+    b = b.reshape(*b.shape[:-1], -1, WINDOW)
+    acc = a[..., 0] * b[..., 0]
+    for i in range(1, WINDOW):
+        acc = host_math.fma(a[..., i], b[..., i], acc)
+    return window_sum(acc)[..., None]
+
+
+def _contract_sg(x: torch.Tensor) -> torch.Tensor:
+    """(B, KVH, G, S, T) -> (B, KVH, T, S * G): the keys' rows with the
+    query rows and group heads flattened s-major, as XLA lays out the
+    contraction of the keys' and values' gradients."""
+    b, kvh, g, s, t = x.shape
+    return x.permute(0, 1, 4, 3, 2).reshape(b, kvh, t, s * g)
+
+
+class _QK(torch.autograd.Function):
+    """The logits ``q.k`` (B, KVH, G, S, T) of f32 ``qg`` (B, S, KVH, G,
+    D) and ``k`` (B, T, KVH, D); the backward's two products in
+    XLA:CPU's orders on CPU tensors (``host_math.matmul``): dq sums over
+    the keys, dk over (query, group head) pairs."""
+
+    @staticmethod
+    def forward(ctx, qg, k):
+        ctx.save_for_backward(qg, k)
+        return torch.einsum("bskgd,btkd->bkgst", qg, k)
+
+    @staticmethod
+    def backward(ctx, gl):
+        qg, k = ctx.saved_tensors
+        b, s, kvh, g, d = qg.shape
+        dq = host_math.matmul(gl.reshape(b, kvh, g * s, -1),
+                              k.permute(0, 2, 1, 3))
+        dq = dq.reshape(b, kvh, g, s, d).permute(0, 3, 1, 2, 4)
+        qsg = qg.permute(0, 2, 1, 3, 4).reshape(b, kvh, s * g, d)
+        dk = host_math.matmul(_contract_sg(gl), qsg).permute(0, 2, 1, 3)
+        return dq, dk
+
+
+class _PV(torch.autograd.Function):
+    """``P.V`` (B, S, KVH, G, D) of f32 probabilities (B, KVH, G, S, T)
+    and values (B, T, KVH, D); the backward's products in XLA:CPU's
+    orders on CPU tensors, as :class:`_QK`'s."""
+
+    @staticmethod
+    def forward(ctx, probs, v):
+        ctx.save_for_backward(probs, v)
+        return torch.einsum("bkgst,btkd->bskgd", probs, v)
+
+    @staticmethod
+    def backward(ctx, go):
+        probs, v = ctx.saved_tensors
+        b, kvh, g, s, t = probs.shape
+        d = v.shape[-1]
+        gog = go.permute(0, 2, 3, 1, 4)  # (B, KVH, G, S, D)
+        dp = host_math.matmul(gog.reshape(b, kvh, g * s, d),
+                              v.permute(0, 2, 3, 1))
+        gsg = gog.permute(0, 1, 3, 2, 4).reshape(b, kvh, s * g, d)
+        dv = host_math.matmul(_contract_sg(probs), gsg).permute(0, 2, 1, 3)
+        return dp.reshape(b, kvh, g, s, t), dv
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -205,14 +291,13 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, d)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
-    logits = logits * (d ** -0.5)
+    logits = _QK.apply(qg.float(), k.float()) * (d ** -0.5)
     if cfg.softcap:
         logits = host_math.softcap(logits, cfg.softcap)
     mask = _mask(qpos, kpos, cfg.window)[:, None, None]  # (B, 1, 1, S, T)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = _Softmax.apply(logits).to(q.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v.float())
+    out = _PV.apply(probs.float(), v.float())
     return out.to(q.dtype).reshape(b, s, h, d)
 
 

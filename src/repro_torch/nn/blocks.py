@@ -161,9 +161,10 @@ class _Rounded(torch.autograd.Function):
 
 
 def require_trainable(bd: BlockDef, cfg: ModelConfig) -> None:
-    """Training is ported for attention-only SwiGLU blocks; the rest
-    waits for ROADMAP A9b (the kinds that need the gradient of XLA:CPU's
-    tanh among them: gemma2's GeGLU, musicgen's GELU)."""
+    """Training is ported for attention blocks with a dense FFN of every
+    kind (SwiGLU, gemma2's GeGLU, musicgen's no-gate GELU), with gemma2's
+    sandwich post-norms and softcaps; MLA, MoE and the recurrent mixers
+    wait for ROADMAP A9b."""
     _require_ported(bd, cfg)
     if bd.mixer == "mla":
         raise NotImplementedError(
@@ -177,58 +178,63 @@ def require_trainable(bd: BlockDef, cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "training MoE blocks (the router, the Switch loss and grads "
             "through both dispatches) is not ported (ROADMAP A9b)")
-    if cfg.ffn_kind == "gelu":
-        raise NotImplementedError(
-            "training the no-gate GELU FFN (musicgen: the gradient of "
-            "XLA:CPU's tanh, as gemma2's GeGLU) is not ported (ROADMAP A9b)")
-    if (cfg.ffn_kind != "swiglu" or cfg.post_norms or cfg.attn_softcap
-            or cfg.logit_softcap):
-        raise NotImplementedError(
-            "training gemma2-style blocks (GeGLU, post-norms, softcaps: "
-            "gradients of XLA:CPU's tanh) is not ported (ROADMAP A9b)")
-
-
-def _require_train_forward(bd: BlockDef, cfg: ModelConfig) -> None:
-    """What :func:`apply_train` runs: every block that
-    :func:`require_trainable` takes, and the no-gate GELU FFN's forward
-    (``ffn.apply`` refuses its gradient, which waits for ROADMAP A9b)."""
-    require_trainable(bd, cfg.replace(ffn_kind="swiglu")
-                      if cfg.ffn_kind == "gelu" else cfg)
 
 
 def init_train(gen: torch.Generator, bd: BlockDef, cfg: ModelConfig,
                device) -> dict:
     """One block's f32 masters (the training path)."""
     require_trainable(bd, cfg)
-    return {"norm_mixer": rmsnorm_init(cfg.d_model, device),
-            "mixer": attention.init_train(gen, _attn_cfg(cfg, bd), device),
-            "norm_ffn": rmsnorm_init(cfg.d_model, device),
-            "ffn": ffn.init_train(gen, cfg.d_model, cfg.d_ff, device,
-                                  cfg.ffn_kind)}
+    params = {"norm_mixer": rmsnorm_init(cfg.d_model, device),
+              "mixer": attention.init_train(gen, _attn_cfg(cfg, bd), device),
+              "norm_ffn": rmsnorm_init(cfg.d_model, device),
+              "ffn": ffn.init_train(gen, cfg.d_model, cfg.d_ff, device,
+                                    cfg.ffn_kind)}
+    if cfg.post_norms:
+        params["postnorm_mixer"] = rmsnorm_init(cfg.d_model, device)
+        params["postnorm_ffn"] = rmsnorm_init(cfg.d_model, device)
+    return params
 
 
 def apply_train(params, x: torch.Tensor, positions: torch.Tensor,
                 bd: BlockDef, cfg: ModelConfig) -> tuple:
-    """One block over the full sequence x (B, S, d_model) bf16 (training
-    / prefill compute): pre-norm attention and the dense FFN under the
-    config's quantization policy, each residual add rounded to bf16.
-    Returns (x, aux), aux the f32 zero of a dense block."""
-    _require_train_forward(bd, cfg)
+    """One block over the full sequence x (B, S, d_model) (training /
+    prefill compute): pre-norm attention and the dense FFN under the
+    config's quantization policy, with ``cfg.post_norms`` gemma2's
+    RMSNorms of each one's output. ``x`` is bf16, or the f32 output sum of
+    the block before it in one pattern group (``model.layer_carries``):
+    its norm reads it unrounded, the residual rounded to bf16. Returns
+    (the block's output sum unrounded in f32, aux), aux the f32 zero of a
+    dense block."""
+    require_trainable(bd, cfg)
     quant, dt = cfg.quant, cfg.compute_dtype
-    h = _Rounded.apply(rmsnorm_apply(params["norm_mixer"], x, cfg.norm_eps,
+    # the norm's input gradient meets the residual's rounded to bf16, as
+    # a bf16 input's does
+    h = _Rounded.apply(rmsnorm_apply(params["norm_mixer"],
+                                     _RoundGrad.apply(x, dt), cfg.norm_eps,
                                      dtype=torch.float32), dt)
     # XLA sums the V and K projections' input gradients rounded to bf16,
     # then adds the query's in f32
     h = attention.apply_train(params["mixer"], h, positions,
                               _attn_cfg(cfg, bd), quant, dt,
                               x_kv=_RoundGrad.apply(h, dt))
+    if cfg.post_norms:
+        # the post-norms' outputs reach the adds rounded to bf16; XLA
+        # hands their backward the gradient sum unrounded (f32 consumers)
+        h = _Rounded.apply(rmsnorm_apply(params["postnorm_mixer"], h,
+                                         cfg.norm_eps, dtype=torch.float32),
+                           dt)
     # XLA fuses the residual add into the FFN's norm, which reads the
     # unrounded f32 sum (as in _decode_tail); the residual stores it bf16
-    x_sum = x.to(torch.float32) + h.to(torch.float32)
+    x_sum = x.to(dt).to(torch.float32) + h.to(torch.float32)
     h = _Rounded.apply(rmsnorm_apply(params["norm_ffn"],
                                      _RoundGrad.apply(x_sum, dt),
                                      cfg.norm_eps, dtype=torch.float32), dt)
-    x = x_sum.to(dt) + ffn.apply(params["ffn"], h, cfg.ffn_kind, dt, quant)
+    h = ffn.apply(params["ffn"], h, cfg.ffn_kind, dt, quant)
+    if cfg.post_norms:
+        h = _Rounded.apply(rmsnorm_apply(params["postnorm_ffn"], h,
+                                         cfg.norm_eps, dtype=torch.float32),
+                           dt)
+    x = x_sum.to(dt).to(torch.float32) + h.to(torch.float32)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -74,11 +74,21 @@ class _Gather(torch.autograd.Function):
                                 tokens.reshape(-1), ctx.num_rows), None
 
 
-def embed_train(params, tokens: torch.Tensor,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
+def _sqrt_dim(params, compute_dtype) -> float:
+    """``bf16(d_model) ** 0.5`` in the compute dtype (48 at 2,304, 59.75
+    at 3,584), the reference's embedding scale."""
+    d = torch.tensor(float(params["embed"].shape[-1]), dtype=compute_dtype)
+    return (d ** 0.5).item()
+
+
+def embed_train(params, tokens: torch.Tensor, compute_dtype=torch.bfloat16,
+                *, scale_by_sqrt_dim: bool = False) -> torch.Tensor:
     """Rows of the f32 master table cast to the compute dtype, with the
-    deterministic scatter-add backward (:class:`_Gather`)."""
-    return _Gather.apply(params["embed"].to(compute_dtype), tokens.long())
+    deterministic scatter-add backward (:class:`_Gather`); with
+    ``scale_by_sqrt_dim`` times :func:`_sqrt_dim` in the compute dtype,
+    as :func:`embed`."""
+    x = _Gather.apply(params["embed"].to(compute_dtype), tokens.long())
+    return x * _sqrt_dim(params, compute_dtype) if scale_by_sqrt_dim else x
 
 
 def embed(params, tokens: torch.Tensor, compute_dtype=torch.bfloat16, *,
@@ -87,19 +97,52 @@ def embed(params, tokens: torch.Tensor, compute_dtype=torch.bfloat16, *,
     ``bf16(d_model) ** 0.5`` rounded to the compute dtype, the product
     rounded to it too, as the reference's narrow multiply."""
     x = params["embed"].to(compute_dtype)[tokens]
-    if scale_by_sqrt_dim:
-        d = torch.tensor(float(params["embed"].shape[-1]),
-                         dtype=compute_dtype)
-        x = x * (d ** 0.5).item()
-    return x
+    return x * _sqrt_dim(params, compute_dtype) if scale_by_sqrt_dim else x
+
+
+def _xla_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a (M, K) @ b (K, N)`` of bf16 values summed in f32 in XLA:CPU's
+    order (``host_math.matmul``: one chain of fused multiply-adds at the
+    head's shapes), rounded to bf16."""
+    return host_math.matmul(a.float(), b.float()).to(a.dtype)
+
+
+class _HeadCPU(torch.autograd.Function):
+    """The head's bf16 product ``x (M, d) @ w (d, V)`` on CPU tensors and
+    its two gradients, each summed in XLA:CPU's order
+    (:func:`_xla_mm`): torch's CPU product sums in another, which moves
+    a bf16 rounding at about one logit in 16,000 (reduced musicgen)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _xla_mm(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = _xla_mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            # laid out as w (the tied table's transpose), as torch's own
+            # product's gradient is: the optimizer reads it flat
+            dw = torch.empty_like(w).copy_(_xla_mm(x.t(), g))
+        return dx, dw
 
 
 def logits(params, x: torch.Tensor, compute_dtype=torch.bfloat16, *,
            softcap=None) -> torch.Tensor:
-    """Hidden states -> vocab logits: the bf16 product as f32, then with
+    """Hidden states -> vocab logits: the bf16 product as f32 (on CPU
+    tensors summed in XLA:CPU's order, :class:`_HeadCPU`), then with
     ``softcap`` ``tanh(out / softcap) * softcap`` in f32
     (``host_math.softcap``: XLA:CPU's bits on CPU tensors)."""
     w = params["head"] if "head" in params else params["embed"].T
-    out = torch.matmul(x.to(compute_dtype), w.to(compute_dtype)).to(
-        torch.float32)
+    x, w = x.to(compute_dtype), w.to(compute_dtype)
+    if x.device.type == "cpu":
+        out = _HeadCPU.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], w.shape[-1])
+    else:
+        out = torch.matmul(x, w)
+    out = out.to(torch.float32)
     return host_math.softcap(out, softcap) if softcap else out

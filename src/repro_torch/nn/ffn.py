@@ -70,14 +70,14 @@ def apply(params, x: torch.Tensor, kind: str = "swiglu",
     """The FFN of ``kind``; ``quant`` as in ``linear.apply`` (None for
     prepared serving weights, the config's policy for f32 training
     masters). The gated kinds multiply ``bf16(act(gate))`` by ``up``;
-    ``gelu`` takes ``bf16(gelu_tanh(up))``."""
+    ``gelu`` takes ``bf16(gelu_tanh(up))``. Gradients flow through every
+    kind, through the same bf16 roundings (a cast's backward rounds the
+    gradient to the cast's source dtype, as the reference's
+    ``reduce_precision`` and ``astype`` transpose), and on CPU tensors
+    through XLA:CPU's tanh (``host_math.gelu_tanh``)."""
     _check_kind(kind)
     up = linear.apply(params["up"], x, compute_dtype, quant)
     if kind not in GATED:
-        if torch.is_grad_enabled() and up.requires_grad:
-            raise NotImplementedError(
-                "the gradient of the no-gate GELU FFN (XLA:CPU's tanh) is "
-                "not ported (ROADMAP A9b)")
         h = C.round_to(gelu_tanh(up.to(torch.float32)), compute_dtype)
         return linear.apply(params["down"], h, compute_dtype, quant)
     gate = linear.apply(params["gate"], x, compute_dtype, quant)

@@ -56,10 +56,12 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.core import host_math
+
 from . import blocks, embedding, linear, mla
 from . import common as C
 from .config import ModelConfig
-from .norms import rmsnorm_apply, rmsnorm_init
+from .norms import rmsnorm_apply, rmsnorm_init, window_sum
 
 
 def iter_layer_blocks(cfg: ModelConfig):
@@ -588,8 +590,9 @@ def megakernel_step_paged(params, cfg: ModelConfig, cache: list,
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP A9b) unless every
-    block of ``cfg`` trains here: attention-only SwiGLU blocks (MLA, MoE,
-    the recurrent mixers and gemma2's blocks wait for A9b)."""
+    block of ``cfg`` trains here: attention blocks with a dense FFN of
+    any kind, post-norms and softcaps included (MLA, MoE and the
+    recurrent mixers wait for A9b)."""
     for _, _, bd in iter_layer_blocks(cfg):
         blocks.require_trainable(bd, cfg)
 
@@ -666,11 +669,15 @@ def leaves(tree, stacked: bool = False) -> list:
     return [tree]
 
 
-def _group_train(cfg: ModelConfig, layers: list, x: torch.Tensor,
-                 positions: torch.Tensor) -> tuple:
+def _blocks_train(cfg: ModelConfig, layers: list, bds, carries: list,
+                  x: torch.Tensor, positions: torch.Tensor) -> tuple:
+    """``blocks.apply_train`` over consecutive blocks, each output sum
+    handed on as :func:`layer_carries` says (unrounded f32 inside one
+    pattern group, else bf16)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp, bd in zip(layers, cfg.pattern):
+    for bp, bd, carry in zip(layers, bds, carries):
         x, a = blocks.apply_train(bp, x, positions, bd, cfg)
+        x = _carried(x, carry, cfg)
         aux = aux + a
     return x, aux
 
@@ -680,50 +687,101 @@ def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None) -> tuple:
     """Full-sequence forward of ``tokens`` (B, S) (codebook tokens (B, S,
     CB); or ``embeds`` (B, S, d_model)) over the training masters.
-    Returns (logits (B, S, V) f32 ((B, S, CB, V) with codebooks), aux
-    loss). With
+    Returns (logits (B, S, V) f32 ((B, S, CB, V) with codebooks, with
+    ``cfg.logit_softcap`` softcapped), aux loss). With
     ``cfg.remat == "full"`` each pattern group's forward is recomputed in
     the backward (``torch.utils.checkpoint``, as the reference's
     ``jax.checkpoint`` around its scan body); prologue and epilogue blocks
-    run outside it, as in the reference. On a card it first turns off
-    cuBLAS's reduced-precision bf16 reduction and TF32
-    (``common.exact_cuda_products``), as the serving engine does."""
+    run outside it, as in the reference. Inside a group of several blocks
+    (gemma2's local/global pair) each block hands the next its unrounded
+    f32 sum, as XLA fuses the scan body (:func:`layer_carries`). On a
+    card it first turns off cuBLAS's reduced-precision bf16 reduction and
+    TF32 (``common.exact_cuda_products``), as the serving engine does."""
     C.exact_cuda_products((tokens if embeds is None else embeds).device)
+    scale = cfg.scale_embeds_by_sqrt_dim
     if embeds is not None:
         x = embeds.to(cfg.compute_dtype)
     elif cfg.num_codebooks > 1:
         x = sum_codebooks(embedding.embed_train(
             params["embedding"], _codebook_tokens(cfg, tokens),
-            cfg.compute_dtype), cfg.compute_dtype)
+            cfg.compute_dtype, scale_by_sqrt_dim=scale), cfg.compute_dtype)
     else:
         x = embedding.embed_train(params["embedding"], tokens,
-                                  cfg.compute_dtype)
+                                  cfg.compute_dtype, scale_by_sqrt_dim=scale)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers, n_pro, n_pat = params["layers"], len(cfg.prologue), len(
-        cfg.pattern)
-    for j, bd in enumerate(cfg.prologue):
-        x, a = blocks.apply_train(layers[j], x, positions, bd, cfg)
-        aux = aux + a
+    layers, carries = params["layers"], layer_carries(cfg)
+    n_pro, n_pat = len(cfg.prologue), len(cfg.pattern)
+    x, a = _blocks_train(cfg, layers[:n_pro], cfg.prologue, carries[:n_pro],
+                         x, positions)
+    aux = aux + a
     for g in range(cfg.num_groups):
-        group = layers[n_pro + g * n_pat:n_pro + (g + 1) * n_pat]
+        lo, hi = n_pro + g * n_pat, n_pro + (g + 1) * n_pat
+        args = (cfg, layers[lo:hi], cfg.pattern, carries[lo:hi], x,
+                positions)
         if cfg.remat == "full":
             x, a = torch.utils.checkpoint.checkpoint(
-                _group_train, cfg, group, x, positions, use_reentrant=False)
+                _blocks_train, *args, use_reentrant=False)
         else:
-            x, a = _group_train(cfg, group, x, positions)
+            x, a = _blocks_train(*args)
         aux = aux + a
     first_epi = n_pro + cfg.num_groups * n_pat
-    for j, bd in enumerate(cfg.epilogue):
-        x, a = blocks.apply_train(layers[first_epi + j], x, positions, bd,
-                                  cfg)
-        aux = aux + a
+    x, a = _blocks_train(cfg, layers[first_epi:], cfg.epilogue,
+                         carries[first_epi:], x, positions)
+    aux = aux + a
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return _codebook_logits(cfg, embedding.logits(
-        params["embedding"], x, cfg.compute_dtype)), aux
+        params["embedding"], x, cfg.compute_dtype,
+        softcap=cfg.logit_softcap)), aux
+
+
+def _lm_losses(lf: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """(cross-entropy, z-loss) of f32 logits over the labels >= 0: the
+    mean negative log-likelihood and 1e-4 times the mean squared
+    log-normalizer."""
+    mask = (labels >= 0).to(torch.float32)
+    logp = torch.log_softmax(lf, dim=-1)
+    ll = torch.take_along_dim(logp, labels.clamp_min(0)[..., None],
+                              dim=-1)[..., 0]
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = -(ll * mask).sum() / denom
+    z = torch.logsumexp(lf, dim=-1)
+    return ce, 1e-4 * ((z * z) * mask).sum() / denom
+
+
+class _LMLossCPU(torch.autograd.Function):
+    """:func:`_lm_losses` of CPU tensors with the jitted reference's
+    gradient, as XLA:CPU computes it: with ``e = exp(x - max)`` (its
+    exp, ``host_math.exp``), ``S`` the window sum of ``e`` and ``z =
+    log(S) + max`` (its log), the label's cotangent ``c = -mask / denom``
+    and the z-loss's ``k = (1 / denom) * 1e-4`` (masked), ``d logits =
+    fma(k * (z * 2) / S, e, fma(-c / S, e, onehot(c)))``. torch's own
+    gradient parts from it in the last f32 bit of most logits, which the
+    softcap's gradient carries into bf16 roundings (reduced gemma2)."""
+
+    @staticmethod
+    def forward(ctx, lf, labels):
+        ctx.save_for_backward(lf, labels)
+        return _lm_losses(lf, labels)
+
+    @staticmethod
+    def backward(ctx, g_ce, g_z):
+        lf, labels = ctx.saved_tensors
+        mask = (labels >= 0).to(torch.float32)
+        denom = torch.clamp_min(mask.sum(), 1.0)
+        top = lf.amax(dim=-1, keepdim=True)
+        e = host_math.exp((lf - top).contiguous())
+        s = window_sum(e)[..., None]
+        z = host_math.log(s) + top
+        c = (-mask / denom * g_ce)[..., None]
+        onehot = torch.zeros_like(lf).scatter_add_(
+            -1, labels.clamp_min(0)[..., None], c)
+        k = (torch.where(mask > 0, (1.0 / denom) * 1e-4, 0.0) * g_z)[..., None]
+        d = host_math.fma(-c / s, e, onehot)
+        return host_math.fma(k * (z * 2.0) / s, e, d), None
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict) -> tuple:
@@ -731,18 +789,15 @@ def loss_fn(params, cfg: ModelConfig, batch: dict) -> tuple:
     (1e-4 mean squared log-normalizer) and ``aux_loss_weight`` times the
     aux loss. ``batch``: {"tokens" or "embeds", "labels"}, labels (B, S)
     ((B, S, CB) with codebooks). Returns (total, {"ce", "zloss",
-    "aux"})."""
+    "aux"}). On CPU tensors the logits' gradient is XLA:CPU's
+    (:class:`_LMLossCPU`)."""
     logits, aux = forward(params, cfg, batch.get("tokens"),
                           batch.get("embeds"))
     labels = batch["labels"].long()
-    mask = (labels >= 0).to(torch.float32)
     lf = logits.to(torch.float32)
-    logp = torch.log_softmax(lf, dim=-1)
-    ll = torch.take_along_dim(logp, labels.clamp_min(0)[..., None],
-                              dim=-1)[..., 0]
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    ce = -(ll * mask).sum() / denom
-    z = torch.logsumexp(lf, dim=-1)
-    zloss = 1e-4 * ((z * z) * mask).sum() / denom
+    if lf.device.type == "cpu":
+        ce, zloss = _LMLossCPU.apply(lf, labels)
+    else:
+        ce, zloss = _lm_losses(lf, labels)
     total = ce + zloss + cfg.aux_loss_weight * aux
     return total, {"ce": ce, "zloss": zloss, "aux": aux}

@@ -75,13 +75,8 @@ def init(gen: torch.Generator, cfg: SSDConfig, quant, device) -> dict:
     }
 
 
-def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """f32 batched ``a @ b``, (..., M, K) by (..., K, N): on CPU tensors
-    in XLA:CPU's order for the shape, on the card torch's."""
-    if _cpu(a):
-        m, k = a.shape[-2:]
-        return host_math.dot(a, b, host_math.dot_lanes(m, k, b.shape[-1]))
-    return torch.matmul(a, b)
+#: f32 batched products in XLA:CPU's order for the shape on CPU tensors
+_bmm = host_math.matmul
 
 
 def _cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ accumulate in f32 over the microbatches in order, are scaled by
 ``1 / num_microbatches`` (the loss too), optionally fake-quantized to
 MXFP8-E5M2 blocks of 32 (``quant.quantize_grads``), then fed to
 ``optim.apply``. The reference's ``state_axes`` and ``param_shardings``
-belong to its FSDP/TP rules (ROADMAP A9b).
+belong to its FSDP/TP rules (ROADMAP A7).
 """
 from __future__ import annotations
 

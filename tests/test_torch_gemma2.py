@@ -123,13 +123,12 @@ def test_geglu_equals_the_reference():
                                 jparams["groups"]["block0"]["ffn"])
     want = jax.jit(lambda p, x: jffn.apply(p, x, jcfg.quant, "geglu"))(lp, jx)
     _same_bf16(tffn.apply(tparams["layers"][0]["ffn"], tx, "geglu"), want)
-    # the no-gate kind is ported (musicgen); training either kind waits
-    # for the gradient of XLA:CPU's tanh (A9b)
+    # the no-gate kind is ported (musicgen), and both kinds train (their
+    # gradients: tests/test_torch_train_gemma2.py, _musicgen.py)
     tblocks._require_ported(tcfg.pattern[0], tcfg.replace(ffn_kind="gelu"))
     for kind in ("geglu", "gelu"):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            tblocks.require_trainable(tcfg.pattern[0],
-                                      tcfg.replace(ffn_kind=kind))
+        for bd in tcfg.pattern:
+            tblocks.require_trainable(bd, tcfg.replace(ffn_kind=kind))
 
 
 @pytest.mark.parametrize("d", [64, 2304, 3584, 3072])

@@ -16,22 +16,22 @@ Bars, each measured on this host:
     logits and caches bit-equal;
   * the training forward (``model.forward`` over the f32 masters, MXFP8
     QAT): logits within FORWARD_TOL_ULPS bf16 ulps of the largest, argmax
-    equal. Measured: one of 16,384 logits one ulp apart (ROADMAP C,
-    known gap, its rounding point not located: the FFN alone is
-    bit-equal, above, and so is llava's SwiGLU forward);
+    equal. Measured: bit-equal, since the LM head's product sums in
+    XLA:CPU's order (``embedding._HeadCPU``; torch's CPU product left
+    one of 16,384 logits one ulp apart);
   * ``loss_fn`` on (B, S, 4) labels, on a codebook stack with a SwiGLU
-    FFN (musicgen's GELU gradient waits for ROADMAP A9b): loss within two
-    f32 ulps, every gradient leaf (the tied 512-row codebook table's
-    scatter-add among them) within GRAD_RTOL of its largest
-    (``tests/test_torch_train.py``'s bar). Measured: the loss one ulp
-    apart, the gradients within 3.0e-6 of their leaf's largest, 7 of 11
-    leaves bit-equal;
+    FFN (musicgen's own GELU stack: ``test_torch_train_musicgen.py``):
+    loss within two f32 ulps, every gradient leaf (the tied 512-row
+    codebook table's scatter-add among them) within GRAD_RTOL of its
+    largest (``tests/test_torch_train.py``'s bar). Measured: the loss one
+    ulp apart, the gradients within 3.0e-6 of their leaf's largest, 7 of
+    11 leaves bit-equal;
   * two ragged steps over shared pools, and the same through the
     megakernel step (the reference's #8 in Pallas interpret mode, the
     port's plain version): logits (R, 4, V) and every pool byte
     bit-equal;
   * the engines and the launcher refuse codebook heads with the
-    reference's exception types, and the train launcher names A9b.
+    reference's exception types; the train launcher trains musicgen.
 """
 import numpy as np
 import pytest
@@ -209,11 +209,12 @@ def test_training_forward_within_an_ulp_of_the_reference():
                                      - 7)
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
-    # the GELU's gradient waits for A9b: the forward runs, a backward
-    # through it is refused
-    tparams["layers"][0]["ffn"]["up"]["w"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tmodel.forward(tparams, tcfg, torch.from_numpy(toks).long())
+    # the GELU's gradient flows: a backward through the same forward
+    # reaches the up projection (its bits: test_torch_train_musicgen.py)
+    w_up = tparams["layers"][0]["ffn"]["up"]["w"].requires_grad_(True)
+    logits, _ = tmodel.forward(tparams, tcfg, torch.from_numpy(toks).long())
+    (g,) = torch.autograd.grad(logits.square().sum(), w_up)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
 
 
 def test_codebook_loss_and_gradients_equal_the_reference():
@@ -342,6 +343,10 @@ def test_serve_launcher_refuses_musicgen_as_the_reference(engine):
 
 
 def test_train_launcher_refuses_musicgen_naming_a9b():
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tlaunch_train.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                            "--steps", "1"])
+    """The train launcher refused musicgen naming A9b until its GELU's
+    gradient was ported; it now trains reduced musicgen one step on (B,
+    S, 4) codebook batches."""
+    report = tlaunch_train.main(["--arch", ARCH, "--reduced", "--device",
+                                 "cpu", "--steps", "1", "--seq-len", "16",
+                                 "--global-batch", "4"])
+    assert report["final_step"] == 1 and np.isfinite(report["loss"][0])

@@ -27,6 +27,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.core import MXFP8 as JMXFP8  # noqa: E402
 from repro.core import WIDE as JWIDE  # noqa: E402
 from repro.core import mx_dot as jmx_dot  # noqa: E402
+from repro.core import qat_matmul as jqat  # noqa: E402
 from repro.core import quantize as jquantize  # noqa: E402
 from repro.nn import linear as jlinear  # noqa: E402
 from repro_torch.core import MXFP8, WIDE, mx_dot, qat_matmul  # noqa: E402
@@ -164,8 +165,10 @@ def test_linear_apply_wide_master_fake_quantized(data, fmt):
 def test_linear_apply_wide_master_with_mx_acts_raises(data):
     # a wide f32 master under quantize_acts takes the reference's QAT
     # product (both operands block-quantized), bit-equal, never a silent
-    # wide product; qat_matmul itself raises for the "pallas" mode, which
-    # linear.apply maps to "fused" as the reference does
+    # wide product; linear.apply maps the "pallas" mode to "fused" as the
+    # reference does, and a direct qat_matmul(mode="pallas") (the kernel
+    # tier's product) gives the reference's bits too; an unknown mode
+    # raises
     x, w, _ = data
     for mode in ("fused", "pallas"):
         want = jlinear.apply({"w": jnp.asarray(w)}, jnp.asarray(x),
@@ -175,5 +178,12 @@ def test_linear_apply_wide_master_with_mx_acts_raises(data):
         assert got.dtype == torch.bfloat16 and got.shape == (2, 8, D_OUT)
         np.testing.assert_array_equal(
             got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = jqat(xb, jnp.asarray(w), "fp8_e4m3", 32, True, "pallas",
+                jnp.float32, "off")
+    got = qat_matmul(torch.from_numpy(np.array(xb.astype(jnp.float32)))
+                     .bfloat16(), torch.from_numpy(w), mode="pallas")
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
     with pytest.raises(ValueError, match="mode"):
-        qat_matmul(torch.from_numpy(x), torch.from_numpy(w), mode="pallas")
+        qat_matmul(torch.from_numpy(x), torch.from_numpy(w), mode="tiled")
